@@ -1,0 +1,561 @@
+"""ECCOS/OmniRouter constrained optimizer (paper §3.2, Appendix A) in PyTorch.
+
+The port of ``repro.core.optimizer`` on its single-device, unmasked path.
+Both modes share one code path through the unified parameterization
+
+    scores_ij = A_ij + lam * B_ij + lam2_j,   feasible  ⇔  Σ B[i, x_i] <= t
+
+(quality mode: (A, B, t) = (cost, -quality/N, -alpha); budget mode:
+(A, B, t) = (-quality, cost, B)).  Dual subgradient ascent tracks the scalar
+multiplier ``lam`` and the per-model workload multipliers ``lam2`` and keeps
+the best feasible iterate.  On a CUDA tensor ``DualSolver.solve`` runs the
+whole ascent in the hand-written kernel (``kernels.lagrangian_assign``); on a
+CPU tensor it runs ``_solve_ref``, the plain ascent and the oracle.
+
+The repair and polish passes are the JAX package's ``lax.while_loop``s, one
+move per step.  Each step here is masked (a no-op once the loop's condition
+is false, exactly as the JAX body never runs again), so the port runs
+``chunk`` steps between host reads of the ``done`` flag — one host sync per
+``chunk`` moves instead of one per move — and stays move-for-move identical
+to the reference.
+
+Streaming: a :class:`DualState` carries the multipliers and the cumulative
+constraint ledger across arrival windows; ``route_window`` folds the ledger
+into each window's effective threshold and warm-starts the ascent.
+
+Float notes: a Python number divided BY a tensor is, in PyTorch, a
+reciprocal times the number, and PyTorch's CPU float32 ``sqrt`` is not
+correctly rounded; both would drift from the reference by an ulp, so every
+such division takes two tensors and every root goes through ``sqrt32``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common import default_device
+from repro_torch.kernels.lagrangian_assign.ref import sqrt32
+
+SYNC_EVERY = 32      # repair/polish moves between host reads of `done`
+
+
+class SolveInfo(NamedTuple):
+    """Uniform solver diagnostics — identical schema in both modes."""
+
+    lam: torch.Tensor        # scalar constraint multiplier (λ1 / µ)
+    lam_load: torch.Tensor   # (M,) per-model workload multipliers λ2
+    feasible: torch.Tensor   # bool — some iterate satisfied all constraints
+    cost: torch.Tensor       # Σ predicted $ of the returned assignment
+    quality: torch.Tensor    # mean predicted quality of the returned assignment
+    counts: torch.Tensor     # (M,) per-model counts of the returned assignment
+    objective: torch.Tensor  # mode objective of returned x (cost | -Σ quality)
+    iters_run: torch.Tensor  # int32 — dual iterations actually run
+
+
+class DualState(NamedTuple):
+    """Streaming dual-controller state carried across arrival windows."""
+
+    lam: torch.Tensor           # () carried constraint multiplier (λ1 / µ)
+    lam_load: torch.Tensor      # (M,) carried workload multipliers λ2
+    budget_spent: torch.Tensor  # () cumulative $ routed so far (both modes)
+    sr_deficit: torch.Tensor    # () cumulative Σ(α − q_chosen); >0 ⇒ behind α
+    steps: torch.Tensor         # () cumulative dual iterations on this stream
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def init_dual_state(m: int, device=None) -> DualState:
+    """Fresh stream state: zero multipliers, empty ledger."""
+    device = default_device(device)
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return DualState(lam=z, lam_load=torch.zeros(m, device=device),
+                     budget_spent=z, sr_deficit=z, steps=z)
+
+
+def fold_threshold(mode: str, threshold, state: Optional[DualState], n: int,
+                   share=1.0):
+    """This window's effective threshold given the stream ledger: budget
+    mode spends ``share`` of the remaining budget; quality mode corrects α
+    by the realized per-query deficit."""
+    if state is None:
+        return torch.as_tensor(threshold, dtype=torch.float32)
+    dev = state.lam.device
+    threshold = _f32(threshold, dev)
+    if mode == "budget":
+        remaining = torch.clamp(threshold - state.budget_spent, min=0.0)
+        return remaining * _f32(share, dev)
+    return torch.clamp(threshold + state.sr_deficit / _f32(n, dev), 0.0, 1.0)
+
+
+def _mode_params(cost, quality, threshold, lr_con, *, budget_mode: bool):
+    """Map (cost, quality, threshold) onto the unified (A, B, t, lr)."""
+    if budget_mode:
+        return -quality, cost, threshold, lr_con
+    n = cost.shape[0]
+    return cost, -quality / _f32(n, cost.device), -threshold, lr_con * n
+
+
+def _normalize_problem(a_mat, b_mat, t_eff, lr_con, lr_load, lam0, lam20,
+                       loads):
+    """Scale-free conditioning (the reference's ``_normalize_problem``):
+    both unified matrices to unit mean magnitude, the λ step relative to
+    the threshold, the λ2 step conditioned on the loads, and the warm-start
+    multipliers converted into normalized units.  Returns the normalized
+    problem plus (ā, b̄) for converting multipliers back."""
+    dev = a_mat.device
+    one, tiny = _f32(1.0, dev), _f32(1e-30, dev)
+    a_bar = a_mat.abs().mean() + tiny
+    b_bar = b_mat.abs().mean() + tiny
+    a_mat = a_mat / a_bar
+    b_mat = b_mat / b_bar
+    t_eff = t_eff / b_bar
+    lr_eff = _f32(lr_con, dev) / (one + t_eff.abs())
+    lr_load_eff = _f32(lr_load, dev) / (one + loads.mean())
+    lam0 = lam0 * b_bar / a_bar
+    lam20 = lam20 / a_bar
+    return a_mat, b_mat, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar, b_bar
+
+
+def _chosen_sum(mat, x):
+    return mat.gather(1, x[:, None]).sum()
+
+
+def _solve_ref(cost, quality, threshold, loads, lam0=0.0, lam20=None,
+               stall_tol=0.0, step0=0.0, *, mode: str, iters: int,
+               lr_con: float, lr_load: float, patience: int = 3,
+               norm_grad: bool = False):
+    """Plain dual ascent — the CPU path and the oracle for the kernel.
+
+    ``lam0``/``lam20`` warm-start the multipliers and ``step0`` continues
+    the step schedule 1/√(1+step0+t).  With ``stall_tol`` > 0 the loop exits
+    once a feasible iterate is banked and ``patience`` iterations
+    (cumulative) stalled the multipliers or sat on the constraint boundary.
+    The loop condition is read on the host every iteration.
+    """
+    dev = cost.device
+    n, m = cost.shape
+    cost, quality, loads = cost.float(), quality.float(), loads.float()
+    stall_tol, step0 = _f32(stall_tol, dev), _f32(step0, dev)
+    a_mat, b_mat, t_eff, lr_eff = _mode_params(
+        cost, quality, _f32(threshold, dev), lr_con,
+        budget_mode=(mode == "budget"))
+    lr_eff = _f32(lr_eff, dev)
+    one = _f32(1.0, dev)
+    a_bar = b_bar = one
+    lam = _f32(lam0, dev).reshape(())
+    lam2 = (torch.zeros(m, device=dev) if lam20 is None
+            else _f32(lam20, dev).reshape(m))
+    lr_load_eff = _f32(lr_load, dev)
+    if norm_grad:
+        (a_mat, b_mat, t_eff, lr_eff, lr_load_eff, lam, lam2,
+         a_bar, b_bar) = _normalize_problem(
+            a_mat, b_mat, t_eff, lr_con, lr_load, lam, lam2, loads)
+
+    def assign(lam, lam2):
+        return torch.argmin(a_mat + lam * b_mat + lam2[None, :], dim=1)
+
+    best_a = _f32(float("inf"), dev)
+    best_x = torch.zeros(n, dtype=torch.long, device=dev)
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    t = stall = 0
+    while t < iters and stall < patience:
+        x = assign(lam, lam2)
+        asum, bsum = _chosen_sum(a_mat, x), _chosen_sum(b_mat, x)
+        cnt = torch.bincount(x, minlength=m).float()
+        feasible = (bsum <= t_eff) & torch.all(cnt <= loads)
+        better = feasible & (asum < best_a)
+        best_a = torch.where(better, asum, best_a)
+        best_x = torch.where(better, x, best_x)
+        found = found | feasible
+        step = one / sqrt32(one + step0 + t)
+        lam_new = torch.clamp(lam + lr_eff * step * (bsum - t_eff), min=0.0)
+        lam2_new = torch.clamp(lam2 + lr_load_eff * step * (cnt - loads),
+                               min=0.0)
+        delta = (lam_new - lam).abs() + (lam2_new - lam2).abs().sum()
+        denom = one + lam_new.abs() + lam2_new.abs().sum()
+        resid = (bsum - t_eff).abs() / (one + t_eff.abs())
+        stalled = found & ((delta < stall_tol * denom) | (resid < stall_tol))
+        stall += int(stalled)      # cumulative — see the reference
+        t += 1
+        lam, lam2 = lam_new, lam2_new
+    x_last = assign(lam, lam2)
+    x = torch.where(found, best_x, x_last)
+    info = SolveInfo(
+        lam=lam * a_bar / b_bar, lam_load=lam2 * a_bar, feasible=found,
+        cost=_chosen_sum(cost, x), quality=_chosen_sum(quality, x) / n,
+        counts=torch.bincount(x, minlength=m).float(),
+        objective=torch.where(found, best_a, _chosen_sum(a_mat, x_last))
+        * a_bar,
+        iters_run=torch.tensor(t, dtype=torch.int32, device=dev))
+    return x, info
+
+
+# --- device-resident post-solve feasibility pass ------------------------------
+
+def _run_moves(step, carry, cap: int, chunk: int):
+    """Apply the masked move ``step`` up to ``cap`` times (the reference's
+    iteration cap), reading the carry's ``done`` flag (second to last, before
+    the move count) on the host once every ``chunk`` steps.  Steps after
+    ``done`` change nothing."""
+    k = 0
+    while k < cap:
+        for _ in range(min(chunk, cap - k)):
+            carry = step(carry)
+            k += 1
+        if bool(carry[-2]):
+            break
+    return carry
+
+
+def _at(t, i):
+    """``t.flatten()[i]`` for a 0-dim index tensor, without a host sync."""
+    return t.reshape(-1).gather(0, i.reshape(1)).reshape(())
+
+
+def _moved(x, counts, i, j, do):
+    """(x, counts) after moving query i to model j, where ``do``."""
+    i1, j1 = i.reshape(1), j.reshape(1).to(x.dtype)
+    x_new = x.scatter(0, i1, j1)
+    step = torch.tensor([-1.0, 1.0], device=counts.device)
+    counts_new = counts.index_add(0, torch.cat([x.gather(0, i1), j1]), step)
+    return torch.where(do, x_new, x), torch.where(do, counts_new, counts)
+
+
+def _record(stats, key, carry):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(carry[-1])
+
+
+def repair_workload(x, cost, quality, loads, lam1=0.0, *,
+                    chunk: int = SYNC_EVERY, stats: Optional[dict] = None):
+    """Enforce Σ_i x_ij <= L_j exactly by moving the cheapest-to-move
+    queries off overloaded models: one move per step — the most overloaded
+    model gives its lowest-regret query to that query's best free model.
+    NumPy oracle: ``kernels.lagrangian_assign.ref.repair_workload_ref``.
+    ``stats`` (optional dict) accumulates the moves made under
+    ``"repair_moves"``."""
+    dev = cost.device
+    n, m = cost.shape
+    x = torch.as_tensor(x, device=dev).long()
+    cost, quality, loads = cost.float(), quality.float(), loads.float()
+    reduced = cost - _f32(lam1, dev) * quality / _f32(n, dev)
+    inf = _f32(float("inf"), dev)
+    counts0 = torch.bincount(x, minlength=m).float()
+
+    def step(carry):
+        x, counts, done, moves = carry
+        over = counts - loads
+        j = torch.argmax(over)
+        free = counts < loads
+        alt = torch.where(free[None, :], reduced, inf)
+        best_alt = torch.argmin(alt, dim=1)
+        alt_min = alt.gather(1, best_alt[:, None])[:, 0]
+        red_j = reduced.index_select(1, j.reshape(1))[:, 0]
+        delta = torch.where(x == j, alt_min - red_j, inf)
+        qi = torch.argmin(delta)
+        do = ~done & (_at(over, j) > 0) & torch.any(free)  # saturated: give up
+        x, counts = _moved(x, counts, qi, _at(best_alt, qi), do)
+        return x, counts, done | ~do, moves + do.int()
+
+    carry = _run_moves(step, (x, counts0, torch.zeros((), dtype=torch.bool,
+                                                      device=dev),
+                              torch.zeros((), dtype=torch.int32, device=dev)),
+                       n, chunk)
+    _record(stats, "repair_moves", carry)
+    return carry[0]
+
+
+def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
+            phase0_active, phase0_score, phase1_ok, phase1_minimize):
+    """The two-phase greedy polish shared by both modes.  ``tracked`` is the
+    matrix whose chosen-sum the phases steer by (quality or cost).  Phase 0
+    takes the highest-scoring allowed move while ``phase0_active``; phase 1
+    the lowest (``phase1_minimize``) or highest allowed move."""
+    dev = cost.device
+    n, m = cost.shape
+    ninf = _f32(float("-inf"), dev)
+    inf = _f32(float("inf"), dev)
+    zero_b = torch.zeros((), dtype=torch.bool, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def apply(carry, score, best, better_than):
+        x, counts, tsum, done, moves = carry
+        flat = best(score.reshape(-1))
+        i, j = flat // m, flat % m
+        do = ~done & better_than(_at(score, flat))
+        tsum = torch.where(do, tsum + (_at(tracked, flat)
+                                       - _at(tracked, i * m + _at(x, i))),
+                           tsum)
+        x, counts = _moved(x, counts, i, j, do)
+        return x, counts, tsum, done | ~do, moves + do.int()
+
+    def chosen(x):
+        return (quality.gather(1, x[:, None]), cost.gather(1, x[:, None]))
+
+    def step0(carry):
+        x, counts, tsum = carry[:3]
+        curq, curc = chosen(x)
+        ok, score = phase0_score(curq, curc, counts)
+        score = torch.where(ok, score, ninf)
+        carry = carry[:3] + (carry[3] | ~phase0_active(tsum),) + carry[4:]
+        return apply(carry, score, torch.argmax, lambda s: s > ninf)
+
+    def step1(carry):
+        x, counts, tsum = carry[:3]
+        curq, curc = chosen(x)
+        ok, score = phase1_ok(curq, curc, counts, tsum)
+        if phase1_minimize:
+            return apply(carry, torch.where(ok, score, inf), torch.argmin,
+                         lambda s: s < inf)
+        return apply(carry, torch.where(ok, score, ninf), torch.argmax,
+                     lambda s: s > ninf)
+
+    counts0 = torch.bincount(x, minlength=m).float()
+    carry = _run_moves(step0, (x, counts0, init_sum, zero_b, zero_i),
+                       4 * n, chunk)
+    _record(stats, "polish_phase0_moves", carry)
+    carry = _run_moves(step1, carry[:3] + (zero_b, zero_i), 8 * n, chunk)
+    _record(stats, "polish_phase1_moves", carry)
+    return carry[0]
+
+
+def primal_polish(x, cost, quality, alpha, loads, *, chunk: int = SYNC_EVERY,
+                  stats: Optional[dict] = None):
+    """Greedy primal improvement.  Phase 0 restores quality feasibility
+    (best quality-gain-per-dollar moves); phase 1 is steepest-descent cost
+    reduction within the quality slack and the free capacity.
+    NumPy oracle: ``...lagrangian_assign.ref.primal_polish_ref``."""
+    dev = cost.device
+    n, _ = cost.shape
+    x = torch.as_tensor(x, device=dev).long()
+    cost, quality, loads = cost.float(), quality.float(), loads.float()
+    target = _f32(n, dev) * _f32(alpha, dev)
+    floor = _f32(1e-9, dev)
+
+    def phase0_score(curq, curc, counts):
+        gain = quality - curq
+        extra = cost - curc
+        ok = (gain > 1e-12) & (counts[None, :] < loads[None, :])
+        return ok, gain / torch.clamp(extra, min=floor)
+
+    def phase1_ok(curq, curc, counts, qsum):
+        slack = qsum - target
+        delta = cost - curc                   # <0 == cheaper
+        dq = quality - curq
+        ok = ((delta < -1e-12) & (counts[None, :] < loads[None, :])
+              & (dq >= -slack - 1e-12))
+        return ok, delta
+
+    return _polish(x, cost, quality, loads, chunk, stats, quality,
+                   _chosen_sum(quality, x),
+                   lambda qsum: qsum < target - 1e-9, phase0_score,
+                   phase1_ok, phase1_minimize=True)
+
+
+def budget_polish(x, cost, quality, budget, loads, *,
+                  chunk: int = SYNC_EVERY, stats: Optional[dict] = None):
+    """Budget-mode primal improvement.  Phase 0 restores budget
+    feasibility (least quality lost per dollar saved); phase 1 is steepest
+    quality ascent within the remaining budget and the free capacity.
+    NumPy oracle: ``...lagrangian_assign.ref.budget_polish_ref``."""
+    dev = cost.device
+    x = torch.as_tensor(x, device=dev).long()
+    cost, quality, loads = cost.float(), quality.float(), loads.float()
+    budget = _f32(budget, dev)
+    floor = _f32(1e-9, dev)
+
+    def phase0_score(curq, curc, counts):
+        dq = quality - curq
+        dc = cost - curc
+        ok = (dc < -1e-12) & (counts[None, :] < loads[None, :])
+        return ok, dq / torch.clamp(-dc, min=floor)
+
+    def phase1_ok(curq, curc, counts, csum):
+        dq = quality - curq
+        dc = cost - curc
+        ok = ((dq > 1e-12) & (counts[None, :] < loads[None, :])
+              & (csum + dc <= budget + 1e-9))
+        return ok, dq
+
+    return _polish(x, cost, quality, loads, chunk, stats, cost,
+                   _chosen_sum(cost, x),
+                   lambda csum: csum > budget + 1e-9, phase0_score,
+                   phase1_ok, phase1_minimize=False)
+
+
+def brute_force(cost: np.ndarray, quality: np.ndarray, threshold: float,
+                loads: np.ndarray, mode: str = "quality"
+                ) -> Optional[np.ndarray]:
+    """Exact solver for tiny instances (test oracle), both modes."""
+    n, m = cost.shape
+    best, best_obj = None, np.inf
+    for x in itertools.product(range(m), repeat=n):
+        x = np.array(x)
+        if np.any(np.bincount(x, minlength=m) > loads):
+            continue
+        q = quality[np.arange(n), x].mean()
+        c = cost[np.arange(n), x].sum()
+        if mode == "quality":
+            if q < threshold:
+                continue
+            obj = c
+        else:
+            if c > threshold:
+                continue
+            obj = -q * n
+        if obj < best_obj:
+            best, best_obj = x, obj
+    return best
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DualSolver:
+    """One dual solver for both routing modes.
+
+    mode="quality": min cost s.t. mean quality >= threshold.
+    mode="budget":  max quality s.t. total cost <= threshold.
+
+    The device decides the solve: on a CUDA tensor the whole ascent runs in
+    the hand-written kernel (``kernels.lagrangian_assign.ops.solve_fused``),
+    on a CPU tensor in ``_solve_ref``.  Tensor inputs stay on their device;
+    anything else (NumPy arrays, lists) goes to ``device``, which is CUDA
+    unless the caller names one (``device="cpu"``).  ``use_kernel`` is kept
+    so configs read as they do for the JAX package; it selects nothing.
+    This slice holds the single-device, unmasked path: ``shards`` must be 1
+    and ``n_valid`` None.
+    """
+
+    mode: str = "quality"          # "quality" | "budget"
+    iters: int = 150
+    lr_constraint: float = 4.0     # α1 (quality) / µ step (budget, use ~50)
+    lr_workload: float = 0.5       # α2 in Eq. 10
+    use_kernel: bool = False       # kept for config parity; the device decides
+    stall_tol: float = 0.0         # >0: early-exit on multiplier stall
+    stall_patience: int = 3        # cumulative stalled iters before exit
+    norm_grad: bool = False        # scale-free subgradient (streaming)
+    shards: int = 1                # blocked solve: a later slice
+    device: Optional[str] = None   # where non-tensor inputs go; None = CUDA
+
+    def __post_init__(self):
+        if self.mode not in ("quality", "budget"):
+            raise ValueError(f"unknown solver mode: {self.mode!r}")
+        if self.shards != 1:
+            raise NotImplementedError(
+                "the blocked/sharded solve is not ported yet: shards must be 1")
+
+    def _inputs(self, cost, quality, loads):
+        dev = (cost.device if isinstance(cost, torch.Tensor)
+               else default_device(self.device))
+        return _f32(cost, dev), _f32(quality, dev), _f32(loads, dev)
+
+    def solve(self, cost, quality, threshold, loads,
+              state: Optional[DualState] = None, n_valid=None
+              ) -> Tuple[torch.Tensor, SolveInfo]:
+        """cost/quality (N, M) -> (assignment (N,), SolveInfo).  ``state``
+        warm-starts the ascent from a previous window's multipliers."""
+        if n_valid is not None:
+            raise NotImplementedError("masked windows are not ported yet")
+        cost, quality, loads = self._inputs(cost, quality, loads)
+        dev = cost.device
+        m = cost.shape[1]
+        if state is None:
+            lam0, lam20 = _f32(0.0, dev), torch.zeros(m, device=dev)
+            step0 = _f32(0.0, dev)
+        else:
+            lam0, lam20 = state.lam, state.lam_load
+            # continue the stream's step schedule with a floor of ~1/20
+            step0 = torch.clamp(state.steps, max=400.0)
+        kw = dict(mode=self.mode, iters=self.iters, lr_con=self.lr_constraint,
+                  lr_load=self.lr_workload, patience=self.stall_patience,
+                  norm_grad=self.norm_grad)
+        if dev.type == "cuda":
+            from repro_torch.kernels.lagrangian_assign.ops import solve_fused
+            return solve_fused(cost, quality, threshold, loads, lam0=lam0,
+                               lam20=lam20, step0=step0,
+                               stall_tol=self.stall_tol, **kw)
+        if dev.type != "cpu":
+            raise ValueError(f"no dual solve for device {dev}")
+        return _solve_ref(cost, quality, threshold, loads, lam0, lam20,
+                          self.stall_tol, step0, **kw)
+
+    def route_arrays(self, cost, quality, threshold, loads,
+                     polish_threshold=None,
+                     state: Optional[DualState] = None, n_valid=None,
+                     stats: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, SolveInfo]:
+        """Solve -> workload repair -> primal (or budget) polish.
+
+        ``stats`` (optional dict) receives ``solve_s`` and ``polish_s``
+        (device-synchronized wall seconds) and the move counts."""
+        cost, quality, loads = self._inputs(cost, quality, loads)
+        dev = cost.device
+        t0 = time.perf_counter()
+        x, info = self.solve(cost, quality, threshold, loads, state=state,
+                             n_valid=n_valid)
+        if stats is not None:
+            _sync(dev)
+            t1 = time.perf_counter()
+            stats["solve_s"] = stats.get("solve_s", 0.0) + t1 - t0
+        lam1 = info.lam if self.mode == "quality" else 0.0
+        x = repair_workload(x, cost, quality, loads, lam1=lam1, stats=stats)
+        if self.mode == "quality":
+            pt = threshold if polish_threshold is None else polish_threshold
+            x = primal_polish(x, cost, quality, pt, loads, stats=stats)
+        else:
+            x = budget_polish(x, cost, quality, threshold, loads, stats=stats)
+        if stats is not None:
+            _sync(dev)
+            stats["polish_s"] = (stats.get("polish_s", 0.0)
+                                 + time.perf_counter() - t1)
+        return x, info
+
+    def route_window(self, cost, quality, threshold, loads,
+                     state: Optional[DualState] = None, *, share=1.0,
+                     polish_margin: float = 0.0, n_valid=None,
+                     stats: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, SolveInfo, DualState]:
+        """One streaming window: fold the cumulative ledger into this
+        window's effective threshold, warm-start the ascent from the
+        carried multipliers, repair/polish, and return the updated state.
+        ``threshold`` is the global constraint (stream budget B, or α);
+        ``share`` is the window's fraction of the remaining horizon (budget
+        mode only)."""
+        if n_valid is not None:
+            raise NotImplementedError("masked windows are not ported yet")
+        cost, quality, loads = self._inputs(cost, quality, loads)
+        dev = cost.device
+        n, m = cost.shape
+        if state is None:
+            state = init_dual_state(m, dev)
+        threshold = _f32(threshold, dev)
+        t_eff = fold_threshold(self.mode, threshold, state, n, share)
+        if self.mode == "quality":
+            p_eff = torch.clamp(t_eff + polish_margin, 0.0, 1.0)
+        else:
+            p_eff = t_eff
+        x, info = self.route_arrays(cost, quality, t_eff, loads,
+                                    polish_threshold=p_eff, state=state,
+                                    stats=stats)
+        # the ledger books the FINAL (repaired + polished) assignment
+        csum = _chosen_sum(cost, x)
+        qsum = _chosen_sum(quality, x)
+        deficit = (threshold * n - qsum if self.mode == "quality"
+                   else torch.zeros((), device=dev))
+        new_state = DualState(
+            lam=info.lam, lam_load=info.lam_load,
+            budget_spent=state.budget_spent + csum,
+            sr_deficit=state.sr_deficit + deficit,
+            steps=state.steps + info.iters_run)
+        return x, info, new_state

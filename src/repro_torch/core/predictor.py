@@ -1,0 +1,210 @@
+"""ECCOS-T: training-based multi-objective predictor (paper §3.1, Fig. 2).
+
+The port of ``repro.core.predictor``'s forward pass.  A small BERT-style
+encoder produces the query embedding q; each pool model has a learned
+embedding e_j; two heads read the interaction vector q ⊙ e_j:
+
+    capability  s_ij = sigmoid( W1 (q ⊙ e_j) + b1 )           (Eq. 3)
+    length      P(B_k | i,j) = softmax( W2 (q ⊙ e_j) + b2 )_k (Eq. 4)
+
+Parameters keep the JAX layout (``wqkv`` is (d, 3, h, hd), ``wo`` is
+(h, hd, d)), so weights carry across unchanged (``repro_torch.convert``).
+``PredictorNet`` holds them as an ``nn.Module``; the functions below take
+the plain dict tree.  Training (AdamW ``fit``) comes with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.common import ParamDecl, default_device, init_params
+from repro_torch.data import tokenizer
+from repro_torch.data.qaserve import L_MAX, bucketize
+
+from .features import predicted_cost
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictorConfig:
+    """Sized for the routing latency budget (the reference's defaults)."""
+
+    n_models: int = 6
+    vocab: int = tokenizer.VOCAB
+    max_len: int = 48
+    d_model: int = 128
+    n_layers: int = 2
+    n_heads: int = 4
+    d_ff: int = 512
+    n_buckets: int = 10          # paper default (Table 3)
+    lr: float = 1e-3
+
+
+def _enc_layer_decls(cfg: PredictorConfig) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.d_model // cfg.n_heads
+    return {
+        "ln1": ParamDecl((d,), init="ones"),
+        "wqkv": ParamDecl((d, 3, h, hd), init="scaled"),
+        "wo": ParamDecl((h, hd, d), init="scaled"),
+        "ln2": ParamDecl((d,), init="ones"),
+        "w1": ParamDecl((d, cfg.d_ff), init="scaled"),
+        "w2": ParamDecl((cfg.d_ff, d), init="scaled"),
+    }
+
+
+def predictor_decls(cfg: PredictorConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "tok_embed": ParamDecl((cfg.vocab, d), init="normal"),
+        "pos_embed": ParamDecl((cfg.max_len, d), init="normal"),
+        "layers": [_enc_layer_decls(cfg) for _ in range(cfg.n_layers)],
+        "final_ln": ParamDecl((d,), init="ones"),
+        "model_embed": ParamDecl((cfg.n_models, d), init="normal", scale=0.5),
+        "cap_w": ParamDecl((d,), init="scaled"),
+        "cap_b": ParamDecl((), init="zeros"),
+        "len_w": ParamDecl((d, cfg.n_buckets), init="scaled"),
+        "len_b": ParamDecl((cfg.n_buckets,), init="zeros"),
+    }
+
+
+def _ln(x, w, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * w
+
+
+def encode_queries(cfg: PredictorConfig, params: dict, tokens):
+    """tokens: (B, T) int -> pooled embedding (B, d)."""
+    _, t = tokens.shape
+    tokens = tokens.long()
+    mask = tokens != tokenizer.PAD
+    x = params["tok_embed"][tokens] + params["pos_embed"][None, :t]
+    hd = cfg.d_model // cfg.n_heads
+    for lp in params["layers"]:
+        y = _ln(x, lp["ln1"])
+        qkv = torch.einsum("btd,dghe->btghe", y, lp["wqkv"])
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        s = torch.einsum("bthe,bshe->bhts", q, k) / np.sqrt(hd)
+        s = torch.where(mask[:, None, None, :], s, -1e30)
+        a = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhts,bshe->bthe", a, v)
+        x = x + torch.einsum("bthe,hed->btd", o, lp["wo"])
+        y = _ln(x, lp["ln2"])
+        # jax.nn.gelu defaults to the tanh approximation
+        x = x + F.gelu(y @ lp["w1"], approximate="tanh") @ lp["w2"]
+    x = _ln(x, params["final_ln"])
+    maskf = mask.to(x.dtype)
+    denom = torch.clamp(maskf.sum(-1, keepdim=True), min=1.0)
+    return (x * maskf[..., None]).sum(1) / denom  # mean-pool (B, d)
+
+
+def predict(cfg: PredictorConfig, params: dict, tokens):
+    """Returns (capability (B, M), length_probs (B, M, K))."""
+    q = encode_queries(cfg, params, tokens)              # (B, d)
+    inter = q[:, None, :] * params["model_embed"][None]  # (B, M, d)
+    cap = torch.sigmoid(inter @ params["cap_w"] + params["cap_b"])
+    len_logits = inter @ params["len_w"] + params["len_b"]
+    return cap, torch.softmax(len_logits, dim=-1)
+
+
+def trained_predict_device(cfg: PredictorConfig, params: dict, tokens,
+                           input_len, price_in, price_out):
+    """ECCOS-T predict on tensors: tokens -> (cap, exp_len, cost); the
+    length-bucket expectation (midpoint rule) and the cost matrix stay on
+    the device."""
+    cap, len_probs = predict(cfg, params, tokens[:, :cfg.max_len])
+    width = L_MAX / cfg.n_buckets
+    mids = (torch.arange(cfg.n_buckets, dtype=torch.float32,
+                         device=cap.device) + 0.5) * width
+    exp_len = len_probs @ mids                           # (B, M)
+    return cap, exp_len, predicted_cost(input_len, exp_len, price_in,
+                                        price_out)
+
+
+def prediction_accuracy(ds, cap, exp_len, n_buckets: int
+                        ) -> Dict[str, float]:
+    """Capability accuracy and length-bucket hit rates of NumPy predictions
+    against a labelled dataset — the schema every predictor reports."""
+    cap_acc = float(((cap > 0.5) == (ds.correct > 0)).mean())
+    pred_b = bucketize(exp_len, n_buckets)
+    true_b = bucketize(ds.out_len, n_buckets)
+    return {"capability_acc": cap_acc,
+            "bucket_exact": float((pred_b == true_b).mean()),
+            "bucket_within1": float((np.abs(pred_b - true_b) <= 1).mean())}
+
+
+class PredictorNet(nn.Module):
+    """The encoder and its two heads as an ``nn.Module`` over a parameter
+    tree in the JAX layout; ``forward`` is :func:`predict`."""
+
+    def __init__(self, cfg: PredictorConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.top = nn.ParameterDict({
+            k: nn.Parameter(v, requires_grad=False)
+            for k, v in params.items() if k != "layers"})
+        self.layers = nn.ModuleList([
+            nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                              for k, v in lp.items()})
+            for lp in params["layers"]])
+
+    def tree(self) -> dict:
+        """The parameters as the dict tree the functions take."""
+        out = dict(self.top.items())
+        out["layers"] = [dict(lp.items()) for lp in self.layers]
+        return out
+
+    def forward(self, tokens):
+        return predict(self.cfg, self.tree(), tokens)
+
+
+class TrainedPredictor:
+    """ECCOS-T over given parameters, or ones initialised from ``seed``."""
+
+    def __init__(self, cfg: PredictorConfig, params: Optional[dict] = None,
+                 *, seed: int = 0, device=None):
+        self.cfg = cfg
+        self.device = default_device(device)
+        if params is None:
+            gen = torch.Generator().manual_seed(seed)
+            params = init_params(predictor_decls(cfg), gen, self.device)
+        self.net = PredictorNet(cfg, params).to(self.device)
+
+    @property
+    def params(self) -> dict:
+        return self.net.tree()
+
+    # --- the device predict contract (shared with Retrieval/Hybrid) -------
+    @property
+    def token_len(self) -> int:
+        return self.cfg.max_len
+
+    def device_inputs(self):
+        return (self.params,)
+
+    def predict_device(self, inputs, tokens, input_len, price_in, price_out):
+        return trained_predict_device(self.cfg, inputs[0], tokens, input_len,
+                                      price_in, price_out)
+
+    def predict_arrays(self, ds):
+        """Returns (capability (N,M), expected_out_len (N,M), cost (N,M)) as
+        NumPy for anything exposing the RouteBatch feature surface."""
+        dev = self.device
+        toks = torch.as_tensor(
+            tokenizer.encode_batch(ds.queries, self.cfg.max_len), device=dev)
+        with torch.no_grad():
+            out = self.predict_device(
+                self.device_inputs(), toks,
+                torch.as_tensor(ds.input_len, dtype=torch.float32, device=dev),
+                torch.as_tensor(ds.price_in, dtype=torch.float32, device=dev),
+                torch.as_tensor(ds.price_out, dtype=torch.float32,
+                                device=dev))
+        return tuple(t.cpu().numpy() for t in out)
+
+    def eval_accuracy(self, ds) -> Dict[str, float]:
+        cap, exp_len, _ = self.predict_arrays(ds)
+        return prediction_accuracy(ds, cap, exp_len, self.cfg.n_buckets)

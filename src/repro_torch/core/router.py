@@ -1,0 +1,171 @@
+"""OmniRouter facade: two-stage routing (predict → constrained optimize).
+
+The port of ``repro.core.router`` on its single-device path.  ``route``
+consumes a :class:`RouteBatch`: the host tokenizes the query text, and
+everything after — featurize → retrieve → vote → blend → dual solve →
+repair → polish — runs on the predictor's device, with no host round-trip
+between the predictor and the solve (on the card: the retrieval-vote and
+dual-solve CUDA kernels).  ``route_window`` threads a :class:`DualState`
+through a streaming-tuned solver (scale-free subgradient + stall early exit)
+so window k+1 warm-starts from window k.
+
+Not in this slice: speculative pair columns (``spec_pairs`` must be ()),
+the robust LCB streaming solve (``robust`` must be False), the
+blocked/sharded solve (``shards`` must be 1), masked windows
+(``n_valid`` must be None) and the sanitizer hooks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.data import tokenizer
+
+from .baselines import Policy, RouteBatch
+from .optimizer import DualSolver, DualState, init_dual_state
+
+
+@dataclasses.dataclass
+class RouterConfig:
+    alpha: float = 0.75          # quality constraint (paper default)
+    budget: Optional[float] = None   # set -> budget-controllable mode
+    iters: int = 150
+    lr_quality: float = 4.0
+    lr_budget: float = 50.0
+    lr_workload: float = 0.5
+    use_assign_kernel: bool = False  # config parity; the device decides
+    # tighten the predicted-quality constraint during primal polish so
+    # prediction noise doesn't push the realized SR below alpha
+    alpha_margin: float = 0.03
+    # streaming solver (route_window only)
+    lr_stream: float = 3.0
+    stall_tol: float = 0.01
+    stall_patience: int = 3
+    shards: int = 1              # blocked solve: a later slice
+    robust: bool = False         # LCB streaming solve: a later slice
+    spec_pairs: tuple = ()       # speculative pair columns: a later slice
+
+
+class OmniRouter(Policy):
+    """ECCOS with a pluggable predictor (trained / retrieval / hybrid) that
+    implements the device predict contract (``token_len``,
+    ``device_inputs``, ``predict_device``, ``device``)."""
+
+    def __init__(self, predictor, cfg: RouterConfig = RouterConfig(),
+                 name: str = "ECCOS"):
+        if tuple(cfg.spec_pairs):
+            raise NotImplementedError(
+                "speculative pair columns are not ported yet")
+        if cfg.robust:
+            raise NotImplementedError(
+                "the robust (LCB) streaming solve is not ported yet")
+        self.predictor = predictor
+        self.cfg = cfg
+        self.name = name
+        mode = "budget" if cfg.budget is not None else "quality"
+        self.solver = DualSolver(
+            mode=mode, iters=cfg.iters,
+            lr_constraint=cfg.lr_budget if mode == "budget" else cfg.lr_quality,
+            lr_workload=cfg.lr_workload, use_kernel=cfg.use_assign_kernel)
+        self.stream_solver = DualSolver(
+            mode=mode, iters=cfg.iters, lr_constraint=cfg.lr_stream,
+            lr_workload=cfg.lr_workload, use_kernel=cfg.use_assign_kernel,
+            stall_tol=cfg.stall_tol, stall_patience=cfg.stall_patience,
+            norm_grad=True, shards=cfg.shards)
+        self.route_seconds = 0.0
+        self.predict_seconds = 0.0
+        self._iters_pending: list = []  # device scalars awaiting one sync
+        self._dual_iters = 0
+        self.windows = 0
+        # the last call's wall split: tokenize_s, predict_solve_s, polish_s
+        # and the repair/polish move counts
+        self.last_timing: Dict[str, float] = {}
+
+    @property
+    def dual_iters(self) -> int:
+        """Total streaming dual iterations run (synced lazily on read)."""
+        if self._iters_pending:
+            self._dual_iters += int(torch.stack(self._iters_pending).sum())
+            self._iters_pending.clear()
+        return self._dual_iters
+
+    def observe(self, texts, correct, out_len):
+        obs = getattr(self.predictor, "observe", None)
+        return None if obs is None else obs(texts, correct, out_len)
+
+    def _thresholds(self):
+        """(solver threshold, polish threshold)."""
+        if self.cfg.budget is not None:
+            return self.cfg.budget, self.cfg.budget
+        return (self.cfg.alpha,
+                min(self.cfg.alpha + self.cfg.alpha_margin, 1.0))
+
+    def _predict(self, batch: RouteBatch):
+        """Tokenize on the host, predict on the device: (cap, cost, loads)."""
+        dev = self.predictor.device
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(tokenizer.encode_batch(
+            batch.queries, self.predictor.token_len), device=dev)
+        t1 = time.perf_counter()
+        self.last_timing = {"tokenize_s": t1 - t0}
+        self.predict_seconds += t1 - t0
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        with torch.no_grad():
+            cap, _, cost = self.predictor.predict_device(
+                self.predictor.device_inputs(), toks, f32(batch.input_len),
+                f32(batch.price_in), f32(batch.price_out))
+        return cap, cost, f32(batch.available), t1
+
+    def _finish(self, x, stats, t1):
+        x = x.cpu().numpy()
+        wall = time.perf_counter() - t1
+        self.route_seconds += wall
+        self.last_timing.update(stats)
+        self.last_timing["predict_solve_s"] = wall - stats["polish_s"]
+        return x
+
+    def route(self, batch: RouteBatch, rng=None) -> np.ndarray:
+        cap, cost, avail, t1 = self._predict(batch)
+        threshold, polish_threshold = self._thresholds()
+        stats: dict = {}
+        x, _ = self.solver.route_arrays(cost, cap, threshold, avail,
+                                        polish_threshold=polish_threshold,
+                                        stats=stats)
+        return self._finish(x, stats, t1)
+
+    def route_window(self, batch: RouteBatch, state: Optional[DualState],
+                     *, share: float = 1.0, rng=None,
+                     n_valid: Optional[int] = None):
+        """Streaming window: predict → warm-started windowed solve.
+        Returns ``(assignment, new_state)``."""
+        if n_valid is not None:
+            raise NotImplementedError("masked windows are not ported yet")
+        if state is None:
+            state = init_dual_state(batch.m, self.predictor.device)
+        threshold = (self.cfg.budget if self.cfg.budget is not None
+                     else self.cfg.alpha)
+        cap, cost, avail, t1 = self._predict(batch)
+        stats: dict = {}
+        x, info, state = self.stream_solver.route_window(
+            cost, cap, threshold, avail, state, share=share,
+            polish_margin=self.cfg.alpha_margin, stats=stats)
+        # iters_run stays on the device; dual_iters sums lazily on read
+        self._iters_pending.append(info.iters_run)
+        self.windows += 1
+        return self._finish(x, stats, t1), state
+
+
+def evaluate_assignment(ds, x: np.ndarray) -> Dict[str, float]:
+    """True SR and true $ cost of an assignment (uses ground truth)."""
+    n = ds.n
+    x = np.asarray(x)
+    sr = float(ds.correct[np.arange(n), x].mean())
+    cost = float(ds.cost_matrix()[np.arange(n), x].sum())
+    return {"success_rate": sr, "cost": cost}

@@ -1,0 +1,1 @@
+"""NumPy data leaves copied from ``repro.data`` (tokenizer, SynthQAServe)."""

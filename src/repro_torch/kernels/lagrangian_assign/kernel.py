@@ -1,0 +1,92 @@
+"""Python wrapper of the hand-written CUDA dual solve (``csrc/dual_solve.cu``).
+
+``dual_solve_cuda`` runs the whole dual ascent in one launch on the current
+stream and returns the packed, fully finalised ``(8 + 3M,)`` vector — the
+contract of ``ref.fused_dual_solve_ref``.  It takes CUDA tensors only; the
+library builds from the repository's sources at first use.
+``l2_read_probe_cuda`` measures the single-CTA design's own limit, one SM's
+L2 read rate; it is a measurement aid and no part of the routing path.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from repro_torch.kernels import _build
+
+MMAX = 16     # models per solve the kernel holds in shared memory
+
+
+@lru_cache(maxsize=1)
+def _launcher():
+    fn = _build.load("dual_solve").dual_solve_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _probe_launcher():
+    fn = _build.load("dual_solve").l2_read_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def l2_read_probe_cuda(buf: torch.Tensor, reps: int) -> torch.Tensor:
+    """One CTA as wide as the dual solve's reads the contiguous float32
+    CUDA tensor ``buf`` (numel a multiple of 4) ``reps`` times; returns the
+    (1,) sum.  Timing it gives one SM's L2 read rate when ``buf`` fits L2."""
+    if buf.device.type != "cuda" or buf.dtype != torch.float32:
+        raise ValueError("l2_read_probe_cuda needs a float32 CUDA tensor")
+    if not buf.is_contiguous() or buf.numel() % 4 or buf.numel() < 4:
+        raise ValueError("l2_read_probe_cuda needs a contiguous buffer of "
+                         "a multiple of 4 floats")
+    out = torch.empty(1, dtype=torch.float32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        _build.check(_probe_launcher()(buf.data_ptr(), buf.numel(), int(reps),
+                                       out.data_ptr(), stream),
+                     "l2_read_probe_launch")
+    return out
+
+
+def dual_solve_cuda(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
+                    stall_tol, step0, loads, *, iters: int, patience: int):
+    """Same arguments and result as ``ref.fused_dual_solve_ref``; every
+    tensor must lie on one CUDA device."""
+    dev = a_mat.device
+    if dev.type != "cuda":
+        raise ValueError(f"dual_solve_cuda needs CUDA tensors, got {dev}")
+    n, m = a_mat.shape
+    if b_mat.shape != (n, m):
+        raise ValueError(f"A {tuple(a_mat.shape)} and B {tuple(b_mat.shape)} "
+                         "differ in shape")
+    if not 1 <= m <= MMAX:
+        raise ValueError(f"dual_solve_cuda holds 1..{MMAX} models, got {m}")
+
+    def f32(v):
+        t = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        if t.device != dev:
+            raise ValueError(f"argument on {t.device}, expected {dev}")
+        return t.reshape(-1)
+
+    ab = torch.cat([f32(a_mat).reshape(n, m), f32(b_mat).reshape(n, m)],
+                   dim=1).contiguous()                        # (N, 2M)
+    scal = torch.cat([f32(v) for v in (thresh, lr_eff, lr_load, lam0,
+                                       stall_tol, step0)]).contiguous()
+    aux = torch.cat([f32(loads), f32(lam20)]).contiguous()    # loads | λ2_0
+    if scal.numel() != 6 or aux.numel() != 2 * m:
+        raise ValueError("scalars must be 0-dim; loads and lam20 (M,)")
+    out = torch.empty(8 + 3 * m, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_launcher()(ab.data_ptr(), scal.data_ptr(),
+                                 aux.data_ptr(), out.data_ptr(), n, m,
+                                 int(iters), int(patience), stream),
+                     "dual_solve_launch")
+    return out

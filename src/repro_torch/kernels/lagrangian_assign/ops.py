@@ -1,0 +1,133 @@
+"""Kernel-backed ECCOS dual solve: the contract of ``core.optimizer``.
+
+``solve_fused`` maps (cost, quality, threshold) onto the unified problem
+(``prepare_problem``: ``_mode_params`` and, with ``norm_grad``,
+``_normalize_problem``), runs the whole ascent in ONE launch of the
+hand-written kernel on a CUDA tensor — or in the plain version on a CPU
+tensor — and then replays the winning argmin from the emitted multipliers
+and builds ``SolveInfo`` (``finish``).  ``launches`` counts the kernel
+launches made through ``fused_dual_solve``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.optimizer import (SolveInfo, _f32, _mode_params,
+                                        _normalize_problem)
+
+from .kernel import dual_solve_cuda
+from .ref import fused_dual_solve_ref
+
+launches = 0
+
+
+def fused_dual_solve(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
+                     stall_tol, step0, loads, *, iters: int, patience: int):
+    """The whole dual ascent on the unified problem; returns the packed,
+    finalised (8 + 3M,) vector (see ``ref.fused_dual_solve_ref``).  A CUDA
+    tensor launches the kernel or raises; a CPU tensor runs the plain
+    version."""
+    global launches
+    args = (a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20, stall_tol,
+            step0, loads)
+    if a_mat.is_cuda:
+        out = dual_solve_cuda(*args, iters=iters, patience=patience)
+        launches += 1
+        return out
+    if a_mat.device.type != "cpu":
+        raise ValueError(f"no dual solve for device {a_mat.device}")
+    return fused_dual_solve_ref(*args, iters=iters, patience=patience)
+
+
+class Problem(NamedTuple):
+    """A solve mapped onto the unified parameterization."""
+
+    a_mat: torch.Tensor
+    b_mat: torch.Tensor
+    thresh: torch.Tensor
+    lr_eff: torch.Tensor
+    lr_load: torch.Tensor
+    lam0: torch.Tensor
+    lam20: torch.Tensor
+    stall_tol: torch.Tensor
+    step0: torch.Tensor
+    loads: torch.Tensor
+    cost: torch.Tensor
+    quality: torch.Tensor
+    a_bar: torch.Tensor
+    b_bar: torch.Tensor
+
+    @property
+    def args(self):
+        """Positional arguments of ``fused_dual_solve`` and its versions."""
+        return self[:10]
+
+
+def prepare_problem(cost, quality, threshold, loads, *, mode: str = "quality",
+                    lr_con: float = 4.0, lr_load: float = 0.5, lam0=0.0,
+                    lam20=None, stall_tol=0.0, step0=0.0,
+                    norm_grad: bool = False) -> Problem:
+    dev = cost.device
+    m = cost.shape[1]
+    cost = cost.float()
+    quality = _f32(quality, dev)
+    loads = _f32(loads, dev)
+    a_mat, b_mat, t_eff, lr_eff = _mode_params(
+        cost, quality, _f32(threshold, dev), lr_con,
+        budget_mode=(mode == "budget"))
+    lr_eff = _f32(lr_eff, dev)
+    lr_load_eff = _f32(lr_load, dev)
+    a_bar = b_bar = _f32(1.0, dev)
+    lam0 = _f32(lam0, dev).reshape(())
+    lam20 = (torch.zeros(m, device=dev) if lam20 is None
+             else _f32(lam20, dev).reshape(m))
+    if norm_grad:
+        # the SAME helper as the reference, so fused and reference warm
+        # trajectories see identical inputs
+        (a_mat, b_mat, t_eff, lr_eff, lr_load_eff, lam0, lam20,
+         a_bar, b_bar) = _normalize_problem(
+            a_mat, b_mat, t_eff, lr_con, lr_load, lam0, lam20, loads)
+    return Problem(a_mat.contiguous(), b_mat.contiguous(), t_eff, lr_eff,
+                   lr_load_eff, lam0, lam20, _f32(stall_tol, dev),
+                   _f32(step0, dev).reshape(()), loads, cost, quality,
+                   a_bar, b_bar)
+
+
+def finish(out: torch.Tensor, p: Problem):
+    """Replay the best-feasible (else last) assignment from the emitted
+    multipliers — argmin is deterministic, so no N-sized state leaves the
+    kernel — and build ``SolveInfo`` in true units."""
+    n, m = p.cost.shape
+    lam, lam_b, best_obj = out[0], out[1], out[2]
+    found = out[3] > 0.0
+    lam2, lam2b = out[8:8 + m], out[8 + m:8 + 2 * m]
+    lam_sel = torch.where(found, lam_b, lam)
+    lam2_sel = torch.where(found, lam2b, lam2)
+    x = torch.argmin(p.a_mat + lam_sel * p.b_mat + lam2_sel[None, :], dim=1)
+    onehot = torch.nn.functional.one_hot(x, m).float()
+    asum_e = (p.a_mat * onehot).sum()
+    info = SolveInfo(
+        lam=lam * p.a_bar / p.b_bar, lam_load=lam2 * p.a_bar,
+        feasible=found, cost=(p.cost * onehot).sum(),
+        quality=(p.quality * onehot).sum() / _f32(n, out.device),
+        counts=onehot.sum(dim=0),
+        objective=torch.where(found, best_obj, asum_e) * p.a_bar,
+        iters_run=out[6].to(torch.int32))
+    return x, info
+
+
+def solve_fused(cost, quality, threshold, loads, *, mode: str = "quality",
+                iters: int = 150, lr_con: float = 4.0, lr_load: float = 0.5,
+                lam0=0.0, lam20=None, stall_tol=0.0, step0=0.0,
+                patience: int = 3, norm_grad: bool = False):
+    """Fused dual solve.  Returns (x (N,), SolveInfo), the schema of
+    ``DualSolver.solve``; ``lam0``/``lam20``/``step0`` warm-start a
+    streaming window and ``stall_tol`` enables the early exit."""
+    p = prepare_problem(cost, quality, threshold, loads, mode=mode,
+                        lr_con=lr_con, lr_load=lr_load, lam0=lam0,
+                        lam20=lam20, stall_tol=stall_tol, step0=step0,
+                        norm_grad=norm_grad)
+    return finish(fused_dual_solve(*p.args, iters=iters, patience=patience),
+                  p)

@@ -1,0 +1,205 @@
+"""Plain versions for the Lagrangian assignment plane (paper Eq. 9-12).
+
+- ``fused_dual_solve_ref``: plain PyTorch with the exact contract of the
+  CUDA kernel ``csrc/dual_solve.cu`` (and of the TPU kernel's single-block
+  layout): it takes the unified, already-normalized problem and returns the
+  packed, fully finalised ``(8 + 3M,)`` vector.  It runs every iteration
+  with the freeze gated by ``torch.where`` (no host sync), as the TPU kernel
+  does.  It is the CPU path of ``ops.fused_dual_solve`` and the yardstick
+  the kernel is held against on the card.
+- ``repair_workload_ref`` / ``primal_polish_ref`` / ``budget_polish_ref``:
+  NumPy oracles, copied from the JAX package, for the device repair/polish
+  loops in ``repro_torch.core.optimizer``.  They follow the same
+  move-selection rules (first-index tie-breaks in float32), so parity tests
+  assert exact agreement.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device (PyTorch's CPU
+    float32 ``sqrt`` is not; the float64 root rounds correctly to float32)."""
+    return torch.sqrt(x.double()).float()
+
+
+def fused_dual_solve_ref(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
+                         stall_tol, step0, loads, *, iters: int,
+                         patience: int):
+    """Whole dual ascent on the unified problem ``scores = A + lam*B + lam2``
+    (feasible iff sum B[i, x_i] <= thresh and every count <= its load).
+
+    Scalars are 0-dim float32 tensors (or numbers); ``lam20`` and ``loads``
+    are (M,).  Returns the packed (8 + 3M,) float32 vector
+    ``[lam, lam_best, best, found, 0, 0, iters_run, 0, lam2 (M),
+    lam2_best (M), 0 (M)]``."""
+    dev = a_mat.device
+    n, m = a_mat.shape
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    thresh, lr_eff, lr_load, lam, stall_tol, step0 = (
+        f32(v).reshape(()) for v in (thresh, lr_eff, lr_load, lam0,
+                                     stall_tol, step0))
+    loads = f32(loads).reshape(m)
+    lam2 = f32(lam20).reshape(m)
+    one = f32(1.0)
+    lam_best, lam2_best = f32(0.0), torch.zeros_like(lam2)
+    best = f32(float("inf"))
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    stall = torch.zeros((), dtype=torch.int32, device=dev)
+    t_run = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in range(iters):
+        active = stall < patience
+        x = torch.argmin(a_mat + lam * b_mat + lam2[None, :], dim=1)
+        asum = a_mat.gather(1, x[:, None]).sum()
+        bsum = b_mat.gather(1, x[:, None]).sum()
+        cnt = torch.bincount(x, minlength=m).float()
+        feasible = active & (bsum <= thresh) & torch.all(cnt <= loads)
+        better = feasible & (asum < best)
+        best = torch.where(better, asum, best)
+        lam_best = torch.where(better, lam, lam_best)
+        lam2_best = torch.where(better, lam2, lam2_best)
+        found = found | feasible
+        step = one / sqrt32(one + step0 + t)
+        lam_new = torch.clamp(lam + lr_eff * step * (bsum - thresh), min=0.0)
+        lam2_new = torch.clamp(lam2 + lr_load * step * (cnt - loads), min=0.0)
+        delta = (lam_new - lam).abs() + (lam2_new - lam2).abs().sum()
+        denom = one + lam_new.abs() + lam2_new.abs().sum()
+        resid = (bsum - thresh).abs() / (one + thresh.abs())
+        stalled = found & ((delta < stall_tol * denom) | (resid < stall_tol))
+        stall = stall + (active & stalled).int()
+        lam = torch.where(active, lam_new, lam)
+        lam2 = torch.where(active, lam2_new, lam2)
+        t_run = t_run + active.int()
+    zero = f32(0.0)
+    return torch.cat([
+        torch.stack([lam, lam_best, best, found.float(), zero, zero,
+                     t_run.float(), zero]),
+        lam2, lam2_best, torch.zeros_like(lam2)])
+
+
+def repair_workload_ref(x, cost, quality, loads, lam1=0.0):
+    """Host-side oracle for ``repro_torch.core.optimizer.repair_workload``."""
+    x = np.asarray(x).astype(np.int64).copy()
+    cost = np.asarray(cost, np.float32)
+    quality = np.asarray(quality, np.float32)
+    loads = np.asarray(loads, np.float32)
+    n, m = cost.shape
+    reduced = (cost - np.float32(lam1) * quality / np.float32(n)).astype(
+        np.float32)
+    counts = np.bincount(x, minlength=m).astype(np.float32)
+    for _ in range(n):
+        over = counts - loads
+        j = int(np.argmax(over))
+        free = counts < loads
+        if over[j] <= 0 or not free.any():
+            break  # feasible, or pool saturated (caller queues the overflow)
+        alt = np.where(free[None, :], reduced, np.float32(np.inf))
+        best_alt = alt.argmin(axis=1)
+        alt_min = alt[np.arange(n), best_alt]
+        delta = np.where(x == j, alt_min - reduced[:, j], np.float32(np.inf))
+        qi = int(np.argmin(delta))
+        nj = int(best_alt[qi])
+        x[qi] = nj
+        counts[j] -= 1.0
+        counts[nj] += 1.0
+    return x
+
+
+def primal_polish_ref(x, cost, quality, alpha, loads):
+    """Host-side oracle for ``repro_torch.core.optimizer.primal_polish``."""
+    x = np.asarray(x).astype(np.int64).copy()
+    cost = np.asarray(cost, np.float32)
+    quality = np.asarray(quality, np.float32)
+    loads = np.asarray(loads, np.float32)
+    n, m = cost.shape
+    counts = np.bincount(x, minlength=m).astype(np.float32)
+    qsum = np.float32(quality[np.arange(n), x].sum())
+
+    # phase 0 — restore quality feasibility: best gain-per-dollar move first
+    for _ in range(4 * n):
+        if qsum >= np.float32(n) * np.float32(alpha) - 1e-9:
+            break
+        curq = quality[np.arange(n), x][:, None]
+        curc = cost[np.arange(n), x][:, None]
+        gain = quality - curq
+        extra = cost - curc
+        ok = (gain > 1e-12) & (counts[None, :] < loads[None, :])
+        if not ok.any():
+            break
+        score = np.where(ok, gain / np.maximum(extra, np.float32(1e-9)),
+                         np.float32(-np.inf))
+        i, j = np.unravel_index(np.argmax(score), score.shape)
+        qsum = np.float32(qsum + (quality[i, j] - quality[i, x[i]]))
+        counts[x[i]] -= 1.0
+        counts[j] += 1.0
+        x[i] = j
+
+    # phase 1 — steepest descent: apply the single largest feasible saving
+    for _ in range(8 * n):
+        curq = quality[np.arange(n), x][:, None]
+        curc = cost[np.arange(n), x][:, None]
+        slack = qsum - np.float32(n) * np.float32(alpha)
+        delta = cost - curc
+        dq = quality - curq
+        ok = (delta < -1e-12) & (counts[None, :] < loads[None, :]) & \
+            (dq >= -slack - 1e-12)
+        if not ok.any():
+            break
+        score = np.where(ok, delta, np.float32(np.inf))
+        i, j = np.unravel_index(np.argmin(score), score.shape)
+        qsum = np.float32(qsum + (quality[i, j] - quality[i, x[i]]))
+        counts[x[i]] -= 1.0
+        counts[j] += 1.0
+        x[i] = j
+    return x
+
+
+def budget_polish_ref(x, cost, quality, budget, loads):
+    """Host-side oracle for ``repro_torch.core.optimizer.budget_polish``."""
+    x = np.asarray(x).astype(np.int64).copy()
+    cost = np.asarray(cost, np.float32)
+    quality = np.asarray(quality, np.float32)
+    loads = np.asarray(loads, np.float32)
+    n, m = cost.shape
+    counts = np.bincount(x, minlength=m).astype(np.float32)
+    csum = np.float32(cost[np.arange(n), x].sum())
+    # phase 0 — restore budget feasibility: least quality lost per $ saved
+    for _ in range(4 * n):
+        if csum <= np.float32(budget) + 1e-9:
+            break
+        curq = quality[np.arange(n), x][:, None]
+        curc = cost[np.arange(n), x][:, None]
+        dq = quality - curq
+        dc = cost - curc
+        ok = (dc < -1e-12) & (counts[None, :] < loads[None, :])
+        if not ok.any():
+            break
+        score = np.where(ok, dq / np.maximum(-dc, np.float32(1e-9)),
+                         np.float32(-np.inf))
+        i, j = np.unravel_index(np.argmax(score), score.shape)
+        csum = np.float32(csum + dc[i, j])
+        counts[x[i]] -= 1.0
+        counts[j] += 1.0
+        x[i] = j
+    # phase 1 — steepest quality ascent within the remaining budget
+    for _ in range(8 * n):
+        curq = quality[np.arange(n), x][:, None]
+        curc = cost[np.arange(n), x][:, None]
+        dq = quality - curq
+        dc = cost - curc
+        ok = (dq > 1e-12) & (counts[None, :] < loads[None, :]) & \
+            (csum + dc <= np.float32(budget) + 1e-9)
+        if not ok.any():
+            break
+        score = np.where(ok, dq, np.float32(-np.inf))
+        i, j = np.unravel_index(np.argmax(score), score.shape)
+        csum = np.float32(csum + dc[i, j])
+        counts[x[i]] -= 1.0
+        counts[j] += 1.0
+        x[i] = j
+    return x

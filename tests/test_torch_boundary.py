@@ -1,0 +1,131 @@
+"""Package boundary of the PyTorch port (``src/repro_torch``).
+
+The port imports neither ``jax`` nor anything of the JAX package ``repro``:
+a subprocess imports every module of the port and checks ``sys.modules``,
+and a source scan finds no such import in the port or in ``chip_smoke.py``.
+The NumPy leaves the port copies (tokenizer, SynthQAServe, baselines, the
+featurizer projection) must equal their originals exactly — same token
+ids, same dataset, same projection bits, same baseline routes.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+
+
+def test_import_port_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+        "             or m.startswith(('jax.', 'repro.')))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_source_scan_finds_no_jax_or_reference_import():
+    files = _port_sources()
+    assert len(files) > 15
+    offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for p in files
+                 for m in _FORBIDDEN.finditer(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_source_scan_pattern_catches_imports():
+    """The scan itself: it flags real imports and passes the port's own."""
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                "  from repro.core import y", "import repro"):
+        assert _FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.core import z",
+               "# see repro.core.optimizer"):
+        assert not _FORBIDDEN.search(ok), ok
+
+
+@pytest.mark.parametrize("max_len", [48, 64])
+def test_tokenizer_copy_is_bit_identical(max_len):
+    from repro.data import tokenizer as ref_tok
+    from repro.data.qaserve import generate
+    from repro_torch.data import tokenizer as port_tok
+    texts = generate(n=300, seed=0).queries + ["", "Mixed CASE words", "a " * 90]
+    assert port_tok.VOCAB == ref_tok.VOCAB
+    assert (port_tok.PAD, port_tok.CLS) == (ref_tok.PAD, ref_tok.CLS)
+    got = port_tok.encode_batch(texts, max_len)
+    want = ref_tok.encode_batch(texts, max_len)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_qaserve_copy_generates_the_same_dataset():
+    from repro.data import qaserve as ref_q
+    from repro_torch.data import qaserve as port_q
+    a, b = port_q.generate(n=300, seed=0), ref_q.generate(n=300, seed=0)
+    assert a.queries == b.queries
+    for field in ("task", "difficulty", "input_len", "correct", "out_len",
+                  "topic"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype and np.array_equal(x, y), field
+    assert [p.name for p in a.pool] == [p.name for p in b.pool]
+    assert np.array_equal(a.cost_matrix(), b.cost_matrix())
+    assert port_q.L_MAX == ref_q.L_MAX
+    assert np.array_equal(port_q.bucketize(a.out_len, 10),
+                          ref_q.bucketize(b.out_len, 10))
+    for (sa, sb) in zip(a.split(), b.split()):
+        assert sa.queries == sb.queries
+
+
+def test_projection_copy_is_bit_identical():
+    from repro.core.features import projection_np as ref_proj
+    from repro_torch.core.features import projection, projection_np
+    got, want = projection_np(64, 3), ref_proj(64, 3)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    # the device copy rounds to float32 exactly as jnp.asarray does
+    assert np.array_equal(projection(64, 3, "cpu").numpy(),
+                          want.astype(np.float32))
+
+
+@pytest.mark.parametrize("policy", ["BalanceAware", "RandomPolicy", "Oracle"])
+def test_baseline_copies_route_the_same(policy):
+    import repro.core.baselines as ref_b
+    from repro.data.qaserve import generate
+    import repro_torch.core.baselines as port_b
+    ds = generate(n=120, seed=3)
+    loads, counts = np.full(ds.m, 25.0), np.full(ds.m, 2.0)
+    rb = ds.route_batch(loads, counts)
+    pb = port_b.RouteBatch(rb.queries, rb.input_len, rb.price_in,
+                           rb.price_out, rb.loads, rb.counts, rb.cost_true,
+                           rb.correct_true)
+    got = getattr(port_b, policy)().route(pb, rng=np.random.RandomState(0))
+    want = getattr(ref_b, policy)().route(rb, rng=np.random.RandomState(0))
+    assert np.array_equal(got, want)
+    assert np.allclose(pb.available, rb.available)
+
+
+@pytest.mark.parametrize("n,multiple", [(1, 1), (5, 1), (100, 8), (64, 8)])
+def test_pad_helpers_match(n, multiple):
+    import repro.core.baselines as ref_b
+    import repro_torch.core.baselines as port_b
+    assert port_b.pad_bucket(n, multiple) == ref_b.pad_bucket(n, multiple)

@@ -1,0 +1,367 @@
+"""The port's dual solver against the JAX package.
+
+- ``_solve_ref`` against the JAX ``_solve_ref`` in both modes, cold and
+  warm across three streaming windows with the stall early exit: ``x`` and
+  ``iters_run`` exact; λ/λ2 within 1e-5 relative cold (float32 sums taken
+  in another order).  The warm windows run the scale-free (``norm_grad``)
+  ascent, whose step takes ``ΣB − t``: the difference cancels, so the
+  ~1e-7 relative difference between XLA's and PyTorch's float32 sums grows
+  to ~4e-5 in λ over 32 iterations (measured).  There λ/λ2 are held to
+  1e-4 relative; ``x`` and ``iters_run`` stay exact.
+- ``fused_dual_solve_ref`` (the CUDA kernel's plain version and contract)
+  against the JAX ``fused_dual_solve`` in interpret mode, its grid output
+  finalised as the JAX ``ops.solve_fused`` does, for both layouts (bq 64
+  and bq = n): found, ``iters_run`` and the replayed ``x`` exact; the
+  multipliers within 1e-5 relative cold, and within 1e-3 relative for the
+  warm normalized solve — the contract the JAX package holds its own fused
+  kernel to against its reference (``tests/test_streaming_control.py``),
+  for the cancellation described above (the TPU kernel also steps by an
+  rsqrt, one ulp from the reference's 1/sqrt).
+- ``repair_workload``, ``primal_polish`` and ``budget_polish`` against the
+  NumPy oracles: exact ``x``, for several moves-per-host-sync chunk sizes,
+  including ones that do not divide the move count.
+- ``DualSolver.route_arrays`` against ``brute_force`` on tiny instances, and
+  ``route_window`` against the JAX solver: exact ``x``, the ledger (budget
+  spent, quality deficit, steps) within 1e-5 relative, the carried λ/λ2
+  within 1e-3 relative — the JAX package's own fused-vs-reference λ
+  contract, since long normalized ascents drift as described above.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.core import optimizer as jopt  # noqa: E402
+from repro.data.qaserve import generate  # noqa: E402
+from repro.kernels.lagrangian_assign.kernel import fused_dual_solve  # noqa: E402
+from repro.kernels.lagrangian_assign.ref import (  # noqa: E402
+    budget_polish_ref, primal_polish_ref, repair_workload_ref)
+from repro_torch.core import optimizer as popt  # noqa: E402
+from repro_torch.kernels.lagrangian_assign import ops as pops  # noqa: E402
+from repro_torch.kernels.lagrangian_assign.ref import (  # noqa: E402
+    fused_dual_solve_ref)
+
+RTOL = 1e-5
+WARM_RTOL = 1e-4     # normalized ascent: see the module docstring
+FUSED_WARM_RTOL = 1e-3   # the JAX fused-vs-reference λ contract
+
+
+def _qaserve(n, seed):
+    ds = generate(n=n, seed=seed)
+    return (ds.cost_matrix().astype(np.float32),
+            ds.correct.astype(np.float32))
+
+
+def _close(a, b, rtol=RTOL):
+    return np.allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                       rtol=rtol, atol=1e-7)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _budget(cost):
+    return float(cost.min(axis=1).sum() * 1.6)
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_solve_ref_cold_matches_jax(mode):
+    cost, qual = _qaserve(256, 1)
+    loads = np.full(6, 256 / 3.0, np.float32)
+    thr = 0.7 if mode == "quality" else _budget(cost)
+    kw = dict(mode=mode, iters=60, lr_con=4.0 if mode == "quality" else 50.0,
+              lr_load=0.5)
+    xj, ij = jopt._solve_ref(jnp.asarray(cost), jnp.asarray(qual),
+                             jnp.float32(thr), jnp.asarray(loads), **kw)
+    xp, ip = popt._solve_ref(_t(cost), _t(qual), thr, _t(loads), **kw)
+    assert np.array_equal(xp.numpy(), np.asarray(xj))
+    assert int(ip.iters_run) == int(ij.iters_run) == 60
+    assert _close(ip.lam, ij.lam) and _close(ip.lam_load, ij.lam_load)
+    assert bool(ip.feasible) == bool(ij.feasible)
+    assert _close(ip.cost, ij.cost) and _close(ip.quality, ij.quality)
+    assert np.array_equal(ip.counts.numpy(), np.asarray(ij.counts))
+    assert _close(ip.objective, ij.objective)
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_solve_ref_warm_windows_match_jax(mode):
+    """Three windows, each warm-started from its predecessor (λ, λ2, steps)
+    with the stall early exit — each package carries its own state."""
+    cost, qual = _qaserve(3 * 128, 2)
+    loads = np.full(6, 60.0, np.float32)
+    kw = dict(mode=mode, iters=150, lr_con=3.0, lr_load=0.5, patience=3,
+              norm_grad=True)
+    js = ps = None
+    early = 0
+    for w in range(3):
+        c, q = cost[w * 128:(w + 1) * 128], qual[w * 128:(w + 1) * 128]
+        thr = 0.7 if mode == "quality" else _budget(c)
+        if js is None:
+            jw, pw = (0.0, None, 0.0), (0.0, None, 0.0)
+        else:
+            jw = (js.lam, js.lam_load, jnp.minimum(steps_j, 400.0))
+            pw = (ps.lam, ps.lam_load, torch.clamp(steps_p, max=400.0))
+        xj, js = jopt._solve_ref(jnp.asarray(c), jnp.asarray(q),
+                                 jnp.float32(thr), jnp.asarray(loads),
+                                 jw[0], jw[1], 1e-2, jw[2], **kw)
+        xp, ps = popt._solve_ref(_t(c), _t(q), thr, _t(loads), pw[0], pw[1],
+                                 1e-2, pw[2], **kw)
+        assert np.array_equal(xp.numpy(), np.asarray(xj)), w
+        assert int(ps.iters_run) == int(js.iters_run), w
+        assert _close(ps.lam, js.lam, WARM_RTOL), w
+        assert _close(ps.lam_load, js.lam_load, WARM_RTOL), w
+        steps_j = (0.0 if w == 0 else steps_j) + js.iters_run
+        steps_p = (torch.zeros(()) if w == 0 else steps_p) + ps.iters_run
+        early += int(ps.iters_run) < 150
+    assert early >= 1                  # the stall exit fired
+
+
+def _finalize_grid(out, thresh, loads, lr_eff, lr_load, step0, iters,
+                   patience, m):
+    """The JAX ``ops.solve_fused`` finalize of the grid layout, in NumPy
+    float32: the last iteration's bookkeeping and dual update."""
+    f = np.float32
+    out = np.asarray(out, np.float32).copy()
+    lam, lam_b, best, found, asum, bsum = out[:6]
+    lam2, lam2b, cnt = out[8:8 + m], out[8 + m:8 + 2 * m], out[8 + 2 * m:]
+    active = out[7] < patience
+    feasible = active and bsum <= thresh and np.all(cnt <= loads)
+    if feasible and asum < best:
+        lam_b, lam2b, best = lam, lam2.copy(), asum
+    found = f(found > 0 or feasible)
+    if active:
+        step = f(1.0) / np.sqrt(f(step0) + f(iters))
+        lam = max(f(lam + f(lr_eff) * step * (bsum - thresh)), f(0.0))
+        lam2 = np.maximum(lam2 + f(lr_load) * step * (cnt - loads), f(0.0))
+    t_run = out[6] + f(active)
+    return np.concatenate([[lam, lam_b, best, found, 0, 0, t_run, 0], lam2,
+                           lam2b, np.zeros(m)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["quality", "budget", "warm"])
+@pytest.mark.parametrize("bq", [64, 128])
+def test_fused_ref_packed_matches_jax_kernel(case, bq):
+    n, m, iters = 128, 6, 40
+    cost, qual = _qaserve(n, 3)
+    loads = np.full(m, 64.0, np.float32)
+    mode = "budget" if case == "budget" else "quality"
+    kw = dict(mode=mode, lr_con=50.0 if mode == "budget" else 4.0,
+              lr_load=0.5)
+    thr = _budget(cost) if mode == "budget" else 0.6
+    if case == "warm":                 # warm start from a converged solve
+        _, cold = popt._solve_ref(_t(cost), _t(qual), thr, _t(loads),
+                                  stall_tol=1e-2, mode=mode, iters=150,
+                                  lr_con=3.0, lr_load=0.5, norm_grad=True)
+        kw.update(lr_con=3.0, norm_grad=True, stall_tol=1e-2, lam0=cold.lam,
+                  lam20=cold.lam_load, step0=cold.iters_run.float())
+    p = pops.prepare_problem(_t(cost), _t(qual), thr, _t(loads), **kw)
+    npy = [np.asarray(v.numpy()) for v in p.args]
+    a, b, t, lr_eff, lr_load, lam0, lam20, stall_tol, step0, ld = npy
+    out_j, nb = fused_dual_solve(a, b, t, ld, iters=iters, lr_eff=lr_eff,
+                                 lr_load=lr_load, bq=bq, lam0=lam0,
+                                 lam20=lam20, stall_tol=stall_tol,
+                                 step0=step0, patience=3, interpret=True)
+    assert nb == (1 if bq == n else 2)
+    out_j = np.asarray(out_j)
+    if nb > 1:
+        out_j = _finalize_grid(out_j, t, ld, lr_eff, lr_load, step0, iters,
+                               3, m)
+    out_p = fused_dual_solve_ref(*p.args, iters=iters, patience=3).numpy()
+    assert out_p[3] == out_j[3] and out_p[6] == out_j[6]    # found, iters
+    rtol = FUSED_WARM_RTOL if case == "warm" else RTOL
+    for lo, hi in ((0, 3), (8, 8 + 2 * m)):                # λ, λ*, best; λ2s
+        assert _close(out_p[lo:hi], out_j[lo:hi], rtol), (lo, out_p, out_j)
+    xp, ip = pops.finish(torch.from_numpy(out_p), p)
+    xj, _ = pops.finish(torch.from_numpy(out_j), p)
+    assert np.array_equal(xp.numpy(), xj.numpy())
+    if case == "warm":
+        assert int(ip.iters_run) < iters            # stall exit inside
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_solver_fused_path_matches_solve_ref(mode):
+    """On the CPU the fused contract (plain version + replay) and the
+    reference ascent give the same solve."""
+    cost, qual = _qaserve(200, 4)
+    loads = np.full(6, 70.0, np.float32)
+    thr = 0.65 if mode == "quality" else _budget(cost)
+    kw = dict(mode=mode, iters=80, lr_con=3.0, lr_load=0.5, patience=3,
+              norm_grad=True)
+    x1, i1 = pops.solve_fused(_t(cost), _t(qual), thr, _t(loads),
+                              stall_tol=1e-2, **kw)
+    x2, i2 = popt._solve_ref(_t(cost), _t(qual), thr, _t(loads),
+                             stall_tol=1e-2, **kw)
+    assert torch.equal(x1, x2)
+    assert int(i1.iters_run) == int(i2.iters_run)
+    assert _close(i1.lam, i2.lam) and _close(i1.cost, i2.cost)
+
+
+def _moves(fn, *args, **kw):
+    stats = {}
+    x = fn(*args, stats=stats, **kw).numpy()
+    return x, sum(v for k, v in stats.items() if k.endswith("moves"))
+
+
+def _instance(seed, n=40, m=5):
+    rng = np.random.RandomState(seed)
+    return (rng, rng.rand(n, m).astype(np.float32),
+            rng.rand(n, m).astype(np.float32))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("seed", range(4))
+def test_repair_workload_matches_oracle(seed, chunk):
+    rng, c, a = _instance(seed)
+    loads = np.full(5, 9.0, np.float32)    # tight: 45 slots for 40 queries
+    x0 = rng.randint(0, 5, 40)
+    lam1 = float(rng.rand() * 2)
+    x, moves = _moves(popt.repair_workload, torch.from_numpy(x0), _t(c),
+                      _t(a), _t(loads), lam1, chunk=chunk)
+    assert np.array_equal(x, repair_workload_ref(x0, c, a, loads, lam1=lam1))
+    assert np.all(np.bincount(x, minlength=5) <= loads)
+    assert moves > 0
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 32])
+@pytest.mark.parametrize("seed", range(3))
+def test_polish_matches_oracle_both_modes(seed, chunk):
+    rng, c, a = _instance(seed, n=60, m=5)
+    loads = np.full(5, 16.0, np.float32)
+    x0 = repair_workload_ref(rng.randint(0, 5, 60), c, a, loads)
+    xq, _ = _moves(popt.primal_polish, torch.from_numpy(x0), _t(c), _t(a),
+                   0.6, _t(loads), chunk=chunk)
+    assert np.array_equal(xq, primal_polish_ref(x0, c, a, 0.6, loads))
+    xb, _ = _moves(popt.budget_polish, torch.from_numpy(x0), _t(c), _t(a),
+                   25.0, _t(loads), chunk=chunk)
+    assert np.array_equal(xb, budget_polish_ref(x0, c, a, 25.0, loads))
+    for x in (xq, xb):
+        assert np.all(np.bincount(x, minlength=5) <= loads)
+
+
+@pytest.mark.parametrize("kind", ["repair", "primal", "budget"])
+def test_chunk_not_dividing_the_move_count(kind):
+    """Chunks that do not divide the move count still stop on the same
+    move as the oracle (the masked steps after `done` change nothing)."""
+    rng, c, a = _instance(11, n=80, m=6)
+    if kind == "budget":                   # start over budget: phase 0 works
+        c = c + 0.1
+        x0 = c.argmax(axis=1)
+        loads = np.full(6, 80.0, np.float32)
+        fn, args = popt.budget_polish, (float(1.2 * c.min(1).sum()),)
+        want = budget_polish_ref(x0, c, a, args[0], loads)
+    elif kind == "primal":
+        loads = np.full(6, 20.0, np.float32)
+        x0 = repair_workload_ref(rng.randint(0, 6, 80), c, a, loads)
+        fn, args = popt.primal_polish, (0.75,)
+        want = primal_polish_ref(x0, c, a, 0.75, loads)
+    else:
+        loads = np.full(6, 14.0, np.float32)
+        x0 = np.zeros(80, np.int64)        # everything on model 0
+        fn, args = popt.repair_workload, ()
+        want = repair_workload_ref(x0, c, a, loads)
+
+    def run(chunk):
+        if kind == "repair":
+            return _moves(fn, torch.from_numpy(x0), _t(c), _t(a), _t(loads),
+                          chunk=chunk)
+        return _moves(fn, torch.from_numpy(x0), _t(c), _t(a), args[0],
+                      _t(loads), chunk=chunk)
+
+    x1, moves = run(1)
+    assert np.array_equal(x1, want) and moves >= 3
+    chunk = next(ch for ch in range(3, moves + 2) if moves % ch)
+    x2, moves2 = run(chunk)
+    assert moves % chunk and moves2 == moves
+    assert np.array_equal(x2, want)
+
+
+def _rand_instance(seed, n=6, m=3):
+    rng = np.random.RandomState(seed)
+    return rng.rand(n, m).astype(np.float32), rng.rand(n, m).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_quality_route_matches_brute_force(seed):
+    c, a = _rand_instance(seed)
+    n, m = c.shape
+    loads = np.full(m, 3.0)
+    xb = popt.brute_force(c, a, 0.45, loads, mode="quality")
+    assert np.array_equal(
+        xb if xb is None else xb,
+        jopt.brute_force(c, a, 0.45, loads, mode="quality"))
+    if xb is None:
+        return
+    x, _ = popt.DualSolver(iters=400, device="cpu").route_arrays(
+        c, a, 0.45, loads)
+    x = x.numpy()
+    assert a[np.arange(n), x].mean() >= 0.45 - 1e-6
+    assert np.all(np.bincount(x, minlength=m) <= loads)
+    gap = c[np.arange(n), x].sum() - c[np.arange(n), xb].sum()
+    assert gap <= 0.20 * max(c[np.arange(n), xb].sum(), 1e-6) + 1e-6
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_budget_route_matches_brute_force(seed):
+    c, a = _rand_instance(seed)
+    n, m = c.shape
+    loads = np.full(m, 3.0)
+    xb = popt.brute_force(c, a, 3.0, loads, mode="budget")
+    if xb is None:
+        return
+    x, _ = popt.DualSolver(mode="budget", iters=400, lr_constraint=50.0,
+                           device="cpu").route_arrays(c, a, 3.0, loads)
+    x = x.numpy()
+    assert c[np.arange(n), x].sum() <= 3.0 + 1e-5
+    assert np.all(np.bincount(x, minlength=m) <= loads)
+    gap = a[np.arange(n), xb].mean() - a[np.arange(n), x].mean()
+    assert gap <= 0.10 + 1e-6
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_route_arrays_and_window_ledger_match_jax(mode):
+    cost, qual = _qaserve(3 * 96, 6)
+    loads = np.full(6, 30.0, np.float32)
+    kw = dict(mode=mode, iters=120, lr_constraint=3.0, stall_tol=1e-2,
+              norm_grad=True)
+    jsolver = jopt.DualSolver(**kw)
+    psolver = popt.DualSolver(**kw, device="cpu")
+    thr = 0.65 if mode == "quality" else _budget(cost)
+    xj, _ = jsolver.route_arrays(cost, qual, thr, loads)
+    xp, _ = psolver.route_arrays(cost, qual, thr, loads)
+    assert np.array_equal(xp.numpy(), np.asarray(xj))
+    js = ps = None
+    for w in range(3):
+        c, q = cost[w * 96:(w + 1) * 96], qual[w * 96:(w + 1) * 96]
+        xj, _, js = jsolver.route_window(c, q, thr, loads, js,
+                                         share=1.0 / (3 - w),
+                                         polish_margin=0.03)
+        xp, _, ps = psolver.route_window(c, q, thr, loads, ps,
+                                         share=1.0 / (3 - w),
+                                         polish_margin=0.03)
+        assert np.array_equal(xp.numpy(), np.asarray(xj)), w
+        for field in ("budget_spent", "sr_deficit", "steps"):
+            assert _close(getattr(ps, field), getattr(js, field)), field
+        assert _close(ps.lam, js.lam, 1e-3)
+        assert _close(ps.lam_load, js.lam_load, 1e-3)
+
+
+def test_inputs_go_to_the_solver_device():
+    """NumPy inputs go to the solver's device (CUDA unless named); tensors
+    keep their own."""
+    c, a = _rand_instance(0)
+    assert popt.default_device(popt.DualSolver().device).type == "cuda"
+    got = popt.DualSolver(device="cpu")._inputs(c, a, np.full(3, 3.0))
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32
+               for t in got)
+    got = popt.DualSolver()._inputs(torch.from_numpy(c), a, np.full(3, 3.0))
+    assert all(t.device.type == "cpu" for t in got)
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError):
+        popt.DualSolver(shards=2)
+    c, a = _rand_instance(0)
+    with pytest.raises(NotImplementedError):
+        popt.DualSolver().solve(c, a, 0.5, np.full(3, 3.0), n_valid=4)

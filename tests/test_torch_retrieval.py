@@ -1,0 +1,173 @@
+"""The port's retrieval plane against the JAX package.
+
+- ``retrieval_vote_ref`` (the vote kernel's plain version, the port's CPU
+  path) against the NumPy oracle and the JAX Pallas kernel in interpret
+  mode, on the reference's own cases: a store that is not a tile multiple,
+  a padded query block, k > N_db, a dynamic ``n_valid`` and tie order on a
+  duplicated store.  Tolerance 1e-5 on similarities and votes (float32 dot
+  products summed in another order; the labels are in [0, 1)); indices
+  exact, in order.
+- ``featurize_tokens`` (``embedding_bag``) against the JAX gather-sum and
+  the host oracle: 1e-5 (float32 sums in another order).
+- ``VectorStore`` growth, and ``RetrievalPredictor.predict_arrays`` over
+  the same store: capability within 1e-5; expected length and cost within
+  1e-5 relative (lengths reach 1024, where a float32 ulp is 6e-5).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.topk_retrieval.kernel import retrieval_vote_kernel  # noqa: E402
+from repro.kernels.topk_retrieval.ref import retrieval_vote_oracle  # noqa: E402
+from repro_torch.kernels.topk_retrieval import ops as port_ops  # noqa: E402
+from repro_torch.kernels.topk_retrieval.ref import (  # noqa: E402
+    NEG_INF, retrieval_vote_ref)
+
+
+def _unit_rows(rng, shape):
+    x = rng.randn(*shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _port(store, labels, queries, k, n_valid=None):
+    out = port_ops.retrieval_vote(torch.from_numpy(store),
+                                  torch.from_numpy(labels),
+                                  torch.from_numpy(queries), k, n_valid)
+    return tuple(t.numpy() for t in out)
+
+
+# (ndb, d, b, k, tile, bq, n_labels, n_valid); the JAX kernel runs in
+# interpret mode only where ndb <= 256
+CASES = [
+    (700, 64, 17, 8, 512, 64, 12, None),   # store not a tile multiple
+    (200, 32, 37, 8, 64, 16, 12, None),    # ... in interpret mode, padded q
+    (130, 32, 33, 16, 64, 32, 6, None),    # padded query block
+    (5, 32, 4, 8, 128, 64, 12, None),      # k > N_db: vote over 5 only
+    (256, 16, 9, 8, 64, 8, 4, 100),        # dynamic n_valid
+    (128, 16, 6, 8, 32, 8, 4, 50),         # dynamic n_valid, tile multiple
+]
+
+
+@pytest.mark.parametrize("ndb,d,b,k,tile,bq,nl,nv", CASES)
+def test_vote_ref_matches_oracle_and_jax_kernel(ndb, d, b, k, tile, bq, nl,
+                                                nv):
+    rng = np.random.RandomState(ndb + b)
+    st = _unit_rows(rng, (ndb, d))
+    q = _unit_rows(rng, (b, d))
+    lab = rng.rand(ndb, nl).astype(np.float32)
+    pv, pi, pvote = _port(st, lab, q, k, nv)
+    ov, oi, ovote = retrieval_vote_oracle(st, lab, q, k, n_valid=nv)
+    assert pv.shape == (b, k) and pi.dtype == np.int32
+    assert np.array_equal(pi, oi)
+    assert np.abs(pv - ov).max() < 1e-5
+    assert np.abs(pvote - ovote).max() < 1e-5
+    if ndb <= 256:
+        kv, ki, kvote = retrieval_vote_kernel(st, lab, q, k, bq=bq, tile=tile,
+                                              interpret=True, n_valid=nv)
+        assert np.array_equal(pi, np.asarray(ki))
+        assert np.abs(pv - np.asarray(kv)).max() < 1e-5
+        assert np.abs(pvote - np.asarray(kvote)).max() < 1e-5
+    n_live = ndb if nv is None else nv
+    if k > n_live:                     # empty slots: (NEG_INF, -1)
+        assert np.all(pi[:, n_live:] == -1)
+        assert np.all(pv[:, n_live:] <= NEG_INF * 0.5)
+
+
+def test_vote_tie_order_on_duplicated_store():
+    """Every store row twice: ties go to the lower db index, in order."""
+    rng = np.random.RandomState(2)
+    base = _unit_rows(rng, (8, 16))
+    st = np.concatenate([base, base])
+    q = _unit_rows(rng, (5, 16))
+    lab = rng.rand(16, 3).astype(np.float32)
+    pv, pi, pvote = _port(st, lab, q, 6)
+    kv, ki, kvote = retrieval_vote_kernel(st, lab, q, 6, bq=8, tile=8,
+                                          interpret=True)
+    assert np.array_equal(pi, np.asarray(ki))
+    assert np.array_equal(pi, retrieval_vote_oracle(st, lab, q, 6)[1])
+    assert np.abs(pv - np.asarray(kv)).max() < 1e-6
+    # the two copies of a neighbour sit side by side, lower index first
+    assert np.all(pi[:, 0] + 8 == pi[:, 1])
+
+
+def test_vote_excludes_empty_slots():
+    rng = np.random.RandomState(4)
+    st = _unit_rows(rng, (3, 16))
+    lab = np.asarray([[10.0], [20.0], [30.0]], np.float32)
+    _, idx, vote = _port(st, lab, st[:1], 8)
+    assert np.all(idx[0, 3:] == -1)
+    assert abs(float(vote[0, 0]) - 20.0) < 1e-5       # mean of all 3, not 8
+
+
+def test_vote_dispatch_rejects_other_devices():
+    st = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError):
+        port_ops.retrieval_vote(st, torch.zeros((4, 2), device="meta"), st, 2)
+
+
+@pytest.mark.parametrize("d,seed", [(128, 3), (256, 7)])
+def test_featurize_tokens_matches_jax(qaserve_splits, d, seed):
+    import jax.numpy as jnp
+    from repro.core.features import featurize
+    from repro.core.features import featurize_tokens as jax_featurize
+    from repro.core.features import projection as jax_projection
+    from repro_torch.core.features import featurize_tokens, projection
+    from repro_torch.data import tokenizer
+    train, _, _ = qaserve_splits
+    toks = tokenizer.encode_batch(train.queries[:64] + [""], 64)
+    got = featurize_tokens(torch.from_numpy(toks),
+                           projection(d, seed, "cpu")).numpy()
+    want = np.asarray(jax_featurize(jnp.asarray(toks),
+                                    jax_projection(d, seed)))
+    assert np.abs(got - want).max() < 1e-5
+    assert np.abs(got - featurize(train.queries[:64] + [""], d, seed)
+                  ).max() < 1e-5
+    assert np.allclose(np.linalg.norm(got[:-1], axis=1), 1.0, atol=1e-5)
+    assert np.all(got[-1] == 0.0)                    # no tokens -> zero row
+
+
+def test_vector_store_growth_matches_jax():
+    from repro.core.retrieval import VectorStore as JaxStore
+    from repro_torch.core.retrieval import VectorStore
+    port, ref = VectorStore(8, 2, capacity=8, device="cpu"), JaxStore(8, 2,
+                                                                      capacity=8)
+    rng = np.random.RandomState(0)
+    for n in (7, 7, 7, 7, 7, 200):
+        emb, lab = rng.randn(n, 8).astype(np.float32), rng.rand(n, 2)
+        port.append(emb, lab)
+        ref.append(emb, lab)
+        assert port.size == ref.size and port.capacity == ref.capacity
+        if port.size == 35:
+            port.compact()
+            ref.compact()
+            assert port.capacity == ref.capacity == 128
+    assert port.n_valid == int(ref.n_valid) == 235
+    assert np.array_equal(port.emb.numpy(), np.asarray(ref.emb))
+    assert np.allclose(port.labels.numpy(), np.asarray(ref.labels))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_retrieval_predictor_matches_jax(qaserve_splits, k):
+    from repro.core.retrieval import RetrievalPredictor as JaxRP
+    from repro_torch.convert import vector_store_from_numpy
+    from repro_torch.core.retrieval import RetrievalPredictor
+    train, _, test = qaserve_splits
+    ref = JaxRP(k=k).fit(train)
+    port = RetrievalPredictor(k=k, device="cpu").fit(train)
+    assert port.vstore.size == ref.vstore.size
+    assert np.abs(port.vstore.emb.numpy() - np.asarray(ref.vstore.emb)
+                  ).max() < 1e-5
+    # the JAX store carried across, and the port's own store
+    carried = RetrievalPredictor(k=k, device="cpu")
+    carried.vstore = vector_store_from_numpy(
+        np.asarray(ref.vstore.emb), np.asarray(ref.vstore.labels),
+        ref.vstore.size, "cpu")
+    want = ref.predict_arrays(test)
+    for pred in (port, carried):
+        cap, exp_len, cost = pred.predict_arrays(test)
+        assert np.abs(cap - want[0]).max() < 1e-5
+        assert np.allclose(exp_len, want[1], rtol=1e-5, atol=1e-5)
+        assert np.allclose(cost, want[2], rtol=1e-5, atol=1e-9)
+    acc = port.eval_accuracy(test)
+    assert acc == pytest.approx(ref.eval_accuracy(test), abs=1e-9)
