@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the routing plane on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (routing plane and paged serving plane) on
+one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds both hand-written CUDA kernels from ``src/repro_torch/csrc``,
-holds each against its plain PyTorch version at the main path's shapes,
-routes a 16,384-query batch (quality and budget mode) and four 4,096-query
-streaming windows through ``repro_torch.core.OmniRouter`` over a
-131,072-row vector store with the ECCOS-H predictor at its default widths
-(random encoder weights from a fixed seed), checks the launch counters and
-the results, and prints one JSON line of kernel figures, the card's name and
-power limit, and a last JSON line ``{"ok": true, "device": {...}}``.  It
-exits non-zero without a result when no CUDA device is present or the
-package is missing.
+It builds the three hand-written CUDA kernels from ``src/repro_torch/csrc``
+(one ``nvcc`` each, in parallel) and holds each against its plain PyTorch
+version at the main path's shapes.
+
+Routing plane: it routes a 16,384-query batch (quality and budget mode) and
+four 4,096-query streaming windows through ``repro_torch.core.OmniRouter``
+over a 131,072-row vector store with the ECCOS-H predictor at its default
+widths (random encoder weights from a fixed seed).
+
+Serving plane: the paged decode kernel against its plain version at
+h2o-danube-3-4b's and gemma3-4b's head shapes; h2o-danube-3-4b at full width
+and depth (random weights from a fixed seed, wq and wk rescaled to unit-std
+attention scores) decoding 32 teacher-forced steps against its
+full-sequence logits in float32 and in bf16; one full-width ``Endpoint`` serving
+16 requests x 128 tokens (prefill, decode-chunk and kernel timings); a
+routed ``MultiLLMServer`` of four endpoints behind the port's
+``OmniRouter``; and an all-smoke float32 pool served on the card and on the
+CPU with the same result.
+
+It checks the launch counters and the results, and prints one JSON line of
+kernel figures, the card's name and power limit, and a last JSON line
+``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
+no CUDA device is present or the package is missing.
 """
 from __future__ import annotations
 
@@ -67,6 +81,418 @@ def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+# -- serving plane ------------------------------------------------------------
+
+# Full-width check.  Under the reference's random init (the "scaled" rule
+# takes fan-in from shape[-2], the head count for wq and wk, so q and k
+# come out with stds of ~11 and ~22) attention scores have a std of ~240
+# and the softmax is nearly an argmax: a rounding-sized difference between
+# two paths grows by an order of magnitude or more per layer, and after 24
+# layers two paths decode unrelated logits.  The script shows that on the
+# stock weights in float32 with the plain version in the kernel's place as
+# well (the chaos witness: reported, not checked).  The checked comparison
+# rescales wq and wk to fan-in d_model (unit-std scores; every other weight
+# as drawn) and holds the full depth in float32 and in bf16 to these
+# limits.  Float32: both paths compute the same function up to float32
+# summation order; a wrong mask, page or position gives differences of the
+# order of the logits.  bf16: the full-sequence logits are rounded to bf16
+# (2**-9 relative) and each layer's activations round at other points on
+# the two paths (the prefill attention rounds p to bf16, the kernel keeps
+# it in float32).
+FULL_LIMITS = {"float32": (1e-3, 0.99), "bf16": (5e-2, 0.90)}
+# (tag, B, K, G, D, page size, pages per sequence, window, largest lens, dtype)
+KV_CASES = [
+    ("danube heads", 16, 8, 4, 120, 16, 128, 0, 2048, "bfloat16"),
+    ("danube heads, window 4096", 16, 8, 4, 120, 16, 288, 4096, 4600,
+     "bfloat16"),
+    ("gemma3-4b heads, window 1024", 16, 4, 2, 256, 16, 128, 1024, 2048,
+     "bfloat16"),
+    ("small float32", 3, 2, 4, 64, 16, 8, 24, 128, "float32"),
+]
+CHECK_STEPS = 32        # teacher-forced decode steps of the full-width check
+ENDPOINT_REQS = 16      # full-width endpoint: requests, prompt range, output
+PROMPT_LO, PROMPT_HI, MAX_NEW = 256, 1536, 128
+ROUTED_REQS = 48
+CPU_REQS = 24
+SMOKE_POOL = ("h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b")
+
+
+def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
+    """Random q and pools on the card, a block table of shuffled physical
+    pages (page 0 the dump page, unused entries 0) and ragged lens that
+    include 1 and P·PS."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + b * p
+    q = torch.randn(b, 1, kh * g, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(n_pages, ps, kh, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(n_pages, ps, kh, d, generator=gen, device=dev).to(dtype)
+    cpu = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, lens_max + 1, (b,), generator=cpu)
+    lens[0], lens[-1] = 1, min(lens_max, p * ps)
+    perm = torch.randperm(n_pages - 1, generator=cpu) + 1
+    bt = torch.zeros(b, p, dtype=torch.int32)
+    for i in range(b):
+        n_used = -(-int(lens[i]) // ps)
+        bt[i, :n_used] = perm[i * p:i * p + n_used]
+    return q, kp, vp, bt.to(dev), lens.to(torch.int32).to(dev)
+
+
+def attention_bytes_ops(q, bt, lens, kh, d, window, elem):
+    """What one paged decode must move and compute on this data: q and the
+    output once, each valid position's K and V row once, the block table and
+    lens once; 4·H·D operations per valid position (QK and PV)."""
+    b, _, h, _ = q.shape
+    n = lens.clamp(min=0).cpu()
+    if window > 0:
+        n = n.clamp(max=window)
+    valid = int(n.sum())
+    nbytes = (2 * b * h * d * elem + 2 * valid * kh * d * elem
+              + 4 * bt.numel() + 4 * b)
+    return nbytes, 4.0 * valid * h * d
+
+
+def full_width_check(torch, np, model, params, dev, say, check, tag,
+                     limits=None, plain=False):
+    """Prefill four ragged prompts alone into pages, teacher-force
+    CHECK_STEPS paged decode steps (one kernel launch per layer per step;
+    with ``plain`` the plain version in the kernel's place), and hold each
+    step's logits against the full-sequence logits at the same position
+    (to ``limits``, (max relative difference, least argmax agreement), when
+    given).  Returns (max|diff| / max|logit|, argmax agreement)."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.models.zoo import prefill_into_pages
+    cfg = model.cfg
+    rng = np.random.RandomState(0)
+    plens = [100, 237, 480, 511]
+    ps, nb = 16, len(plens)
+    p_max = -(-(max(plens) + CHECK_STEPS) // ps)
+    seqs = [rng.randint(1, cfg.vocab_size, (n + CHECK_STEPS,)) for n in plens]
+    state = model.empty_paged_state(nb, 1 + nb * p_max, ps, device=dev)
+    bt = torch.arange(1, 1 + nb * p_max, dtype=torch.int32,
+                      device=dev).reshape(nb, p_max)
+    for i, n in enumerate(plens):
+        cache, _ = model.prefill(params, torch.as_tensor(seqs[i][None, :n],
+                                                         device=dev))
+        prefill_into_pages(state, cache, bt[i, :-(-n // ps)].long(), i, ps)
+    lens = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    dec = []
+    kernel_fn = pd_ops.paged_decode_attention
+    if plain:
+        pd_ops.paged_decode_attention = paged_decode_attention_ref
+    pd_ops.launches = 0
+    try:
+        for t in range(CHECK_STEPS):
+            tok = torch.as_tensor(np.array([[s[n + t]] for s, n in
+                                            zip(seqs, plens)]),
+                                  dtype=torch.int32, device=dev)
+            _, lg = model.decode_step_paged(params, state, tok, bt, lens)
+            dec.append(lg[:, :cfg.vocab_size])
+            lens = lens + 1
+    finally:
+        pd_ops.paged_decode_attention = kernel_fn
+    full = [model.logits(params, torch.as_tensor(s[None], device=dev))[
+        0, :, :cfg.vocab_size] for s in seqs]
+    torch.cuda.synchronize()
+    check(pd_ops.launches == (0 if plain else cfg.n_layers * CHECK_STEPS),
+          f"full-width check ({tag}): one kernel launch per layer per step")
+    dec = torch.stack(dec, dim=1)                        # (B, steps, V)
+    ref = torch.stack([f[n:n + CHECK_STEPS] for f, n in zip(full, plens)])
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(ref).all()),
+          f"full-width check ({tag}): non-finite logits")
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    say(f"danube full width {tag}, {nb} sequences (prompts {plens}) x "
+        f"{CHECK_STEPS} teacher-forced paged decode steps "
+        f"({'plain version' if plain else 'kernel'}) vs full-sequence "
+        f"logits: max|diff|/max|logit| = {rel:.4g}, argmax agreement "
+        f"{agree:.4f}" + (f" (limits: <= {limits[0]}, >= {limits[1]})"
+                          if limits else " (reported)"))
+    if limits:
+        check(rel <= limits[0] and agree >= limits[1],
+              f"full-width check ({tag}): decode disagrees with the full "
+              "sequence")
+    return rel, agree
+
+
+def _unit_scores(tree):
+    """The tree with wq and wk rescaled from the init's fan-in (shape[-2],
+    the head count) to fan-in d_model: q and k of unit std, so attention
+    scores of unit std.  New wq/wk tensors; every other leaf is shared."""
+    import math
+    segs = []
+    for seg in tree["segs"]:
+        layers = []
+        for layer in seg:
+            attn = dict(layer["attn"])
+            for key in ("wq", "wk"):
+                w = attn[key]                        # (count, d, heads, hd)
+                attn[key] = w * math.sqrt(w.shape[-2] / w.shape[1])
+            layers.append(dict(layer, attn=attn))
+        segs.append(layers)
+    return dict(tree, segs=segs)
+
+
+def serving_plane(torch, np, dev, say, check, time_ms):
+    """The serving-plane phases; returns the kernels-line row of the paged
+    decode kernel."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import (BalanceAware, HybridPredictor, OmniRouter,
+                                  PredictorConfig, RouterConfig)
+    from repro_torch.data.qaserve import DEFAULT_POOL, generate
+    from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        paged_decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_decode_attention_ref)
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            null_route_features)
+    import dataclasses
+    import torch.nn.functional as F
+
+    # S2. the paged decode kernel against its plain version.  bf16: both
+    # compute in float32 and round the output to bf16 once, so they agree
+    # to one bf16 ulp (2**-7 relative) plus 1e-5; float32: the reference's
+    # own 2e-5.
+    pd_err = 0.0
+    for tag, b, kh, g, d, ps, p, window, lmax, dt in KV_CASES:
+        dtype = getattr(torch, dt)
+        q, kp, vp, bt, lens = paged_inputs(torch, b, kh, g, d, ps, p, lmax,
+                                           dtype, dev, seed=len(tag))
+        got = paged_decode_attention_cuda(q, kp, vp, bt, lens, window=window)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_ref(q, kp, vp, bt, lens, window=window)
+        err = (got.float() - want.float()).abs()
+        if dt == "float32":
+            ok = float(err.max()) <= 2e-5
+        else:
+            ok = torch.allclose(got.float(), want.float(), atol=1e-5,
+                                rtol=2 ** -7)
+        pd_err = max(pd_err, float(err.max()))
+        say(f"paged decode {tag}: B={b} K={kh} G={g} D={d} PS={ps} P={p} "
+            f"window={window} lens {int(lens.min())}..{int(lens.max())} "
+            f"{dt} | max|kernel-plain|={float(err.max()):.3g}")
+        check(ok, f"paged decode {tag}: kernel disagrees with plain version")
+
+    # S3. full-width h2o-danube-3-4b: 32 teacher-forced paged decode steps
+    # (the kernel) against the full-sequence logits (prefill attention), all
+    # 24 layers: the stock weights in float32 with the kernel and with the
+    # plain version (the chaos witness, reported), then unit-std attention
+    # scores in float32 and in bf16, the serving dtype (checked)
+    cfg = get_config("h2o-danube-3-4b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    say(f"danube full width: {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+        f"V={cfg.vocab_size} window={cfg.sliding_window}; {n_par / 1e9:.3f} "
+        f"B params ({n_par * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    params32 = _tree_to(params, torch.float32)
+    for plain in (False, True):
+        full_width_check(torch, np, model32, params32, dev, say, check,
+                         "float32, stock weights", plain=plain)
+    full_width_check(torch, np, model32, _unit_scores(params32), dev, say,
+                     check, "float32, unit-std scores",
+                     limits=FULL_LIMITS["float32"])
+    del params32
+    full_width_check(torch, np, model, _unit_scores(params), dev, say, check,
+                     "bf16, unit-std scores", limits=FULL_LIMITS["bf16"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"peak device memory up to here {peak:.2f} GiB (the float32 checks "
+        f"hold both trees)")
+
+    # S4. one full-width endpoint: 16 requests x 128 tokens
+    torch.cuda.reset_peak_memory_stats()
+    ep = Endpoint(cfg, max_concurrency=ENDPOINT_REQS, t_max=2048,
+                  page_size=16, sync_every=8, params=params, device=dev)
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(1, cfg.vocab_size,
+                                   (int(rng.randint(PROMPT_LO,
+                                                    PROMPT_HI + 1)),)
+                                   ).astype(np.int32), max_new=MAX_NEW)
+            for i in range(ENDPOINT_REQS)]
+    pd_ops.launches = 0
+    pre_ms = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        ep.admit(r)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    snap = (torch.as_tensor(ep.block_table, device=dev),
+            torch.as_tensor(ep.lens + 1, device=dev))
+    chunk_ms, begin_ms, done = [], [], []
+    while ep.active_count():
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")     # step_begin never syncs
+        try:
+            pending = ep.step_begin()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        begin_ms.append((time.perf_counter() - t0) * 1e3)
+        done += ep.step_end(pending)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    ep_launches = pd_ops.launches
+    steps = ep.busy_steps * ep.sync_every
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(done) == ENDPOINT_REQS
+          and all(len(r.output) == MAX_NEW for r in done),
+          "endpoint: not every request got 128 tokens")
+    check(len(ep.alloc.free_pages) == ep.alloc.n_pages - 1
+          and len(ep.alloc.free_slots) == ep.L, "endpoint: allocator leak")
+    check(ep.batch_reprefills == 0, "endpoint: batch re-prefill")
+    check(ep_launches == cfg.n_layers * steps,
+          "endpoint: kernel launches != 24 per decode step")
+    steady = chunk_ms[1:] or chunk_ms
+    chunk_med = float(np.median(steady))
+    say(f"endpoint (danube full width, L={ep.L}, t_max={ep.t_max}, PS=16, "
+        f"sync_every=8, {ep.alloc.n_pages} pages): {ENDPOINT_REQS} requests, "
+        f"prompts {min(len(r.tokens) for r in reqs)}..{max(len(r.tokens) for r in reqs)}, "
+        f"{MAX_NEW} tokens each | prefill {np.median(pre_ms):.1f} ms/request "
+        f"(median; {min(pre_ms):.1f}..{max(pre_ms):.1f}) | decode chunk "
+        f"{chunk_med:.1f} ms median ({len(chunk_ms)} chunks, first "
+        f"{chunk_ms[0]:.1f} ms), {ep.L * ep.sync_every / chunk_med * 1e3:.1f}"
+        f" tokens/s, step_begin dispatch {np.median(begin_ms):.1f} ms | "
+        f"kernel launches {ep_launches} = {cfg.n_layers} x {steps} steps | "
+        f"peak {peak:.2f} GiB")
+
+    # the kernel at the endpoint's lens (after admission: prompts + 1)
+    k_pool = ep._state["segs"][0][0]["k"][0]
+    v_pool = ep._state["segs"][0][0]["v"][0]
+    bt_e, lens_e = snap
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q_e = torch.randn(ENDPOINT_REQS, 1, cfg.n_heads, cfg.hd, generator=gen,
+                      device=dev).to(cfg.dtype)
+    window = cfg.sliding_window
+    k_ms = time_ms(torch, lambda: paged_decode_attention_cuda(
+        q_e, k_pool, v_pool, bt_e, lens_e, window=window), 50)
+    p_ms = time_ms(torch, lambda: paged_decode_attention_ref(
+        q_e, k_pool, v_pool, bt_e, lens_e, window=window), 10)
+    kd = gather_pages(k_pool, bt_e).transpose(1, 2).contiguous()
+    vd = gather_pages(v_pool, bt_e).transpose(1, 2).contiguous()
+    qd = q_e.transpose(1, 2).contiguous()
+    try:
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, enable_gqa=True), 50)
+    except TypeError as exc:          # a PyTorch without enable_gqa
+        say(f"  SDPA with enable_gqa unavailable: {exc}")
+        lib_ms = None
+    del kd, vd
+    nbytes, nops = attention_bytes_ops(q_e, bt_e, lens_e, cfg.n_kv_heads,
+                                       cfg.hd, window, 2)
+    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    share = k_ms * cfg.n_layers / (chunk_med / ep.sync_every)
+    say(f"paged decode kernel at the endpoint's lens (B={ENDPOINT_REQS}, "
+        f"lens {int(lens_e.min())}..{int(lens_e.max())}, P="
+        f"{bt_e.shape[1]}): {k_ms * 1e3:.1f} us/launch, bound "
+        f"{bound * 1e3:.1f} us = max({nbytes / 1e6:.2f} MB / 3.35 TB/s, "
+        f"{nops / 1e9:.3f} GFLOP / 67 TFLOP/s fp32) -> {bound / k_ms:.1%} "
+        f"of it; plain {p_ms * 1e3:.1f} us; SDPA over the pre-gathered dense"
+        f" K/V (all {bt_e.shape[1] * 16} positions, gather excluded) "
+        + (f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "n/a")
+        + f"; {cfg.n_layers} launches = {share:.1%} of a decode step")
+    row = dict(name="paged_decode_attention", route="cuda",
+               source="src/repro_torch/csrc/paged_decode.cu",
+               replaces="src/repro/kernels/decode_attention/kernel.py:197",
+               max_abs_err=pd_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+               bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
+               else "operations", library_ms=lib_ms)
+    del ep, k_pool, v_pool
+
+    # S5. routed server: full-width danube + three smoke endpoints behind
+    # the port's OmniRouter (stream=False)
+    pool = DEFAULT_POOL[:4]
+    smoke = [get_smoke_config(a) for a in SMOKE_POOL[1:]]
+    eps = [Endpoint(cfg, max_concurrency=4, t_max=128, page_size=16,
+                    sync_every=8, params=params, device=dev)]
+    eps += [Endpoint(c, max_concurrency=4, t_max=128, page_size=16,
+                     sync_every=8, seed=i + 1, device=dev)
+            for i, c in enumerate(smoke)]
+    hp = HybridPredictor(PredictorConfig(n_models=4), seed=0, device=dev
+                         ).fit_store(generate(n=8192, seed=0, pool=pool))
+    router = OmniRouter(hp, RouterConfig(alpha=0.75))
+    ds = generate(n=ROUTED_REQS, seed=3, pool=pool)
+    small_vocab = min([cfg] + smoke, key=lambda c: c.vocab_size)
+    srv = MultiLLMServer(eps, router)
+    for rid, text in enumerate(ds.queries):
+        srv.submit(Request(rid, encode_for_config(small_vocab, text),
+                           max_new=16))
+    pd_ops.launches = 0
+    t0 = time.perf_counter()
+    served = srv.run(lambda b: ds.subset(np.array([r.rid for r in b])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routed_launches = pd_ops.launches
+    per_ep = np.bincount([r.endpoint for r in served], minlength=4)
+    say(f"routed server (danube full width + {', '.join(c.name for c in smoke)};"
+        f" OmniRouter over a 8,192-row store): {len(served)}/{ROUTED_REQS} "
+        f"served, per endpoint {per_ep.tolist()}, {srv.route_calls} route "
+        f"calls in {srv.route_seconds:.3f} s, wall {wall:.2f} s, kernel "
+        f"launches {routed_launches}")
+    check(len(served) == ROUTED_REQS and all(
+        r.done and len(r.output) == 16 for r in served),
+          "routed server: not every request served")
+    check(bool((per_ep > 0).all()), "routed server: an endpoint served none")
+    check(routed_launches > 0, "routed server: the kernel never ran")
+    del eps, srv, params
+
+    # S6. the all-smoke float32 pool behind BalanceAware, card vs CPU
+    cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
+            for a in SMOKE_POOL]
+    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    rng = np.random.RandomState(7)
+    todo = [(rng.randint(1, 512, (int(rng.randint(2, 40)),)).astype(np.int32),
+             int(rng.randint(4, 17))) for _ in range(CPU_REQS)]
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        eps = [Endpoint(c, max_concurrency=3, t_max=64, page_size=8,
+                        sync_every=4, device=where,
+                        params=_tree_to(host[i], where))
+               for i, c in enumerate(cfgs)]
+        srv = MultiLLMServer(eps, BalanceAware())
+        for rid, (toks, m) in enumerate(todo):
+            srv.submit(Request(rid, toks, max_new=m))
+        runs.append({r.rid: (r.endpoint, list(r.output))
+                     for r in srv.run(null_route_features)})
+    card, host_run = runs
+    same_ep = np.mean([card[i][0] == host_run[i][0] for i in range(CPU_REQS)])
+    same_out = np.mean([card[i] == host_run[i] for i in range(CPU_REQS)])
+    say(f"smoke pool float32, card vs CPU ({CPU_REQS} requests): same "
+        f"endpoint {same_ep:.4f}, same (endpoint, output) {same_out:.4f}")
+    check(len(card) == len(host_run) == CPU_REQS,
+          "card vs CPU: a request was lost")
+    check(same_ep >= 0.95 and same_out >= 0.95,
+          "card vs CPU: outputs differ on more than 5% of requests")
+    row["launches"] = ep_launches + routed_launches
+    say(f"paged decode launches on the main path: endpoint {ep_launches}, "
+        f"routed server {routed_launches}")
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _tree_to(tree, where):
+    """The tree on another device or in another dtype (``Tensor.to``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, where) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, where) for v in tree]
+    return tree.to(where)
 
 
 def main() -> int:
@@ -389,9 +815,15 @@ def main() -> int:
     check(abs(r_gpu["success_rate"] - r_cpu["success_rate"]) <= 0.02,
           "card and CPU success rates differ")
 
+    del hp, hp_cpu, hp_gpu, emb, labels, proj, q_route
+    rows["paged_decode_attention"] = serving_plane(
+        torch, np, dev, say, check, time_ms)
+
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    kernels = [rows["retrieval_vote"], rows["dual_solve"]]
+        f"since the endpoint phase {peak:.2f} GiB")
+    kernels = [rows["retrieval_vote"], rows["dual_solve"],
+               rows["paged_decode_attention"]]
     for r in kernels:
         check(set(r) >= {"name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

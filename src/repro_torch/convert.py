@@ -2,7 +2,7 @@
 
 The JAX package's parameters reach this module as NumPy (``jax.tree.map(
 np.asarray, params)``), so the port never imports JAX.  The tests use these
-two functions to make both packages compute the same function.
+functions to make both packages compute the same function.
 """
 from __future__ import annotations
 
@@ -37,3 +37,21 @@ def vector_store_from_numpy(emb, labels, size: int, device=None
                      device=device)
     vs.append(emb[:size], labels[:size])
     return vs
+
+
+def model_params_from_numpy(cfg, tree, device=None):
+    """A ``DecoderLM`` parameter tree of NumPy arrays (the JAX layout:
+    ``segs[si][j]`` dicts of stacked ``(count, ...)`` leaves) -> the same
+    tree of ``cfg.dtype`` tensors on ``device``.  Leaves pass through
+    float32, which holds bf16 values exactly."""
+    device = default_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return torch.from_numpy(np.array(node, np.float32)).to(
+            device=device, dtype=cfg.dtype)
+
+    return walk(tree)

@@ -1,0 +1,278 @@
+"""Streaming control plane: the ONE admission / dispatch / completion loop
+of the serving engine (``repro_torch.serving.engine.MultiLLMServer``).
+
+The port of ``repro.core.control``:
+
+- :class:`AdmissionRule` is the single home of the paper's §4.2 capacity
+  rule.
+- :class:`StreamController` owns the routing side of the stream: with
+  ``stream=True`` it carries the :class:`~repro_torch.core.optimizer.DualState`
+  across windows through ``Policy.route_window``; with ``stream=False`` it
+  is the stateless one-shot ``Policy.route`` (``route_via_batch``).
+- :class:`AdaptiveWindow` widens or narrows the routing window from each
+  window's solve cost and the backlog.
+- :class:`ControlLoop` drives an *executor* (the engine's endpoint pool)
+  through release-arrivals → admit-window → advance.
+
+Not in this slice: padded, masked windows.  The reference's ``OmniRouter``
+declares ``pads_windows`` and its windows are padded to power-of-two
+buckets with ``n_valid`` masking; the port's router has no masked windows
+yet (ROADMAP deferred item b), so ``StreamController(stream=True)`` over
+such a policy raises instead of routing unpadded windows that would differ
+from the reference.  Not ported either: the health plane
+(``core/health.py``), the sanitizer hooks, the online fold-back of
+completions (``FoldBuffer``, with ``MultiLLMServer(fold_online=True)``) and
+the event-driven simulator's loop cadence (back-to-back admissions).
+
+The executor duck-type:
+
+    now() -> float                     stream clock (decode steps)
+    loads() / counts() -> (M,) arrays  per-model capacity and in-flight
+    dispatch(items, x) -> rejected     execute one routed window; return the
+                                       items that found no capacity
+    advance(wake_at) -> (done, bool)   move the clock one step; return
+                                       completed items + progress flag.
+                                       ``wake_at`` is the next time anything
+                                       new can happen (arrival / window
+                                       deadline) for idle clock jumps
+    stopped                            True once the step budget is spent
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from collections import deque
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from .baselines import Policy
+from .optimizer import DualState
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionRule:
+    """The paper §4.2 capacity rule, deduplicated out of the simulator and
+    the engine: batch size and in-flight cap both default to half the
+    pool's total concurrency."""
+
+    batch_size: int = 0      # 0 -> cap_total // 2
+    max_inflight: int = 0    # 0 -> cap_total // 2
+
+    def resolve(self, cap_total: int) -> "AdmissionRule":
+        half = max(1, int(cap_total) // 2)
+        return AdmissionRule(self.batch_size or half,
+                             self.max_inflight or half)
+
+    def take(self, queued: int, inflight: int) -> int:
+        """How many queries the next routing window may admit."""
+        return max(0, min(self.batch_size, queued,
+                          self.max_inflight - inflight))
+
+
+class AdaptiveWindow:
+    """Adaptive routing-window width: hold the routing overhead near a
+    target (carried from the streaming PR's open item).
+
+    Each routed window runs a dual solve whose cost shows up as that
+    window's ``dual_iters``; the window width trades that overhead against
+    admission latency.  After every window: a solve past ``target_iters``
+    WIDENS the window (more queries amortize one solve), a cheap solve
+    left with a backlog deeper than ``deep_queue`` NARROWS it (admission
+    is falling behind a cheap router).  Width stays clamped to
+    ``[lo, hi]``."""
+
+    def __init__(self, window: float, *, lo: float = 1.0, hi: float = 64.0,
+                 target_iters: int = 50, deep_queue: int = 16,
+                 grow: float = 1.5, shrink: float = 2 / 3):
+        if not (0 < lo <= window <= hi):
+            raise ValueError(f"need 0 < lo <= window <= hi, got "
+                             f"{lo} / {window} / {hi}")
+        if not (shrink < 1.0 < grow):
+            raise ValueError(f"need shrink < 1 < grow, got {shrink}/{grow}")
+        self.window = float(window)
+        self.lo = float(lo)
+        self.hi = float(hi)
+        self.target_iters = int(target_iters)
+        self.deep_queue = int(deep_queue)
+        self.grow = float(grow)
+        self.shrink = float(shrink)
+        self.widened = 0
+        self.narrowed = 0
+
+    def update(self, iters_run: int, queue_depth: int) -> float:
+        """Fold one routed window's observed cost + backlog; returns the
+        width the NEXT window should use."""
+        if iters_run > self.target_iters:
+            nxt = min(self.window * self.grow, self.hi)
+            self.widened += int(nxt != self.window)
+            self.window = nxt
+        elif (iters_run < self.target_iters // 2
+                and queue_depth > self.deep_queue):
+            nxt = max(self.window * self.shrink, self.lo)
+            self.narrowed += int(nxt != self.window)
+            self.window = nxt
+        return self.window
+
+
+class StreamController:
+    """Routing side of the stream: persistent dual state + horizon shares.
+
+    One controller lives for the whole stream; each routed window updates
+    ``state`` (multipliers + cumulative ledger) and the iteration/window
+    counters used by the benchmarks.  ``horizon`` is the expected total
+    stream length — window k's budget share is ``n_k / remaining``, so a
+    stationary stream spreads the global budget evenly and under-spend
+    rolls forward.
+    """
+
+    def __init__(self, policy: Policy, *, horizon: int = 0,
+                 stream: bool = True,
+                 adapt_window: Optional[AdaptiveWindow] = None):
+        if stream and getattr(policy, "pads_windows", False):
+            raise NotImplementedError(
+                "stream=True over a policy that pads its windows (OmniRouter)"
+                " needs masked windows (n_valid), not ported yet: ROADMAP "
+                "deferred item b; route with stream=False")
+        self.policy = policy
+        self.stream = stream
+        self.horizon = int(horizon)
+        self.adapt_window = adapt_window  # optional adaptive window sizing
+        self.state: Optional[DualState] = None
+        self.routed = 0
+        self.windows = 0
+        self.route_seconds = 0.0
+        self._iters0 = int(getattr(policy, "dual_iters", 0))
+
+    def route(self, ds_like, loads, counts) -> np.ndarray:
+        """Build the RouteBatch from the admitted queries + LIVE fleet
+        state and route it — the one admission/routing path of the engine.
+
+        Ledger caveat: ``route_window`` charges the ledger for every query
+        it ROUTES; a query the executor then rejects (no capacity) and
+        re-routes later would be charged twice.  A stateful policy that
+        over-commits capacity would drift."""
+        t0 = time.perf_counter()
+        if self.stream:
+            batch = ds_like.route_batch(
+                np.asarray(loads, float), counts,
+                with_truth=getattr(self.policy, "needs_truth", False))
+            n_true = batch.n
+            n_rem = max(self.horizon - self.routed, n_true)
+            x, self.state = self.policy.route_window(
+                batch, self.state, share=n_true / n_rem)
+            n_routed = n_true
+        else:
+            from .scheduler import route_via_batch
+            x = route_via_batch(self.policy, ds_like, loads, counts)
+            n_routed = len(x)
+        self.route_seconds += time.perf_counter() - t0
+        self.routed += n_routed
+        self.windows += 1
+        return np.asarray(x).astype(int)
+
+    @property
+    def dual_iters(self) -> int:
+        """Dual iterations run on THIS stream (policies accumulate across
+        their lifetime; the baseline was captured at construction)."""
+        return int(getattr(self.policy, "dual_iters", 0)) - self._iters0
+
+
+class ControlLoop:
+    """The engine's admit→advance loop: at most one routing window per
+    decode step, then one step of every endpoint.
+
+    ``items`` are the engine's Requests; ``arrival_times`` releases them
+    into the ready queue as the executor's clock passes each time (None =
+    all at t=0).  ``window`` > 0 rate-limits routing windows: a window fires
+    when at least ``window`` clock units have passed since the last one OR
+    a full batch has accumulated, so light traffic batches up instead of
+    degenerating to per-query routing.  A request that finds no capacity
+    goes back to the FRONT of the ready queue, in order.
+    """
+
+    def __init__(self, *, executor, controller: StreamController,
+                 rule: AdmissionRule, items: Sequence, features: Callable,
+                 arrival_times: Optional[np.ndarray] = None,
+                 window: float = 0.0):
+        self.executor = executor
+        self.controller = controller
+        self.rule = rule
+        self.features = features
+        self.window = float(window)
+        items = list(items)
+        if arrival_times is None:
+            arrival_times = np.zeros(len(items))
+        order = np.argsort(arrival_times, kind="stable")
+        # min-heap of (time, rid, request): equal-time arrivals pop in rid
+        # order, whatever the insertion order
+        self.pending: list = [(float(arrival_times[i]), int(items[i].rid),
+                               items[i]) for i in order]
+        heapq.heapify(self.pending)
+        self.ready: deque = deque()
+        self._next_window = -np.inf
+
+    # -- stream bookkeeping ----------------------------------------------------
+    def _release_arrivals(self):
+        now = self.executor.now()
+        while self.pending and self.pending[0][0] <= now + 1e-9:
+            self.ready.append(heapq.heappop(self.pending)[2])
+
+    def _wake_at(self) -> Optional[float]:
+        """Next clock value at which something new can happen while the
+        executor is otherwise idle: an arrival or a window deadline.  Only
+        STRICTLY FUTURE times count — a deadline already passed must not
+        short-circuit the executor's own event processing (that would spin
+        the loop without advancing)."""
+        now = self.executor.now()
+        wake = self.pending[0][0] if self.pending else None
+        if (self.ready and self.window > 0 and self._next_window > now
+                and (wake is None or self._next_window < wake)):
+            wake = self._next_window
+        return wake
+
+    # -- one admission attempt -------------------------------------------------
+    def _try_admit(self) -> bool:
+        ex = self.executor
+        if not self.ready:
+            return False
+        counts = np.asarray(ex.counts())
+        loads = np.asarray(ex.loads())
+        if not np.any(counts < loads):
+            return False
+        if (self.window > 0 and ex.now() < self._next_window
+                and len(self.ready) < self.rule.batch_size):
+            return False    # wait for the window timer (or a full batch)
+        take = self.rule.take(len(self.ready), int(counts.sum()))
+        if take <= 0:
+            return False
+        batch = [self.ready.popleft() for _ in range(take)]
+        iters0 = self.controller.dual_iters
+        x = self.controller.route(self.features(batch), loads, counts)
+        aw = self.controller.adapt_window
+        if aw is not None and self.window > 0:
+            # widen/narrow the NEXT window from this one's solve cost and
+            # the backlog it left behind
+            self.window = aw.update(self.controller.dual_iters - iters0,
+                                    len(self.ready))
+        rejected = ex.dispatch(batch, x)
+        self.ready.extendleft(reversed(rejected))
+        self._next_window = ex.now() + self.window
+        # a fully-rejected batch is NOT admission progress: the loop must
+        # not count it as such when it decides whether it is deadlocked
+        return len(rejected) < len(batch)
+
+    # -- the loop --------------------------------------------------------------
+    def run(self):
+        ex = self.executor
+        self._release_arrivals()
+        while self.ready or self.pending or ex.counts().sum() > 0:
+            if ex.stopped:
+                break               # executor hit its hard step budget
+            admitted = self._try_admit()
+            _, progressed = ex.advance(self._wake_at())
+            self._release_arrivals()
+            if not progressed and not admitted:
+                break               # deadlocked or out of steps: bail
+        return self

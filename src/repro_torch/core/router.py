@@ -55,6 +55,12 @@ class OmniRouter(Policy):
     implements the device predict contract (``token_len``,
     ``device_inputs``, ``predict_device``, ``device``)."""
 
+    # the reference's declaration: its streaming windows are padded to
+    # power-of-two buckets and masked by ``n_valid``.  The port has no
+    # masked windows yet, so ``core.control.StreamController(stream=True)``
+    # refuses such a policy (ROADMAP deferred item b).
+    pads_windows = True
+
     def __init__(self, predictor, cfg: RouterConfig = RouterConfig(),
                  name: str = "ECCOS"):
         if tuple(cfg.spec_pairs):

@@ -1,0 +1,29 @@
+"""Entry point of the paged decode attention, dispatched by device.
+
+A CUDA tensor launches the hand-written kernel (``kernel.py``) or raises;
+a CPU tensor runs the plain PyTorch version (``ref.py``).  ``launches``
+counts the kernel calls made through this entry point (one per call: the
+split pass and its merge).
+"""
+from __future__ import annotations
+
+from .kernel import paged_decode_attention_cuda
+from .ref import paged_decode_attention_ref
+
+launches = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
+                           window: int = 0):
+    """q (B,1,H,D); pools (n_pages, PS, K, D); block_table (B,P) int32;
+    lens (B,) int32 valid lengths.  Returns (B,1,H,D) in q's dtype."""
+    global launches
+    if q.is_cuda:
+        out = paged_decode_attention_cuda(q, k_pages, v_pages, block_table,
+                                          lens, window=window)
+        launches += 1
+        return out
+    if q.device.type != "cpu":
+        raise ValueError(f"no paged decode attention for device {q.device}")
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_table, lens,
+                                      window=window)

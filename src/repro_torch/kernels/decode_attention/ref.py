@@ -1,0 +1,59 @@
+"""Plain PyTorch versions of the paged decode attention.
+
+Counterparts of ``repro.kernels.decode_attention.ref`` (``gather_pages``,
+``decode_attention_ref``, ``paged_decode_attention_ref``).  The split merge
+(``ops.merge_partials`` there) has no counterpart: the CUDA kernel merges
+its own splits, and the plain version computes no splits.  The softmax
+and both products run in float32 on operands widened from their storage
+type, and the result is rounded once to q's type: the numerics of the TPU
+kernel, which the CUDA kernel (``kernel.py``) shares.  These versions gather
+the block-table pages into a dense copy; the kernel does not.
+
+A sequence with no valid position (lens 0, or a window past every written
+position) gets the mean of every gathered V here, as in the JAX reference
+(``exp(NEG_INF - NEG_INF) = 1``); the CUDA kernel gives 0 there, as the
+NumPy oracle does.  The serving path attends over ``lens + 1 >= 1``
+positions, so it never produces such a row.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def gather_pages(k_pages: torch.Tensor, block_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """(n_pages, PS, K, D) + (B, P) -> dense (B, P·PS, K, D) copy."""
+    b, p = block_table.shape
+    ps, kh, d = k_pages.shape[1:]
+    return k_pages[block_table.long()].reshape(b, p * ps, kh, d)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lens, *, window: int = 0):
+    """q (B,1,H,D); caches (B,T,K,D); lens (B,) int valid lengths.  Float32
+    softmax; returns (B,1,H,D) in q's dtype."""
+    b, _, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    qf = q.reshape(b, kh, g, d).float() * (d ** -0.5)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.float())
+    kv = torch.arange(t, device=q.device)
+    pcol = lens.to(torch.int32).reshape(-1, 1)
+    valid = kv[None, :] < pcol
+    if window > 0:
+        valid = valid & (kv[None, :] > pcol - 1 - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_table, lens, *,
+                               window: int = 0):
+    """Gather the block-table pages into a dense per-sequence view, then the
+    lens-masked split-free softmax of :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, gather_pages(k_pages, block_table),
+                                gather_pages(v_pages, block_table),
+                                lens, window=window)

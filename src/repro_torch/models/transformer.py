@@ -1,0 +1,221 @@
+"""Decoder LM for the dense family (attention + gated MLP layers).
+
+The port of ``repro.models.transformer.DecoderLM`` on the paths the paged
+serving plane runs: the full-sequence forward (``hidden``/``logits``),
+``prefill`` (which returns the KV cache) and the paged single-token decode
+(``decode_step_paged``).  The parameter layout is the reference's:
+``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
+pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
+tree carries across unchanged (``repro_torch.convert``).  A Python loop over
+the layers takes the place of ``lax.scan``.
+
+Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention, the
+int8 KV pools, the dense-cache ``decode_step``, ``verify_step_paged`` and
+the training loss; their configs raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from repro_torch.common import ParamDecl, default_device, init_params
+from repro_torch.configs.base import ModelConfig
+from .attention import attention_block, attn_decls, project_kv_token
+from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
+                     norm_decl, rms_norm)
+from .plan import LayerKind, layer_plan
+
+
+def _stack(decls, count: int):
+    if isinstance(decls, ParamDecl):
+        return ParamDecl((count,) + decls.shape, decls.init, decls.scale,
+                         decls.dtype)
+    return {k: _stack(v, count) for k, v in decls.items()}
+
+
+def _layer(stacked, i: int):
+    """Layer ``i`` of a tree of stacked ``(count, ...)`` leaves (views)."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
+    dt = cfg.dtype
+    return {
+        "ln1": norm_decl(cfg.d_model, dt),
+        "attn": attn_decls(cfg),
+        "ln2": norm_decl(cfg.d_model, dt),
+        "ffn": mlp_decls(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, dt),
+    }
+
+
+def _ffn_residual(cfg: ModelConfig, params: dict, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """Post-attention tail shared by the full-sequence and paged decode
+    paths: ln2 + dense FFN residual."""
+    f = rms_norm(x, params["ln2"], cfg.norm_eps)
+    return x + mlp(params["ffn"], f)
+
+
+def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
+                 x: torch.Tensor, *, q_offset: int = 0):
+    """Full-sequence layer.  Returns (x, {"k", "v"} of this layer)."""
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    a, (k, v) = attention_block(cfg, params["attn"], h, causal=True,
+                                window=kind.window, q_offset=q_offset)
+    return _ffn_residual(cfg, params, x + a), {"k": k, "v": v}
+
+
+def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
+                        x: torch.Tensor, pools: dict, i: int,
+                        block_table: torch.Tensor, lens: torch.Tensor
+                        ) -> torch.Tensor:
+    """One decode layer over the paged state: write this token's K/V into
+    its page slot (block_table[b, lens[b] // PS], lens[b] % PS) of layer i's
+    pools, then attend through the block table."""
+    k_pool, v_pool = pools["k"], pools["v"]          # (L, n_pages, PS, K, D)
+    page_size = k_pool.shape[2]
+    p_max = block_table.shape[1]
+    pg = (lens // page_size).long()
+    # a finished row may sit at lens == P·PS: the reference drops its
+    # out-of-range write, here it lands on the dump page
+    pidx = torch.where(
+        pg < p_max,
+        block_table.gather(1, pg.clamp(max=p_max - 1)[:, None])[:, 0], 0)
+    off = (lens % page_size).long()
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    k_new, v_new = project_kv_token(cfg, params["attn"], h, lens)
+    # in place (index_put_): the reference's functional ``.at[i, pidx,
+    # off].set`` is cheap only because XLA donates the buffer; an
+    # out-of-place scatter here would copy the whole stacked pool, ~3 GB
+    # per layer per token at the serving shapes
+    k_pool[i, pidx.long(), off] = k_new[:, 0].to(k_pool.dtype)
+    v_pool[i, pidx.long(), off] = v_new[:, 0].to(v_pool.dtype)
+    # pool[i] is contiguous (the layer axis leads): the kernel takes it as is
+    lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
+          "block_table": block_table, "pos": lens}
+    a, _ = attention_block(cfg, params["attn"], h, causal=True,
+                           window=kind.window, cache=lc, prewritten=True)
+    return _ffn_residual(cfg, params, x + a)
+
+
+class DecoderLM:
+    """Dense decoder language model (sliding-window and local:global
+    attention patterns included)."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError("int8 KV pools are not ported yet")
+        self.cfg = cfg
+        self.plan = layer_plan(cfg)
+        for _, pattern in self.plan:
+            for kind in pattern:
+                if kind.block != "attn" or kind.is_moe:
+                    raise NotImplementedError(
+                        f"{cfg.name}: layer block {kind.block!r} (moe="
+                        f"{kind.is_moe}) is not ported yet")
+
+    # -- declarations --------------------------------------------------
+    def decls(self) -> dict:
+        cfg = self.cfg
+        d = {
+            "embed": embed_decls(cfg.padded_vocab, cfg.d_model, cfg.dtype),
+            "final_norm": norm_decl(cfg.d_model, cfg.dtype),
+            "segs": [[_stack(_layer_decls(cfg, k), count) for k in pattern]
+                     for count, pattern in self.plan],
+        }
+        if not cfg.tie_embeddings:
+            d["out_embed"] = embed_decls(cfg.padded_vocab, cfg.d_model,
+                                         cfg.dtype)
+        return d
+
+    def init(self, seed: int = 0, device=None):
+        """Random weights drawn on ``device`` from a generator of that
+        device seeded with ``seed``."""
+        device = default_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_params(self.decls(), gen, device)
+
+    def _out_table(self, params):
+        return params.get("out_embed", params["embed"])
+
+    def _layers(self, params):
+        """(kind, layer params, pattern index j, segment index si, layer i)
+        in stack order."""
+        for si, (count, pattern) in enumerate(self.plan):
+            for i in range(count):
+                for j, kind in enumerate(pattern):
+                    yield kind, _layer(params["segs"][si][j], i), si, j, i
+
+    # -- full-sequence forward ------------------------------------------
+    def hidden(self, params, tokens: torch.Tensor, q_offset: int = 0):
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        for kind, lp, *_ in self._layers(params):
+            x, _ = _apply_layer(cfg, kind, lp, x, q_offset=q_offset)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def logits(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        h = self.hidden(params, tokens)
+        return logits_for(self._out_table(params), h).float()
+
+    # -- caches -------------------------------------------------------------
+    def empty_paged_state(self, n_slots: int, n_pages: int, page_size: int,
+                          device=None) -> dict:
+        """Fixed-shape serving state: per pattern position, K and V page
+        pools ``(count, n_pages, page_size, K, D)`` shared by every slot
+        (``n_slots`` is part of the reference's signature; attention-only
+        models keep no per-slot state)."""
+        cfg = self.cfg
+        device = default_device(device)
+        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        return {"segs": [
+            [{key: torch.zeros((count,) + shape, dtype=cfg.dtype,
+                               device=device) for key in ("k", "v")}
+             for _ in pattern]
+            for count, pattern in self.plan]}
+
+    # -- prefill: build the cache over a prompt -----------------------------
+    def prefill(self, params, tokens: torch.Tensor):
+        """tokens (B, S).  Returns (cache, float32 logits of the last
+        position): cache ``{"pos": S, "segs": [[{"k", "v"} of shape
+        (count, B, S, K, D)]]}``."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        per_layer: dict = {}
+        for kind, lp, si, j, _ in self._layers(params):
+            x, kv = _apply_layer(cfg, kind, lp, x)
+            per_layer.setdefault((si, j), []).append(kv)
+        segs = [[{key: torch.stack([kv[key] for kv in per_layer[(si, j)]])
+                  for key in ("k", "v")} for j in range(len(pattern))]
+                for si, (_, pattern) in enumerate(self.plan)]
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = logits_for(self._out_table(params), h[:, -1]).float()
+        return {"pos": tokens.shape[1], "segs": segs}, logits
+
+    # -- paged single-token decode -------------------------------------------
+    def decode_step_paged(self, params, state: dict, token: torch.Tensor,
+                          block_table: torch.Tensor, lens: torch.Tensor):
+        """token (B,1) int32; block_table (B,P) int32 physical page ids;
+        lens (B,) int32 tokens already in the cache.  Writes the token's K/V
+        at position lens[b] of every layer's pools IN PLACE and returns
+        (state, float32 logits (B, V_padded)); the caller advances lens."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], token)
+        for kind, lp, si, j, i in self._layers(params):
+            x = _decode_layer_paged(cfg, kind, lp, x, state["segs"][si][j], i,
+                                    block_table, lens)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, -1]
+        table = self._out_table(params)
+        # the reference keeps these logits unrounded
+        # (``preferred_element_type=f32``).  On the card a bf16 table goes
+        # into the product as is, with float32 output: widening it first
+        # would write and read a float32 copy of the table every step
+        # (~0.5 GB at 32000 x 3840)
+        if table.is_cuda and table.dtype != torch.float32:
+            logits = torch.mm(h, table.t(), out_dtype=torch.float32)
+        else:
+            logits = h.float() @ table.float().t()
+        return state, logits

@@ -1,0 +1,76 @@
+"""Model zoo facade and the page layout helpers of the paged serving plane.
+
+The port of ``repro.models.zoo``: ``build_model`` and the admission path's
+helpers — prefill ONE request and scatter its cache into the endpoint's
+fixed-shape paged state (``prefill_into_pages``), zero a slot's recurrent
+state (``reset_slot``), and size a request's pages (``pages_per_request``).
+Families not ported yet (MoE, hybrid-SSM, xLSTM, encoder-decoder) raise.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from .transformer import DecoderLM
+
+_NOT_PORTED = ("moe", "hymba", "xlstm", "encdec")
+
+
+def build_model(cfg: ModelConfig) -> DecoderLM:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet")
+    return DecoderLM(cfg)
+
+
+_PAGED_KV_KEYS = ("k", "v")
+_PAGED_SCALE_KEYS = ("k_scale", "v_scale")
+# every cache leaf living in a shared page pool (vs per-slot recurrent
+# state) — the serving engine classifies models by this same set
+PAGED_POOL_KEYS = _PAGED_KV_KEYS + _PAGED_SCALE_KEYS
+
+
+def prefill_into_pages(state: dict, cache: dict, page_ids, slot,
+                       page_size: int) -> dict:
+    """Scatter a single-request prefill ``cache`` (batch 1, length t) into
+    the paged ``state`` IN PLACE and return it.
+
+    ``page_ids``: (ceil(t / page_size),) physical pages owned by the request
+    (its block-table prefix).  KV positions past t (the bucket pad tail)
+    scatter zeros — masked by ``lens`` at attention time and overwritten as
+    decode advances.  The reference's functional ``pool.at[:, ids].set`` is
+    an indexed assignment into the pool here, so no pool is copied."""
+    page_ids = torch.as_tensor(page_ids, dtype=torch.long)
+    n_chunk = page_ids.shape[0]
+    for seg_s, seg_c in zip(state["segs"], cache["segs"]):
+        for layer_state, layer_cache in zip(seg_s, seg_c):
+            for key, leaf in layer_cache.items():
+                if key not in _PAGED_KV_KEYS:
+                    raise NotImplementedError(
+                        f"cache leaf {key!r}: only bf16/f32 KV pools are "
+                        "ported")
+                pool = layer_state[key]                  # (L, n_pages, PS, K, D)
+                l, _, t, kh, hd = leaf.shape             # (L, 1, t, K, D)
+                kv = F.pad(leaf[:, 0], (0, 0, 0, 0, 0, n_chunk * page_size - t))
+                pool[:, page_ids.to(pool.device)] = kv.reshape(
+                    l, n_chunk, page_size, kh, hd).to(pool.dtype)
+    return state
+
+
+def reset_slot(state: dict, slot: int) -> dict:
+    """Zero a slot's recurrent state IN PLACE (admission of a prompt too
+    short to prefill).  KV pages need no reset — ``lens`` masking covers
+    them."""
+    for seg in state["segs"]:
+        for layer_state in seg:
+            for key, pool in layer_state.items():
+                if key not in PAGED_POOL_KEYS:
+                    pool[:, slot] = 0
+    return state
+
+
+def pages_per_request(prompt_len: int, max_new: int, page_size: int) -> int:
+    """Physical pages a request needs over its whole lifetime: prefix plus
+    every decode write (positions 0 .. prompt_len + max_new - 1)."""
+    return -(-(prompt_len + max_new) // page_size)

@@ -3,9 +3,11 @@
 The port imports neither ``jax`` nor anything of the JAX package ``repro``:
 a subprocess imports every module of the port and checks ``sys.modules``,
 and a source scan finds no such import in the port or in ``chip_smoke.py``.
-The NumPy leaves the port copies (tokenizer, SynthQAServe, baselines, the
-featurizer projection) must equal their originals exactly — same token
-ids, same dataset, same projection bits, same baseline routes.
+The plain-Python and NumPy leaves the port copies (tokenizer, SynthQAServe,
+baselines, the featurizer projection, the arch configs, the layer plan,
+``route_via_batch`` and the admission rule) must equal their originals
+exactly — same token ids, same dataset, same projection bits, same config
+values, same plans, same routes.
 """
 import os
 import re
@@ -129,3 +131,74 @@ def test_pad_helpers_match(n, multiple):
     import repro.core.baselines as ref_b
     import repro_torch.core.baselines as port_b
     assert port_b.pad_bucket(n, multiple) == ref_b.pad_bucket(n, multiple)
+
+
+def _all_configs():
+    from repro.configs import list_archs
+    return [(arch, smoke) for arch in list_archs() for smoke in (False, True)]
+
+
+@pytest.mark.parametrize("arch,smoke", _all_configs())
+def test_arch_config_copies_hold_the_same_values(arch, smoke):
+    import dataclasses as dc
+    import repro.configs as ref_c
+    import repro_torch.configs as port_c
+    get = "get_smoke_config" if smoke else "get_config"
+    want = getattr(ref_c, get)(arch)
+    got = getattr(port_c, get)(arch)
+    for f in dc.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "dtype":
+            assert str(a).split(".")[-1] == np.dtype(b).name, (a, b)
+        else:
+            assert a == b, f.name
+    assert (got.hd, got.padded_vocab, got.q_per_kv) == (
+        want.hd, want.padded_vocab, want.q_per_kv)
+
+
+@pytest.mark.parametrize("arch,smoke", _all_configs())
+def test_layer_plan_copy_is_identical(arch, smoke):
+    import repro.configs as ref_c
+    import repro_torch.configs as port_c
+    from repro.models.plan import layer_plan as ref_plan
+    from repro.models.plan import plan_layer_count as ref_count
+    from repro_torch.models.plan import layer_plan, plan_layer_count
+    get = "get_smoke_config" if smoke else "get_config"
+    want = ref_plan(getattr(ref_c, get)(arch))
+    got = layer_plan(getattr(port_c, get)(arch))
+
+    def flat(plan):
+        return [(c, tuple((k.block, k.window, k.is_moe) for k in p))
+                for c, p in plan]
+
+    assert flat(got) == flat(want)
+    assert plan_layer_count(got) == ref_count(want)
+
+
+@pytest.mark.parametrize("policy", ["BalanceAware", "Oracle"])
+def test_route_via_batch_copy_routes_the_same(policy):
+    import repro.core.baselines as ref_b
+    from repro.core.scheduler import route_via_batch as ref_route
+    from repro.data.qaserve import generate as ref_generate
+    import repro_torch.core.baselines as port_b
+    from repro_torch.core.scheduler import route_via_batch
+    from repro_torch.data.qaserve import generate
+    loads, counts = np.full(6, 30.0), np.arange(6.0)
+    got = route_via_batch(getattr(port_b, policy)(), generate(n=90, seed=4),
+                          loads, counts, rng=np.random.RandomState(1))
+    want = ref_route(getattr(ref_b, policy)(), ref_generate(n=90, seed=4),
+                     loads, counts, rng=np.random.RandomState(1))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("batch_size,cap,queued,inflight", [
+    (0, 16, 40, 3), (5, 16, 2, 0), (0, 3, 9, 1), (4, 12, 10, 7)])
+def test_admission_rule_copy_takes_the_same(batch_size, cap, queued,
+                                            inflight):
+    from repro.core.control import AdmissionRule as RefRule
+    from repro_torch.core.control import AdmissionRule
+    got = AdmissionRule(batch_size).resolve(cap)
+    want = RefRule(batch_size).resolve(cap)
+    assert (got.batch_size, got.max_inflight) == (want.batch_size,
+                                                  want.max_inflight)
+    assert got.take(queued, inflight) == want.take(queued, inflight)

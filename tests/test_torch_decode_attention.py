@@ -1,0 +1,137 @@
+"""The port's paged decode attention against the JAX package.
+
+``paged_decode_attention_ref`` (the CUDA kernel's plain version and the
+port's CPU path, reached through ``ops.paged_decode_attention``) against
+three references, on float32 inputs made with numpy from a seed: the JAX
+``paged_decode_attention_ref``, the NumPy oracle
+``paged_decode_attention_np``, and the JAX Pallas kernel in interpret mode
+merged by ``merge_partials``, as ``tests/test_serving_paged.py`` runs it.
+The cases are that test's four shapes plus head_dim 120 with four query
+heads per kv head (h2o-danube-3-4b's attention) unwindowed and under a
+window that masks, all with shuffled physical pages and page 0 as the dump
+page.  Tolerance 2e-5, the reference test's own (float32 softmax and dot
+products summed in another order).
+
+The CUDA kernel has no CPU mode; it is held against this plain version on
+the card by ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.kernels.decode_attention.kernel import (  # noqa: E402
+    paged_decode_attention_kernel)
+from repro.kernels.decode_attention.ops import merge_partials as jax_merge  # noqa: E402
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as jax_dense_ref, paged_decode_attention_np,
+    paged_decode_attention_ref as jax_ref)
+from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    paged_decode_attention_cuda)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, gather_pages)
+
+CASES = [   # b, h, kh, d, ps, p_max, window, lens
+    (3, 8, 2, 64, 16, 8, 0, (100, 17, 128)),      # GQA, ragged
+    (2, 4, 4, 32, 8, 4, 0, (31, 1)),              # MHA, non-tile lens
+    (2, 8, 2, 64, 16, 8, 24, (100, 77)),          # sliding window
+    (1, 4, 1, 128, 32, 2, 0, (64,)),              # single kv head, full pages
+    (3, 16, 4, 120, 16, 8, 0, (1, 57, 128)),      # danube heads: D=120, G=4
+    (3, 16, 4, 120, 16, 8, 40, (1, 90, 128)),     # ... under a masking window
+]
+
+
+def _inputs(b, h, kh, d, ps, p_max, lens, seed=0):
+    rng = np.random.RandomState(seed)
+    n_pages = 1 + b * p_max
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    kp = rng.randn(n_pages, ps, kh, d).astype(np.float32)
+    vp = rng.randn(n_pages, ps, kh, d).astype(np.float32)
+    # shuffled physical ids; unused block-table entries point at page 0
+    bt = np.zeros((b, p_max), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    for i in range(b):
+        n_used = -(-int(lens[i]) // ps)
+        bt[i, :n_used] = perm[i * p_max: i * p_max + n_used]
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+def _port(q, kp, vp, bt, lens, window):
+    out = ops.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(bt), torch.from_numpy(lens), window=window)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("b,h,kh,d,ps,p_max,window,lens", CASES)
+def test_plain_version_matches_three_references(b, h, kh, d, ps, p_max,
+                                                window, lens):
+    q, kp, vp, bt, ln = _inputs(b, h, kh, d, ps, p_max, lens)
+    launches = ops.launches
+    got = _port(q, kp, vp, bt, ln, window)
+    assert ops.launches == launches          # a CPU tensor launches nothing
+    assert got.shape == q.shape and got.dtype == np.float32
+    oracle = paged_decode_attention_np(q, kp, vp, bt, ln, window=window)
+    ref = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(kp),
+                             jnp.asarray(vp), jnp.asarray(bt),
+                             jnp.asarray(ln), window=window))
+    o, m, l = paged_decode_attention_kernel(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(ln), window=window, interpret=True)
+    pallas = np.asarray(jax_merge(o, m, l)).reshape(q.shape)
+    for want in (oracle, ref, pallas):
+        assert float(np.max(np.abs(got - want))) < 2e-5
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[5]])
+def test_dense_plain_version_matches_jax(case):
+    """The dense-cache body the paged version runs after its gather, on
+    per-sequence lens, against the JAX ``decode_attention_ref`` at 2e-5."""
+    b, h, kh, d, ps, p_max, window, lens = case
+    rng = np.random.RandomState(1)
+    t = p_max * ps
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    kc, vc = (rng.randn(b, t, kh, d).astype(np.float32) for _ in range(2))
+    ln = np.asarray(lens, np.int32)
+    got = decode_attention_ref(*(torch.from_numpy(a) for a in (q, kc, vc, ln)),
+                               window=window).numpy()
+    want = np.asarray(jax_dense_ref(jnp.asarray(q), jnp.asarray(kc),
+                                    jnp.asarray(vc), jnp.asarray(ln),
+                                    window=window))
+    assert got.shape == want.shape
+    assert float(np.max(np.abs(got - want))) < 2e-5
+
+
+def test_gather_pages_is_the_block_table_view():
+    _, kp, _, bt, _ = _inputs(2, 4, 2, 16, 8, 4, (20, 9))
+    dense = gather_pages(torch.from_numpy(kp), torch.from_numpy(bt)).numpy()
+    assert dense.shape == (2, 32, 2, 16)
+    for i in range(2):
+        for j in range(4):
+            assert np.array_equal(dense[i, j * 8:(j + 1) * 8], kp[bt[i, j]])
+
+
+def test_fully_masked_row_keeps_the_jax_reference_behaviour():
+    """No valid position (lens 0): the plain version, like the JAX
+    reference, gives the mean of every gathered V; the NumPy oracle gives 0
+    (and so does the CUDA kernel).  The serving path never attends over
+    fewer than one position."""
+    q, kp, vp, bt, _ = _inputs(2, 4, 2, 16, 8, 4, (20, 9))
+    ln = np.array([0, 9], np.int32)
+    got = _port(q, kp, vp, bt, ln, 0)
+    ref = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(kp),
+                             jnp.asarray(vp), jnp.asarray(bt),
+                             jnp.asarray(ln)))
+    assert float(np.max(np.abs(got - ref))) < 2e-5
+    mean_v = vp[bt[0]].reshape(-1, 2, 16).mean(0)          # (K, D)
+    assert np.allclose(got[0, 0], np.repeat(mean_v, 2, axis=0), atol=2e-5)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    q, kp, vp, bt, ln = _inputs(1, 4, 2, 16, 8, 2, (9,))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode_attention_cuda(
+            torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(bt), torch.from_numpy(ln))

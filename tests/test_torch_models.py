@@ -1,0 +1,209 @@
+"""The port's dense decoder against the JAX package.
+
+The smoke configs of h2o-danube-3-4b (sliding window), internlm2-20b,
+qwen2-72b (``qkv_bias``) and gemma3-4b (5:1 local:global, tied
+embeddings), run in float32 in both packages with the JAX parameters carried
+over by ``convert.model_params_from_numpy``:
+
+- the full-sequence ``logits`` and ``prefill`` (last-position logits and
+  the K/V cache of every layer);
+- six greedy steps of ``decode_step_paged`` over a shuffled block table
+  with ragged lengths, after each request was prefilled alone and scattered
+  into the pages by ``prefill_into_pages``: logits every step, and the
+  greedy tokens equal.
+
+Tolerance: max |port - JAX| <= 1e-4 * max(1, max |JAX|).  Both sum float32
+products in another order; with random weights the activations reach ~20
+and the differences grow with depth (measured up to 4e-5 relative on
+gemma3's six layers).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import build_model as jax_build  # noqa: E402
+from repro.models.zoo import prefill_into_pages as jax_pip  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.attention import attention_block  # noqa: E402
+from repro_torch.models.zoo import (pages_per_request,  # noqa: E402
+                                    prefill_into_pages)
+
+ARCHS = ["h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b"]
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    tol = 1e-4 * max(1.0, float(np.max(np.abs(want))))
+    err = float(np.max(np.abs(np.asarray(got) - want)))
+    assert err <= tol, (err, tol)
+
+
+def _pair(arch, seed=0):
+    """(jax model, jax float32 params, port model, port params)."""
+    jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
+    pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    jm = jax_build(jc)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jm.init(jax.random.PRNGKey(seed)))
+    pm = build_model(pc)
+    pp = convert.model_params_from_numpy(pc, jax.tree.map(np.asarray, jp),
+                                         "cpu")
+    return jm, jp, pm, pp
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logits_and_prefill_match_jax(arch):
+    jm, jp, pm, pp = _pair(arch)
+    toks = np.random.RandomState(0).randint(
+        1, jm.cfg.vocab_size, (2, 20)).astype(np.int32)
+    _close(pm.logits(pp, torch.from_numpy(toks)).numpy(),
+           jm.logits(jp, jnp.asarray(toks)))
+    jcache, jlog = jm.prefill(jp, jnp.asarray(toks))
+    pcache, plog = pm.prefill(pp, torch.from_numpy(toks))
+    _close(plog.numpy(), jlog)
+    assert pcache["pos"] == 20
+    assert len(pcache["segs"]) == len(jcache["segs"])
+    for jseg, pseg in zip(jcache["segs"], pcache["segs"]):
+        assert len(jseg) == len(pseg)
+        for jl, pl in zip(jseg, pseg):
+            assert set(pl) == set(jl) == {"k", "v"}
+            for key in ("k", "v"):
+                assert tuple(pl[key].shape) == jl[key].shape
+                _close(pl[key].numpy(), jl[key])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_decode_matches_jax(arch):
+    jm, jp, pm, pp = _pair(arch, seed=1)
+    rng = np.random.RandomState(1)
+    b, ps, p_max = 3, 8, 4
+    n_pages = 1 + b * p_max
+    plens = [5, 11, 16]
+    jstate = jm.empty_paged_state(b, n_pages, ps)
+    pstate = pm.empty_paged_state(b, n_pages, ps, device="cpu")
+    bt = np.zeros((b, p_max), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    last = np.zeros((b, 1), np.int32)
+    for i, plen in enumerate(plens):
+        toks = rng.randint(1, jm.cfg.vocab_size, (plen + 1,)).astype(np.int32)
+        n_used = pages_per_request(plen, 6, ps)
+        bt[i, :n_used] = perm[i * p_max:i * p_max + n_used]
+        bucket = -(-plen // ps) * ps          # the engine's page bucket
+        pt = np.zeros((1, bucket), np.int32)
+        pt[0, :plen] = toks[:-1]
+        jcache, _ = jm.prefill(jp, jnp.asarray(pt))
+        pcache, _ = pm.prefill(pp, torch.from_numpy(pt))
+        ids = bt[i, :bucket // ps]
+        jstate = jax_pip(jstate, jcache, jnp.asarray(ids), i, ps)
+        prefill_into_pages(pstate, pcache, torch.from_numpy(ids), i, ps)
+        last[i, 0] = toks[-1]
+    for si, seg in enumerate(pstate["segs"]):    # the scatter, in place
+        for j, layer in enumerate(seg):
+            for key in ("k", "v"):
+                _close(layer[key].numpy(), jstate["segs"][si][j][key])
+    lens = np.asarray(plens, np.int32)
+    step = jax.jit(jm.decode_step_paged)
+    vocab = jm.cfg.vocab_size
+    for _ in range(6):
+        jstate, jlog = step(jp, jstate, jnp.asarray(last), jnp.asarray(bt),
+                            jnp.asarray(lens))
+        _, plog = pm.decode_step_paged(pp, pstate, torch.from_numpy(last),
+                                       torch.from_numpy(bt),
+                                       torch.from_numpy(lens))
+        assert plog.dtype == torch.float32
+        _close(plog.numpy(), jlog)
+        nxt = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)
+        assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), nxt)
+        last, lens = nxt[:, None], lens + 1
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m",
+                                  "seamless-m4t-large-v2"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError):
+        build_model(get_smoke_config(arch))
+
+
+def test_int8_kv_pools_raise():
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                              kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        build_model(cfg)
+
+
+def test_init_draws_the_config_dtype_and_the_reference_scales():
+    """Random init on the target device's generator: the config's dtype,
+    one seed -> one tree, and the reference's std rules (normal 0.02;
+    "scaled" 1/sqrt(shape[-2]); ones; zeros)."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"), d_model=128,
+                              d_ff=256, vocab_size=2048)
+    m = build_model(cfg)
+    a, b = m.init(3, "cpu"), m.init(3, "cpu")
+    assert torch.equal(a["embed"], b["embed"])
+    assert not torch.equal(a["embed"], m.init(4, "cpu")["embed"])
+    assert a["embed"].dtype == torch.bfloat16
+    assert abs(float(a["embed"].float().std()) - 0.02) < 1e-3
+    attn = a["segs"][0][0]["attn"]
+    assert tuple(attn["wq"].shape) == (3, 128, 4, 32)
+    assert abs(float(attn["wq"].float().std()) - 4 ** -0.5) < 0.02
+    ffn = a["segs"][0][0]["ffn"]
+    assert abs(float(ffn["w_down"].float().std()) - 256 ** -0.5) < 2e-3
+    assert bool((a["final_norm"] == 1).all())
+    assert bool((attn["bq"] == 0).all())
+
+
+def test_full_width_danube_declares_its_published_shapes():
+    """h2o-danube-3-4b at full width (declarations and a state on the meta
+    device, nothing allocated): ~3.96 B parameters in bf16, 92,160 bytes of
+    KV per token."""
+    cfg = get_config("h2o-danube-3-4b")
+    m = build_model(cfg)
+    decls = _leaves(m.decls())
+    assert 3.9e9 < sum(int(np.prod(d.shape)) for d in decls) < 4.0e9
+    assert all(d.dtype == torch.bfloat16 for d in decls)
+    state = m.empty_paged_state(1, 1, 1, device="meta")
+    per_token = sum(t.numel() * t.element_size() for t in _leaves(state))
+    assert per_token == 92_160
+    assert [len(p) for _, p in m.plan] == [1]
+    assert m.plan[0][0] == 24 and m.plan[0][1][0].window == 4096
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("kwargs", [dict(kv_x=True), dict(cache={})])
+def test_unported_attention_branches_raise(kwargs):
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                              dtype=torch.float32)
+    m = build_model(cfg)
+    p = m.init(0, "cpu")["segs"][0][0]["attn"]
+    x = torch.zeros(1, 2, cfg.d_model)
+    if kwargs.get("kv_x") is True:
+        kwargs = dict(kv_x=x)
+    with pytest.raises(NotImplementedError):
+        attention_block(cfg, {k: v[0] for k, v in p.items()}, x, **kwargs)
+
+
+def test_reset_slot_zeroes_only_per_slot_state():
+    """``reset_slot`` zeroes a slot's recurrent leaves in place and leaves
+    the page pools alone (``lens`` masking covers stale KV)."""
+    from repro_torch.models.zoo import reset_slot
+    pool = torch.ones(2, 5, 4, 1, 2)
+    rec = torch.ones(2, 3, 6)
+    state = {"segs": [[{"k": pool, "v": pool.clone(), "s": rec}]]}
+    assert reset_slot(state, 1) is state
+    assert bool((rec[:, 1] == 0).all()) and bool((rec[:, [0, 2]] == 1).all())
+    assert bool((pool == 1).all())

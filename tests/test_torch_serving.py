@@ -1,0 +1,261 @@
+"""The port's paged serving plane against the JAX package.
+
+- ``PageAllocator``: the invariants of the reference's own test (unique
+  pages, never the dump page, no double allocation, exhaustion errors that
+  leave the free lists untouched, reuse after release).
+- ``Endpoint`` under churn (requests admitted as slots free up), run in
+  lockstep with the JAX ``Endpoint`` on the same float32 parameters: the
+  same greedy tokens per request, the allocator drained back to full,
+  zeroed block table, no batch re-prefill.
+- ``MultiLLMServer`` over two float32 smoke endpoints behind
+  ``BalanceAware`` with ``null_route_features``: the same (endpoint,
+  output) per request id as the JAX server, one-shot and streaming; with
+  requests arriving over the decode clock, routing windows rate-limited by
+  ``window_steps`` and resized by ``AdaptiveWindow``, the same (endpoint,
+  output, admission step) per request and the same window trajectory.
+- ``AdaptiveWindow`` updates as the JAX one does.
+- The port's ``OmniRouter`` in front (``stream=False``) serves every
+  request; ``stream=True`` over it raises ``NotImplementedError`` (masked
+  windows, ROADMAP deferred item b), as do the deferred server options.
+
+Greedy tokens are compared exactly: the logits agree to ~1e-5 (see
+``tests/test_torch_models.py``), far inside these models' top-2 gaps.
+"""
+import dataclasses
+import itertools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.core.baselines import BalanceAware as JaxBA  # noqa: E402
+from repro.core.control import AdaptiveWindow as JaxAW  # noqa: E402
+from repro.serving import engine as jax_engine  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import (BalanceAware, HybridPredictor,  # noqa: E402
+                              OmniRouter, PredictorConfig, RouterConfig)
+from repro_torch.core.control import AdaptiveWindow  # noqa: E402
+from repro_torch.data.qaserve import DEFAULT_POOL, generate  # noqa: E402
+from repro_torch.data.tokenizer import encode_for_config  # noqa: E402
+from repro_torch.serving.engine import (Endpoint, MultiLLMServer,  # noqa: E402
+                                        PageAllocator, Request,
+                                        null_route_features)
+
+ARCHS = ("h2o-danube-3-4b", "qwen2-72b")
+EP = dict(max_concurrency=3, t_max=64, page_size=8, sync_every=4)
+
+
+def _endpoints(seeds=(0, 1)):
+    """(JAX endpoints, port endpoints) on the same float32 parameters."""
+    jeps, peps = [], []
+    for arch, seed in zip(ARCHS, seeds):
+        jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
+        pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        je = jax_engine.Endpoint(jc, seed=seed, **EP)
+        je.params = jax.tree.map(lambda a: a.astype(jnp.float32), je.params)
+        params = convert.model_params_from_numpy(
+            pc, jax.tree.map(np.asarray, je.params), "cpu")
+        jeps.append(je)
+        peps.append(Endpoint(pc, params=params, device="cpu", **EP))
+    return jeps, peps
+
+
+def _requests(n, seed=0, vocab=512):
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(1, vocab, (int(rng.randint(2, 20)),)).astype(
+        np.int32), int(rng.randint(3, 12))) for _ in range(n)]
+
+
+def _drained(ep):
+    return (len(ep.alloc.free_pages) == ep.alloc.n_pages - 1
+            and sorted(ep.alloc.free_slots) == list(range(ep.L))
+            and not ep.block_table.any() and ep.active_count() == 0)
+
+
+def test_page_allocator_invariants():
+    a = PageAllocator(n_pages=9, n_slots=3)
+    got = a.alloc_pages(5)
+    assert len(set(got)) == 5 and 0 not in got          # unique, no dump page
+    more = a.alloc_pages(3)
+    assert not (set(got) & set(more))                   # no double allocation
+    with pytest.raises(RuntimeError):
+        a.alloc_pages(1)                                # pool exhausted
+    a.release_pages(got)
+    with pytest.raises(RuntimeError):
+        a.release_pages(got[:1])                        # double free
+    again = a.alloc_pages(5)
+    assert set(again) == set(got)                       # freed pages reused
+    s = [a.alloc_slot() for _ in range(3)]
+    assert sorted(s) == [0, 1, 2]
+    with pytest.raises(RuntimeError, match="slot pool exhausted"):
+        a.alloc_slot()
+    a.release_slot(s[0])
+    assert a.alloc_slot() == s[0]
+    # a failing alloc_pages leaves NO partial pops behind
+    free_before = list(a.free_pages)
+    with pytest.raises(RuntimeError, match="page pool exhausted"):
+        a.alloc_pages(len(free_before) + 1)
+    assert a.free_pages == free_before
+    with pytest.raises(RuntimeError):
+        a.release_pages([0])                            # the dump page
+
+
+def test_endpoint_churn_matches_jax_and_drains():
+    jeps, peps = _endpoints()
+    je, pe = jeps[0], peps[0]
+    todo = _requests(8, seed=1)
+    jreqs = [jax_engine.Request(i, t, max_new=m) for i, (t, m) in
+             enumerate(todo)]
+    preqs = [Request(i, t, max_new=m) for i, (t, m) in enumerate(todo)]
+    nxt = 0
+    while nxt < len(todo) or pe.active_count():
+        while nxt < len(todo) and pe.has_capacity():
+            assert je.admit(jreqs[nxt]) == pe.admit(preqs[nxt])
+            nxt += 1
+        assert [r.rid for r in je.step()] == [r.rid for r in pe.step()]
+        assert np.array_equal(je.block_table, pe.block_table)
+        assert np.array_equal(je.lens, pe.lens)
+    for jr, pr in zip(jreqs, preqs):
+        assert pr.done and len(pr.output) == pr.max_new
+        assert pr.output == jr.output
+    assert len(pe.alloc.free_pages) == pe.alloc.n_pages - 1
+    assert sorted(pe.alloc.free_slots) == list(range(pe.L))
+    assert not pe.block_table.any() and pe.active_count() == 0
+    assert pe.batch_reprefills == 0 and pe.prefill_calls == len(todo)
+    assert pe.decoded_tokens == sum(m for _, m in todo)
+
+
+def test_endpoint_cancel_frees_the_slot_and_pages():
+    _, (pe, _) = _endpoints()
+    r = Request(0, np.arange(1, 12, dtype=np.int32), max_new=9)
+    pe.admit(r)
+    pe.step()
+    assert pe.cancel(r) and not pe.cancel(r)
+    assert len(pe.alloc.free_pages) == pe.alloc.n_pages - 1
+    assert sorted(pe.alloc.free_slots) == list(range(pe.L))
+    assert not pe.block_table.any() and len(r.output) == pe.sync_every
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_server_matches_jax_balance_aware(stream):
+    jeps, peps = _endpoints()
+    js = jax_engine.MultiLLMServer(jeps, JaxBA(), stream=stream)
+    ps = MultiLLMServer(peps, BalanceAware(), stream=stream)
+    too_long = np.ones(80, np.int32)           # fits no endpoint: failed
+    for rid, (toks, m) in enumerate(_requests(12, seed=2) + [(too_long, 4)]):
+        js.submit(jax_engine.Request(rid, toks, max_new=m))
+        ps.submit(Request(rid, toks, max_new=m))
+    want = {r.rid: (r.endpoint, list(r.output))
+            for r in js.run(jax_engine.null_route_features)}
+    got = {r.rid: (r.endpoint, list(r.output))
+           for r in ps.run(null_route_features)}
+    assert got == want and len(got) == 13
+    assert got[12] == (-1, [])
+    assert ps.windows == js.windows and ps.route_calls == js.route_calls
+    assert all(_drained(e) and e.batch_reprefills == 0 for e in peps)
+
+
+def _counting(base):
+    """A ``base`` (BalanceAware) policy reporting a dual-iteration count
+    that grows by a fixed cycle per routed window, so an AdaptiveWindow
+    both widens (a solve past its target) and narrows (a cheap solve with a
+    deep backlog)."""
+    class Counting(base):
+        def __init__(self):
+            self.dual_iters = 0
+            self._cost = itertools.cycle((90, 0, 0, 120, 3))
+
+        def route(self, batch, rng=None):
+            self.dual_iters += next(self._cost)
+            return super().route(batch, rng=rng)
+
+    return Counting()
+
+
+@pytest.mark.parametrize("window,adaptive", [(2.0, False), (3.0, True)])
+def test_server_windows_match_jax(window, adaptive):
+    jeps, peps = _endpoints()
+    jaw, paw = ((cls(window, lo=1.0, hi=8.0, target_iters=50, deep_queue=2)
+                 if adaptive else None) for cls in (JaxAW, AdaptiveWindow))
+    js = jax_engine.MultiLLMServer(jeps, _counting(JaxBA),
+                                   window_steps=window, adapt_window=jaw)
+    ps = MultiLLMServer(peps, _counting(BalanceAware), window_steps=window,
+                        adapt_window=paw)
+    rng = np.random.RandomState(4)
+    arrive = np.round(np.cumsum(rng.exponential(0.5, 16)), 2)
+    for rid, ((toks, m), at) in enumerate(zip(_requests(16, seed=3), arrive)):
+        js.submit(jax_engine.Request(rid, toks, max_new=m), at_step=at)
+        ps.submit(Request(rid, toks, max_new=m), at_step=at)
+    want = {r.rid: (r.endpoint, list(r.output), r.admit_step)
+            for r in js.run(jax_engine.null_route_features)}
+    got = {r.rid: (r.endpoint, list(r.output), r.admit_step)
+           for r in ps.run(null_route_features)}
+    assert got == want and len(got) == 16
+    assert ps.windows == js.windows and ps.dual_iters == js.dual_iters
+    if adaptive:
+        assert (paw.window, paw.widened, paw.narrowed) == (
+            jaw.window, jaw.widened, jaw.narrowed)
+        assert paw.widened > 0 and paw.narrowed > 0
+    assert all(_drained(e) and e.batch_reprefills == 0 for e in peps)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_adaptive_window_copy_updates_the_same(seed):
+    rng = np.random.RandomState(seed)
+    got, want = (cls(4.0, lo=1.0, hi=16.0, target_iters=40, deep_queue=8)
+                 for cls in (AdaptiveWindow, JaxAW))
+    for _ in range(60):
+        iters, depth = int(rng.randint(0, 100)), int(rng.randint(0, 30))
+        assert got.update(iters, depth) == want.update(iters, depth)
+    assert (got.widened, got.narrowed) == (want.widened, want.narrowed)
+    for bad in (dict(window=0.5), dict(window=4.0, grow=0.9)):
+        with pytest.raises(ValueError):
+            AdaptiveWindow(lo=1.0, hi=16.0, **bad)
+
+
+def _router_pool():
+    pool = DEFAULT_POOL[:2]
+    store = generate(n=600, seed=0, pool=pool)
+    hp = HybridPredictor(PredictorConfig(n_models=2), seed=0,
+                         device="cpu").fit_store(store)
+    return OmniRouter(hp, RouterConfig(alpha=0.75)), generate(
+        n=16, seed=5, pool=pool)
+
+
+def test_omnirouter_in_front_serves_every_request():
+    router, ds = _router_pool()
+    _, peps = _endpoints()
+    srv = MultiLLMServer(peps, router)
+    vocab_cfg = peps[0].cfg
+    for rid, q in enumerate(ds.queries):
+        srv.submit(Request(rid, encode_for_config(vocab_cfg, q, 24),
+                           max_new=5))
+    done = srv.run(lambda reqs: ds.subset(np.array([r.rid for r in reqs])))
+    assert sorted(r.rid for r in done) == list(range(ds.n))
+    assert all(r.done and len(r.output) == 5 for r in done)
+    assert {r.endpoint for r in done} <= {0, 1}
+    assert srv.route_calls >= 1 and srv.route_seconds > 0
+    assert all(_drained(e) for e in peps)
+
+
+def test_stream_over_omnirouter_raises():
+    router, ds = _router_pool()
+    _, peps = _endpoints()
+    srv = MultiLLMServer(peps, router, stream=True)
+    srv.submit(Request(0, encode_for_config(peps[0].cfg, ds.queries[0]), 3))
+    with pytest.raises(NotImplementedError, match="deferred item b"):
+        srv.run(lambda reqs: ds.subset(np.array([r.rid for r in reqs])))
+
+
+@pytest.mark.parametrize("option", [
+    dict(hedge_after_steps=2), dict(fold_online=True), dict(fault_plan=1),
+    dict(health=True), dict(stall_after_chunks=3), dict(spec_pairs=(1,)),
+    dict(horizon=32)])
+def test_deferred_server_options_raise(option):
+    with pytest.raises(NotImplementedError, match=next(iter(option))):
+        MultiLLMServer([], BalanceAware(), **option)
