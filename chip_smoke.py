@@ -6,9 +6,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three hand-written CUDA kernels from ``src/repro_torch/csrc``
-(one ``nvcc`` each, in parallel) and holds each against its plain PyTorch
-version at the main path's shapes.
+It builds the five hand-written CUDA kernels from ``src/repro_torch/csrc``
+(one ``nvcc`` per source, all started together) and holds each against its
+plain PyTorch version at the main path's shapes.
 
 Routing plane: it routes a 16,384-query batch (quality and budget mode) and
 four 4,096-query streaming windows through ``repro_torch.core.OmniRouter``
@@ -24,6 +24,16 @@ full-sequence logits in float32 and in bf16; one full-width ``Endpoint`` serving
 routed ``MultiLLMServer`` of four endpoints behind the port's
 ``OmniRouter``; and an all-smoke float32 pool served on the card and on the
 CPU with the same result.
+
+Routed speculative stream: the paged verify kernel against its plain
+version and against the decode kernel (V1); the shard-statistics kernel
+against its plain version and the padded, masked streaming solve on the card
+against the CPU (V2); a (2-layer draft, 24-layer verify) h2o-danube-3-4b pair
+at full width decoding speculatively, its output held to the verify model
+alone in float32, and a grafted verify model that accepts nearly every draft
+(V3); ``MultiLLMServer(stream=True, spec_pairs=...)`` behind the port's
+``OmniRouter`` with a pair column, 32 queries arriving over the decode
+clock (V4); and a float32 smoke speculative pool on the card and the CPU.
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -48,6 +58,7 @@ N_WINDOWS = 4
 CMP_QUERIES = 1_024     # plain vote's (queries, N_db) block: 512 MiB
 REPS = 20               # timed kernel launches (median)
 H100_FP32 = 67e12       # FLOP/s outside the tensor cores (H100 SXM sheet)
+H100_BF16 = 989e12      # FLOP/s of bf16 on the tensor cores, dense
 H100_HBM = 3.35e12      # bytes/s
 H100_SMS = 132
 PROBE_REPS = 200        # L2 probe: reads of the dual solve's (N, 2M) bytes
@@ -117,6 +128,32 @@ PROMPT_LO, PROMPT_HI, MAX_NEW = 256, 1536, 128
 ROUTED_REQS = 48
 CPU_REQS = 24
 SMOKE_POOL = ("h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b")
+
+# -- the routed speculative stream (V phases) ---------------------------------
+# V1: the paged verify kernel against its plain version and against the
+# decode kernel at lens + s.  (tag, B, S, K, G, D, page size, pages per
+# sequence, window, largest lens, dtype)
+VERIFY_CASES = [
+    ("danube heads", 16, 8, 8, 4, 120, 16, 128, 0, 1536 + 128, "bfloat16"),
+    ("danube heads, window 4096", 16, 8, 8, 4, 120, 16, 288, 4096, 4600,
+     "bfloat16"),
+    ("gemma3-4b heads, window 1024", 16, 8, 4, 2, 256, 16, 128, 1024, 2048,
+     "bfloat16"),
+    ("small float32", 3, 8, 2, 4, 64, 16, 8, 24, 128, "float32"),
+]
+# V2: the masked solve, card vs CPU: (valid rows, padded rows) per window
+STREAM_WINDOWS = ((3000, 4096), (5100, 8192), (4096, 4096), (6500, 8192))
+STATS_CASES = ((4096, 1), (4096, 4), (16384, 1), (16384, 4))   # (N, lblocks)
+# V3: a (2-layer draft, 24-layer verify) pair at full width
+SPEC_K = 8
+SPEC_REQS, SPEC_TOKENS = 8, 128
+ID_TOKENS = 64          # tokens per request of the float32 identity run
+ID_LIMIT = 0.99         # least share of speculative tokens = strong-only
+GRAFT_EMIT = 0.9        # least mean tokens per round, as a share of k
+# V4: the routed speculative stream
+ROUTED_SPEC_QUERIES, ROUTED_SPEC_TOKENS = 32, 32
+SPEC_CPU_REQS = 12
+GRAPH_CALLS = 50        # shard-statistics calls per captured CUDA graph
 
 
 def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
@@ -389,13 +426,14 @@ def serving_plane(torch, np, dev, say, check, time_ms):
     del kd, vd
     nbytes, nops = attention_bytes_ops(q_e, bt_e, lens_e, cfg.n_kv_heads,
                                        cfg.hd, window, 2)
-    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    bound, bound_by = attention_bound(nbytes, nops, 2)
     share = k_ms * cfg.n_layers / (chunk_med / ep.sync_every)
     say(f"paged decode kernel at the endpoint's lens (B={ENDPOINT_REQS}, "
         f"lens {int(lens_e.min())}..{int(lens_e.max())}, P="
         f"{bt_e.shape[1]}): {k_ms * 1e3:.1f} us/launch, bound "
         f"{bound * 1e3:.1f} us = max({nbytes / 1e6:.2f} MB / 3.35 TB/s, "
-        f"{nops / 1e9:.3f} GFLOP / 67 TFLOP/s fp32) -> {bound / k_ms:.1%} "
+        f"{nops / 1e9:.3f} GFLOP, Q.K half at 989 TFLOP/s bf16, P.V half at"
+        f" 67 TFLOP/s fp32) -> {bound / k_ms:.1%} "
         f"of it; plain {p_ms * 1e3:.1f} us; SDPA over the pre-gathered dense"
         f" K/V (all {bt_e.shape[1] * 16} positions, gather excluded) "
         + (f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "n/a")
@@ -404,8 +442,7 @@ def serving_plane(torch, np, dev, say, check, time_ms):
                source="src/repro_torch/csrc/paged_decode.cu",
                replaces="src/repro/kernels/decode_attention/kernel.py:197",
                max_abs_err=pd_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-               bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-               else "operations", library_ms=lib_ms)
+               bound_by=bound_by, library_ms=lib_ms)
     del ep, k_pool, v_pool
 
     # S5. routed server: full-width danube + three smoke endpoints behind
@@ -478,6 +515,596 @@ def serving_plane(torch, np, dev, say, check, time_ms):
     return row
 
 
+# -- the routed speculative stream ----------------------------------------------
+
+def attention_bound(nbytes, nops, elem):
+    """(bound ms, bound_by) of a paged attention moving ``nbytes`` and doing
+    ``nops``: half the operations are the Q.K dots, exact on the tensor
+    cores for bf16 inputs (elem 2), the P.V half stays in float32."""
+    t_bytes = nbytes / H100_HBM
+    t_ops = (nops / 2 / (H100_BF16 if elem == 2 else H100_FP32)
+             + nops / 2 / H100_FP32)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def verify_bytes_ops(torch, q, bt, lens, kh, d, window, elem):
+    """What one paged verify must move and compute on this data: q and the
+    output once, the K and V rows of the longest row of each sequence
+    (lens + S - 1 positions) once, the block table and lens; 4·H·D
+    operations per valid position of every query position."""
+    b, s_q, h, _ = q.shape
+    n = lens.clamp(min=0).cpu().long()
+    rows = n[:, None] + torch.arange(s_q)[None, :]
+    if window > 0:
+        rows = rows.clamp(max=window)
+    longest = int(rows[:, -1].sum())
+    nbytes = (2 * b * s_q * h * d * elem + 2 * longest * kh * d * elem
+              + 4 * bt.numel() + 4 * b)
+    return nbytes, 4.0 * float(rows.sum()) * h * d
+
+
+def verify_mask(torch, lens, s_q, t, window, dev):
+    """(B, 1, S, T) boolean mask of the verify rows: query s of sequence b
+    sees positions < lens[b] + s (and >= lens[b] + s - window)."""
+    pos = torch.arange(t, device=dev)
+    n = lens.long()[:, None] + torch.arange(s_q, device=dev)[None, :]
+    valid = pos[None, None, :] < n[:, :, None]
+    if window > 0:
+        valid = valid & (pos[None, None, :] >= n[:, :, None] - window)
+    return valid[:, None]
+
+
+def verify_kernel_phase(torch, say, check, dev):
+    """V1: the verify kernel against its plain version at the serving head
+    shapes, and each position against the decode kernel at lens + s."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        paged_decode_attention_cuda, paged_verify_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_verify_attention_ref)
+    err_max = 0.0
+    for tag, b, s_q, kh, g, d, ps, p, window, lmax, dt in VERIFY_CASES:
+        dtype = getattr(torch, dt)
+        _, kp, vp, bt, lens = paged_inputs(torch, b, kh, g, d, ps, p, lmax,
+                                           dtype, dev, seed=len(tag) + 100)
+        # query 0 of each sequence at lens - S + 1: the last query position
+        # reaches the sampled length
+        lens = (lens - (s_q - 1)).clamp(min=1).to(torch.int32)
+        gen = torch.Generator(device=dev).manual_seed(len(tag))
+        q = torch.randn(b, s_q, kh * g, d, generator=gen, device=dev).to(dtype)
+        got = paged_verify_attention_cuda(q, kp, vp, bt, lens, window=window)
+        torch.cuda.synchronize()
+        want = paged_verify_attention_ref(q, kp, vp, bt, lens, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        if dt == "float32":
+            ok = err <= 2e-5
+        else:
+            ok = torch.allclose(got.float(), want.float(), atol=1e-5,
+                                rtol=2 ** -7)
+        dec = 0.0
+        for j in range(s_q):
+            one = paged_decode_attention_cuda(
+                q[:, j:j + 1].contiguous(), kp, vp, bt,
+                (lens + j).to(torch.int32), window=window)
+            dec = max(dec, float((one.float()
+                                  - got[:, j:j + 1].float()).abs().max()))
+        torch.cuda.synchronize()
+        err_max = max(err_max, err)
+        say(f"paged verify {tag}: B={b} S={s_q} K={kh} G={g} D={d} PS={ps} "
+            f"P={p} window={window} lens {int(lens.min())}..{int(lens.max())}"
+            f" {dt} | max|kernel-plain|={err:.3g}, max|verify[s] - decode "
+            f"kernel at lens+s|={dec:.3g} (expected 0)")
+        check(ok, f"paged verify {tag}: kernel disagrees with plain version")
+        check(dec <= (2e-5 if dt == "float32" else 2 * err + 1e-5),
+              f"paged verify {tag}: verify far from the decode kernel")
+    return err_max
+
+
+def stats_bytes_ops(n, m, lblocks):
+    """One shard-statistics call: A and B read once, λ2 and nv, the
+    (lblocks, 2+M) output; ~4·M operations per row (scores and argmin)."""
+    return 4 * (2 * n * m + m + 1 + lblocks + lblocks * (2 + m)), 4.0 * n * m
+
+
+def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
+    """V2: the shard-statistics kernel against its plain version, and the
+    padded, masked streaming solve with pair columns on the card against
+    the CPU plain path.  Returns the kernels-line row of ``shard_stats``."""
+    from repro_torch.core import optimizer as opt
+    from repro_torch.core.speculative import (AcceptanceTracker, SpecPair,
+                                              expand_pair_columns,
+                                              pair_index_arrays)
+    from repro_torch.data import tokenizer
+    from repro_torch.data.qaserve import generate
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.lagrangian_assign.kernel import shard_stats_cuda
+    from repro_torch.kernels.lagrangian_assign.ref import shard_stats_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err_max, exact = 0.0, True
+    for n, lb in STATS_CASES:
+        a = torch.rand(n, 8, generator=gen, device=dev)
+        b = torch.rand(n, 8, generator=gen, device=dev) - 0.5
+        lam = torch.tensor(0.7, device=dev)
+        lam2 = torch.rand(8, generator=gen, device=dev) * 0.2
+        nl = n // lb
+        nv = torch.tensor([nl, nl - 37, 1000, 0][:lb], dtype=torch.float32,
+                          device=dev)
+        got = shard_stats_cuda(a, b, lam, lam2, nv, lblocks=lb)
+        torch.cuda.synchronize()
+        want = shard_stats_ref(a, b, lam, lam2, nv, lblocks=lb)
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, want))
+        exact = exact and same
+        err_max = max(err_max, err)
+        say(f"shard stats N={n} M=8 lblocks={lb} nv={nv.int().tolist()} | "
+            f"max|kernel-plain|={err:.3g}, bit-identical {same}")
+        check(bool(torch.equal(got[:, 2:], want[:, 2:])),
+              f"shard stats N={n} lblocks={lb}: histogram differs")
+        check(bool(((got[:, :2] - want[:, :2]).abs()
+                    <= 1e-5 * want[:, :2].abs().clamp(min=1.0)).all()),
+              f"shard stats N={n} lblocks={lb}: sums differ")
+
+    # the streaming run: ECCOS-H predictions of four windows, 6 base
+    # columns + 2 pair columns, padded to power-of-two buckets
+    n_all = sum(nv for nv, _ in STREAM_WINDOWS)
+    ds = generate(n=n_all, seed=4)
+    with torch.no_grad():
+        cap, _, cost = hp.predict_device(
+            hp.device_inputs(), torch.as_tensor(
+                tokenizer.encode_batch(ds.queries, hp.token_len), device=dev),
+            torch.as_tensor(ds.input_len, dtype=torch.float32, device=dev),
+            torch.as_tensor(ds.price_in, dtype=torch.float32, device=dev),
+            torch.as_tensor(ds.price_out, dtype=torch.float32, device=dev))
+    pairs = (SpecPair(0, 1, k=8), SpecPair(3, 2, k=4))
+    e_acc = torch.as_tensor(AcceptanceTracker(pairs).expected(),
+                            dtype=torch.float32, device=dev)
+    cost, cap = expand_pair_columns(cost, cap, *pair_index_arrays(pairs),
+                                    e_acc)
+    mp = cost.shape[1]
+    windows, start = [], 0
+    for nv, n_pad in STREAM_WINDOWS:
+        c = torch.zeros(n_pad, mp, device=dev)
+        q = torch.zeros(n_pad, mp, device=dev)
+        c[:nv], q[:nv] = cost[start:start + nv], cap[start:start + nv]
+        # garbage in the padding: the masked solve must not see it
+        c[nv:], q[nv:] = 7.0, 0.5
+        start += nv
+        windows.append((c, q, nv))
+    for shards in (1, 4):
+        runs = {}
+        for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            solver = opt.DualSolver(mode="quality", iters=150,
+                                    lr_constraint=3.0, stall_tol=1e-2,
+                                    norm_grad=True, shards=shards)
+            state, out = None, []
+            for w, (c, q, nv) in enumerate(windows):
+                loads = torch.full((mp,), float(nv // 4), device=where)
+                l0, r0 = la_ops.stats_launches, opt.host_reads
+                t0 = time.perf_counter()
+                x, info, state = solver.route_window(
+                    c.to(where), q.to(where), 0.75, loads, state,
+                    share=1.0 / (len(windows) - w), polish_margin=0.03,
+                    n_valid=nv)
+                torch.cuda.synchronize()
+                out.append((x[:nv].cpu(), int(info.iters_run),
+                            float(state.lam), time.perf_counter() - t0,
+                            la_ops.stats_launches - l0,
+                            opt.host_reads - r0,
+                            float(state.budget_spent)))
+            runs[tag] = out
+        for w, (card, cpu) in enumerate(zip(runs["card"], runs["cpu"])):
+            same_x = bool(torch.equal(card[0], cpu[0]))
+            drift = abs(card[2] - cpu[2]) / (1.0 + abs(cpu[2]))
+            nv, n_pad = STREAM_WINDOWS[w]
+            say(f"masked stream shards={shards} window {w} ({nv} valid of "
+                f"{n_pad}, M={mp}): x equal {same_x}, iters_run "
+                f"{card[1]}/{cpu[1]} (card/CPU), lam rel drift {drift:.3g},"
+                f" card {card[3] * 1e3:.1f} ms with {card[4]} shard-stats "
+                f"launches and {card[5]} host reads, CPU {cpu[3]:.2f} s; "
+                f"ledger spent {card[6]:.6f}/{cpu[6]:.6f} $")
+            check(same_x, f"masked stream shards={shards} window {w}: x")
+            check(card[1] == cpu[1],
+                  f"masked stream shards={shards} window {w}: iters_run")
+
+    # the kernel at a window's shape (8,192 padded rows, M = 8)
+    c, q, nv = windows[1]
+    a = c.contiguous()
+    b = (-q / float(nv)).contiguous()
+    nvs = torch.tensor([float(nv)], device=dev)
+    lam = torch.tensor(0.5, device=dev)
+    lam2 = torch.zeros(mp, device=dev)
+    k_ms = time_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
+                                                   lblocks=1), 50)
+    p_ms = time_ms(torch, lambda: shard_stats_ref(a, b, lam, lam2, nvs,
+                                                  lblocks=1), 10)
+    # the device's own time: GRAPH_CALLS calls captured in a CUDA graph and
+    # replayed, so the wrapper's host work is not on the clock
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        shard_stats_cuda(a, b, lam, lam2, nvs, lblocks=1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            shard_stats_cuda(a, b, lam, lam2, nvs, lblocks=1)
+    g_ms = time_ms(torch, graph.replay, 20) / GRAPH_CALLS
+    nbytes, nops = stats_bytes_ops(a.shape[0], mp, 1)
+    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    say(f"shard stats kernel (N={a.shape[0]}, M={mp}, lblocks=1): "
+        f"{k_ms * 1e3:.2f} us per call with its wrapper (two launches: "
+        f"blocks, then the block sums in order), {g_ms * 1e3:.2f} us on the"
+        f" device (replayed from a CUDA graph of {GRAPH_CALLS} calls), "
+        f"bound {bound * 1e3:.3f} us = max("
+        f"{nbytes / 1e3:.1f} KB / 3.35 TB/s, {nops / 1e6:.3f} MFLOP / "
+        f"67 TFLOP/s) -> launch latency is the floor; plain {p_ms * 1e3:.1f}"
+        f" us; library: none (no single PyTorch call)")
+    return dict(name="shard_stats", route="cuda",
+                source="src/repro_torch/csrc/shard_stats.cu",
+                replaces="src/repro/kernels/lagrangian_assign/kernel.py:368",
+                max_abs_err=err_max, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
+                else "operations", library_ms=None, graph_ms=g_ms,
+                bit_identical=exact)
+
+
+def _graft(torch, verify, draft):
+    """Verify params := the draft's blocks + zero-residual extra blocks
+    (``wo`` and ``w_down`` zeroed), the draft's embeddings and final norm:
+    the verify model computes the draft's function at the verify depth's
+    cost (``benchmarks/bench_speculative.py:_graft``)."""
+    out = dict(verify)
+    for key in ("embed", "out_embed", "final_norm"):
+        if key in verify and key in draft:
+            out[key] = draft[key]
+
+    def rec(v, d, key):
+        if isinstance(v, dict):
+            return {k: rec(v[k], d[k], k) for k in v}
+        if isinstance(v, list):
+            return [rec(a, b, key) for a, b in zip(v, d)]
+        arr = torch.zeros_like(v) if key in ("wo", "w_down") else v.clone()
+        arr[:d.shape[0]] = d
+        return arr
+
+    out["segs"] = [[rec(sv, sd, None) for sv, sd in zip(seg_v, seg_d)]
+                   for seg_v, seg_d in zip(verify["segs"], draft["segs"])]
+    return out
+
+
+def _spec_prompts(np, cfg, n):
+    rng = np.random.RandomState(0)
+    return [rng.randint(1, cfg.vocab_size, (int(rng.randint(
+        PROMPT_LO, PROMPT_HI + 1)),)).astype(np.int32) for _ in range(n)]
+
+
+def spec_run(torch, np, d_ep, v_ep, prompts, max_new, k):
+    """Decode ``prompts`` speculatively on (d_ep, v_ep); returns (outputs,
+    server, decode seconds, per-round draft and verify seconds)."""
+    from repro_torch.core.speculative import SpecPair
+    from repro_torch.serving.engine import (MultiLLMServer, Request,
+                                            _EngineExecutor)
+    srv = MultiLLMServer([d_ep, v_ep], None, spec_pairs=(SpecPair(0, 1, k=k),))
+    reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.admit_spec(r, 0)
+    torch.cuda.synchronize()
+    d_s, v_s = [], []
+
+    def timed(fn, acc):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)          # returns host arrays: synced
+            acc.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    d_ep.draft_round = timed(d_ep.draft_round, d_s)
+    v_ep.verify_round = timed(v_ep.verify_round, v_s)
+    ex = _EngineExecutor(srv, 100_000)
+    t0 = time.perf_counter()
+    try:
+        while srv._spec:
+            ex.advance(None)
+        torch.cuda.synchronize()
+    finally:
+        del d_ep.draft_round, v_ep.verify_round
+    return ([r.output for r in reqs], srv, time.perf_counter() - t0, d_s,
+            v_s)
+
+
+def strong_only_run(torch, v_ep, prompts, max_new):
+    """The verify endpoint decoding ``prompts`` alone; returns (outputs,
+    decode seconds)."""
+    from repro_torch.serving.engine import Request
+    reqs = [Request(100 + i, p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        v_ep.admit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while v_ep.active_count():
+        v_ep.step()
+    torch.cuda.synchronize()
+    return [r.output for r in reqs], time.perf_counter() - t0
+
+
+def _same_tokens(a, b):
+    n = sum(len(x) for x in a)
+    same = sum(int(u == v) for x, y in zip(a, b) for u, v in zip(x, y))
+    return same / max(n, 1)
+
+
+def _drained(ep):
+    return (len(ep.alloc.free_pages) == ep.alloc.n_pages - 1
+            and len(ep.alloc.free_slots) == ep.L and not ep.spec_slots
+            and not ep.block_table.any())
+
+
+def speculative_plane(torch, np, dev, say, check, time_ms):
+    """V3, V4 and the float32 smoke spec pool card vs CPU.  Returns the
+    kernels-line row of the paged verify kernel and the shard-statistics
+    launches of the routed stream."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import (BalanceAware, HybridPredictor, OmniRouter,
+                                  PredictorConfig, RouterConfig)
+    from repro_torch.core.speculative import SpecPair
+    from repro_torch.data.qaserve import DEFAULT_POOL, generate
+    from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        paged_verify_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_verify_attention_ref)
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            null_route_features)
+
+    cfg = get_config("h2o-danube-3-4b")
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    ep_kw = dict(max_concurrency=SPEC_REQS, t_max=2048, page_size=16,
+                 sync_every=8, device=dev)
+    v_params = build_model(cfg).init(0, dev)
+    d_params = build_model(dcfg).init(7, dev)
+    prompts = _spec_prompts(np, cfg, SPEC_REQS)
+
+    # V3a. bf16, stock weights: the speculative pair at full width
+    d_ep = Endpoint(dcfg, params=d_params, **ep_kw)
+    v_ep = Endpoint(cfg, params=v_params, **ep_kw)
+    pd_ops.verify_launches = 0
+    pd_ops.launches = 0
+    outs, srv, wall, d_s, v_s = spec_run(torch, np, d_ep, v_ep, prompts,
+                                         SPEC_TOKENS, SPEC_K)
+    v3_verify = pd_ops.verify_launches
+    v_rounds = len(v_s)
+    check(all(len(o) == SPEC_TOKENS for o in outs),
+          "spec pair: a request did not get 128 tokens")
+    check(srv.spec_emitted == SPEC_REQS * SPEC_TOKENS,
+          "spec pair: spec_emitted != 1024")
+    check(_drained(d_ep) and _drained(v_ep), "spec pair: allocator leak")
+    check(v3_verify == cfg.n_layers * v_rounds,
+          "spec pair: verify launches != 24 x verify rounds")
+    spec_tps = SPEC_REQS * SPEC_TOKENS / wall
+    # the verify kernel at the pair's shapes (the prompts' lens + 1)
+    lens_v = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
+                             device=dev)
+    so_ep = Endpoint(cfg, params=v_params, **ep_kw)
+    so_outs, so_wall = strong_only_run(torch, so_ep, prompts, SPEC_TOKENS)
+    so_tps = SPEC_REQS * SPEC_TOKENS / so_wall
+    # the pools after the strong-only run still hold every prompt's K/V
+    k_pool = so_ep._state["segs"][0][0]["k"][0]
+    v_pool = so_ep._state["segs"][0][0]["v"][0]
+    bt = torch.zeros((SPEC_REQS, so_ep.pages_per_slot), dtype=torch.int32)
+    n_need = -(-(int(lens_v.max()) + SPEC_K) // 16)
+    gen = torch.Generator().manual_seed(3)
+    perm = torch.randperm(so_ep.alloc.n_pages - 1, generator=gen) + 1
+    for i in range(SPEC_REQS):
+        bt[i, :n_need] = perm[i * n_need:(i + 1) * n_need]
+    bt = bt.to(dev)
+    gq = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(SPEC_REQS, SPEC_K, cfg.n_heads, cfg.hd, generator=gq,
+                    device=dev).to(cfg.dtype)
+    window = cfg.sliding_window
+    vk_ms = time_ms(torch, lambda: paged_verify_attention_cuda(
+        q, k_pool, v_pool, bt, lens_v, window=window), 50)
+    vp_ms = time_ms(torch, lambda: paged_verify_attention_ref(
+        q, k_pool, v_pool, bt, lens_v, window=window), 10)
+    kd = gather_pages(k_pool, bt).transpose(1, 2).contiguous()
+    vd = gather_pages(v_pool, bt).transpose(1, 2).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    mask = verify_mask(torch, lens_v, SPEC_K, kd.shape[2], window, dev)
+    try:
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True), 50)
+    except TypeError as exc:           # a PyTorch without enable_gqa
+        say(f"  SDPA with enable_gqa unavailable: {exc}")
+        lib_ms = None
+    del kd, vd, so_ep
+    nbytes, nops = verify_bytes_ops(torch, q, bt, lens_v, cfg.n_kv_heads,
+                                    cfg.hd, window, 2)
+    vbound, vbound_by = attention_bound(nbytes, nops, 2)
+    d_med = float(np.median(d_s)) * 1e3
+    v_med = float(np.median(v_s)) * 1e3
+    say(f"spec pair (danube full width: verify 24 layers seed 0, draft 2 "
+        f"layers seed 7; bf16, L={SPEC_REQS}, t_max 2048, PS 16, k="
+        f"{SPEC_K}): {SPEC_REQS} x {SPEC_TOKENS} tokens, prompts "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))} | "
+        f"{srv.spec_rounds} sequence rounds in {v_rounds} verify rounds, "
+        f"{srv.spec_emitted / max(srv.spec_rounds, 1):.2f} tokens per "
+        f"sequence round | {spec_tps:.1f} tokens/s; round draft {d_med:.1f} "
+        f"ms + verify {v_med:.1f} ms (median) | strong-only verify endpoint "
+        f"{so_tps:.1f} tokens/s on the same prompts | verify launches "
+        f"{v3_verify} = {cfg.n_layers} x {v_rounds}")
+    say(f"paged verify kernel at the pair's shapes (B={SPEC_REQS}, S="
+        f"{SPEC_K}, lens {int(lens_v.min())}..{int(lens_v.max())}): "
+        f"{vk_ms * 1e3:.1f} us/launch, bound {vbound * 1e3:.1f} us = max("
+        f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.3f} GFLOP, Q.K "
+        f"half at 989 TFLOP/s bf16, P.V half at 67 TFLOP/s fp32) -> "
+        f"{vbound / vk_ms:.1%} of it; plain "
+        f"{vp_ms * 1e3:.1f} us; SDPA (enable_gqa, boolean per-row mask) over "
+        f"the pre-gathered K/V " + (f"{lib_ms * 1e3:.1f} us"
+                                     if lib_ms is not None else "n/a")
+        + f"; {cfg.n_layers} launches = "
+        f"{vk_ms * cfg.n_layers / v_med:.1%} of a verify round")
+    row = dict(name="paged_verify_attention", route="cuda",
+               source="src/repro_torch/csrc/paged_decode.cu",
+               replaces="src/repro/kernels/decode_attention/kernel.py:130",
+               ms=vk_ms, plain_ms=vp_ms, bound_ms=vbound,
+               bound_by=vbound_by, library_ms=lib_ms)
+
+    # V4. the routed speculative stream, on the same endpoints
+    pool = DEFAULT_POOL[:2]
+    hp = HybridPredictor(PredictorConfig(n_models=2), seed=0, device=dev
+                         ).fit_store(generate(n=8192, seed=0, pool=pool))
+    ds = generate(n=ROUTED_SPEC_QUERIES, seed=3, pool=pool)
+    with torch.no_grad():
+        from repro_torch.data import tokenizer
+        _, _, pcost = hp.predict_device(
+            hp.device_inputs(), torch.as_tensor(tokenizer.encode_batch(
+                ds.queries, hp.token_len), device=dev),
+            torch.as_tensor(ds.input_len, dtype=torch.float32, device=dev),
+            torch.as_tensor(ds.price_in, dtype=torch.float32, device=dev),
+            torch.as_tensor(ds.price_out, dtype=torch.float32, device=dev))
+    budget = 1.6 * float(pcost.min(dim=1).values.sum())
+    pairs = (SpecPair(0, 1, k=SPEC_K),)
+    router = OmniRouter(hp, RouterConfig(budget=budget, spec_pairs=pairs))
+    seen_nv = []
+    route_window = router.route_window
+
+    def logged(batch, state, **kw):
+        seen_nv.append((kw.get("n_valid"), batch.n))
+        return route_window(batch, state, **kw)
+
+    router.route_window = logged
+    srv = MultiLLMServer([d_ep, v_ep], router, stream=True, window_steps=4,
+                         spec_pairs=pairs)
+    arrive = np.cumsum(np.random.RandomState(0).exponential(
+        1.0, ROUTED_SPEC_QUERIES))
+    for rid, text in enumerate(ds.queries):
+        srv.submit(Request(rid, encode_for_config(cfg, text),
+                           max_new=ROUTED_SPEC_TOKENS), at_step=arrive[rid])
+    pd_ops.launches = pd_ops.verify_launches = 0
+    la_ops.launches = la_ops.stats_launches = 0
+    tr_ops.launches = 0
+    t0 = time.perf_counter()
+    served = srv.run(lambda b: ds.subset(np.array([r.rid for r in b])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    v4 = dict(decode=pd_ops.launches, verify=pd_ops.verify_launches,
+              stats=la_ops.stats_launches, vote=tr_ops.launches,
+              dual_solve=la_ops.launches)
+    per_col = np.bincount([r.endpoint for r in served], minlength=3)
+    state = srv._controller.state
+    spent = float(state.budget_spent)
+    not_pow2 = [nv for nv, _ in seen_nv if nv & (nv - 1)]
+    say(f"routed spec stream (OmniRouter budget {budget:.6f} $ = 1.6 x "
+        f"cheapest predicted, pair column (0 -> 1, k={SPEC_K}), "
+        f"window_steps 4, {ROUTED_SPEC_QUERIES} queries x "
+        f"{ROUTED_SPEC_TOKENS} tokens, Poisson 1/step): {len(served)} "
+        f"served, per column {per_col.tolist()} (draft, verify, pair), "
+        f"{srv.windows} windows with (n_valid, padded) {seen_nv}, dual iters"
+        f" {srv.dual_iters}, {srv.spec_rounds} spec rounds, budget spent "
+        f"{spent:.6f} $, wall {wall:.2f} s, route {srv.route_seconds:.2f} s"
+        f" | launches {v4}")
+    check(len(served) == ROUTED_SPEC_QUERIES and all(
+        r.done and len(r.output) == ROUTED_SPEC_TOKENS for r in served),
+          "routed spec stream: not every query served")
+    check(srv.windows > 1 and len(not_pow2) > 0,
+          "routed spec stream: no padded window of a non-power-of-two size")
+    check(per_col[2] > 0, "routed spec stream: the pair column took none")
+    check(int(router.acceptance.rounds.sum()) == srv.spec_rounds,
+          "routed spec stream: acceptance rounds != spec rounds")
+    check(spent <= budget, "routed spec stream: budget overspent")
+    check(v4["stats"] > 0 and v4["verify"] > 0 and v4["decode"] > 0
+          and v4["vote"] > 0, "routed spec stream: a kernel never ran")
+    check(_drained(d_ep) and _drained(v_ep),
+          "routed spec stream: allocator leak")
+    row["launches"] = v3_verify + v4["verify"]
+    say(f"paged verify launches on the main path: spec pair {v3_verify}, "
+        f"routed stream {v4['verify']}")
+    del d_ep, v_ep, srv, hp, router
+
+    # V3b. graft: the verify model = the draft's 2 blocks + 22 zero-residual
+    # blocks, so nearly every draft is accepted
+    g_params = _graft(torch, v_params, d_params)
+    d_ep = Endpoint(dcfg, params=d_params, **ep_kw)
+    v_ep = Endpoint(cfg, params=g_params, **ep_kw)
+    g_outs, g_srv, g_wall, _, g_v = spec_run(torch, np, d_ep, v_ep, prompts,
+                                             SPEC_TOKENS, SPEC_K)
+    so_ep = Endpoint(cfg, params=g_params, **ep_kw)
+    gso_outs, gso_wall = strong_only_run(torch, so_ep, prompts, SPEC_TOKENS)
+    g_emit = g_srv.spec_emitted / max(g_srv.spec_rounds, 1)
+    g_same = _same_tokens(g_outs, gso_outs)
+    say(f"graft pair (verify = draft's 2 blocks + 22 zero-residual blocks, "
+        f"bf16): {g_emit:.2f} tokens per sequence round (limit >= "
+        f"{GRAFT_EMIT * SPEC_K:.1f}), {len(g_v)} verify rounds, "
+        f"{SPEC_REQS * SPEC_TOKENS / g_wall:.1f} tokens/s vs strong-only "
+        f"{SPEC_REQS * SPEC_TOKENS / gso_wall:.1f} tokens/s; tokens equal "
+        f"to strong-only {g_same:.4f} (limit >= {ID_LIMIT})")
+    check(g_emit >= GRAFT_EMIT * SPEC_K, "graft pair: too few tokens a round")
+    check(g_same >= ID_LIMIT, "graft pair: output differs from strong-only")
+    del d_ep, v_ep, so_ep, g_params, v_params, d_params
+
+    # V3c. identity held to limits: float32, wq/wk rescaled to unit-std
+    # scores (the full-width check's weights), junk draft (other seed)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    v32 = _unit_scores(build_model(cfg32).init(0, dev))
+    d32 = _unit_scores(build_model(dcfg32).init(7, dev))
+    d_ep = Endpoint(dcfg32, params=d32, **ep_kw)
+    v_ep = Endpoint(cfg32, params=v32, **ep_kw)
+    i_outs, i_srv, _, _, _ = spec_run(torch, np, d_ep, v_ep, prompts,
+                                      ID_TOKENS, SPEC_K)
+    del d_ep, v_ep
+    so_ep = Endpoint(cfg32, params=v32, **ep_kw)
+    iso_outs, _ = strong_only_run(torch, so_ep, prompts, ID_TOKENS)
+    i_same = _same_tokens(i_outs, iso_outs)
+    say(f"identity (float32, unit-std scores, 24-layer verify, junk "
+        f"2-layer draft): {SPEC_REQS} x {ID_TOKENS} tokens, "
+        f"{i_srv.spec_emitted / max(i_srv.spec_rounds, 1):.2f} tokens per "
+        f"round; speculative tokens equal to strong-only {i_same:.4f} "
+        f"(limit >= {ID_LIMIT}, 1.0 expected)")
+    check(i_same >= ID_LIMIT, "identity: speculative output differs from "
+          "the verify model alone")
+    del so_ep, v32, d32
+
+    # S6 (spec). a float32 smoke speculative pool, card vs CPU
+    scfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                               dtype=torch.float32)
+    host = [build_model(scfg).init(seed, "cpu") for seed in (7, 0)]
+    rng = np.random.RandomState(8)
+    todo = [(rng.randint(1, 512, (int(rng.randint(2, 30)),)).astype(np.int32),
+             int(rng.randint(4, 17))) for _ in range(SPEC_CPU_REQS)]
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        eps = [Endpoint(scfg, max_concurrency=3, t_max=64, page_size=8,
+                        sync_every=4, device=where,
+                        params=_tree_to(host[i], where)) for i in range(2)]
+        srv = MultiLLMServer(eps, BalanceAware(),
+                             spec_pairs=(SpecPair(0, 1, k=3),))
+        for rid, (toks, m) in enumerate(todo):
+            srv.submit(Request(rid, toks, max_new=m))
+        runs.append(({r.rid: (r.endpoint, list(r.output))
+                      for r in srv.run(null_route_features)},
+                     srv.spec_rounds))
+    (card, c_rounds), (host_run, h_rounds) = runs
+    same = np.mean([card[i] == host_run[i] for i in range(SPEC_CPU_REQS)])
+    n_pair = sum(1 for e, _ in card.values() if e == 2)
+    say(f"smoke spec pool float32 (2 x danube smoke + pair k=3, "
+        f"BalanceAware), card vs CPU ({SPEC_CPU_REQS} requests, {n_pair} "
+        f"on the pair column, {c_rounds}/{h_rounds} spec rounds): same "
+        f"(endpoint, output) {same:.4f}")
+    check(len(card) == len(host_run) == SPEC_CPU_REQS and n_pair > 0,
+          "spec pool card vs CPU: a request lost or no pair request")
+    check(same == 1.0, "spec pool card vs CPU: outputs differ")
+    return row, v4["stats"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -532,7 +1159,7 @@ def main() -> int:
     say("device:", card, "| torch", torch.__version__, "cuda",
         torch.version.cuda, "| python", sys.version.split()[0])
 
-    # 2. build both kernels, one nvcc each, in parallel
+    # 2. build every kernel library, one nvcc each, in parallel
     t0 = time.perf_counter()
     logs = _build.build_all()
     say(f"build: {time.perf_counter() - t0:.2f} s")
@@ -815,15 +1442,28 @@ def main() -> int:
     check(abs(r_gpu["success_rate"] - r_cpu["success_rate"]) <= 0.02,
           "card and CPU success rates differ")
 
+    # V2. the shard-statistics kernel and the masked stream, card vs CPU
+    rows["shard_stats"] = masked_solve_phase(torch, np, dev, say, check,
+                                             time_ms, hp)
+
     del hp, hp_cpu, hp_gpu, emb, labels, proj, q_route
     rows["paged_decode_attention"] = serving_plane(
         torch, np, dev, say, check, time_ms)
 
+    # V1. the paged verify kernel against its plain version and decode
+    verify_err = verify_kernel_phase(torch, say, check, dev)
+    # V3, V4 and the smoke spec pool card vs CPU
+    rows["paged_verify_attention"], stats_launches = speculative_plane(
+        torch, np, dev, say, check, time_ms)
+    rows["paged_verify_attention"]["max_abs_err"] = verify_err
+    rows["shard_stats"]["launches"] = stats_launches
+
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"since the endpoint phase {peak:.2f} GiB")
-    kernels = [rows["retrieval_vote"], rows["dual_solve"],
-               rows["paged_decode_attention"]]
+    kernels = [rows[k] for k in ("retrieval_vote", "dual_solve",
+                                 "paged_decode_attention", "shard_stats",
+                                 "paged_verify_attention")]
     for r in kernels:
         check(set(r) >= {"name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

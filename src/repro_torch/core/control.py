@@ -14,13 +14,11 @@ The port of ``repro.core.control``:
 - :class:`ControlLoop` drives an *executor* (the engine's endpoint pool)
   through release-arrivals → admit-window → advance.
 
-Not in this slice: padded, masked windows.  The reference's ``OmniRouter``
-declares ``pads_windows`` and its windows are padded to power-of-two
-buckets with ``n_valid`` masking; the port's router has no masked windows
-yet (ROADMAP deferred item b), so ``StreamController(stream=True)`` over
-such a policy raises instead of routing unpadded windows that would differ
-from the reference.  Not ported either: the health plane
-(``core/health.py``), the sanitizer hooks, the online fold-back of
+A policy that declares ``pads_windows`` (the port's ``OmniRouter``) gets
+its streaming windows padded to power-of-two buckets (multiples of its
+``window_multiple()``) with the padding masked by ``n_valid`` and sliced
+off the returned assignment, as in the reference.  Not ported: the health
+plane (``core/health.py``), the sanitizer hooks, the online fold-back of
 completions (``FoldBuffer``, with ``MultiLLMServer(fold_online=True)``) and
 the event-driven simulator's loop cadence (back-to-back admissions).
 
@@ -47,7 +45,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from .baselines import Policy
+from .baselines import Policy, pad_batch, pad_bucket
 from .optimizer import DualState
 
 
@@ -130,11 +128,6 @@ class StreamController:
     def __init__(self, policy: Policy, *, horizon: int = 0,
                  stream: bool = True,
                  adapt_window: Optional[AdaptiveWindow] = None):
-        if stream and getattr(policy, "pads_windows", False):
-            raise NotImplementedError(
-                "stream=True over a policy that pads its windows (OmniRouter)"
-                " needs masked windows (n_valid), not ported yet: ROADMAP "
-                "deferred item b; route with stream=False")
         self.policy = policy
         self.stream = stream
         self.horizon = int(horizon)
@@ -149,6 +142,11 @@ class StreamController:
         """Build the RouteBatch from the admitted queries + LIVE fleet
         state and route it — the one admission/routing path of the engine.
 
+        Policies that declare ``pads_windows`` get their windows padded to
+        power-of-two buckets (multiples of ``window_multiple()``); the
+        padded rows are masked via ``n_valid`` and sliced off the returned
+        assignment.
+
         Ledger caveat: ``route_window`` charges the ledger for every query
         it ROUTES; a query the executor then rejects (no capacity) and
         re-routes later would be charged twice.  A stateful policy that
@@ -160,8 +158,15 @@ class StreamController:
                 with_truth=getattr(self.policy, "needs_truth", False))
             n_true = batch.n
             n_rem = max(self.horizon - self.routed, n_true)
-            x, self.state = self.policy.route_window(
-                batch, self.state, share=n_true / n_rem)
+            if getattr(self.policy, "pads_windows", False):
+                mult = getattr(self.policy, "window_multiple", lambda: 1)()
+                batch = pad_batch(batch, pad_bucket(n_true, mult))
+                x, self.state = self.policy.route_window(
+                    batch, self.state, share=n_true / n_rem, n_valid=n_true)
+                x = np.asarray(x)[:n_true]
+            else:
+                x, self.state = self.policy.route_window(
+                    batch, self.state, share=n_true / n_rem)
             n_routed = n_true
         else:
             from .scheduler import route_via_batch

@@ -1,6 +1,8 @@
 """ECCOS/OmniRouter constrained optimizer (paper §3.2, Appendix A) in PyTorch.
 
-The port of ``repro.core.optimizer`` on its single-device, unmasked path.
+The port of ``repro.core.optimizer`` on one device: the one-shot solve,
+the streaming window and the blocked/masked window solve (``shards``,
+``n_valid``).
 Both modes share one code path through the unified parameterization
 
     scores_ij = A_ij + lam * B_ij + lam2_j,   feasible  ⇔  Σ B[i, x_i] <= t
@@ -42,6 +44,12 @@ from repro_torch.common import default_device
 from repro_torch.kernels.lagrangian_assign.ref import sqrt32
 
 SYNC_EVERY = 32      # repair/polish moves between host reads of `done`
+SOLVE_SYNC_EVERY = 8  # blocked dual iterations between host reads of the
+#                       loop's active flag (frozen iterations change nothing)
+
+# host reads of a device flag made by the repair/polish loops and the
+# blocked solve's loop (a sync each on the card)
+host_reads = 0
 
 
 class SolveInfo(NamedTuple):
@@ -94,12 +102,19 @@ def fold_threshold(mode: str, threshold, state: Optional[DualState], n: int,
     return torch.clamp(threshold + state.sr_deficit / _f32(n, dev), 0.0, 1.0)
 
 
-def _mode_params(cost, quality, threshold, lr_con, *, budget_mode: bool):
-    """Map (cost, quality, threshold) onto the unified (A, B, t, lr)."""
+def _mode_params(cost, quality, threshold, lr_con, *, budget_mode: bool,
+                 n_eff=None):
+    """Map (cost, quality, threshold) onto the unified (A, B, t, lr).
+
+    ``n_eff`` (a masked window's valid-row count) replaces the row count in
+    quality mode's 1/N scaling: padding rows must not dilute the mean."""
     if budget_mode:
         return -quality, cost, threshold, lr_con
-    n = cost.shape[0]
-    return cost, -quality / _f32(n, cost.device), -threshold, lr_con * n
+    if n_eff is None:
+        n = cost.shape[0]
+        return cost, -quality / _f32(n, cost.device), -threshold, lr_con * n
+    n = _f32(n_eff, cost.device)
+    return cost, -quality / n, -threshold, lr_con * n
 
 
 def _normalize_problem(a_mat, b_mat, t_eff, lr_con, lr_load, lam0, lam20,
@@ -125,6 +140,37 @@ def _normalize_problem(a_mat, b_mat, t_eff, lr_con, lr_load, lam0, lam20,
 
 def _chosen_sum(mat, x):
     return mat.gather(1, x[:, None]).sum()
+
+
+def _ordered_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order on every device: a
+    pairwise tree of elementwise float32 adds (zero padding to a power of
+    two).  ``Tensor.sum`` reduces in an order of its own on each device;
+    the masked window solve takes every float sum this way, so the card
+    and the CPU walk the same trajectory bit for bit."""
+    n = v.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _in_shard_order(part: torch.Tensor) -> torch.Tensor:
+    """Sum per-shard partials (lblocks, ...) in shard order (the
+    reference's ordered cross-shard combine)."""
+    total = part[0]
+    for s in range(1, part.shape[0]):
+        total = total + part[s]
+    return total
+
+
+def _shards_sum(v: torch.Tensor) -> torch.Tensor:
+    """(lblocks, ...) per-shard values -> their sum: each shard's values in
+    :func:`_ordered_sum` order, then the partials in shard order."""
+    return _in_shard_order(_ordered_sum(v.reshape(v.shape[0], -1)))
 
 
 def _solve_ref(cost, quality, threshold, loads, lam0=0.0, lam20=None,
@@ -204,14 +250,25 @@ def _run_moves(step, carry, cap: int, chunk: int):
     iteration cap), reading the carry's ``done`` flag (second to last, before
     the move count) on the host once every ``chunk`` steps.  Steps after
     ``done`` change nothing."""
+    global host_reads
     k = 0
     while k < cap:
         for _ in range(min(chunk, cap - k)):
             carry = step(carry)
             k += 1
+        host_reads += 1
         if bool(carry[-2]):
             break
     return carry
+
+
+def _valid_rows(n: int, n_valid, device):
+    """(validr (n,) bool, its float32 weights) of a masked window's valid
+    prefix, or (None, None) without a mask."""
+    if n_valid is None:
+        return None, None
+    validr = torch.arange(n, device=device) < _f32(n_valid, device)
+    return validr, validr.float()
 
 
 def _at(t, i):
@@ -233,11 +290,13 @@ def _record(stats, key, carry):
         stats[key] = stats.get(key, 0) + int(carry[-1])
 
 
-def repair_workload(x, cost, quality, loads, lam1=0.0, *,
+def repair_workload(x, cost, quality, loads, lam1=0.0, n_valid=None, *,
                     chunk: int = SYNC_EVERY, stats: Optional[dict] = None):
     """Enforce Σ_i x_ij <= L_j exactly by moving the cheapest-to-move
     queries off overloaded models: one move per step — the most overloaded
     model gives its lowest-regret query to that query's best free model.
+    ``n_valid`` (a masked window) keeps the padding suffix out of the
+    histogram and the move candidates.
     NumPy oracle: ``kernels.lagrangian_assign.ref.repair_workload_ref``.
     ``stats`` (optional dict) accumulates the moves made under
     ``"repair_moves"``."""
@@ -247,7 +306,8 @@ def repair_workload(x, cost, quality, loads, lam1=0.0, *,
     cost, quality, loads = cost.float(), quality.float(), loads.float()
     reduced = cost - _f32(lam1, dev) * quality / _f32(n, dev)
     inf = _f32(float("inf"), dev)
-    counts0 = torch.bincount(x, minlength=m).float()
+    validr, vf = _valid_rows(n, n_valid, dev)
+    counts0 = torch.bincount(x, weights=vf, minlength=m).float()
 
     def step(carry):
         x, counts, done, moves = carry
@@ -258,7 +318,8 @@ def repair_workload(x, cost, quality, loads, lam1=0.0, *,
         best_alt = torch.argmin(alt, dim=1)
         alt_min = alt.gather(1, best_alt[:, None])[:, 0]
         red_j = reduced.index_select(1, j.reshape(1))[:, 0]
-        delta = torch.where(x == j, alt_min - red_j, inf)
+        movable = (x == j) if validr is None else ((x == j) & validr)
+        delta = torch.where(movable, alt_min - red_j, inf)
         qi = torch.argmin(delta)
         do = ~done & (_at(over, j) > 0) & torch.any(free)  # saturated: give up
         x, counts = _moved(x, counts, qi, _at(best_alt, qi), do)
@@ -273,11 +334,14 @@ def repair_workload(x, cost, quality, loads, lam1=0.0, *,
 
 
 def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
-            phase0_active, phase0_score, phase1_ok, phase1_minimize):
+            phase0_active, phase0_score, phase1_ok, phase1_minimize,
+            validr=None, vf=None):
     """The two-phase greedy polish shared by both modes.  ``tracked`` is the
     matrix whose chosen-sum the phases steer by (quality or cost).  Phase 0
     takes the highest-scoring allowed move while ``phase0_active``; phase 1
-    the lowest (``phase1_minimize``) or highest allowed move."""
+    the lowest (``phase1_minimize``) or highest allowed move.  ``validr``
+    (a masked window's valid rows, ``vf`` their float weights) keeps the
+    padding out of the histogram and the move pool."""
     dev = cost.device
     n, m = cost.shape
     ninf = _f32(float("-inf"), dev)
@@ -299,10 +363,14 @@ def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
     def chosen(x):
         return (quality.gather(1, x[:, None]), cost.gather(1, x[:, None]))
 
+    def allowed(ok):
+        return ok if validr is None else ok & validr[:, None]
+
     def step0(carry):
         x, counts, tsum = carry[:3]
         curq, curc = chosen(x)
         ok, score = phase0_score(curq, curc, counts)
+        ok = allowed(ok)
         score = torch.where(ok, score, ninf)
         carry = carry[:3] + (carry[3] | ~phase0_active(tsum),) + carry[4:]
         return apply(carry, score, torch.argmax, lambda s: s > ninf)
@@ -311,13 +379,14 @@ def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
         x, counts, tsum = carry[:3]
         curq, curc = chosen(x)
         ok, score = phase1_ok(curq, curc, counts, tsum)
+        ok = allowed(ok)
         if phase1_minimize:
             return apply(carry, torch.where(ok, score, inf), torch.argmin,
                          lambda s: s < inf)
         return apply(carry, torch.where(ok, score, ninf), torch.argmax,
                      lambda s: s > ninf)
 
-    counts0 = torch.bincount(x, minlength=m).float()
+    counts0 = torch.bincount(x, weights=vf, minlength=m).float()
     carry = _run_moves(step0, (x, counts0, init_sum, zero_b, zero_i),
                        4 * n, chunk)
     _record(stats, "polish_phase0_moves", carry)
@@ -326,17 +395,28 @@ def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
     return carry[0]
 
 
-def primal_polish(x, cost, quality, alpha, loads, *, chunk: int = SYNC_EVERY,
-                  stats: Optional[dict] = None):
+def _masked_chosen_sum(mat, x, vf):
+    if vf is None:
+        return _chosen_sum(mat, x)
+    # a masked window (the blocked solve): the device-independent order
+    return _ordered_sum(mat.gather(1, x[:, None])[:, 0] * vf)
+
+
+def primal_polish(x, cost, quality, alpha, loads, n_valid=None, *,
+                  chunk: int = SYNC_EVERY, stats: Optional[dict] = None):
     """Greedy primal improvement.  Phase 0 restores quality feasibility
     (best quality-gain-per-dollar moves); phase 1 is steepest-descent cost
-    reduction within the quality slack and the free capacity.
+    reduction within the quality slack and the free capacity.  ``n_valid``
+    (a masked window) keeps the padding suffix out of the histogram, the
+    quality target (nv·α, not n·α) and the move pool.
     NumPy oracle: ``...lagrangian_assign.ref.primal_polish_ref``."""
     dev = cost.device
     n, _ = cost.shape
     x = torch.as_tensor(x, device=dev).long()
     cost, quality, loads = cost.float(), quality.float(), loads.float()
-    target = _f32(n, dev) * _f32(alpha, dev)
+    validr, vf = _valid_rows(n, n_valid, dev)
+    nv = n if n_valid is None else n_valid
+    target = _f32(nv, dev) * _f32(alpha, dev)
     floor = _f32(1e-9, dev)
 
     def phase0_score(curq, curc, counts):
@@ -354,20 +434,23 @@ def primal_polish(x, cost, quality, alpha, loads, *, chunk: int = SYNC_EVERY,
         return ok, delta
 
     return _polish(x, cost, quality, loads, chunk, stats, quality,
-                   _chosen_sum(quality, x),
+                   _masked_chosen_sum(quality, x, vf),
                    lambda qsum: qsum < target - 1e-9, phase0_score,
-                   phase1_ok, phase1_minimize=True)
+                   phase1_ok, phase1_minimize=True, validr=validr, vf=vf)
 
 
-def budget_polish(x, cost, quality, budget, loads, *,
+def budget_polish(x, cost, quality, budget, loads, n_valid=None, *,
                   chunk: int = SYNC_EVERY, stats: Optional[dict] = None):
     """Budget-mode primal improvement.  Phase 0 restores budget
     feasibility (least quality lost per dollar saved); phase 1 is steepest
     quality ascent within the remaining budget and the free capacity.
+    ``n_valid`` (a masked window) keeps the padding suffix out of the
+    histogram and the move pool.
     NumPy oracle: ``...lagrangian_assign.ref.budget_polish_ref``."""
     dev = cost.device
     x = torch.as_tensor(x, device=dev).long()
     cost, quality, loads = cost.float(), quality.float(), loads.float()
+    validr, vf = _valid_rows(cost.shape[0], n_valid, dev)
     budget = _f32(budget, dev)
     floor = _f32(1e-9, dev)
 
@@ -385,9 +468,9 @@ def budget_polish(x, cost, quality, budget, loads, *,
         return ok, dq
 
     return _polish(x, cost, quality, loads, chunk, stats, cost,
-                   _chosen_sum(cost, x),
+                   _masked_chosen_sum(cost, x, vf),
                    lambda csum: csum > budget + 1e-9, phase0_score,
-                   phase1_ok, phase1_minimize=False)
+                   phase1_ok, phase1_minimize=False, validr=validr, vf=vf)
 
 
 def brute_force(cost: np.ndarray, quality: np.ndarray, threshold: float,
@@ -415,6 +498,199 @@ def brute_force(cost: np.ndarray, quality: np.ndarray, threshold: float,
     return best
 
 
+# --- blocked / masked window solve ---------------------------------------------
+#
+# The only cross-query coupling in the dual ascent is the per-iteration
+# reduction [ΣA, ΣB, histogram].  ``shards`` turns it into a BLOCKED one:
+# the (N, M) problem is viewed as (S, N/S, M), each shard produces its
+# contiguous partial sums (``ops.shard_stats``: the hand-written kernel on
+# the card, the plain version on the CPU), and the partials combine in shard
+# order.  Repair and polish run shard-locally against an exact integer
+# partition of the capacity vector.  The same path carries the masked
+# window: ``n_valid`` marks the valid-row prefix of a padded window; padding
+# rows are zeroed out of every matrix, masked out of every histogram and
+# excluded from repair/polish moves, so they never touch the ledger.  The
+# reference runs this core on one device or one shard per device; the port
+# runs every shard on one device (multi-GPU waits).
+
+def _shard_quotas(loads, shard_ids, gshards: int):
+    """Exact integer partition of per-model capacity across query shards:
+    quota_j(s) = floor(L_j·(s+1)/S) − floor(L_j·s/S)."""
+    dev = loads.device
+    s = shard_ids.float()[:, None]
+    g = _f32(gshards, dev)
+    hi = torch.floor(loads[None, :] * ((s + 1.0) / g))
+    lo = torch.floor(loads[None, :] * (s / g))
+    return torch.where(torch.isfinite(loads)[None, :], hi - lo,
+                       loads[None, :])
+
+
+def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
+                         lr_eff, lr_load_eff, lam0, lam20, stall_tol, step0,
+                         n_valid, *, mode: str, iters: int, patience: int,
+                         lblocks: int, polish: bool, norm_grad: bool,
+                         lr_con: float, lr_load: float,
+                         stats: Optional[dict] = None):
+    """Dual ascent (+ optional repair/polish + ledger sums) over ``lblocks``
+    query shards, all on the tensors' device.  Returns (x (N,), SolveInfo,
+    final csum, final qsum).
+
+    The loop keeps the reference's semantics (stall early exit,
+    ``iters_run`` exact) without reading its condition every iteration: an
+    iteration past the exit is frozen on the device (it changes nothing, as
+    in the fused TPU kernel), and the host reads the loop's active flag once
+    every ``SOLVE_SYNC_EVERY`` iterations."""
+    global host_reads
+    from repro_torch.kernels.lagrangian_assign.ops import shard_stats
+    dev = a_mat.device
+    nloc, m = a_mat.shape
+    nl = nloc // lblocks
+    one, tiny = _f32(1.0, dev), _f32(1e-30, dev)
+    shard_ids = torch.arange(lblocks, device=dev)
+    # per-shard valid-row counts: the padding is a suffix of the window
+    nv_loc = torch.clamp(n_valid - shard_ids.float() * nl, 0.0, float(nl))
+    rows = torch.arange(nl, device=dev)
+    valid2 = rows[None, :] < nv_loc.long()[:, None]           # (S, nl)
+    cols = torch.arange(m, device=dev)
+    c3 = cost.reshape(lblocks, nl, m)
+    q3 = quality.reshape(lblocks, nl, m)
+
+    def onehot(x2):
+        return ((x2[..., None] == cols) & valid2[..., None]).float()
+
+    def chosen(mat3, x2):
+        vals = mat3.gather(2, x2[..., None])[..., 0]
+        return _shards_sum(torch.where(valid2, vals, 0.0))
+
+    a_bar = b_bar = one
+    if norm_grad:
+        denom = n_valid * _f32(m, dev) + tiny
+        a_bar = _shards_sum(a_mat.reshape(lblocks, nl, m).abs()) / denom \
+            + tiny
+        b_bar = _shards_sum(b_mat.reshape(lblocks, nl, m).abs()) / denom \
+            + tiny
+        a_mat, b_mat = a_mat / a_bar, b_mat / b_bar
+        t_eff = t_eff / b_bar
+        lr_eff = _f32(lr_con, dev) / (one + t_eff.abs())
+        lr_load_eff = _f32(lr_load, dev) / (one + _ordered_sum(loads)
+                                             / _f32(m, dev))
+        lam0 = lam0 * b_bar / a_bar
+        lam20 = lam20 / a_bar
+    a_mat, b_mat = a_mat.contiguous(), b_mat.contiguous()
+    a3 = a_mat.reshape(lblocks, nl, m)
+    b3 = b_mat.reshape(lblocks, nl, m)
+
+    t0 = time.perf_counter()
+    lam = _f32(lam0, dev).reshape(())
+    lam2 = _f32(lam20, dev).reshape(m)
+    best_a = _f32(float("inf"), dev)
+    lam_b, lam2_b = _f32(0.0, dev), torch.zeros(m, device=dev)
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    stall = torch.zeros((), dtype=torch.int32, device=dev)
+    t_run = torch.zeros((), dtype=torch.int32, device=dev)
+    t = 0
+    while t < iters:
+        for _ in range(min(SOLVE_SYNC_EVERY, iters - t)):
+            active = stall < patience
+            tot = _in_shard_order(shard_stats(a_mat, b_mat, lam, lam2,
+                                              nv_loc, lblocks=lblocks))
+            asum, bsum, cnt = tot[0], tot[1], tot[2:]
+            feasible = active & (bsum <= t_eff) & torch.all(cnt <= loads)
+            better = feasible & (asum < best_a)
+            best_a = torch.where(better, asum, best_a)
+            lam_b = torch.where(better, lam, lam_b)
+            lam2_b = torch.where(better, lam2, lam2_b)
+            found = found | feasible
+            step = one / sqrt32(one + step0 + t)
+            lam_new = torch.clamp(lam + lr_eff * step * (bsum - t_eff),
+                                  min=0.0)
+            lam2_new = torch.clamp(
+                lam2 + lr_load_eff * step * (cnt - loads), min=0.0)
+            delta = ((lam_new - lam).abs()
+                     + _ordered_sum((lam2_new - lam2).abs()))
+            denom = one + lam_new.abs() + _ordered_sum(lam2_new.abs())
+            resid = (bsum - t_eff).abs() / (one + t_eff.abs())
+            stalled = found & ((delta < stall_tol * denom)
+                               | (resid < stall_tol))
+            # cumulative — see _solve_ref
+            stall = stall + (active & stalled).int()
+            lam = torch.where(active, lam_new, lam)
+            lam2 = torch.where(active, lam2_new, lam2)
+            t_run = t_run + active.int()
+            t += 1
+        host_reads += 1
+        if not bool(stall < patience):
+            break
+
+    lam_sel = torch.where(found, lam_b, lam)
+    lam2_sel = torch.where(found, lam2_b, lam2)
+    x2 = torch.argmin(a3 + lam_sel * b3 + lam2_sel.reshape(1, 1, m), dim=2)
+    asum_e = chosen(a3, x2)
+    info = SolveInfo(
+        lam=lam * a_bar / b_bar, lam_load=lam2 * a_bar, feasible=found,
+        cost=chosen(c3, x2),
+        quality=chosen(q3, x2) / torch.clamp(n_valid, min=1.0),
+        counts=onehot(x2).sum(dim=1).sum(dim=0),
+        objective=torch.where(found, best_a, asum_e) * a_bar,
+        iters_run=t_run)
+    if stats is not None:
+        _sync(dev)
+        t1 = time.perf_counter()
+        stats["solve_s"] = stats.get("solve_s", 0.0) + t1 - t0
+
+    if polish:
+        quotas = _shard_quotas(loads, shard_ids, lblocks)
+        lam1 = (lam * a_bar / b_bar if mode == "quality"
+                else torch.zeros((), device=dev))
+        shares = p_eff * nv_loc / torch.clamp(n_valid, min=1.0)
+        xs = []
+        for s in range(lblocks):
+            x1 = repair_workload(x2[s], c3[s], q3[s], quotas[s], lam1,
+                                 nv_loc[s], stats=stats)
+            if mode == "quality":
+                x1 = primal_polish(x1, c3[s], q3[s], p_eff, quotas[s],
+                                   nv_loc[s], stats=stats)
+            else:
+                # each shard polishes toward its valid-row budget share
+                x1 = budget_polish(x1, c3[s], q3[s], shares[s], quotas[s],
+                                   nv_loc[s], stats=stats)
+            xs.append(x1)
+        x2 = torch.stack(xs)
+        if stats is not None:
+            _sync(dev)
+            stats["polish_s"] = (stats.get("polish_s", 0.0)
+                                 + time.perf_counter() - t1)
+    return x2.reshape(nloc), info, chosen(c3, x2), chosen(q3, x2)
+
+
+def _blocked_window(cost, quality, threshold, loads, lam0, lam20, stall_tol,
+                    step0, n_valid, p_eff, *, mode: str, iters: int,
+                    lr_con: float, lr_load: float, patience: int,
+                    norm_grad: bool, gshards: int, polish: bool,
+                    stats: Optional[dict] = None):
+    """The reference's ``_blocked_window_fn`` on one device: zero the
+    padding rows, map onto the unified problem with the valid-row count,
+    and run :func:`_blocked_window_core` over ``gshards`` shards."""
+    dev = cost.device
+    n, m = cost.shape
+    nvf = _f32(n_valid, dev)
+    # padding rows (a suffix) contribute exactly 0.0 to every reduction,
+    # the stream ledger included
+    validr = (torch.arange(n, device=dev) < nvf)[:, None]
+    cost = cost.float() * validr
+    quality = quality.float() * validr
+    a_mat, b_mat, t_eff, lr_eff = _mode_params(
+        cost, quality, _f32(threshold, dev), lr_con,
+        budget_mode=(mode == "budget"), n_eff=nvf)
+    return _blocked_window_core(
+        a_mat, b_mat, cost, quality, t_eff, _f32(p_eff, dev),
+        loads.float(), _f32(lr_eff, dev), _f32(lr_load, dev),
+        _f32(lam0, dev), _f32(lam20, dev).reshape(m), _f32(stall_tol, dev),
+        _f32(step0, dev), nvf, mode=mode, iters=iters, patience=patience,
+        lblocks=gshards, polish=polish, norm_grad=norm_grad, lr_con=lr_con,
+        lr_load=lr_load, stats=stats)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -433,8 +709,12 @@ class DualSolver:
     anything else (NumPy arrays, lists) goes to ``device``, which is CUDA
     unless the caller names one (``device="cpu"``).  ``use_kernel`` is kept
     so configs read as they do for the JAX package; it selects nothing.
-    This slice holds the single-device, unmasked path: ``shards`` must be 1
-    and ``n_valid`` None.
+
+    ``shards`` > 1, or a masked window (``n_valid``), takes the blocked
+    solve (:func:`_blocked_window_core`): every shard on the one device,
+    its per-iteration statistics through ``ops.shard_stats`` (the kernel on
+    the card).  The reference's query mesh (one shard per device) waits for
+    multi-GPU ``torch.distributed``.
     """
 
     mode: str = "quality"          # "quality" | "budget"
@@ -445,15 +725,50 @@ class DualSolver:
     stall_tol: float = 0.0         # >0: early-exit on multiplier stall
     stall_patience: int = 3        # cumulative stalled iters before exit
     norm_grad: bool = False        # scale-free subgradient (streaming)
-    shards: int = 1                # blocked solve: a later slice
+    shards: int = 1                # blocked stats reduction over the query
+    #                                axis (all shards on one device)
     device: Optional[str] = None   # where non-tensor inputs go; None = CUDA
 
     def __post_init__(self):
         if self.mode not in ("quality", "budget"):
             raise ValueError(f"unknown solver mode: {self.mode!r}")
-        if self.shards != 1:
-            raise NotImplementedError(
-                "the blocked/sharded solve is not ported yet: shards must be 1")
+        if self.shards < 1:
+            raise ValueError(f"shards must be >= 1: {self.shards}")
+
+    @staticmethod
+    def _check_divisible(n: int, gshards: int):
+        if n % gshards:
+            raise ValueError(
+                f"window size {n} does not divide into {gshards} query "
+                f"shards — pad the window (StreamController pads to "
+                f"power-of-two buckets and passes n_valid)")
+
+    def _blocked(self, n_valid, n: int) -> bool:
+        """Whether a call takes the blocked path (checking divisibility)."""
+        if self.shards > 1 or n_valid is not None:
+            self._check_divisible(n, self.shards)
+            return True
+        return False
+
+    def _warm(self, state, m, dev):
+        """(lam0, lam20, step0) from a carried state, or a cold start."""
+        if state is None:
+            return (_f32(0.0, dev), torch.zeros(m, device=dev),
+                    _f32(0.0, dev))
+        # continue the stream's step schedule with a floor of ~1/20
+        return state.lam, state.lam_load, torch.clamp(state.steps, max=400.0)
+
+    def _blocked_call(self, cost, quality, threshold, loads, state, n_valid,
+                      p_eff, *, polish: bool, stats=None):
+        n, m = cost.shape
+        lam0, lam20, step0 = self._warm(state, m, cost.device)
+        return _blocked_window(
+            cost, quality, threshold, loads, lam0, lam20, self.stall_tol,
+            step0, n if n_valid is None else n_valid, p_eff, mode=self.mode,
+            iters=self.iters, lr_con=self.lr_constraint,
+            lr_load=self.lr_workload, patience=self.stall_patience,
+            norm_grad=self.norm_grad, gshards=self.shards, polish=polish,
+            stats=stats)
 
     def _inputs(self, cost, quality, loads):
         dev = (cost.device if isinstance(cost, torch.Tensor)
@@ -464,19 +779,17 @@ class DualSolver:
               state: Optional[DualState] = None, n_valid=None
               ) -> Tuple[torch.Tensor, SolveInfo]:
         """cost/quality (N, M) -> (assignment (N,), SolveInfo).  ``state``
-        warm-starts the ascent from a previous window's multipliers."""
-        if n_valid is not None:
-            raise NotImplementedError("masked windows are not ported yet")
+        warm-starts the ascent from a previous window's multipliers;
+        ``n_valid`` marks the valid-row prefix of a padded window."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
-        m = cost.shape[1]
-        if state is None:
-            lam0, lam20 = _f32(0.0, dev), torch.zeros(m, device=dev)
-            step0 = _f32(0.0, dev)
-        else:
-            lam0, lam20 = state.lam, state.lam_load
-            # continue the stream's step schedule with a floor of ~1/20
-            step0 = torch.clamp(state.steps, max=400.0)
+        n, m = cost.shape
+        if self._blocked(n_valid, n):
+            x, info, _, _ = self._blocked_call(
+                cost, quality, threshold, loads, state, n_valid, threshold,
+                polish=False)
+            return x, info
+        lam0, lam20, step0 = self._warm(state, m, dev)
         kw = dict(mode=self.mode, iters=self.iters, lr_con=self.lr_constraint,
                   lr_load=self.lr_workload, patience=self.stall_patience,
                   norm_grad=self.norm_grad)
@@ -501,9 +814,16 @@ class DualSolver:
         (device-synchronized wall seconds) and the move counts."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
+        if self._blocked(n_valid, cost.shape[0]):
+            # repair/polish run shard-locally against an exact capacity
+            # partition (budget mode polishes to the budget itself)
+            pt = threshold if polish_threshold is None else polish_threshold
+            x, info, _, _ = self._blocked_call(
+                cost, quality, threshold, loads, state, n_valid, pt,
+                polish=True, stats=stats)
+            return x, info
         t0 = time.perf_counter()
-        x, info = self.solve(cost, quality, threshold, loads, state=state,
-                             n_valid=n_valid)
+        x, info = self.solve(cost, quality, threshold, loads, state=state)
         if stats is not None:
             _sync(dev)
             t1 = time.perf_counter()
@@ -531,27 +851,33 @@ class DualSolver:
         carried multipliers, repair/polish, and return the updated state.
         ``threshold`` is the global constraint (stream budget B, or α);
         ``share`` is the window's fraction of the remaining horizon (budget
-        mode only)."""
-        if n_valid is not None:
-            raise NotImplementedError("masked windows are not ported yet")
+        mode only).  ``n_valid`` marks the valid-row prefix of a padded
+        window: padding rows never touch the ledger (their cost/quality are
+        zeroed and masked from every sum)."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
         n, m = cost.shape
         if state is None:
             state = init_dual_state(m, dev)
         threshold = _f32(threshold, dev)
-        t_eff = fold_threshold(self.mode, threshold, state, n, share)
+        nv = n if n_valid is None else n_valid
+        t_eff = fold_threshold(self.mode, threshold, state, nv, share)
         if self.mode == "quality":
             p_eff = torch.clamp(t_eff + polish_margin, 0.0, 1.0)
         else:
             p_eff = t_eff
-        x, info = self.route_arrays(cost, quality, t_eff, loads,
-                                    polish_threshold=p_eff, state=state,
-                                    stats=stats)
-        # the ledger books the FINAL (repaired + polished) assignment
-        csum = _chosen_sum(cost, x)
-        qsum = _chosen_sum(quality, x)
-        deficit = (threshold * n - qsum if self.mode == "quality"
+        if self._blocked(n_valid, n):
+            x, info, csum, qsum = self._blocked_call(
+                cost, quality, t_eff, loads, state, n_valid, p_eff,
+                polish=True, stats=stats)
+        else:
+            x, info = self.route_arrays(cost, quality, t_eff, loads,
+                                        polish_threshold=p_eff, state=state,
+                                        stats=stats)
+            # the ledger books the FINAL (repaired + polished) assignment
+            csum = _chosen_sum(cost, x)
+            qsum = _chosen_sum(quality, x)
+        deficit = (threshold * _f32(nv, dev) - qsum if self.mode == "quality"
                    else torch.zeros((), device=dev))
         new_state = DualState(
             lam=info.lam, lam_load=info.lam_load,

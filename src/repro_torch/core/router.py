@@ -7,12 +7,18 @@ repair → polish — runs on the predictor's device, with no host round-trip
 between the predictor and the solve (on the card: the retrieval-vote and
 dual-solve CUDA kernels).  ``route_window`` threads a :class:`DualState`
 through a streaming-tuned solver (scale-free subgradient + stall early exit)
-so window k+1 warm-starts from window k.
+so window k+1 warm-starts from window k.  A padded window (``n_valid``, as
+``core.control.StreamController`` pads every window to a power-of-two
+bucket) takes the blocked, masked solve, whose per-iteration statistics run
+in the hand-written shard-statistics kernel on the card.
 
-Not in this slice: speculative pair columns (``spec_pairs`` must be ()),
-the robust LCB streaming solve (``robust`` must be False), the
-blocked/sharded solve (``shards`` must be 1), masked windows
-(``n_valid`` must be None) and the sanitizer hooks.
+Speculative pair columns (``RouterConfig.spec_pairs``): ``route_window``
+splices the (draft, verify) columns between predict and solve
+(``core.speculative.expand_pair_columns``, on the device, priced by the
+live acceptance EWMA), so the solve and the warm state span M + P columns.
+
+Not in this slice: the robust LCB streaming solve (``robust`` must be
+False) and the sanitizer hooks.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from repro_torch.data import tokenizer
 
 from .baselines import Policy, RouteBatch
 from .optimizer import DualSolver, DualState, init_dual_state
+from .speculative import (AcceptanceTracker, expand_pair_columns,
+                          pair_index_arrays)
 
 
 @dataclasses.dataclass
@@ -45,9 +53,13 @@ class RouterConfig:
     lr_stream: float = 3.0
     stall_tol: float = 0.01
     stall_patience: int = 3
-    shards: int = 1              # blocked solve: a later slice
+    # query-axis shards of the streaming solver: >1 runs the blocked dual
+    # solve (all shards on one device)
+    shards: int = 1
     robust: bool = False         # LCB streaming solve: a later slice
-    spec_pairs: tuple = ()       # speculative pair columns: a later slice
+    # speculative cascade: (draft, verify) SpecPair columns grow the
+    # streaming solve to (N, M + P); () leaves the solve as it is
+    spec_pairs: tuple = ()
 
 
 class OmniRouter(Policy):
@@ -55,17 +67,13 @@ class OmniRouter(Policy):
     implements the device predict contract (``token_len``,
     ``device_inputs``, ``predict_device``, ``device``)."""
 
-    # the reference's declaration: its streaming windows are padded to
-    # power-of-two buckets and masked by ``n_valid``.  The port has no
-    # masked windows yet, so ``core.control.StreamController(stream=True)``
-    # refuses such a policy (ROADMAP deferred item b).
+    # StreamController opt-in: pad arrival windows to power-of-two buckets
+    # (multiples of the shard count) and pass n_valid, so the blocked solve
+    # divides every window evenly into its shards
     pads_windows = True
 
     def __init__(self, predictor, cfg: RouterConfig = RouterConfig(),
                  name: str = "ECCOS"):
-        if tuple(cfg.spec_pairs):
-            raise NotImplementedError(
-                "speculative pair columns are not ported yet")
         if cfg.robust:
             raise NotImplementedError(
                 "the robust (LCB) streaming solve is not ported yet")
@@ -82,6 +90,11 @@ class OmniRouter(Policy):
             lr_workload=cfg.lr_workload, use_kernel=cfg.use_assign_kernel,
             stall_tol=cfg.stall_tol, stall_patience=cfg.stall_patience,
             norm_grad=True, shards=cfg.shards)
+        # speculative cascade: pair columns + the acceptance EWMAs that
+        # reprice them (the engine records verify rounds into the tracker)
+        self.pairs = tuple(cfg.spec_pairs)
+        self.acceptance = (AcceptanceTracker(self.pairs) if self.pairs
+                           else None)
         self.route_seconds = 0.0
         self.predict_seconds = 0.0
         self._iters_pending: list = []  # device scalars awaiting one sync
@@ -146,22 +159,36 @@ class OmniRouter(Policy):
                                         stats=stats)
         return self._finish(x, stats, t1)
 
+    def window_multiple(self) -> int:
+        """Bucket sizes must divide into this many query shards."""
+        return self.stream_solver.shards
+
     def route_window(self, batch: RouteBatch, state: Optional[DualState],
                      *, share: float = 1.0, rng=None,
                      n_valid: Optional[int] = None):
-        """Streaming window: predict → warm-started windowed solve.
-        Returns ``(assignment, new_state)``."""
-        if n_valid is not None:
-            raise NotImplementedError("masked windows are not ported yet")
+        """Streaming window: predict → (pair columns) → warm-started
+        windowed solve, all on the predictor's device.  ``n_valid`` marks
+        the valid-row prefix of a padded window.  Returns ``(assignment,
+        new_state)``."""
         if state is None:
-            state = init_dual_state(batch.m, self.predictor.device)
+            # pair columns extend the multiplier/ledger axis: the warm
+            # state spans all M + P columns of the streaming solve
+            state = init_dual_state(batch.m + len(self.pairs),
+                                    self.predictor.device)
         threshold = (self.cfg.budget if self.cfg.budget is not None
                      else self.cfg.alpha)
         cap, cost, avail, t1 = self._predict(batch)
+        if self.pairs:
+            e_acc = torch.as_tensor(self.acceptance.expected(),
+                                    dtype=torch.float32, device=cost.device)
+            cost, cap = expand_pair_columns(cost, cap,
+                                            *pair_index_arrays(self.pairs),
+                                            e_acc)
         stats: dict = {}
         x, info, state = self.stream_solver.route_window(
             cost, cap, threshold, avail, state, share=share,
-            polish_margin=self.cfg.alpha_margin, stats=stats)
+            polish_margin=self.cfg.alpha_margin, n_valid=n_valid,
+            stats=stats)
         # iters_run stays on the device; dual_iters sums lazily on read
         self._iters_pending.append(info.iters_run)
         self.windows += 1

@@ -22,14 +22,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # IEEE division and square root everywhere (nvcc's defaults; never
-# --use_fast_math).  The dual solve also forbids FMA contraction: the
-# reference rounds every multiply and add separately.
+# --use_fast_math).  The dual solve and the shard statistics also forbid FMA
+# contraction: the reference rounds every multiply and add separately.
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FLAGS: Dict[str, List[str]] = {
     "dual_solve": _COMMON + ["--fmad=false"],
     "paged_decode": _COMMON,
     "retrieval_vote": _COMMON,
+    "shard_stats": _COMMON + ["--fmad=false"],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,16 +1,19 @@
-"""Entry point of the paged decode attention, dispatched by device.
+"""Entry points of the paged decode and verify attention, dispatched by
+device.
 
 A CUDA tensor launches the hand-written kernel (``kernel.py``) or raises;
 a CPU tensor runs the plain PyTorch version (``ref.py``).  ``launches``
-counts the kernel calls made through this entry point (one per call: the
-split pass and its merge).
+counts the decode kernel calls made through ``paged_decode_attention``,
+``verify_launches`` the verify kernel calls made through
+``paged_verify_attention`` (one per call: the split pass and its merge).
 """
 from __future__ import annotations
 
-from .kernel import paged_decode_attention_cuda
-from .ref import paged_decode_attention_ref
+from .kernel import paged_decode_attention_cuda, paged_verify_attention_cuda
+from .ref import paged_decode_attention_ref, paged_verify_attention_ref
 
 launches = 0
+verify_launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
@@ -26,4 +29,21 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
     if q.device.type != "cpu":
         raise ValueError(f"no paged decode attention for device {q.device}")
     return paged_decode_attention_ref(q, k_pages, v_pages, block_table, lens,
+                                      window=window)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_table, lens, *,
+                           window: int = 0):
+    """q (B,S,H,D): query s of sequence b attends to positions < lens[b] +
+    s; pools, block_table and lens as ``paged_decode_attention``.  Returns
+    (B,S,H,D) in q's dtype."""
+    global verify_launches
+    if q.is_cuda:
+        out = paged_verify_attention_cuda(q, k_pages, v_pages, block_table,
+                                          lens, window=window)
+        verify_launches += 1
+        return out
+    if q.device.type != "cpu":
+        raise ValueError(f"no paged verify attention for device {q.device}")
+    return paged_verify_attention_ref(q, k_pages, v_pages, block_table, lens,
                                       window=window)

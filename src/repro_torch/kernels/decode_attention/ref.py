@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the paged decode attention.
 
 Counterparts of ``repro.kernels.decode_attention.ref`` (``gather_pages``,
-``decode_attention_ref``, ``paged_decode_attention_ref``).  The split merge
+``decode_attention_ref``, ``paged_decode_attention_ref``, and for the
+speculative verify ``verify_attention_ref``, ``paged_verify_attention_ref``
+and the NumPy oracle ``paged_verify_attention_np``, copied as it is).  The split merge
 (``ops.merge_partials`` there) has no counterpart: the CUDA kernel merges
 its own splits, and the plain version computes no splits.  The softmax
 and both products run in float32 on operands widened from their storage
@@ -17,6 +19,7 @@ positions, so it never produces such a row.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -57,3 +60,69 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_table, lens, *,
     return decode_attention_ref(q, gather_pages(k_pages, block_table),
                                 gather_pages(v_pages, block_table),
                                 lens, window=window)
+
+
+def verify_attention_ref(q, k_cache, v_cache, lens, *, window: int = 0):
+    """Speculative-verify version: q (B,S,H,D) — query s of sequence b sits
+    at position ``lens[b] - 1 + s`` and attends to positions < ``lens[b] +
+    s``.  Float32 softmax; returns (B,S,H,D) in q's dtype."""
+    b, s_q, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    qf = q.reshape(b, s_q, kh, g, d).float() * (d ** -0.5)
+    s = torch.einsum("bskgd,btkd->bskgt", qf, k_cache.float())
+    kv = torch.arange(t, device=q.device)
+    # per-position valid lengths: (B, S, 1)
+    pcol = (lens.to(torch.int32).reshape(-1, 1)
+            + torch.arange(s_q, device=q.device)[None, :])[:, :, None]
+    valid = kv[None, None, :] < pcol
+    if window > 0:
+        valid = valid & (kv[None, None, :] > pcol - 1 - window)
+    s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bskgt,btkd->bskgd", p, v_cache.float())
+    return o.reshape(b, s_q, h, d).to(q.dtype)
+
+
+def paged_verify_attention_ref(q, k_pages, v_pages, block_table, lens, *,
+                               window: int = 0):
+    """Gather the block-table pages into a dense view, then the
+    per-position causal mask of :func:`verify_attention_ref`."""
+    return verify_attention_ref(q, gather_pages(k_pages, block_table),
+                                gather_pages(v_pages, block_table),
+                                lens, window=window)
+
+
+def paged_verify_attention_np(q, k_pages, v_pages, block_table, lens, *,
+                              window: int = 0):
+    """NumPy oracle for the paged verify step: a per-(sequence, position)
+    python loop — query s of sequence b sees positions [lo, lens[b] + s)."""
+    in_dtype = np.asarray(q).dtype
+    q = np.asarray(q, np.float32)
+    k_pages = np.asarray(k_pages, np.float32)
+    v_pages = np.asarray(v_pages, np.float32)
+    block_table = np.asarray(block_table)
+    lens = np.asarray(lens)
+    b, s_q, h, d = q.shape
+    ps, kh = k_pages.shape[1], k_pages.shape[2]
+    g = h // kh
+    out = np.zeros((b, s_q, h, d), np.float32)
+    for i in range(b):
+        pages = block_table[i]
+        kd = k_pages[pages].reshape(-1, kh, d)
+        vd = v_pages[pages].reshape(-1, kh, d)
+        for j in range(s_q):
+            n = int(lens[i]) + j
+            lo = max(0, n - window) if window > 0 else 0
+            if n - lo <= 0:
+                continue
+            k = kd[lo:n]
+            v = vd[lo:n]
+            qi = q[i, j].reshape(kh, g, d) * (d ** -0.5)
+            s = np.einsum("kgd,tkd->kgt", qi, k)
+            s = s - s.max(-1, keepdims=True)
+            p = np.exp(s)
+            p = p / p.sum(-1, keepdims=True)
+            out[i, j] = np.einsum("kgt,tkd->kgd", p, v).reshape(h, d)
+    return out.astype(in_dtype)

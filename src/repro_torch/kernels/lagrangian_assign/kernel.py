@@ -4,6 +4,9 @@
 stream and returns the packed, fully finalised ``(8 + 3M,)`` vector — the
 contract of ``ref.fused_dual_solve_ref``.  It takes CUDA tensors only; the
 library builds from the repository's sources at first use.
+``shard_stats_cuda`` (``csrc/shard_stats.cu``) computes one iteration's
+per-shard ``[ΣA, ΣB, histogram]`` for the blocked, masked window solve —
+the contract of ``ref.shard_stats_ref``.
 ``l2_read_probe_cuda`` measures the single-CTA design's own limit, one SM's
 L2 read rate; it is a measurement aid and no part of the routing path.
 """
@@ -16,13 +19,23 @@ import torch
 
 from repro_torch.kernels import _build
 
-MMAX = 16     # models per solve the kernel holds in shared memory
+MMAX = 16     # models per solve the kernels hold in shared memory
+STATS_ROWS = 256   # rows per block of the shard-statistics kernel
 
 
 @lru_cache(maxsize=1)
 def _launcher():
     fn = _build.load("dual_solve").dual_solve_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _stats_launcher():
+    fn = _build.load("shard_stats").shard_stats_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -89,4 +102,45 @@ def dual_solve_cuda(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
                                  aux.data_ptr(), out.data_ptr(), n, m,
                                  int(iters), int(patience), stream),
                      "dual_solve_launch")
+    return out
+
+
+def shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
+    """Same arguments and result as ``ref.shard_stats_ref``: a_mat/b_mat
+    (lblocks·nl, M) float32, lam a 0-dim float32 tensor, lam2 (M,), nv
+    (lblocks,) per-shard valid-row counts; returns (lblocks, 2 + M) float32.
+    Every tensor must lie on one CUDA device; nothing is read on the host."""
+    dev = a_mat.device
+    if dev.type != "cuda":
+        raise ValueError(f"shard_stats_cuda needs CUDA tensors, got {dev}")
+    nloc, m = a_mat.shape
+    if tuple(b_mat.shape) != (nloc, m):
+        raise ValueError(f"A {tuple(a_mat.shape)} and B "
+                         f"{tuple(b_mat.shape)} differ in shape")
+    if not 1 <= m <= MMAX:
+        raise ValueError(f"shard_stats_cuda holds 1..{MMAX} models, got {m}")
+    if lblocks < 1 or nloc % lblocks:
+        raise ValueError(f"{nloc} rows do not divide into {lblocks} shards")
+
+    def f32(t, n):
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        if t.device != dev or t.numel() != n:
+            raise ValueError(f"argument on {t.device} with {t.numel()} "
+                             f"elements, expected {n} on {dev}")
+        return t.reshape(-1).contiguous()
+
+    a = f32(a_mat, nloc * m)
+    b = f32(b_mat, nloc * m)
+    lam_t, lam2_t, nv_t = f32(lam, 1), f32(lam2, m), f32(nv, lblocks)
+    nl = nloc // lblocks
+    bps = -(-nl // STATS_ROWS)
+    part = torch.empty((lblocks, bps, 2 + m), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((lblocks, 2 + m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_stats_launcher()(
+            a.data_ptr(), b.data_ptr(), lam_t.data_ptr(), lam2_t.data_ptr(),
+            nv_t.data_ptr(), part.data_ptr(), out.data_ptr(), lblocks, nl, m,
+            bps, stream), "shard_stats_launch")
     return out

@@ -7,6 +7,11 @@ hand-written kernel on a CUDA tensor — or in the plain version on a CPU
 tensor — and then replays the winning argmin from the emitted multipliers
 and builds ``SolveInfo`` (``finish``).  ``launches`` counts the kernel
 launches made through ``fused_dual_solve``.
+
+``shard_stats`` is the per-iteration statistics pass of the blocked, masked
+window solve (``core.optimizer._blocked_window_core``): the hand-written
+kernel on a CUDA tensor, the plain version on a CPU tensor;
+``stats_launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -17,10 +22,25 @@ import torch
 from repro_torch.core.optimizer import (SolveInfo, _f32, _mode_params,
                                         _normalize_problem)
 
-from .kernel import dual_solve_cuda
-from .ref import fused_dual_solve_ref
+from .kernel import dual_solve_cuda, shard_stats_cuda
+from .ref import fused_dual_solve_ref, shard_stats_ref
 
 launches = 0
+stats_launches = 0
+
+
+def shard_stats(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
+    """Per-shard [ΣA, ΣB, histogram] (lblocks, 2 + M) of one dual iteration
+    (see ``ref.shard_stats_ref``).  A CUDA tensor launches the kernel or
+    raises; a CPU tensor runs the plain version."""
+    global stats_launches
+    if a_mat.is_cuda:
+        out = shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
+        stats_launches += 1
+        return out
+    if a_mat.device.type != "cpu":
+        raise ValueError(f"no shard statistics for device {a_mat.device}")
+    return shard_stats_ref(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
 
 
 def fused_dual_solve(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,

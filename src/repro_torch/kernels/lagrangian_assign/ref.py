@@ -7,6 +7,11 @@
   with the freeze gated by ``torch.where`` (no host sync), as the TPU kernel
   does.  It is the CPU path of ``ops.fused_dual_solve`` and the yardstick
   the kernel is held against on the card.
+- ``shard_stats_ref``: one dual iteration's per-shard ``[ΣA, ΣB,
+  histogram]`` of the blocked (masked) window solve — the stats path of
+  the reference's ``_blocked_window_core`` — in plain PyTorch; the CPU path
+  of ``ops.shard_stats`` and the yardstick of ``csrc/shard_stats.cu``,
+  whose summation order it repeats, so the two agree bit for bit.
 - ``repair_workload_ref`` / ``primal_polish_ref`` / ``budget_polish_ref``:
   NumPy oracles, copied from the JAX package, for the device repair/polish
   loops in ``repro_torch.core.optimizer``.  They follow the same
@@ -80,6 +85,57 @@ def fused_dual_solve_ref(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
         torch.stack([lam, lam_best, best, found.float(), zero, zero,
                      t_run.float(), zero]),
         lam2, lam2_best, torch.zeros_like(lam2)])
+
+
+STATS_ROWS = 256    # rows per block of csrc/shard_stats.cu
+STATS_WARPS = 8     # its warps per block
+
+
+def _kernel_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum the per-row values ``v`` (lblocks, nl) of each shard in the
+    order of ``csrc/shard_stats.cu``: 256-row blocks; in each, a
+    shuffle-down tree over each warp's 32 rows, then the 8 warp sums in
+    order; then the blocks in order.  Every add is a float32 add, so the
+    plain version gives the kernel's bits.  Returns (lblocks,)."""
+    lb, nl = v.shape
+    bps = -(-nl // STATS_ROWS)
+    v = torch.nn.functional.pad(v, (0, bps * STATS_ROWS - nl))
+    v = v.reshape(lb, bps, STATS_WARPS, 32)
+    for o in (16, 8, 4, 2, 1):          # lane i takes lane i + o's value
+        v = v[..., :o] + v[..., o:2 * o]
+    v = v[..., 0]                                        # (lb, bps, warps)
+    blk = torch.zeros((lb, bps), dtype=v.dtype, device=v.device)
+    for w in range(STATS_WARPS):
+        blk = blk + v[..., w]
+    out = torch.zeros(lb, dtype=v.dtype, device=v.device)
+    for b in range(bps):
+        out = out + blk[:, b]
+    return out
+
+
+def shard_stats_ref(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
+    """Per-shard [ΣA, ΣB, histogram] for one dual iteration.
+
+    a_mat/b_mat (lblocks·nl, M): ``lblocks`` contiguous query shards; nv
+    (lblocks,) per-shard valid-row counts (rows at or past them are padding
+    and add nothing).  Each row takes the argmin of ``A + lam·B + lam2``
+    (lowest index on ties); the sums are taken in the CUDA kernel's order
+    (:func:`_kernel_order_sum`).  Returns (lblocks, 2 + M) float32."""
+    nloc, m = a_mat.shape
+    nl = nloc // lblocks
+    a3 = a_mat.reshape(lblocks, nl, m)
+    b3 = b_mat.reshape(lblocks, nl, m)
+    x = torch.argmin(a3 + lam * b3 + lam2.reshape(1, 1, m), dim=2)
+    rows = torch.arange(nl, device=a_mat.device)
+    valid = rows[None, :] < torch.as_tensor(nv, device=a_mat.device).reshape(
+        lblocks, 1).long()
+    zero = torch.zeros((), dtype=a_mat.dtype, device=a_mat.device)
+    va = torch.where(valid, a3.gather(2, x[..., None])[..., 0], zero)
+    vb = torch.where(valid, b3.gather(2, x[..., None])[..., 0], zero)
+    hist = ((x[..., None] == torch.arange(m, device=a_mat.device))
+            & valid[..., None]).sum(dim=1).float()
+    return torch.cat([_kernel_order_sum(va)[:, None],
+                      _kernel_order_sum(vb)[:, None], hist], dim=1)
 
 
 def repair_workload_ref(x, cost, quality, loads, lam1=0.0):

@@ -2,14 +2,15 @@
 (prefill) path in plain PyTorch, and the paged decode path through the
 hand-written kernel.
 
-The port of ``repro.models.attention`` for the two branches the paged
-serving plane runs: the full-sequence branch (``flash_attention``, the
-counterpart of ``flash_attention_jnp``, which the JAX package computes
-outside any Pallas kernel) and the prewritten paged decode branch
-(``kernels.decode_attention.ops.paged_decode_attention``: the CUDA kernel on
-a CUDA tensor, the plain version on a CPU tensor).  Cross-attention, the
-dense-cache decode and the multi-position (speculative verify) branch raise
-``NotImplementedError``.
+The port of ``repro.models.attention`` for the branches the paged serving
+plane runs: the full-sequence branch (``flash_attention``, the counterpart
+of ``flash_attention_jnp``, which the JAX package computes outside any
+Pallas kernel), the prewritten paged decode branch
+(``kernels.decode_attention.ops.paged_decode_attention``) and its
+multi-position twin, the speculative verify
+(``kernels.decode_attention.ops.paged_verify_attention``): the CUDA kernels
+on a CUDA tensor, their plain versions on a CPU tensor.  Cross-attention
+and the dense-cache decode raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -125,8 +126,11 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                     cross_cached: bool = False, prewritten: bool = False):
     """Projections + RoPE + core + output projection.  Returns (out, new_kv):
     new_kv is this call's (k, v) on the full-sequence branch (the prefill
-    cache) and None on the paged decode branch, whose caller has already
-    written this token's K/V into the page pools."""
+    cache) and None on the paged branches, whose caller has already written
+    the K/V of every query position into the page pools.  On the paged
+    branch x may carry S > 1 positions per sequence (the speculative
+    verify): position s sits at ``pos[b] + s`` and attends to positions <=
+    ``pos[b] + s``."""
     if kv_x is not None or cross_cached:
         raise NotImplementedError("cross-attention is not ported yet")
     q = _proj(x, params["wq"])
@@ -137,16 +141,15 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
             raise NotImplementedError(
                 "only the prewritten paged decode is ported; the dense-cache "
                 "decode waits")
-        if x.shape[1] > 1:
-            raise NotImplementedError(
-                "multi-position (speculative verify) attention is not "
-                "ported yet")
         pos = cache["pos"]
+        sq = x.shape[1]
         if use_rope:
-            q = rope(q, _pos2d(pos, 1), cfg.rope_theta)
-        out = decode_ops.paged_decode_attention(
-            q, cache["k_pages"], cache["v_pages"], cache["block_table"],
-            pos + 1, window=window)
+            q = rope(q, _pos2d(pos, sq), cfg.rope_theta)
+        # speculative verify: S prewritten positions per sequence, one pass
+        attend = (decode_ops.paged_verify_attention if sq > 1
+                  else decode_ops.paged_decode_attention)
+        out = attend(q, cache["k_pages"], cache["v_pages"],
+                     cache["block_table"], pos + 1, window=window)
         new_kv = None
     else:
         k = _proj(x, params["wk"])

@@ -2,16 +2,17 @@
 
 The port of ``repro.models.transformer.DecoderLM`` on the paths the paged
 serving plane runs: the full-sequence forward (``hidden``/``logits``),
-``prefill`` (which returns the KV cache) and the paged single-token decode
-(``decode_step_paged``).  The parameter layout is the reference's:
+``prefill`` (which returns the KV cache), the paged single-token decode
+(``decode_step_paged``) and the paged multi-position verify of the
+speculative plane (``verify_step_paged``).  The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
 the layers takes the place of ``lax.scan``.
 
 Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention, the
-int8 KV pools, the dense-cache ``decode_step``, ``verify_step_paged`` and
-the training loss; their configs raise ``NotImplementedError``.
+int8 KV pools, the dense-cache ``decode_step`` and the training loss;
+their configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -99,6 +100,59 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
     a, _ = attention_block(cfg, params["attn"], h, causal=True,
                            window=kind.window, cache=lc, prewritten=True)
     return _ffn_residual(cfg, params, x + a)
+
+
+def _verify_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
+                        x: torch.Tensor, pools: dict, i: int,
+                        block_table: torch.Tensor, lens: torch.Tensor
+                        ) -> torch.Tensor:
+    """Speculative-verify twin of :func:`_decode_layer_paged`: ``x`` carries
+    S tokens per sequence at positions ``lens[b] .. lens[b]+S-1``.  All S
+    K/V columns are written into layer i's pools in place, then ONE
+    multi-position attention pass scores every position (query s masked to
+    positions <= lens[b]+s).  Recurrent layers advance token by token and
+    cannot be batch-verified."""
+    if kind.block != "attn":
+        raise NotImplementedError(
+            "speculative verify requires pure-attention layers; "
+            f"got {kind.block!r}")
+    k_pool, v_pool = pools["k"], pools["v"]          # (L, n_pages, PS, K, D)
+    page_size = k_pool.shape[2]
+    p_max = block_table.shape[1]
+    s_q = x.shape[1]
+    pos2 = lens[:, None] + torch.arange(s_q, dtype=lens.dtype,
+                                        device=lens.device)[None, :]
+    pg = (pos2 // page_size).long()
+    # past the block table (never on the serving path) -> the dump page
+    pidx = torch.where(pg < p_max,
+                       block_table.gather(1, pg.clamp(max=p_max - 1)), 0)
+    off = (pos2 % page_size).long()
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    k_new, v_new = project_kv_token(cfg, params["attn"], h, lens)
+    # in place, as the decode step; masked rows (block table 0) all write
+    # the dump page, duplicates included: nothing valid ever reads it
+    k_pool[i, pidx.long(), off] = k_new.to(k_pool.dtype)
+    v_pool[i, pidx.long(), off] = v_new.to(v_pool.dtype)
+    lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
+          "block_table": block_table, "pos": lens}
+    a, _ = attention_block(cfg, params["attn"], h, causal=True,
+                           window=kind.window, cache=lc, prewritten=True)
+    return _ffn_residual(cfg, params, x + a)
+
+
+def _logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the rows of ``h`` (..., d) against the vocabulary
+    table.  The reference keeps them unrounded (``preferred_element_type=
+    f32``); on the card a bf16 table goes into the product as is, with
+    float32 output: widening it first would write and read a float32 copy
+    of the table every step (~0.5 GB at 32000 x 3840)."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if table.is_cuda and table.dtype != torch.float32:
+        out = torch.mm(h2, table.t(), out_dtype=torch.float32)
+    else:
+        out = h2.float() @ table.float().t()
+    return out.reshape(*lead, -1)
 
 
 class DecoderLM:
@@ -208,14 +262,19 @@ class DecoderLM:
             x = _decode_layer_paged(cfg, kind, lp, x, state["segs"][si][j], i,
                                     block_table, lens)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, -1]
-        table = self._out_table(params)
-        # the reference keeps these logits unrounded
-        # (``preferred_element_type=f32``).  On the card a bf16 table goes
-        # into the product as is, with float32 output: widening it first
-        # would write and read a float32 copy of the table every step
-        # (~0.5 GB at 32000 x 3840)
-        if table.is_cuda and table.dtype != torch.float32:
-            logits = torch.mm(h, table.t(), out_dtype=torch.float32)
-        else:
-            logits = h.float() @ table.float().t()
-        return state, logits
+        return state, _logits_f32(h, self._out_table(params))
+
+    # -- paged multi-position verify (speculative cascade) --------------------
+    def verify_step_paged(self, params, state: dict, tokens: torch.Tensor,
+                          block_table: torch.Tensor, lens: torch.Tensor):
+        """tokens (B,S) int32 — token s is the input at position lens[b]+s
+        (its K/V is written there, in place); block_table (B,P); lens (B,)
+        int32.  Returns (state, float32 logits (B,S,V_padded)): logits[:, s]
+        scores the token FOLLOWING position lens+s."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens)
+        for kind, lp, si, j, i in self._layers(params):
+            x = _verify_layer_paged(cfg, kind, lp, x, state["segs"][si][j], i,
+                                    block_table, lens)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return state, _logits_f32(h, self._out_table(params))

@@ -17,12 +17,25 @@ before it blocks on any result.
 
 The :class:`MultiLLMServer` runs on the control loop of
 ``repro_torch.core.control``: requests are released by arrival step,
-admitted per the paper's capacity rule and routed through a Policy.
+admitted per the paper's capacity rule and routed through a Policy — with
+``stream=True`` through the persistent dual controller, whose padded,
+masked windows the router solves in the blocked solve.
+
+The speculative cascade plane: with ``spec_pairs`` (``core.speculative.
+SpecPair``; the router's ``RouterConfig.spec_pairs`` prices them as extra
+columns), a request routed to a pair column holds a slot on BOTH pair
+endpoints.  Every engine step, after the normal chunks, the server runs one
+round per pair: the draft endpoint decodes k tokens in one k-step chunk,
+the verify endpoint scores all k positions in ONE multi-position paged step
+(``DecoderLM.verify_step_paged``, the paged-verify kernel on the card), and
+the longest strong-matching prefix plus the strong correction token is
+emitted — greedy output equal to the verify endpoint decoding alone.
+Rejected draft pages roll back through the allocator; acceptance feeds the
+router's ``AcceptanceTracker``.
 
 Not ported yet (each raises ``NotImplementedError`` when turned on):
-hedging, the fault plan, the health plane, the stall watchdog, speculative
-pair columns, online fold-back, a stream ``horizon`` and the sanitizer
-hooks; ``RestartEndpoint`` waits too.
+hedging, the fault plan, the health plane, the stall watchdog, online
+fold-back and the sanitizer hooks; ``RestartEndpoint`` waits too.
 """
 from __future__ import annotations
 
@@ -59,6 +72,22 @@ def null_route_features(batch):
                               loads=loads, counts=counts)
 
     return _Features()
+
+
+@dataclasses.dataclass
+class _SpecSeq:
+    """One speculative sequence: a slot on BOTH pair endpoints, driven by
+    the server's pair rounds instead of the chunk loop.  ``base`` is the
+    accepted length (prompt + emitted tokens) — both endpoints' ``lens``
+    mirrors equal it between rounds; ``pending`` is the next token to feed
+    (the strong model's last emission, or the final prompt token)."""
+    req: "Request"
+    pair: int
+    d_slot: int
+    v_slot: int
+    pending: int
+    base: int
+    remaining: int
 
 
 @dataclasses.dataclass
@@ -169,6 +198,7 @@ class Endpoint:
         self.last_tokens = np.zeros((self.L, 1), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * self.L
         self._slot_pages: List[List[int]] = [[] for _ in range(self.L)]
+        self.spec_slots: set = set()   # slots driven by the speculative plane
 
         self.busy_steps = 0          # chunks dispatched
         self.decoded_tokens = 0      # real (non-masked) tokens emitted
@@ -185,6 +215,7 @@ class Endpoint:
         return [r for r in self.slot_req if r is not None]
 
     def _free_slot(self, slot: int):
+        self.spec_slots.discard(slot)
         self.slot_req[slot] = None
         self.block_table[slot] = 0
         if self._has_kv:
@@ -260,14 +291,15 @@ class Endpoint:
         return slot
 
     # -- fused decode chunk --------------------------------------------------
-    def _chunk(self, block_table, last, lens, remaining):
-        """``sync_every`` decode steps with on-device argmax sampling; the
-        done-mask freezes finished sequences (their writes land at their own
-        frozen position, or the dump page once the slot is freed).  Every
-        tensor stays on the device: nothing here waits for the card."""
+    def _chunk(self, block_table, last, lens, remaining, length=None):
+        """``length`` (default ``sync_every``) decode steps with on-device
+        argmax sampling; the done-mask freezes finished sequences (their
+        writes land at their own frozen position, or the dump page once the
+        slot is freed).  Every tensor stays on the device: nothing here
+        waits for the card."""
         vocab = self.cfg.vocab_size
         toks = []
-        for _ in range(self.sync_every):
+        for _ in range(self.sync_every if length is None else length):
             _, logits = self.model.decode_step_paged(
                 self.params, self._state, last, block_table, lens)
             nxt = torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
@@ -282,6 +314,12 @@ class Endpoint:
     def step_begin(self):
         """Dispatch one decode chunk (async) — does not block."""
         if self.active_count() == 0:
+            return None
+        if self.spec_slots and all(
+                req is None or slot in self.spec_slots
+                for slot, req in enumerate(self.slot_req)):
+            # every live slot is speculative: the pair rounds drive them,
+            # so the frozen chunk would be pure wasted compute
             return None
         dev = self.device
         out = self._chunk(_to_device(self.block_table, dev),
@@ -298,7 +336,9 @@ class Endpoint:
         last, lens, remaining, toks = (np.array(x.cpu()) for x in pending)
         finished = []
         for slot, req in enumerate(self.slot_req):
-            if req is None:
+            if req is None or slot in self.spec_slots:
+                # spec slots ride the chunk frozen (remaining 0); the
+                # server's pair rounds emit and complete them
                 continue
             take = int(min(self.remaining[slot], self.sync_every))
             req.output.extend(int(t) for t in toks[slot, :take])
@@ -319,6 +359,123 @@ class Endpoint:
         """One decode chunk for every active sequence (dispatch + collect)."""
         return self.step_end(self.step_begin())
 
+    # -- speculative cascade plane ---------------------------------------------
+    # Spec slots hold a normal slot + pages but are frozen for the chunk
+    # loop (remaining stays 0, step_end skips them); the server's pair
+    # rounds drive them through draft_round / verify_round below and advance
+    # ``lens`` only by the accepted length.  Every position >= lens is
+    # written by a round before anything attends to it, so rejected draft KV
+    # is never read — pages past the accepted prefix go back to the
+    # allocator each round (rollback_pages) and the next round's
+    # ensure_pages allocates them afresh.
+
+    def can_serve_spec(self, req: Request, k: int) -> bool:
+        """Spec variant of :meth:`can_serve`: the draft overshoots up to
+        ``k - 1`` positions past the last accepted token."""
+        return len(req.tokens) - 1 + req.max_new + k - 1 <= self.t_max
+
+    def admit_spec(self, req: Request, k: int) -> int:
+        """Admit a speculative sequence: normal admission (prefill into
+        pages), then freeze the slot and mark it spec-driven."""
+        if self._has_recurrent or not self._has_kv:
+            raise NotImplementedError(
+                "speculative decode needs rollback-able paged KV "
+                "(pure-attention models only)")
+        if not self.can_serve_spec(req, k):
+            raise ValueError(f"request {req.rid} + draft window {k} "
+                             f"exceeds t_max={self.t_max}")
+        slot = self.admit(req)
+        self.remaining[slot] = 0
+        self.spec_slots.add(slot)
+        return slot
+
+    def release_spec(self, slot: int):
+        """Free a finished speculative slot through the normal paths."""
+        self._free_slot(slot)
+        self.lens[slot] = 0
+        self.last_tokens[slot, 0] = 0
+
+    def ensure_pages(self, slot: int, n_tokens: int):
+        """Grow a spec slot's coverage to ``n_tokens`` positions before a
+        round writes them (the inverse of :meth:`rollback_pages`)."""
+        need = -(-n_tokens // self.page_size)
+        have = len(self._slot_pages[slot])
+        if need > have:
+            pages = self.alloc.alloc_pages(need - have)
+            self._slot_pages[slot].extend(pages)
+            self.block_table[slot, have:need] = pages
+
+    def rollback_pages(self, slot: int, n_tokens: int):
+        """Release the pages that hold ONLY rejected draft positions (past
+        the accepted prefix of ``n_tokens``) back to the allocator."""
+        keep = -(-n_tokens // self.page_size)
+        pages = self._slot_pages[slot]
+        if len(pages) > keep:
+            self.alloc.release_pages(pages[keep:])
+            self.block_table[slot, keep:len(pages)] = 0
+            del pages[keep:]
+
+    def draft_round(self, slot_tokens: dict, k: int) -> np.ndarray:
+        """Draft ``k`` tokens for every slot in ``slot_tokens`` (slot ->
+        pending token) in one k-step chunk over the full fixed batch.  Other
+        slots ride along frozen (remaining 0): their writes land at their own
+        frozen position, which the next chunk or round rewrites before
+        anything attends to it.  Returns the (L, k) drafted tokens (one host
+        sync); host mirrors are untouched — acceptance decides the advance."""
+        last = self.last_tokens.copy()
+        rem = np.zeros_like(self.remaining)
+        for slot, tok in slot_tokens.items():
+            last[slot, 0] = tok
+            rem[slot] = k
+        dev = self.device
+        out = self._chunk(_to_device(self.block_table, dev),
+                          _to_device(last, dev), _to_device(self.lens, dev),
+                          _to_device(rem, dev), length=k)
+        self.busy_steps += 1
+        return out[3].cpu().numpy()
+
+    def _verify(self, tokens, block_table, lens, spec_mask, remaining):
+        """One verify round on the device: all k positions in ONE batched
+        paged verify step, acceptance included.  Returns the (B, k + 2)
+        int32 tensor [strong tokens (k) | n_emit | pending]."""
+        _, logits = self.model.verify_step_paged(
+            self.params, self._state, tokens, block_table, lens)
+        strong = torch.argmax(logits[:, :, :self.cfg.vocab_size],
+                              dim=-1).to(torch.int32)            # (B, k)
+        # tokens[:, 1:] are the draft continuations d_1..d_{k-1}; draft
+        # position j survives iff it equals the strong argmax s_{j-1}
+        matches = (tokens[:, 1:] == strong[:, :-1]).to(torch.int32)
+        prefix = torch.cumprod(matches, dim=1).sum(dim=1)       # (B,)
+        # accepted prefix + the strong correction token, clamped by the
+        # per-sequence output budget
+        n_emit = torch.minimum(prefix + 1, torch.clamp(remaining, min=1))
+        n_emit = torch.where(spec_mask, n_emit, 0).to(torch.int32)
+        idx = torch.clamp(n_emit - 1, min=0).long()
+        pending = strong.gather(1, idx[:, None])
+        return torch.cat([strong, n_emit[:, None], pending], dim=1)
+
+    def verify_round(self, slot_tokens: dict, slot_rem: dict, k: int):
+        """Verify every spec slot's k draft positions in one batched
+        multi-position paged step.  Non-spec rows are masked to the dump
+        page (block table 0, len 0) so their k-position writes never touch
+        live pages.  Returns host (strong (L, k), n_emit (L,), pending (L,))
+        from a single device-to-host transfer."""
+        toks = np.zeros((self.L, k), np.int32)
+        mask = np.zeros((self.L,), bool)
+        rem = np.zeros((self.L,), np.int32)
+        for slot, tv in slot_tokens.items():
+            toks[slot] = tv
+            mask[slot] = True
+            rem[slot] = slot_rem[slot]
+        bt = np.where(mask[:, None], self.block_table, 0).astype(np.int32)
+        lens = np.where(mask, self.lens, 0).astype(np.int32)
+        dev = self.device
+        out = self._verify(_to_device(toks, dev), _to_device(bt, dev),
+                           _to_device(lens, dev), _to_device(mask, dev),
+                           _to_device(rem, dev)).cpu().numpy()
+        self.busy_steps += 1
+        return out[:, :k], out[:, k], out[:, k + 1]
+
 
 class _EngineExecutor:
     """The endpoint pool behind the control loop: the stream clock is the
@@ -336,11 +493,26 @@ class _EngineExecutor:
         return float(self.steps)
 
     def loads(self) -> np.ndarray:
-        return np.array([float(e.L) for e in self.server.endpoints], float)
+        srv = self.server
+        vals = [float(e.L) for e in srv.endpoints]
+        if srv.spec_pairs:
+            pc = srv._pair_counts()
+            for p, pair in enumerate(srv.spec_pairs):
+                d_ep = srv.endpoints[pair.draft]
+                v_ep = srv.endpoints[pair.verify]
+                free = min(d_ep.L - d_ep.active_count(),
+                           v_ep.L - v_ep.active_count())
+                # a pair column can take min(free on both ends) MORE
+                # sequences: report load so available == that headroom
+                vals.append(float(pc[p] + free))
+        return np.array(vals, float)
 
     def counts(self) -> np.ndarray:
-        return np.array([float(e.active_count())
-                         for e in self.server.endpoints], float)
+        srv = self.server
+        vals = [float(e.active_count()) for e in srv.endpoints]
+        if srv.spec_pairs:
+            vals.extend(float(c) for c in srv._pair_counts())
+        return np.array(vals, float)
 
     def dispatch(self, items, x) -> List[Request]:
         rejected = []
@@ -348,6 +520,24 @@ class _EngineExecutor:
         srv = self.server
         for req, j in zip(items, x):
             j = int(j)
+            if j >= len(srv.endpoints):
+                # pair column: admit onto BOTH the pair's endpoints
+                pair = srv.spec_pairs[j - len(srv.endpoints)]
+                d_ep = srv.endpoints[pair.draft]
+                v_ep = srv.endpoints[pair.verify]
+                if not (d_ep.can_serve_spec(req, pair.k)
+                        and v_ep.can_serve_spec(req, pair.k)):
+                    req.done = True
+                    req.endpoint = j
+                    req.output = []
+                    req.finished = time.perf_counter()
+                    srv.completed.append(req)
+                elif d_ep.has_capacity() and v_ep.has_capacity():
+                    req.admit_step = float(self.steps)
+                    srv.admit_spec(req, j - len(srv.endpoints))
+                else:
+                    rejected.append(req)
+                continue
             ep = srv.endpoints[j]
             if not ep.can_serve(req):
                 # can NEVER fit this endpoint's fixed shapes: fail it cleanly
@@ -384,6 +574,12 @@ class _EngineExecutor:
             fin = e.step_end(p)
             progressed = progressed or bool(fin) or bool(e.active_count())
             done.extend(fin)
+        if self.server._spec:
+            # pair rounds after the normal chunks: every round emits at
+            # least the strong model's correction token, so this always
+            # progresses
+            done.extend(self.server._spec_round())
+            progressed = True
         self.steps += 1
         self.server.completed.extend(done)
         return done, progressed
@@ -394,10 +590,12 @@ class MultiLLMServer:
     per the paper's capacity rule, arrival-step release, routing windows
     rate-limited to one per ``window_steps`` decode steps (unless a full
     batch is waiting) and resized by ``adapt_window`` (a
-    ``core.control.AdaptiveWindow``), and with ``stream=True`` a persistent
-    dual state through ``policy.route_window`` (stateless policies only,
-    until masked windows are ported: ``horizon``, the stream length a
-    stateful policy spreads its budget over, raises until then)."""
+    ``core.control.AdaptiveWindow``), with ``stream=True`` a persistent
+    dual state through ``policy.route_window`` (``horizon`` is the stream
+    length a stateful policy spreads its budget over; 0 = the queue at the
+    first ``run``), and with ``spec_pairs`` the speculative cascade plane
+    (they must match the policy's ``RouterConfig.spec_pairs`` when the
+    policy is an ``OmniRouter``)."""
 
     def __init__(self, endpoints: List[Endpoint], policy, *,
                  batch_size: int = 0, hedge_after_steps: int = 0,
@@ -405,17 +603,33 @@ class MultiLLMServer:
                  horizon: int = 0, window_steps: float = 0.0,
                  fault_plan=None, health=None, stall_after_chunks: int = 0,
                  spec_pairs=(), adapt_window=None):
+        self.spec_pairs = tuple(spec_pairs)
+        if self.spec_pairs and health:
+            raise NotImplementedError(
+                "speculative pair columns extend loads/counts past the "
+                "health plane's model axis; run spec pools without health")
         deferred = {"hedge_after_steps": hedge_after_steps > 0,
                     "fold_online": fold_online,
-                    "horizon": horizon > 0,
                     "fault_plan": fault_plan is not None,
                     "health": bool(health),
-                    "stall_after_chunks": stall_after_chunks > 0,
-                    "spec_pairs": bool(tuple(spec_pairs))}
+                    "stall_after_chunks": stall_after_chunks > 0}
         on = [name for name, used in deferred.items() if used]
         if on:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(on) + " (ROADMAP Queue A)")
+        for p in self.spec_pairs:
+            for j in (p.draft, p.verify):
+                ep = endpoints[j]
+                if getattr(ep, "_has_recurrent", True) \
+                        or not getattr(ep, "_has_kv", False):
+                    raise NotImplementedError(
+                        f"pair endpoint {j} ({ep.cfg.name}) is not a "
+                        f"pure-attention paged endpoint; speculative decode "
+                        f"needs rollback-able paged KV")
+        self._spec: dict = {}       # rid -> _SpecSeq
+        self.spec_rounds = 0        # per-sequence verify rounds run
+        self.spec_emitted = 0       # tokens emitted by the spec plane
+        self.horizon = horizon
         self.endpoints = endpoints
         self.policy = policy
         cap = sum(e.L for e in endpoints)
@@ -447,13 +661,90 @@ class MultiLLMServer:
             return
         self.queue.append((float(at_step), req))
 
+    # -- speculative cascade plane ---------------------------------------------
+    def _pair_counts(self) -> List[int]:
+        counts = [0] * len(self.spec_pairs)
+        for s in self._spec.values():
+            counts[s.pair] += 1
+        return counts
+
+    def admit_spec(self, req: Request, pair_idx: int):
+        """Admit one request speculatively: a slot + prompt prefill on BOTH
+        the pair's endpoints, driven by :meth:`_spec_round` from then on."""
+        pair = self.spec_pairs[pair_idx]
+        d_slot = self.endpoints[pair.draft].admit_spec(req, pair.k)
+        v_slot = self.endpoints[pair.verify].admit_spec(req, pair.k)
+        req.endpoint = len(self.endpoints) + pair_idx
+        plen = len(req.tokens) - 1
+        self._spec[req.rid] = _SpecSeq(
+            req=req, pair=pair_idx, d_slot=d_slot, v_slot=v_slot,
+            pending=int(req.tokens[-1]), base=plen, remaining=req.max_new)
+
+    def _spec_round(self) -> List[Request]:
+        """One draft+verify round for every live speculative sequence,
+        batched per pair: the draft endpoint decodes k tokens in one k-step
+        chunk, the verify endpoint scores all k positions in ONE batched
+        multi-position paged step, and the longest strong-matching prefix
+        plus the strong correction token is emitted.  Emissions are always
+        strong-model argmaxes, so spec output equals decoding on the verify
+        endpoint alone.  Rejected draft pages roll back through the
+        allocator; acceptance feeds the router's ``AcceptanceTracker``.
+        Two host syncs per pair: the draft tokens and the verify result."""
+        finished: List[Request] = []
+        acc = getattr(self.policy, "acceptance", None)
+        for p, pair in enumerate(self.spec_pairs):
+            seqs = [s for s in self._spec.values() if s.pair == p]
+            if not seqs:
+                continue
+            d_ep = self.endpoints[pair.draft]
+            v_ep = self.endpoints[pair.verify]
+            k = pair.k
+            for s in seqs:
+                d_ep.ensure_pages(s.d_slot, s.base + k)
+                v_ep.ensure_pages(s.v_slot, s.base + k)
+            draft = d_ep.draft_round({s.d_slot: s.pending for s in seqs}, k)
+            v_tokens, v_rem = {}, {}
+            for s in seqs:
+                row = np.empty((k,), np.int32)
+                row[0] = s.pending
+                row[1:] = draft[s.d_slot, :k - 1]
+                v_tokens[s.v_slot] = row
+                v_rem[s.v_slot] = s.remaining
+            strong, n_emit, pending = v_ep.verify_round(v_tokens, v_rem, k)
+            for s in seqs:
+                ne = int(n_emit[s.v_slot])
+                s.req.output.extend(int(t) for t in strong[s.v_slot, :ne])
+                v_ep.decoded_tokens += ne
+                s.base += ne
+                s.remaining -= ne
+                s.pending = int(pending[s.v_slot])
+                d_ep.lens[s.d_slot] = s.base
+                v_ep.lens[s.v_slot] = s.base
+                d_ep.last_tokens[s.d_slot, 0] = s.pending
+                v_ep.last_tokens[s.v_slot, 0] = s.pending
+                d_ep.rollback_pages(s.d_slot, s.base)
+                v_ep.rollback_pages(s.v_slot, s.base)
+                if acc is not None:
+                    acc.record(p, ne)
+                self.spec_rounds += 1
+                self.spec_emitted += ne
+                if s.remaining <= 0:
+                    req = s.req
+                    req.done = True
+                    req.finished = time.perf_counter()
+                    d_ep.release_spec(s.d_slot)
+                    v_ep.release_spec(s.v_slot)
+                    del self._spec[req.rid]
+                    finished.append(req)
+        return finished
+
     def run(self, route_features, *, max_steps: int = 10_000):
         # ONE controller for the server's lifetime: a stream's dual state
         # must survive across run() calls
         if self._controller is None:
             self._controller = StreamController(
-                self.policy, horizon=len(self.queue), stream=self.stream,
-                adapt_window=self.adapt_window)
+                self.policy, horizon=self.horizon or len(self.queue),
+                stream=self.stream, adapt_window=self.adapt_window)
         controller = self._controller
         windows0 = controller.windows
         iters0 = controller.dual_iters

@@ -37,7 +37,11 @@ def test_import_port_loads_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        "need = {'repro_torch.core.speculative', 'repro_torch.core.control',\n"
+        "        'repro_torch.serving.engine',\n"
+        "        'repro_torch.kernels.decode_attention.ops',\n"
+        "        'repro_torch.kernels.lagrangian_assign.ops'}\n"
+        "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -12,8 +12,16 @@ window that masks, all with shuffled physical pages and page 0 as the dump
 page.  Tolerance 2e-5, the reference test's own (float32 softmax and dot
 products summed in another order).
 
-The CUDA kernel has no CPU mode; it is held against this plain version on
-the card by ``chip_smoke.py``.
+The speculative verify: ``paged_verify_attention_ref`` (reached through
+``ops.paged_verify_attention``) against the JAX Pallas verify kernel in
+interpret mode (merged and laid out as the JAX ``ops`` does) and against
+the NumPy oracle ``paged_verify_attention_np``, at 2e-5, with a window case
+and G > 1.  Verify is never held to decode by bit equality here (the JAX
+reference itself is not, ROADMAP C1); position s is held to the decode
+plain version at ``lens + s`` at 2e-5.
+
+The CUDA kernels have no CPU mode; they are held against these plain
+versions on the card by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -22,16 +30,17 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 from repro.kernels.decode_attention.kernel import (  # noqa: E402
-    paged_decode_attention_kernel)
+    paged_decode_attention_kernel, paged_verify_attention_kernel)
 from repro.kernels.decode_attention.ops import merge_partials as jax_merge  # noqa: E402
 from repro.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref as jax_dense_ref, paged_decode_attention_np,
-    paged_decode_attention_ref as jax_ref)
+    paged_decode_attention_ref as jax_ref,
+    paged_verify_attention_np as jax_verify_np)
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    paged_decode_attention_cuda)
+    paged_decode_attention_cuda, paged_verify_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_ref, gather_pages)
+    decode_attention_ref, gather_pages, paged_verify_attention_np)
 
 CASES = [   # b, h, kh, d, ps, p_max, window, lens
     (3, 8, 2, 64, 16, 8, 0, (100, 17, 128)),      # GQA, ragged
@@ -135,3 +144,52 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         paged_decode_attention_cuda(
             torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
             torch.from_numpy(bt), torch.from_numpy(ln))
+
+
+VERIFY_CASES = [   # b, s, h, kh, d, ps, p_max, window, lens (of query 0)
+    (3, 4, 8, 2, 64, 16, 8, 0, (60, 1, 124)),     # GQA G=4, ragged
+    (2, 3, 4, 4, 32, 8, 4, 0, (20, 5)),           # MHA
+    (2, 3, 8, 2, 64, 16, 8, 24, (90, 40)),        # sliding window
+    (2, 8, 16, 4, 120, 16, 8, 40, (1, 100)),      # danube heads, k = 8
+]
+
+
+def _verify_inputs(b, s, h, kh, d, ps, p_max, lens, seed=0):
+    q1, kp, vp, bt, ln = _inputs(b, h, kh, d, ps, p_max,
+                                 [n + s - 1 for n in lens], seed)
+    q = np.random.RandomState(seed + 1).randn(b, s, h, d).astype(np.float32)
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,ps,p_max,window,lens", VERIFY_CASES)
+def test_verify_plain_version_matches_kernel_and_oracle(b, s, h, kh, d, ps,
+                                                        p_max, window, lens):
+    q, kp, vp, bt, ln = _verify_inputs(b, s, h, kh, d, ps, p_max, lens)
+    got = ops.paged_verify_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(bt), torch.from_numpy(ln), window=window).numpy()
+    assert got.shape == (b, s, h, d)
+    o, m, l = paged_verify_attention_kernel(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(ln), window=window, interpret=True)
+    g = h // kh
+    kern = np.asarray(jax_merge(o, m, l)).reshape(b, kh, s, g, d).transpose(
+        0, 2, 1, 3, 4).reshape(b, s, h, d)
+    oracle = jax_verify_np(q, kp, vp, bt, ln, window=window)
+    assert float(np.max(np.abs(got - kern))) < 2e-5
+    assert float(np.max(np.abs(got - oracle))) < 2e-5
+    # the port's copy of the oracle is the reference's, bit for bit
+    assert np.array_equal(paged_verify_attention_np(q, kp, vp, bt, ln,
+                                                    window=window), oracle)
+    # position s is the decode of its query at lens + s
+    for j in range(s):
+        dec = _port(np.ascontiguousarray(q[:, j:j + 1]), kp, vp, bt, ln + j,
+                    window)
+        assert float(np.max(np.abs(got[:, j:j + 1] - dec))) < 2e-5
+
+
+def test_verify_cuda_wrapper_refuses_cpu_tensors():
+    q, kp, vp, bt, ln = _verify_inputs(1, 3, 4, 2, 16, 8, 2, (5,))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_verify_attention_cuda(*[torch.from_numpy(a)
+                                      for a in (q, kp, vp, bt, ln)])

@@ -10,7 +10,12 @@ over by ``convert.model_params_from_numpy``:
 - six greedy steps of ``decode_step_paged`` over a shuffled block table
   with ragged lengths, after each request was prefilled alone and scattered
   into the pages by ``prefill_into_pages``: logits every step, and the
-  greedy tokens equal.
+  greedy tokens equal;
+- one ``verify_step_paged`` of four positions over the same paged state:
+  the (B, S, V) float32 logits against JAX's, and, within the port,
+  against four sequential ``decode_step_paged`` calls on a copy of the
+  state (logits to the same tolerance, greedy tokens and the written pages
+  equal);
 
 Tolerance: max |port - JAX| <= 1e-4 * max(1, max |JAX|).  Both sum float32
 products in another order; with random weights the activations reach ~20
@@ -123,6 +128,71 @@ def test_paged_decode_matches_jax(arch):
         nxt = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)
         assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), nxt)
         last, lens = nxt[:, None], lens + 1
+
+
+def _paged_setup(jm, jp, pm, pp, plens, s_extra, seed):
+    """Prefill each prompt alone into shuffled pages of both packages.
+    Returns (JAX state, port state, block table, lens, last tokens)."""
+    rng = np.random.RandomState(seed)
+    b, ps, p_max = len(plens), 8, 4
+    n_pages = 1 + b * p_max
+    jstate = jm.empty_paged_state(b, n_pages, ps)
+    pstate = pm.empty_paged_state(b, n_pages, ps, device="cpu")
+    bt = np.zeros((b, p_max), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    last = np.zeros((b, 1), np.int32)
+    for i, plen in enumerate(plens):
+        toks = rng.randint(1, jm.cfg.vocab_size, (plen + 1,)).astype(np.int32)
+        n_used = pages_per_request(plen, s_extra, ps)
+        bt[i, :n_used] = perm[i * p_max:i * p_max + n_used]
+        bucket = -(-plen // ps) * ps
+        pt = np.zeros((1, bucket), np.int32)
+        pt[0, :plen] = toks[:-1]
+        jcache, _ = jm.prefill(jp, jnp.asarray(pt))
+        pcache, _ = pm.prefill(pp, torch.from_numpy(pt))
+        ids = bt[i, :bucket // ps]
+        jstate = jax_pip(jstate, jcache, jnp.asarray(ids), i, ps)
+        prefill_into_pages(pstate, pcache, torch.from_numpy(ids), i, ps)
+        last[i, 0] = toks[-1]
+    return jstate, pstate, bt, np.asarray(plens, np.int32), last
+
+
+def _clone_state(state):
+    return {"segs": [[{k: v.clone() for k, v in layer.items()}
+                      for layer in seg] for seg in state["segs"]]}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_verify_matches_jax_and_sequential_decode(arch):
+    jm, jp, pm, pp = _pair(arch, seed=2)
+    s_q = 4
+    jstate, pstate, bt, lens, last = _paged_setup(jm, jp, pm, pp,
+                                                  [5, 11, 16], s_q, seed=2)
+    rng = np.random.RandomState(3)
+    toks = np.concatenate([last, rng.randint(
+        1, jm.cfg.vocab_size, (len(lens), s_q - 1)).astype(np.int32)], 1)
+    seq_state = _clone_state(pstate)
+    _, jlog = jax.jit(jm.verify_step_paged)(jp, jstate, jnp.asarray(toks),
+                                            jnp.asarray(bt),
+                                            jnp.asarray(lens))
+    _, plog = pm.verify_step_paged(pp, pstate, torch.from_numpy(toks),
+                                   torch.from_numpy(bt),
+                                   torch.from_numpy(lens))
+    assert plog.dtype == torch.float32 and plog.shape == jlog.shape
+    _close(plog.numpy(), jlog)
+    vocab = jm.cfg.vocab_size
+    for j in range(s_q):
+        _, dlog = pm.decode_step_paged(pp, seq_state,
+                                       torch.from_numpy(toks[:, j:j + 1]),
+                                       torch.from_numpy(bt),
+                                       torch.from_numpy(lens + j))
+        _close(plog[:, j].numpy(), dlog.numpy())
+        assert torch.equal(plog[:, j, :vocab].argmax(-1),
+                           dlog[:, :vocab].argmax(-1))
+    for seg, seq_seg in zip(pstate["segs"], seq_state["segs"]):
+        for layer, seq_layer in zip(seg, seq_seg):
+            for key in ("k", "v"):
+                _close(layer[key].numpy(), seq_layer[key].numpy())
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m",

@@ -25,6 +25,16 @@
   spent, quality deficit, steps) within 1e-5 relative, the carried λ/λ2
   within 1e-3 relative — the JAX package's own fused-vs-reference λ
   contract, since long normalized ascents drift as described above.
+- The blocked, masked window solve (``shards``, ``n_valid``) against the
+  JAX ``_blocked_window_core`` (``DualSolver.route_window`` /``solve`` with
+  ``n_valid``), both modes, ``shards`` 1 and 4, warm over three padded
+  windows with garbage in the padding: ``x`` and ``iters_run`` exact, the
+  ledger within 1e-5 relative and λ/λ2 within 1e-3 relative (the C4 drift
+  above); garbage and zero padding bit-identical within the port;
+  ``_shard_quotas`` exact; the masked ``repair_workload``,
+  ``primal_polish`` and ``budget_polish`` exact against the JAX versions;
+  ``shard_stats_ref`` against the JAX ``shard_stats`` kernel in interpret
+  mode (histogram exact, sums within 1e-5 relative).
 """
 import numpy as np
 import pytest
@@ -34,13 +44,14 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from repro.core import optimizer as jopt  # noqa: E402
 from repro.data.qaserve import generate  # noqa: E402
-from repro.kernels.lagrangian_assign.kernel import fused_dual_solve  # noqa: E402
+from repro.kernels.lagrangian_assign.kernel import (  # noqa: E402
+    fused_dual_solve, shard_stats as jax_shard_stats)
 from repro.kernels.lagrangian_assign.ref import (  # noqa: E402
     budget_polish_ref, primal_polish_ref, repair_workload_ref)
 from repro_torch.core import optimizer as popt  # noqa: E402
 from repro_torch.kernels.lagrangian_assign import ops as pops  # noqa: E402
 from repro_torch.kernels.lagrangian_assign.ref import (  # noqa: E402
-    fused_dual_solve_ref)
+    fused_dual_solve_ref, shard_stats_ref)
 
 RTOL = 1e-5
 WARM_RTOL = 1e-4     # normalized ascent: see the module docstring
@@ -359,9 +370,143 @@ def test_inputs_go_to_the_solver_device():
     assert all(t.device.type == "cpu" for t in got)
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        popt.DualSolver(shards=2)
-    c, a = _rand_instance(0)
-    with pytest.raises(NotImplementedError):
-        popt.DualSolver().solve(c, a, 0.5, np.full(3, 3.0), n_valid=4)
+def test_bad_shard_configs_raise():
+    """What the blocked path still refuses, as the reference does: a shard
+    count below 1, and a window that does not divide into its shards."""
+    with pytest.raises(ValueError, match="shards"):
+        popt.DualSolver(shards=0)
+    c, a = _rand_instance(0, n=10)
+    with pytest.raises(ValueError, match="divide"):
+        popt.DualSolver(shards=4, device="cpu").solve(c, a, 0.5,
+                                                      np.full(3, 5.0))
+
+
+def _padded_instance(n_pad, nv, m=5, seed=0, garbage=True):
+    """A window of ``nv`` valid rows padded to ``n_pad``: garbage (or zero)
+    in the padding, which the blocked solve must ignore."""
+    rng = np.random.default_rng(seed)
+    cost = np.zeros((n_pad, m), np.float32)
+    qual = np.zeros((n_pad, m), np.float32)
+    cost[:nv] = rng.uniform(0.2, 3.0, (nv, m)) * 1e-3
+    qual[:nv] = rng.uniform(0.0, 1.0, (nv, m))
+    if garbage:
+        cost[nv:] = rng.uniform(10, 20, (n_pad - nv, m))
+        qual[nv:] = rng.uniform(0, 1, (n_pad - nv, m))
+    return cost, qual
+
+
+WINDOWS = ((128, 100), (128, 128), (128, 77))     # (padded, valid) rows
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_blocked_window_matches_jax(mode, shards):
+    kw = dict(mode=mode, iters=60, lr_constraint=3.0, stall_tol=1e-2,
+              norm_grad=True, shards=shards)
+    jsolver, psolver = jopt.DualSolver(**kw), popt.DualSolver(**kw,
+                                                              device="cpu")
+    loads = np.full(5, 30.0, np.float32)
+    thr = 0.55 if mode == "quality" else 0.2
+    js = ps = None
+    for w, (n_pad, nv) in enumerate(WINDOWS):
+        c, q = _padded_instance(n_pad, nv, seed=w)
+        xj, ij, js = jsolver.route_window(c, q, thr, loads, js,
+                                          share=1.0 / (3 - w),
+                                          polish_margin=0.03, n_valid=nv)
+        xp, ip, ps = psolver.route_window(c, q, thr, loads, ps,
+                                          share=1.0 / (3 - w),
+                                          polish_margin=0.03, n_valid=nv)
+        assert np.array_equal(xp.numpy(), np.asarray(xj)), w
+        assert int(ip.iters_run) == int(ij.iters_run), w
+        assert float(ip.counts.sum()) == nv
+        for field in ("budget_spent", "sr_deficit", "steps"):
+            assert _close(getattr(ps, field), getattr(js, field)), field
+        assert _close(ps.lam, js.lam, FUSED_WARM_RTOL)
+        assert _close(ps.lam_load, js.lam_load, FUSED_WARM_RTOL)
+    # the solve alone (no polish) through the same blocked core
+    c, q = _padded_instance(128, 90, seed=5)
+    xj, ij = jsolver.solve(c, q, thr, loads, n_valid=90)
+    xp, ip = psolver.solve(c, q, thr, loads, n_valid=90)
+    assert np.array_equal(xp.numpy(), np.asarray(xj))
+    assert int(ip.iters_run) == int(ij.iters_run)
+    assert bool(ip.feasible) == bool(ij.feasible)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_blocked_pad_content_cannot_leak(shards):
+    """Garbage and zero padding give bit-identical assignments, SolveInfo
+    and stream state: the padding is zeroed and masked out of every sum."""
+    s = popt.DualSolver(mode="quality", iters=40, lr_constraint=4.0,
+                        norm_grad=True, shards=shards, device="cpu")
+    loads = np.full(5, 17.0, np.float32)
+    outs = []
+    for garbage in (False, True):
+        c, q = _padded_instance(96, 64, garbage=garbage)
+        outs.append(s.route_window(c, q, 0.55, loads,
+                                   popt.init_dual_state(5, "cpu"),
+                                   n_valid=64))
+    (xa, ia, sa), (xb, ib, sb) = outs
+    assert torch.equal(xa[:64], xb[:64])
+    for a, b in zip(list(ia) + list(sa), list(ib) + list(sb)):
+        assert torch.equal(a, b)
+    assert float(ia.counts.sum()) == 64
+    cnt = np.bincount(xa[:64].numpy(), minlength=5)
+    assert np.all(cnt <= loads)
+
+
+def test_shard_quotas_match_jax():
+    loads = np.array([7.0, 30.0, 1.0, np.inf, 12.0], np.float32)
+    for g in (1, 3, 4, 8):
+        ids = np.arange(g)
+        want = np.asarray(jopt._shard_quotas(jnp.asarray(loads),
+                                             jnp.asarray(ids), g))
+        got = popt._shard_quotas(torch.from_numpy(loads),
+                                 torch.from_numpy(ids), g).numpy()
+        assert np.array_equal(got, want), g
+        fin = np.isfinite(loads)
+        assert np.array_equal(got[:, fin].sum(0), np.floor(loads[fin]))
+
+
+@pytest.mark.parametrize("kind", ["repair", "primal", "budget"])
+def test_masked_repair_and_polish_match_jax(kind):
+    c, q = _padded_instance(48, 35, m=4, seed=3)
+    loads = np.array([6.0, 14.0, 10.0, 12.0], np.float32)
+    x0 = np.random.RandomState(2).randint(0, 4, 48).astype(np.int32)
+    x0[:20] = 0                          # overload model 0
+    if kind == "repair":
+        want = jopt.repair_workload(x0, c, q, loads, 0.3, 35.0)
+        got = popt.repair_workload(torch.from_numpy(x0), _t(c), _t(q),
+                                   _t(loads), 0.3, 35, chunk=5)
+    elif kind == "primal":
+        want = jopt.primal_polish(x0, c, q, 0.6, loads, 35.0)
+        got = popt.primal_polish(torch.from_numpy(x0), _t(c), _t(q), 0.6,
+                                 _t(loads), 35, chunk=5)
+    else:
+        budget = float(c[:35].min(1).sum() * 1.3)
+        want = jopt.budget_polish(x0, c, q, budget, loads, 35.0)
+        got = popt.budget_polish(torch.from_numpy(x0), _t(c), _t(q), budget,
+                                 _t(loads), 35, chunk=5)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy()[35:], x0[35:])    # padding untouched
+
+
+@pytest.mark.parametrize("lblocks", [1, 4])
+def test_shard_stats_ref_matches_jax_kernel(lblocks):
+    rng = np.random.default_rng(lblocks)
+    n, m = 160, 7
+    a = rng.uniform(0, 1, (n, m)).astype(np.float32)
+    b = rng.uniform(-1, 1, (n, m)).astype(np.float32)
+    lam2 = rng.uniform(0, 0.3, m).astype(np.float32)
+    nl = n // lblocks
+    nv = np.array([nl, nl - 7, 3, 0][:lblocks], np.float32)
+    want = np.asarray(jax_shard_stats(
+        jnp.asarray(a), jnp.asarray(b), jnp.float32(0.4), jnp.asarray(lam2),
+        jnp.asarray(nv), lblocks=lblocks, bq=16, interpret=True))
+    got = shard_stats_ref(_t(a), _t(b), torch.tensor(0.4), _t(lam2),
+                          _t(nv), lblocks=lblocks).numpy()
+    assert got.shape == (lblocks, 2 + m)
+    assert np.array_equal(got[:, 2:], want[:, 2:])
+    assert np.allclose(got[:, :2], want[:, :2], rtol=1e-5, atol=1e-6)
+    assert np.array_equal(pops.shard_stats(_t(a), _t(b), torch.tensor(0.4),
+                                           _t(lam2), _t(nv),
+                                           lblocks=lblocks).numpy(), got)

@@ -10,7 +10,10 @@ port:
   of rows, with success rate and $ within 1% (the two predictors sum their
   float32 encoders in another order, which may move a near-tie);
 - (c) three ``route_window`` calls carry a ``DualState`` whose ledger
-  (budget spent, quality deficit, steps) matches JAX within 1e-5 relative.
+  (budget spent, quality deficit, steps) matches JAX within 1e-5 relative;
+- (d) the same three windows padded to power-of-two buckets and masked by
+  ``n_valid``, at ``shards`` 4 (the blocked solve): ``x`` exact, the ledger
+  within 1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -25,9 +28,11 @@ from repro.core import PredictorConfig as JaxPCfg  # noqa: E402
 from repro.core import RouterConfig as JaxRCfg  # noqa: E402
 from repro.core import evaluate_assignment as jax_eval  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro.core.baselines import pad_batch as jax_pad  # noqa: E402
+from repro.core.baselines import pad_bucket as jax_bucket  # noqa: E402
 from repro_torch.core import (DualSolver, HybridPredictor, OmniRouter,  # noqa: E402
                               PredictorConfig, RouteBatch, RouterConfig,
-                              evaluate_assignment)
+                              evaluate_assignment, pad_batch, pad_bucket)
 
 
 @pytest.fixture(scope="module")
@@ -119,11 +124,35 @@ def test_c_route_window_ledger_matches_jax(carried, qaserve_splits, mode):
     assert pr.windows == 3 and pr.dual_iters == int(float(ps.steps))
 
 
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_d_padded_windows_match_jax(carried, qaserve_splits, mode):
+    ref, port = carried
+    _, val, _ = qaserve_splits
+    kw = dict(_cfgs(mode, val), shards=4)
+    jr, pr = JaxRouter(ref, JaxRCfg(**kw)), OmniRouter(port, RouterConfig(**kw))
+    assert pr.window_multiple() == 4
+    js = ps = None
+    start = 0
+    for k, nv in enumerate((37, 32, 25)):
+        sub = val.subset(np.arange(start, start + nv))
+        start += nv
+        rb = sub.route_batch(np.full(sub.m, 20.0))
+        n_pad = pad_bucket(nv, 4)
+        assert n_pad == jax_bucket(nv, 4) and n_pad % 4 == 0
+        xj, js = jr.route_window(jax_pad(rb, n_pad), js, share=1.0 / (3 - k),
+                                 n_valid=nv)
+        xp, ps = pr.route_window(pad_batch(_port_batch(rb), n_pad), ps,
+                                 share=1.0 / (3 - k), n_valid=nv)
+        assert np.array_equal(xp[:nv], np.asarray(xj)[:nv]), k
+        for field in ("budget_spent", "sr_deficit", "steps"):
+            assert np.allclose(float(getattr(ps, field)),
+                               float(getattr(js, field)), rtol=1e-5,
+                               atol=1e-9), (k, field)
+
+
 def test_unported_router_options_raise(carried):
+    """The robust LCB solve still waits; pair columns and shards are
+    ported (``tests/test_torch_speculative.py`` holds them to JAX)."""
     _, port = carried
-    with pytest.raises(NotImplementedError):
-        OmniRouter(port, RouterConfig(spec_pairs=((0, 1),)))
-    with pytest.raises(NotImplementedError):
-        OmniRouter(port, RouterConfig(shards=2))
     with pytest.raises(NotImplementedError):
         OmniRouter(port, RouterConfig(robust=True))

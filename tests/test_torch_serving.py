@@ -15,8 +15,14 @@
   output, admission step) per request and the same window trajectory.
 - ``AdaptiveWindow`` updates as the JAX one does.
 - The port's ``OmniRouter`` in front (``stream=False``) serves every
-  request; ``stream=True`` over it raises ``NotImplementedError`` (masked
-  windows, ROADMAP deferred item b), as do the deferred server options.
+  request.  With ``stream=True`` over the port's and the JAX
+  ``OmniRouter`` (the same fixed predictions per request, so the predictor
+  is not under test here), requests arriving over the decode clock and
+  ``window_steps`` 2, every window padded to a power-of-two bucket and
+  masked by ``n_valid``: the same (endpoint, output, admission step) per
+  request, the same window count and dual iterations — with and without a
+  speculative pair column, and in budget mode with a stream ``horizon``.
+  The deferred server options raise ``NotImplementedError``.
 
 Greedy tokens are compared exactly: the logits agree to ~1e-5 (see
 ``tests/test_torch_models.py``), far inside these models' top-2 gaps.
@@ -33,12 +39,18 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.core.baselines import BalanceAware as JaxBA  # noqa: E402
+from repro.core import OmniRouter as JaxRouter  # noqa: E402
+from repro.core import RouterConfig as JaxRCfg  # noqa: E402
+from repro.core import SpecPair as JaxPair  # noqa: E402
+from repro.core.baselines import RouteBatch as JaxBatch  # noqa: E402
 from repro.core.control import AdaptiveWindow as JaxAW  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import (BalanceAware, HybridPredictor,  # noqa: E402
-                              OmniRouter, PredictorConfig, RouterConfig)
+                              OmniRouter, PredictorConfig, RouteBatch,
+                              RouterConfig)
+from repro_torch.core.speculative import SpecPair  # noqa: E402
 from repro_torch.core.control import AdaptiveWindow  # noqa: E402
 from repro_torch.data.qaserve import DEFAULT_POOL, generate  # noqa: E402
 from repro_torch.data.tokenizer import encode_for_config  # noqa: E402
@@ -50,10 +62,10 @@ ARCHS = ("h2o-danube-3-4b", "qwen2-72b")
 EP = dict(max_concurrency=3, t_max=64, page_size=8, sync_every=4)
 
 
-def _endpoints(seeds=(0, 1)):
+def _endpoints(seeds=(0, 1), arches=ARCHS):
     """(JAX endpoints, port endpoints) on the same float32 parameters."""
     jeps, peps = [], []
-    for arch, seed in zip(ARCHS, seeds):
+    for arch, seed in zip(arches, seeds):
         jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
         pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
         je = jax_engine.Endpoint(jc, seed=seed, **EP)
@@ -243,19 +255,113 @@ def test_omnirouter_in_front_serves_every_request():
     assert all(_drained(e) for e in peps)
 
 
-def test_stream_over_omnirouter_raises():
-    router, ds = _router_pool()
-    _, peps = _endpoints()
-    srv = MultiLLMServer(peps, router, stream=True)
-    srv.submit(Request(0, encode_for_config(peps[0].cfg, ds.queries[0]), 3))
-    with pytest.raises(NotImplementedError, match="deferred item b"):
-        srv.run(lambda reqs: ds.subset(np.array([r.rid for r in reqs])))
+class _Table:
+    """Fixed (capability, cost) rows per request id behind the JAX host
+    predict path (``predict_arrays``): row ``input_len - 1`` (padding rows,
+    input_len 0, get zeros)."""
+
+    def __init__(self, n, m, seed=0):
+        # model j: better and dearer with j (a cheap draft beside a strong
+        # verifier, the pairing a speculative column prices)
+        rng = np.random.default_rng(seed)
+        j = np.arange(m)[None, :]
+        self.cap = (0.3 + 0.6 * j / max(m - 1, 1) + rng.uniform(
+            -0.1, 0.1, (n, m))).astype(np.float32)
+        self.cost = (rng.uniform(0.5, 1.5, (n, m)) * 1e-3
+                     * 10.0 ** j).astype(np.float32)
+
+    def _rows(self, input_len):
+        idx = np.asarray(input_len, int) - 1
+        ok = (idx >= 0)[:, None]
+        i = np.maximum(idx, 0)
+        return (np.where(ok, self.cap[i], 0.0).astype(np.float32),
+                np.where(ok, self.cost[i], 0.0).astype(np.float32))
+
+    def predict_arrays(self, batch):
+        cap, cost = self._rows(batch.input_len)
+        return cap, None, cost
+
+
+class _PortTable(_Table):
+    """The same rows behind the port's device predict contract."""
+
+    token_len = 4
+    device = torch.device("cpu")
+
+    def device_inputs(self):
+        return None
+
+    def predict_device(self, inputs, toks, input_len, price_in, price_out):
+        cap, cost = self._rows(input_len.numpy())
+        return torch.from_numpy(cap), None, torch.from_numpy(cost)
+
+
+def _table_features(batch_cls, m):
+    """route_features for a server: each request's row of the table."""
+    def features(reqs):
+        class _Features:
+            def route_batch(self, loads, counts, with_truth=False):
+                return batch_cls(
+                    queries=["q"] * len(reqs),
+                    input_len=np.array([r.rid + 1.0 for r in reqs]),
+                    price_in=np.ones(m), price_out=np.ones(m),
+                    loads=np.asarray(loads, float),
+                    counts=np.asarray(counts, float))
+        return _Features()
+    return features
+
+
+@pytest.mark.parametrize("case", ["quality", "quality+pair", "budget+horizon"])
+def test_stream_over_omnirouter_matches_jax(case):
+    """stream=True over OmniRouter: padded, masked windows (the blocked
+    solve), in lockstep with the JAX server."""
+    pairs = "pair" in case
+    if pairs:
+        jeps, peps = _endpoints(arches=(ARCHS[0], ARCHS[0]), seeds=(7, 0))
+    else:
+        jeps, peps = _endpoints()
+    n_req = 14
+    table = _Table(n_req, 2, seed=1)
+    ptable = _PortTable(n_req, 2, seed=1)
+    kw = {}
+    if "budget" in case:
+        kw["budget"] = float(table.cost.min(1).sum() * 1.5)
+    else:
+        kw["alpha"] = 0.7
+    extra = {"horizon": 20} if "horizon" in case else {}
+    jpol = JaxRouter(table, JaxRCfg(spec_pairs=(JaxPair(0, 1, k=3),)
+                                    if pairs else (), **kw))
+    ppol = OmniRouter(ptable, RouterConfig(spec_pairs=(SpecPair(0, 1, k=3),)
+                                          if pairs else (), **kw))
+    js = jax_engine.MultiLLMServer(
+        jeps, jpol, stream=True, window_steps=2.0,
+        spec_pairs=(JaxPair(0, 1, k=3),) if pairs else (), **extra)
+    ps = MultiLLMServer(peps, ppol, stream=True, window_steps=2.0,
+                        spec_pairs=(SpecPair(0, 1, k=3),) if pairs else (),
+                        **extra)
+    rng = np.random.RandomState(6)
+    arrive = np.round(np.cumsum(rng.exponential(0.7, n_req)), 2)
+    for rid, ((toks, m), at) in enumerate(zip(_requests(n_req, seed=5),
+                                              arrive)):
+        js.submit(jax_engine.Request(rid, toks, max_new=m), at_step=at)
+        ps.submit(Request(rid, toks, max_new=m), at_step=at)
+    want = {r.rid: (r.endpoint, list(r.output), r.admit_step)
+            for r in js.run(_table_features(JaxBatch, 2))}
+    got = {r.rid: (r.endpoint, list(r.output), r.admit_step)
+           for r in ps.run(_table_features(RouteBatch, 2))}
+    assert got == want and len(got) == n_req
+    assert ps.windows == js.windows > 1
+    assert ps.dual_iters == js.dual_iters > 0
+    assert ps.spec_rounds == js.spec_rounds
+    if pairs:
+        assert ps.spec_rounds > 0
+        assert np.array_equal(ppol.acceptance.rounds, jpol.acceptance.rounds)
+    assert all(_drained(e) for e in peps)
 
 
 @pytest.mark.parametrize("option", [
     dict(hedge_after_steps=2), dict(fold_online=True), dict(fault_plan=1),
-    dict(health=True), dict(stall_after_chunks=3), dict(spec_pairs=(1,)),
-    dict(horizon=32)])
+    dict(health=True), dict(stall_after_chunks=3)])
 def test_deferred_server_options_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         MultiLLMServer([], BalanceAware(), **option)
