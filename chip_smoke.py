@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (routing plane and paged serving plane) on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (routing plane, paged serving plane, the
+routed speculative stream and the dense-cache generation path) on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the five hand-written CUDA kernels from ``src/repro_torch/csrc``
-(one ``nvcc`` per source, all started together) and holds each against its
-plain PyTorch version at the main path's shapes.
+It builds the seven hand-written CUDA kernels from ``src/repro_torch/csrc``
+(one ``nvcc`` per source, all started together; the paged decode, paged
+verify and dense decode kernels share ``paged_decode.cu``) and holds each
+against its plain PyTorch version at the main path's shapes.
 
 Routing plane: it routes a 16,384-query batch (quality and budget mode) and
 four 4,096-query streaming windows through ``repro_torch.core.OmniRouter``
@@ -34,6 +36,15 @@ alone in float32, and a grafted verify model that accepts nearly every draft
 (V3); ``MultiLLMServer(stream=True, spec_pairs=...)`` behind the port's
 ``OmniRouter`` with a pair column, 32 queries arriving over the decode
 clock (V4); and a float32 smoke speculative pool on the card and the CPU.
+
+Dense-cache generation path: the flash attention kernel (every
+full-sequence attention: prefill, ``hidden``, ``logits``) against its
+chunked plain version and the dense reference (F1); the dense split-KV
+decode kernel against its plain version and, bit for bit, against the paged
+decode kernel over the same rows laid out as pages (D1); ``RestartEndpoint``
+at h2o-danube-3-4b full width behind ``MultiLLMServer`` on the paged
+endpoint's prompts, beside the paged endpoint (R1); and a float32 smoke pool
+served by both endpoint kinds on the card and the CPU (R2).
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -155,6 +166,39 @@ ROUTED_SPEC_QUERIES, ROUTED_SPEC_TOKENS = 32, 32
 SPEC_CPU_REQS = 12
 GRAPH_CALLS = 50        # shard-statistics calls per captured CUDA graph
 
+# -- the dense-cache generation path (F, D and R phases) ----------------------
+# F1: the flash kernel against its plain versions.  (tag, B, S, K, G, D,
+# window, q_offset, dtype): S causal query rows at positions q_offset.. over
+# q_offset + S keys.  FLASH_MAIN is the main path's shape (R1's rebuilds).
+FLASH_CASES = [
+    ("danube heads, window 4096", 1, 1000, 8, 4, 120, 4096, 0, "bfloat16"),
+    ("restart rebuild, danube heads", 16, 1535, 8, 4, 120, 4096, 0,
+     "bfloat16"),
+    ("gemma3-4b heads, window 1024", 1, 2048, 4, 2, 256, 1024, 0,
+     "bfloat16"),
+    ("danube heads, float32", 1, 700, 8, 4, 120, 0, 0, "float32"),
+    ("danube heads, q_offset 448", 2, 300, 8, 4, 120, 0, 448, "bfloat16"),
+]
+FLASH_MAIN = 1
+# D1: the dense decode kernel.  (tag, B, T, K, G, D, window, lens, dtype);
+# lens an int shared by the batch, or 0 for ragged lens including 1 and T.
+# DENSE_MAIN is R1's decode shape (T = 1,536 - 1 + 128, pos 1,535).
+DENSE_CASES = [
+    ("danube heads, restart decode", 16, 1663, 8, 4, 120, 4096, 1536,
+     "bfloat16"),
+    ("gemma3-4b heads, window 1024", 16, 2048, 4, 2, 256, 1024, 1800,
+     "bfloat16"),
+    ("small float32, ragged lens", 3, 700, 2, 4, 64, 0, 0, "float32"),
+]
+DENSE_MAIN = 0
+RESTART_T_MAX = 128     # R1: the restart endpoint's cache growth per rebuild
+R2_POOL = ("h2o-danube-3-4b", "gemma3-4b")
+R2_REQS, R2_LEN, R2_NEW = 9, 9, 6
+# S4's prefill median per request when the chunked plain attention ran
+# prefill on the card (NVIDIA H100 80GB HBM3, 700 W), printed beside the
+# kernel's
+PLAIN_PREFILL_MS = 355.5
+
 
 def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
     """Random q and pools on the card, a block table of shuffled physical
@@ -177,16 +221,17 @@ def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
 
 
 def attention_bytes_ops(q, bt, lens, kh, d, window, elem):
-    """What one paged decode must move and compute on this data: q and the
-    output once, each valid position's K and V row once, the block table and
-    lens once; 4·H·D operations per valid position (QK and PV)."""
+    """What one paged (or, with ``bt`` None, dense) decode must move and
+    compute on this data: q and the output once, each valid position's K
+    and V row once, the block table and lens once; 4·H·D operations per
+    valid position (QK and PV)."""
     b, _, h, _ = q.shape
     n = lens.clamp(min=0).cpu()
     if window > 0:
         n = n.clamp(max=window)
     valid = int(n.sum())
     nbytes = (2 * b * h * d * elem + 2 * valid * kh * d * elem
-              + 4 * bt.numel() + 4 * b)
+              + (4 * bt.numel() if bt is not None else 0) + 4 * b)
     return nbytes, 4.0 * valid * h * d
 
 
@@ -201,8 +246,10 @@ def full_width_check(torch, np, model, params, dev, say, check, tag,
     from repro_torch.kernels.decode_attention import ops as pd_ops
     from repro_torch.kernels.decode_attention.ref import (
         paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.zoo import prefill_into_pages
     cfg = model.cfg
+    fa_ops.launches = 0
     rng = np.random.RandomState(0)
     plens = [100, 237, 480, 511]
     ps, nb = 16, len(plens)
@@ -236,6 +283,11 @@ def full_width_check(torch, np, model, params, dev, say, check, tag,
     torch.cuda.synchronize()
     check(pd_ops.launches == (0 if plain else cfg.n_layers * CHECK_STEPS),
           f"full-width check ({tag}): one kernel launch per layer per step")
+    # every full-sequence attention (the prefills and the logits) went
+    # through the flash kernel
+    check(fa_ops.launches == cfg.n_layers * 2 * nb,
+          f"full-width check ({tag}): one flash launch per layer per prefill"
+          " and per full-sequence logits call")
     dec = torch.stack(dec, dim=1)                        # (B, steps, V)
     ref = torch.stack([f[n:n + CHECK_STEPS] for f, n in zip(full, plens)])
     check(bool(torch.isfinite(dec).all() and torch.isfinite(ref).all()),
@@ -286,6 +338,7 @@ def serving_plane(torch, np, dev, say, check, time_ms):
         paged_decode_attention_cuda)
     from repro_torch.kernels.decode_attention.ref import (
         gather_pages, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import build_model
     from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
                                             null_route_features)
@@ -358,12 +411,17 @@ def serving_plane(torch, np, dev, say, check, time_ms):
                                    ).astype(np.int32), max_new=MAX_NEW)
             for i in range(ENDPOINT_REQS)]
     pd_ops.launches = 0
+    fa_ops.launches = 0
     pre_ms = []
     for r in reqs:
         t0 = time.perf_counter()
         ep.admit(r)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
+    s4_flash = fa_ops.launches
+    check(s4_flash == cfg.n_layers * ENDPOINT_REQS,
+          "endpoint: the admission prefills did not launch the flash kernel "
+          "once per layer")
     snap = (torch.as_tensor(ep.block_table, device=dev),
             torch.as_tensor(ep.lens + 1, device=dev))
     chunk_ms, begin_ms, done = [], [], []
@@ -395,7 +453,9 @@ def serving_plane(torch, np, dev, say, check, time_ms):
         f"sync_every=8, {ep.alloc.n_pages} pages): {ENDPOINT_REQS} requests, "
         f"prompts {min(len(r.tokens) for r in reqs)}..{max(len(r.tokens) for r in reqs)}, "
         f"{MAX_NEW} tokens each | prefill {np.median(pre_ms):.1f} ms/request "
-        f"(median; {min(pre_ms):.1f}..{max(pre_ms):.1f}) | decode chunk "
+        f"(median; {min(pre_ms):.1f}..{max(pre_ms):.1f}; flash kernel, "
+        f"{s4_flash} launches; with the chunked plain attention: "
+        f"{PLAIN_PREFILL_MS} ms) | decode chunk "
         f"{chunk_med:.1f} ms median ({len(chunk_ms)} chunks, first "
         f"{chunk_ms[0]:.1f} ms), {ep.L * ep.sync_every / chunk_med * 1e3:.1f}"
         f" tokens/s, step_begin dispatch {np.median(begin_ms):.1f} ms | "
@@ -444,6 +504,11 @@ def serving_plane(torch, np, dev, say, check, time_ms):
                max_abs_err=pd_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                bound_by=bound_by, library_ms=lib_ms)
     del ep, k_pool, v_pool
+
+    # R1. the restart baseline at full width on S4's prompts, beside the
+    # paged endpoint behind the same server
+    r1 = restart_phase(torch, np, dev, say, check, cfg, params,
+                       [r.tokens for r in reqs])
 
     # S5. routed server: full-width danube + three smoke endpoints behind
     # the port's OmniRouter (stream=False)
@@ -512,7 +577,163 @@ def serving_plane(torch, np, dev, say, check, time_ms):
     row["launches"] = ep_launches + routed_launches
     say(f"paged decode launches on the main path: endpoint {ep_launches}, "
         f"routed server {routed_launches}")
-    return row
+
+    # R2. the float32 smoke pool, paged vs restart, card vs CPU
+    restart_smoke_pool(torch, np, dev, say, check)
+    return row, {"flash": s4_flash + r1["flash"], "dense": r1["dense"]}
+
+
+def restart_phase(torch, np, dev, say, check, cfg, params, prompts):
+    """R1, restart-danube-16x128: ``RestartEndpoint`` at full width behind
+    ``MultiLLMServer(BalanceAware)`` on S4's prompts, after the paged
+    ``Endpoint`` on the same prompts behind the same server.  Every admit
+    and the completion re-prefill the whole left-padded batch through the
+    flash kernel; decode runs the dense decode kernel.  Counts are set to 0
+    just before each run and read just after.  Returns the restart run's
+    and the paged run's flash launches and the dense decode launches."""
+    from repro_torch.core import BalanceAware
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            RestartEndpoint,
+                                            null_route_features)
+    n = len(prompts)
+    # the server's capacity rule lets half the pool's slots be in flight:
+    # 2n slots let all n requests decode together, as in S4
+    slots = 2 * n
+    res = {}
+    for name in ("paged", "restart"):
+        rebuild_s = []
+        if name == "paged":
+            ep = Endpoint(cfg, max_concurrency=slots, t_max=2048,
+                          page_size=16, sync_every=8, params=params,
+                          device=dev)
+        else:
+            ep = RestartEndpoint(cfg, max_concurrency=slots,
+                                 t_max=RESTART_T_MAX, params=params,
+                                 device=dev)
+            inner = ep._rebuild
+
+            def timed_rebuild(inner=inner):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inner()
+                torch.cuda.synchronize()
+                rebuild_s.append(time.perf_counter() - t0)
+
+            ep._rebuild = timed_rebuild
+        srv = MultiLLMServer([ep], BalanceAware())
+        for i, p in enumerate(prompts):
+            srv.submit(Request(i, p, max_new=MAX_NEW))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.launches = pd_ops.launches = pd_ops.dense_launches = 0
+        t0 = time.perf_counter()
+        served = srv.run(null_route_features)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[name] = dict(
+            wall=wall, served=served, rebuild_s=rebuild_s,
+            reprefills=ep.batch_reprefills, prefills=ep.prefill_calls,
+            steps=ep.busy_steps * getattr(ep, "sync_every", 1),
+            flash=fa_ops.launches, paged=pd_ops.launches,
+            dense=pd_ops.dense_launches,
+            peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(len(served) == n and all(
+            r.done and len(r.output) == MAX_NEW for r in served),
+              f"R1 {name}: not every request got {MAX_NEW} tokens")
+        if name == "restart":
+            del ep._rebuild
+        del srv, ep
+    pg, rs = res["paged"], res["restart"]
+    lay = cfg.n_layers
+    check(pg["reprefills"] == 0, "R1 paged: batch re-prefill")
+    check(rs["reprefills"] > 0, "R1 restart: no batch re-prefill")
+    check(pg["flash"] == lay * pg["prefills"] and pg["dense"] == 0
+          and pg["paged"] == lay * pg["steps"],
+          "R1 paged: launches != one per layer per prefill and per step")
+    check(rs["flash"] == lay * rs["prefills"] and rs["paged"] == 0
+          and rs["dense"] == lay * rs["steps"],
+          "R1 restart: launches != one per layer per rebuild and per step")
+    toks = n * MAX_NEW
+    reb = rs["rebuild_s"]
+    step_ms = (rs["wall"] - sum(reb)) / rs["steps"] * 1e3
+    say(f"R1 restart-danube-16x128 (danube full width, bf16, {slots} slots"
+        f" ({n} in flight), restart t_max {RESTART_T_MAX}, BalanceAware; prompts "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))}, {MAX_NEW} "
+        f"tokens): restart {len(rs['served'])}/{n} served in "
+        f"{rs['wall']:.2f} s = {toks / rs['wall']:.1f} tokens/s vs paged "
+        f"{len(pg['served'])}/{n} in {pg['wall']:.2f} s = "
+        f"{toks / pg['wall']:.1f} tokens/s (paged {rs['wall'] / pg['wall']:.3f}"
+        f"x restart)"
+        f" | restart: {rs['reprefills']} rebuilds ({rs['prefills']}"
+        f" prefill calls) taking {sum(reb):.2f} s, "
+        f"{np.median(reb):.3f} s median, {max(reb):.3f} s longest; decode "
+        f"{rs['steps']} steps at {step_ms:.1f} ms/step (wall less "
+        f"rebuilds); peak {rs['peak']:.2f} GiB vs paged {pg['peak']:.2f} GiB"
+        f" | launches: restart flash {rs['flash']}, dense decode "
+        f"{rs['dense']}; paged flash {pg['flash']}, paged decode "
+        f"{pg['paged']}; batch re-prefills paged {pg['reprefills']}")
+    return {"flash": pg["flash"] + rs["flash"], "dense": rs["dense"]}
+
+
+def restart_smoke_pool(torch, np, dev, say, check):
+    """R2: a float32 pool of two smoke configs behind ``BalanceAware``,
+    served by ``Endpoint`` and by ``RestartEndpoint`` with equal prompt
+    lengths (so the restart batch's left pads are inert), on the card and on
+    the CPU: paged == restart (the reference's contract) and card == CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import BalanceAware
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            RestartEndpoint,
+                                            null_route_features)
+    cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
+            for a in R2_POOL]
+    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, 500, (R2_LEN,)).astype(np.int32)
+               for _ in range(R2_REQS)]
+    outs, reprefills, card_launches = {}, {}, {}
+    for where_tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        for name, cls in (("paged", Endpoint), ("restart", RestartEndpoint)):
+            eps = [cls(c, max_concurrency=3, device=where,
+                       params=_tree_to(host[i], where))
+                   for i, c in enumerate(cfgs)]
+            srv = MultiLLMServer(eps, BalanceAware(), batch_size=6)
+            for i, p in enumerate(prompts):
+                srv.submit(Request(i, p, max_new=R2_NEW))
+            fa_ops.launches = pd_ops.dense_launches = 0
+            done = srv.run(null_route_features)
+            key = (where_tag, name)
+            card_launches[key] = (fa_ops.launches, pd_ops.dense_launches)
+            outs[key] = {r.rid: (r.endpoint, tuple(r.output)) for r in done}
+            reprefills[key] = sum(e.batch_reprefills for e in eps)
+            check(len(done) == R2_REQS and all(
+                len(r.output) == R2_NEW for r in done),
+                  f"R2 {key}: a request was lost")
+    same = {w: outs[(w, "paged")] == outs[(w, "restart")]
+            for w in ("card", "cpu")}
+    card_cpu = {n: outs[("card", n)] == outs[("cpu", n)]
+                for n in ("paged", "restart")}
+    say(f"R2 smoke pool float32 ({', '.join(R2_POOL)} smoke; {R2_REQS} "
+        f"requests, prompts of {R2_LEN}, {R2_NEW} tokens): paged == restart "
+        f"on the card {same['card']}, on the CPU {same['cpu']}; card == CPU "
+        f"paged {card_cpu['paged']}, restart {card_cpu['restart']}; batch "
+        f"re-prefills {reprefills}; card launches (flash, dense decode) "
+        f"{card_launches[('card', 'paged')]} paged, "
+        f"{card_launches[('card', 'restart')]} restart")
+    check(same["card"] and same["cpu"], "R2: paged != restart")
+    check(card_cpu["paged"] and card_cpu["restart"], "R2: card != CPU")
+    check(reprefills[("card", "paged")] == 0
+          and reprefills[("card", "restart")] > 0, "R2: re-prefill counts")
+    check(card_launches[("card", "restart")][0] > 0
+          and card_launches[("card", "restart")][1] > 0
+          and card_launches[("cpu", "restart")] == (0, 0),
+          "R2: the card did not run the kernels, or the CPU launched them")
 
 
 # -- the routed speculative stream ----------------------------------------------
@@ -1105,6 +1326,209 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     return row, v4["stats"]
 
 
+def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem):
+    """What one causal flash attention must move and compute on this data:
+    q, k, v and the output once; 4·D operations per (query head, visible
+    position) pair, both products counted at the operand type's rate."""
+    pos = q_offset + np.arange(s)
+    hi = np.minimum(pos + 1, skv)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+    pairs = float(np.maximum(hi - lo, 0).sum())
+    nbytes = elem * (2 * b * s * h * d + 2 * b * skv * kh * d)
+    nops = 4.0 * d * h * b * pairs
+    t_bytes = nbytes / H100_HBM
+    t_ops = nops / (H100_BF16 if elem == 2 else H100_FP32)
+    return (nbytes, nops, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_ms(torch, F, say, time_ms, q, k, v, mask=None, causal=False,
+            reps=20):
+    """One ``scaled_dot_product_attention`` call on the (B, H, S, D)
+    layout (the transposes outside the clock), or None without
+    ``enable_gqa``."""
+    qd, kd, vd = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, is_causal=causal, enable_gqa=True),
+            reps)
+    except TypeError as exc:          # a PyTorch without enable_gqa
+        say(f"  SDPA with enable_gqa unavailable: {exc}")
+        return None
+
+
+def flash_kernel_phase(torch, np, say, check, dev, time_ms):
+    """F1: the flash kernel against the chunked plain version and the dense
+    float32 ``flash_attention_ref``.  Both the kernel and the chunked
+    version round p to bf16 relative to the running max, so they round at
+    the same points only over the same chunks: the kernel updates its max
+    every 32 positions, the CPU path's default every 512 (or the gcd
+    fallback's divisor).  bf16: within one bf16 ulp of the chunked version
+    run over the kernel's 32-position chunks (keys zero-padded to a
+    multiple of 32; causality masks the pad), and 2e-2 from the reference
+    (which keeps p in float32) and from the default chunking; float32
+    (rounding p is exact): 2e-5 from all three.  Returns the kernels-line
+    row at the main path's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_chunked, flash_attention_ref)
+    err_max, row = 0.0, None
+    for i, (tag, b, s, kh, g, d, window, q_off, dt) in enumerate(
+            FLASH_CASES):
+        dtype = getattr(torch, dt)
+        skv, h = q_off + s, kh * g
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=True, window=window, q_offset=q_off)
+        got = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        pad = -skv % 32
+        kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k, v))
+        tiled = flash_attention_chunked(q, kp, vp, kv_chunk=32, **kw)
+        plain = flash_attention_chunked(q, k, v, **kw)
+        # the reference has no q_offset: zero rows in front, sliced away
+        qf = torch.cat([q.new_zeros(b, q_off, h, d), q], 1) if q_off else q
+        ref = flash_attention_ref(qf, k, v, causal=True,
+                                  window=window)[:, q_off:]
+        e_tiled = float((got.float() - tiled.float()).abs().max())
+        e_plain = float((got.float() - plain.float()).abs().max())
+        e_ref = float((got.float() - ref.float()).abs().max())
+        del ref, qf, kp, vp
+        if dt == "float32":
+            ok = max(e_tiled, e_plain, e_ref) <= 2e-5
+        else:
+            ok = (torch.allclose(got.float(), tiled.float(), atol=1e-5,
+                                 rtol=2 ** -7)
+                  and e_ref <= 2e-2 and e_plain <= 2e-2)
+        err_max = max(err_max, e_tiled)
+        k_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
+                       10)
+        p_ms = time_ms(torch, lambda: flash_attention_chunked(q, k, v, **kw),
+                       2, warm=1)
+        masked = 0 < window < skv or q_off > 0
+        if masked:
+            pos = torch.arange(skv, device=dev)
+            qp = q_off + torch.arange(s, device=dev)
+            mask = (pos[None, :] <= qp[:, None])
+            if window > 0:
+                mask &= pos[None, :] > qp[:, None] - window
+            lib = sdpa_ms(torch, F, say, time_ms, q, k, v, mask=mask, reps=10)
+        else:
+            lib = sdpa_ms(torch, F, say, time_ms, q, k, v, causal=True,
+                          reps=10)
+        elem = q.element_size()
+        nbytes, nops, bound, bound_by = flash_bytes_ops(
+            np, b, s, skv, h, kh, d, window, q_off, elem)
+        say(f"flash {tag}: B={b} S={s} Skv={skv} K={kh} G={g} D={d} "
+            f"window={window} q_offset={q_off} {dt} | max|kernel-chunked at "
+            f"32|={e_tiled:.3g}, at the default chunk={e_plain:.3g}, "
+            f"max|kernel-ref|={e_ref:.3g} | kernel "
+            f"{k_ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us = max("
+            f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.2f} GFLOP / "
+            f"{'989 TFLOP/s bf16' if elem == 2 else '67 TFLOP/s fp32'}) -> "
+            f"{bound / k_ms:.1%} of it; chunked plain {p_ms * 1e3:.1f} us; "
+            f"SDPA ({'boolean mask' if masked else 'is_causal'}, enable_gqa)"
+            f" " + (f"{lib * 1e3:.1f} us" if lib is not None else "n/a"))
+        check(ok, f"flash {tag}: kernel disagrees with its plain versions")
+        if i == FLASH_MAIN:
+            row = dict(name="flash_attention", route="cuda",
+                       source="src/repro_torch/csrc/flash_attention.cu",
+                       replaces="src/repro/kernels/flash_attention/kernel.py:77",
+                       ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib)
+        del q, k, v, got, plain, tiled
+    row["max_abs_err"] = err_max
+    return row
+
+
+def dense_decode_phase(torch, say, check, dev, time_ms):
+    """D1: the dense decode kernel against ``decode_attention_ref`` (the
+    bounds of S2) and against the paged decode kernel on the same rows laid
+    out as 16-position pages with an identity block table: the same split
+    boundaries, so exactly 0.  Returns the kernels-line row at the main
+    path's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, paged_decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    err_max, row = 0.0, None
+    for i, (tag, b, t, kh, g, d, window, lens, dt) in enumerate(
+            DENSE_CASES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        q = torch.randn(b, 1, kh * g, d, generator=gen, device=dev).to(dtype)
+        kc = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
+        vc = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
+        if lens:
+            ln = torch.full((b,), lens, dtype=torch.int32, device=dev)
+        else:
+            cpu = torch.Generator().manual_seed(i)
+            ln = torch.randint(1, t + 1, (b,), generator=cpu)
+            ln[0], ln[-1] = 1, t
+            ln = ln.to(torch.int32).to(dev)
+        got = decode_attention_cuda(q, kc, vc, ln, window=window)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q, kc, vc, ln, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        if dt == "float32":
+            ok = err <= 2e-5
+        else:
+            ok = torch.allclose(got.float(), want.float(), atol=1e-5,
+                                rtol=2 ** -7)
+        ps = 16
+        n_pg = -(-t // ps)
+        kp, vp = (F.pad(x, (0, 0, 0, 0, 0, n_pg * ps - t)).reshape(
+            b * n_pg, ps, kh, d) for x in (kc, vc))
+        bt = torch.arange(b * n_pg, dtype=torch.int32,
+                          device=dev).reshape(b, n_pg)
+        paged = paged_decode_attention_cuda(q, kp, vp, bt, ln, window=window)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, paged))
+        diff = float((got.float() - paged.float()).abs().max())
+        err_max = max(err_max, err)
+        say(f"dense decode {tag}: B={b} T={t} K={kh} G={g} D={d} "
+            f"window={window} lens {int(ln.min())}..{int(ln.max())} {dt} | "
+            f"max|kernel-plain|={err:.3g}, max|dense - paged kernel "
+            f"(identity pages)|={diff:.3g} (expected 0)")
+        check(ok, f"dense decode {tag}: kernel disagrees with plain version")
+        check(same, f"dense decode {tag}: differs from the paged kernel")
+        del kp, vp
+        if i == DENSE_MAIN:
+            k_ms = time_ms(torch, lambda: decode_attention_cuda(
+                q, kc, vc, ln, window=window), 50)
+            p_ms = time_ms(torch, lambda: decode_attention_ref(
+                q, kc, vc, ln, window=window), 10)
+            pos = torch.arange(t, device=dev)
+            mask = pos[None, :] < ln[:, None].long()
+            if window > 0:
+                mask &= pos[None, :] >= ln[:, None].long() - window
+            lib = sdpa_ms(torch, F, say, time_ms, q, kc, vc,
+                          mask=mask[:, None, None, :], reps=50)
+            elem = q.element_size()
+            nbytes, nops = attention_bytes_ops(q, None, ln, kh, d, window,
+                                               elem)
+            bound, bound_by = attention_bound(nbytes, nops, elem)
+            say(f"dense decode kernel at R1's decode shape: {k_ms * 1e3:.1f}"
+                f" us/launch, bound {bound * 1e3:.1f} us = max("
+                f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.3f} GFLOP, "
+                f"Q.K half at 989 TFLOP/s bf16, P.V half at 67 TFLOP/s fp32)"
+                f" -> {bound / k_ms:.1%} of it; plain {p_ms * 1e3:.1f} us; "
+                f"SDPA (enable_gqa, boolean length mask) "
+                + (f"{lib * 1e3:.1f} us" if lib is not None else "n/a"))
+            row = dict(name="decode_attention", route="cuda",
+                       source="src/repro_torch/csrc/paged_decode.cu",
+                       replaces="src/repro/kernels/decode_attention/kernel.py:68",
+                       ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib)
+        del q, kc, vc
+    row["max_abs_err"] = err_max
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1447,8 +1871,16 @@ def main() -> int:
                                              time_ms, hp)
 
     del hp, hp_cpu, hp_gpu, emb, labels, proj, q_route
-    rows["paged_decode_attention"] = serving_plane(
+    # F1 and D1. the flash and dense decode kernels against their plain
+    # versions at the main path's shapes
+    rows["flash_attention"] = flash_kernel_phase(torch, np, say, check, dev,
+                                                 time_ms)
+    rows["decode_attention"] = dense_decode_phase(torch, say, check, dev,
+                                                  time_ms)
+    rows["paged_decode_attention"], main = serving_plane(
         torch, np, dev, say, check, time_ms)
+    rows["flash_attention"]["launches"] = main["flash"]
+    rows["decode_attention"]["launches"] = main["dense"]
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
@@ -1463,7 +1895,8 @@ def main() -> int:
         f"since the endpoint phase {peak:.2f} GiB")
     kernels = [rows[k] for k in ("retrieval_vote", "dual_solve",
                                  "paged_decode_attention", "shard_stats",
-                                 "paged_verify_attention")]
+                                 "paged_verify_attention", "flash_attention",
+                                 "decode_attention")]
     for r in kernels:
         check(set(r) >= {"name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -6,10 +6,15 @@
 // Replaces the TPU kernels repro/kernels/decode_attention/kernel.py:
 // paged_decode_attention_kernel (bodies _paged_kernel, _split_partials; the
 // merge is ops.py:merge_partials, jnp outside the Pallas kernel there) —
-// entry point paged_decode_launch — and paged_verify_attention_kernel (body
+// entry point paged_decode_launch — paged_verify_attention_kernel (body
 // _paged_verify_kernel, which folds the S positions into the q block's rows)
-// — entry point paged_verify_launch.  Both entry points run the same split
-// kernel: a verify CTA holds all S*G query rows and reads each K and V row
+// — entry point paged_verify_launch — and the dense-cache
+// decode_attention_kernel (body _kernel over a (B, T, K, D) cache, ragged T
+// masked) — entry point decode_launch.  All three run the same split kernel.
+// The dense one reads the contiguous cache as pages of one position whose
+// ids are b*T + t (no block table), so at the same split boundaries
+// (SPLIT_POS positions) it equals the paged decode bit for bit.  Verify and
+// decode: a verify CTA holds all S*G query rows and reads each K and V row
 // once for all of them, and each row runs exactly the operations, in the
 // same order, of the decode kernel at that row's length, so verify position
 // s is bit-identical to decode at lens[b] + s.
@@ -111,6 +116,8 @@ __device__ inline float warp_sum(float v) {
 // operations in the same order whatever the other rows are: verify row s is
 // bit-identical to the decode of the same query at lens[b] + s.
 // Partials o (B, KH, S, R, D), m/l (B, KH, S, R) with S = n_splits.
+// dense_t > 0: no block table; page i of sequence b is cache row b*dense_t +
+// i (PS = 1, P = dense_t).
 template <typename T, int RMAX>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -118,7 +125,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
              const int* __restrict__ lens, float* __restrict__ o_part,
              float* __restrict__ m_part, float* __restrict__ l_part, int H,
              int KH, int D, int PS, int P, int pps, int window, float scale,
-             int S) {
+             int S, int dense_t) {
   extern __shared__ float smem[];
   __shared__ int spage[SPLIT_POS];
   __shared__ int r_lo[RMAX], r_hi[RMAX];
@@ -168,7 +175,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
   const int pg0 = t0 / PS;
   for (int i = tid; i < pps; i += THREADS)
-    spage[i] = pg0 + i < P ? bt[(size_t)b * P + pg0 + i] : 0;
+    spage[i] = pg0 + i >= P ? 0
+        : dense_t > 0 ? b * dense_t + pg0 + i : bt[(size_t)b * P + pg0 + i];
   __syncthreads();
 
   // scores: one thread per position of the union, its K row read once for
@@ -290,7 +298,7 @@ int launch_rows(const void* q, const void* kp, const void* vp, const int* bt,
                 const int* lens, float* o_part, float* m_part, float* l_part,
                 void* out, int B, int H, int KH, int D, int PS, int P,
                 int window, float scale, int pps, int n_splits, int S,
-                cudaStream_t stream) {
+                int dense_t, cudaStream_t stream) {
   const int R = S * (H / KH);
   const size_t smem = sizeof(float)
       * ((size_t)R * D + (size_t)R * SPLIT_POS + (size_t)(THREADS / D) * R * D);
@@ -303,7 +311,7 @@ int launch_rows(const void* q, const void* kp, const void* vp, const int* bt,
   split_kernel<T, RMAX><<<dim3(n_splits, KH, B), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), bt, lens, o_part, m_part, l_part, H, KH, D,
-      PS, P, pps, window, scale, S);
+      PS, P, pps, window, scale, S, dense_t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<T><<<B * KH, THREADS, 0, stream>>>(
@@ -315,7 +323,8 @@ template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* lens, float* o_part, float* m_part, float* l_part,
            void* out, int B, int H, int KH, int D, int PS, int P, int window,
-           float scale, int pps, int n_splits, int S, cudaStream_t stream) {
+           float scale, int pps, int n_splits, int S, int dense_t,
+           cudaStream_t stream) {
   if (B <= 0 || KH <= 0 || S <= 0 || H % KH != 0 || D <= 0 || D > DMAX
       || D % Vec16<T>::N != 0 || PS <= 0 || pps <= 0 || pps * PS > SPLIT_POS
       || n_splits <= 0 || (long long)n_splits * pps < P)
@@ -324,7 +333,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
 #define ROWS(RM)                                                              \
   return launch_rows<T, RM>(q, kp, vp, bt, lens, o_part, m_part, l_part, out, \
                             B, H, KH, D, PS, P, window, scale, pps, n_splits, \
-                            S, stream)
+                            S, dense_t, stream)
   if (R <= GMAX) ROWS(GMAX);
   if (R <= 16) ROWS(16);
   if (R <= 32) ROWS(32);
@@ -337,15 +346,16 @@ int dispatch(int dtype, const void* q, const void* kp, const void* vp,
              const int* bt, const int* lens, float* o_part, float* m_part,
              float* l_part, void* out, int B, int H, int KH, int D, int PS,
              int P, int window, float scale, int pps, int n_splits, int S,
-             void* stream) {
+             int dense_t, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>(q, kp, vp, bt, lens, o_part, m_part, l_part, out, B,
-                         H, KH, D, PS, P, window, scale, pps, n_splits, S, st);
+                         H, KH, D, PS, P, window, scale, pps, n_splits, S,
+                         dense_t, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, kp, vp, bt, lens, o_part, m_part, l_part,
                                  out, B, H, KH, D, PS, P, window, scale, pps,
-                                 n_splits, S, st);
+                                 n_splits, S, dense_t, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -363,7 +373,7 @@ extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
                                    int n_splits, void* stream) {
   if (H % KH != 0 || H / KH > GMAX) return (int)cudaErrorInvalidValue;
   return dispatch(dtype, q, kp, vp, bt, lens, o_part, m_part, l_part, out, B,
-                  H, KH, D, PS, P, window, scale, pps, n_splits, 1, stream);
+                  H, KH, D, PS, P, window, scale, pps, n_splits, 1, 0, stream);
 }
 
 // The speculative-verify entry point: q and out (B, S, H, D), query position
@@ -380,5 +390,22 @@ extern "C" int paged_verify_launch(int dtype, const void* q, const void* kp,
   if (H % KH != 0 || S <= 0 || (long long)S * (H / KH) > RMAX_VERIFY)
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, q, kp, vp, bt, lens, o_part, m_part, l_part, out, B,
-                  H, KH, D, PS, P, window, scale, pps, n_splits, S, stream);
+                  H, KH, D, PS, P, window, scale, pps, n_splits, S, 0, stream);
+}
+
+// The dense-cache decode entry point: q and out (B, 1, H, D), caches k and
+// v (B, T, KH, D) contiguous, lens (B,) valid lengths (clamped to [0, T]).
+// Splits of SPLIT_POS positions; partials o (B, KH, n_splits, G, D), m and
+// l (B, KH, n_splits, G), n_splits = ceil(T / SPLIT_POS).
+extern "C" int decode_launch(int dtype, const void* q, const void* k,
+                             const void* v, const int* lens, float* o_part,
+                             float* m_part, float* l_part, void* out, int B,
+                             int H, int KH, int D, int T, int window,
+                             float scale, int n_splits, void* stream) {
+  if (T <= 0 || H % KH != 0 || H / KH > GMAX
+      || (long long)n_splits * SPLIT_POS < T)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, q, k, v, nullptr, lens, o_part, m_part, l_part, out,
+                  B, H, KH, D, 1, T, window, scale, SPLIT_POS, n_splits, 1, T,
+                  stream);
 }

@@ -28,6 +28,7 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FLAGS: Dict[str, List[str]] = {
     "dual_solve": _COMMON + ["--fmad=false"],
+    "flash_attention": _COMMON,
     "paged_decode": _COMMON,
     "retrieval_vote": _COMMON,
     "shard_stats": _COMMON + ["--fmad=false"],

@@ -1,9 +1,10 @@
-"""Python wrappers of the hand-written CUDA paged attention
-(``csrc/paged_decode.cu``): decode (one query position per sequence) and
-speculative verify (S positions per sequence), each the split pass and the
-log-sum-exp merge, two launches on the current stream.  They take CUDA
-tensors only; the library builds from the repository's sources at first
-use."""
+"""Python wrappers of the hand-written CUDA split-KV attention
+(``csrc/paged_decode.cu``): paged decode (one query position per sequence),
+speculative verify (S positions per sequence) and the dense-cache decode
+(one query position against a contiguous ``(B, T, K, D)`` cache), each the
+split pass and the log-sum-exp merge, two launches on the current stream.
+They take CUDA tensors only; the library builds from the repository's
+sources at first use."""
 from __future__ import annotations
 
 import ctypes
@@ -40,33 +41,41 @@ def _verify_launcher():
     return fn
 
 
-def _check_inputs(q, k_pages, v_pages, block_table, lens, g_max: int):
-    """Device, type, shape, contiguity and alignment checks shared by both
-    entry points; returns (B, S, H, D, n_pages, PS, K, P)."""
+@lru_cache(maxsize=1)
+def _dense_launcher():
+    fn = _build.load("paged_decode").decode_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(q, k, v, ints, g_max: int):
+    """Device, type, contiguity, alignment and head checks shared by the
+    three entry points: ``k``/``v`` are the page pools (n_pages, PS, K, D)
+    or the dense caches (B, T, K, D), ``ints`` the named int32 tensors.
+    Returns (B, S, H, D, K)."""
     dev = q.device
-    tensors = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-               ("block_table", block_table), ("lens", lens))
-    for name, t in tensors:
+    floats = (("q", q), ("k", k), ("v", v))
+    for name, t in floats + ints:
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} on {t.device}: all five must lie on "
+            raise ValueError(f"{name} on {t.device}: all inputs must lie on "
                              "one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32 only")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError("the page pools must have q's dtype")
-    if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise ValueError("block_table and lens must be int32")
-    if q.dim() != 4 or k_pages.dim() != 4:
-        raise ValueError("q must be (B,S,H,D) and the pools (n_pages,PS,K,D)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the K/V pools or caches must have q's dtype")
+    if any(t.dtype != torch.int32 for _, t in ints):
+        raise ValueError(" and ".join(n for n, _ in ints) + " must be int32")
+    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape
+            or k.shape[3] != q.shape[3]):
+        raise ValueError("q must be (B,S,H,D) and the K/V pools or caches "
+                         "(.., .., K, D) of q's head dim")
     b, s, h, d = q.shape
-    n_pages, ps, kh, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or dk != d:
-        raise ValueError("k_pages/v_pages/q shapes disagree")
-    if block_table.dim() != 2 or block_table.shape[0] != b \
-            or tuple(lens.shape) != (b,):
-        raise ValueError("block_table must be (B,P) and lens (B,)")
+    kh = k.shape[2]
     if h % kh or s * (h // kh) > g_max:
         raise ValueError(f"H={h} must be a multiple of K={kh}, with S={s} "
                          f"positions x {h // max(kh, 1)} query heads per kv "
@@ -75,12 +84,25 @@ def _check_inputs(q, k_pages, v_pages, block_table, lens, g_max: int):
     if d > DMAX or d % vec:
         raise ValueError(f"head dim {d} must be a multiple of {vec} and at "
                          f"most {DMAX}")
-    if not 1 <= ps <= SPLIT_POS:
-        raise ValueError(f"page size {ps} must be in 1..{SPLIT_POS}")
-    for name, t in tensors[:3]:
+    for name, t in floats:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    return b, s, h, d, n_pages, ps, kh, block_table.shape[1]
+    return b, s, h, d, kh
+
+
+def _check_paged(q, k_pages, v_pages, block_table, lens, g_max: int):
+    """The shared checks plus the block table's; returns (B, S, H, D, PS,
+    K, P)."""
+    b, s, h, d, kh = _check_inputs(
+        q, k_pages, v_pages, (("block_table", block_table), ("lens", lens)),
+        g_max)
+    if block_table.dim() != 2 or block_table.shape[0] != b \
+            or tuple(lens.shape) != (b,):
+        raise ValueError("block_table must be (B,P) and lens (B,)")
+    ps = k_pages.shape[1]
+    if not 1 <= ps <= SPLIT_POS:
+        raise ValueError(f"page size {ps} must be in 1..{SPLIT_POS}")
+    return b, s, h, d, ps, kh, block_table.shape[1]
 
 
 def paged_verify_attention_cuda(q, k_pages, v_pages, block_table, lens, *,
@@ -91,8 +113,8 @@ def paged_verify_attention_cuda(q, k_pages, v_pages, block_table, lens, *,
     - window with a window).  S·H/K at most 64.  Returns (B,S,H,D) in q's
     dtype, the contract of ``ref.paged_verify_attention_ref``; row s equals
     ``paged_decode_attention_cuda`` at lens + s bit for bit."""
-    b, s, h, d, _, ps, kh, p = _check_inputs(q, k_pages, v_pages,
-                                             block_table, lens, RMAX_VERIFY)
+    b, s, h, d, ps, kh, p = _check_paged(q, k_pages, v_pages, block_table,
+                                         lens, RMAX_VERIFY)
     dev = q.device
     pps = SPLIT_POS // ps                      # pages per split
     n_splits = -(-p // pps)
@@ -121,8 +143,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lens, *,
     lens (B,) int32 valid lengths (clamped to [0, P·PS]).  Returns
     (B,1,H,D) in q's dtype, the contract of ``ref.paged_decode_attention_ref``
     on every sequence with at least one valid position."""
-    b, s, h, d, _, ps, kh, p = _check_inputs(q, k_pages, v_pages,
-                                             block_table, lens, GMAX)
+    b, s, h, d, ps, kh, p = _check_paged(q, k_pages, v_pages, block_table,
+                                         lens, GMAX)
     if s != 1:
         raise ValueError("q must be (B,1,H,D)")
     dev = q.device
@@ -143,4 +165,37 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lens, *,
             o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
             out.data_ptr(), b, h, kh, d, ps, p, int(window), d ** -0.5, pps,
             n_splits, stream), "paged_decode_launch")
+    return out
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lens, *, window: int = 0):
+    """q (B,1,H,D); caches (B,T,K,D) of q's dtype (bfloat16 or float32),
+    contiguous, any T; lens (B,) int32 valid lengths (clamped to [0, T]):
+    position t of sequence b is attended when t < lens[b] (and t >= lens[b]
+    - window with a window).  Returns (B,1,H,D) in q's dtype, the contract
+    of ``ref.decode_attention_ref`` on every sequence with at least one
+    valid position; equal bit for bit to ``paged_decode_attention_cuda``
+    over the same rows laid out as pages."""
+    b, s, h, d, kh = _check_inputs(q, k_cache, v_cache, (("lens", lens),),
+                                   GMAX)
+    t = k_cache.shape[1]
+    if s != 1 or k_cache.shape[0] != b or t < 1 or tuple(lens.shape) != (b,):
+        raise ValueError("q must be (B,1,H,D), the caches (B,T,K,D) with T "
+                         ">= 1 and lens (B,)")
+    dev = q.device
+    n_splits = -(-t // SPLIT_POS)
+    g = h // kh
+    o_part = torch.empty((b, kh, n_splits, g, d), dtype=torch.float32,
+                         device=dev)
+    m_part = torch.empty((b, kh, n_splits, g), dtype=torch.float32,
+                         device=dev)
+    l_part = torch.empty_like(m_part)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_dense_launcher()(
+            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lens.data_ptr(), o_part.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, h, kh, d,
+            t, int(window), d ** -0.5, n_splits, stream), "decode_launch")
     return out

@@ -1,19 +1,26 @@
-"""Entry points of the paged decode and verify attention, dispatched by
-device.
+"""Entry points of the paged decode, paged verify and dense-cache decode
+attention, dispatched by device.
 
 A CUDA tensor launches the hand-written kernel (``kernel.py``) or raises;
 a CPU tensor runs the plain PyTorch version (``ref.py``).  ``launches``
 counts the decode kernel calls made through ``paged_decode_attention``,
 ``verify_launches`` the verify kernel calls made through
-``paged_verify_attention`` (one per call: the split pass and its merge).
+``paged_verify_attention`` and ``dense_launches`` the dense decode kernel
+calls made through ``decode_attention`` (one per call: the split pass and
+its merge).
 """
 from __future__ import annotations
 
-from .kernel import paged_decode_attention_cuda, paged_verify_attention_cuda
-from .ref import paged_decode_attention_ref, paged_verify_attention_ref
+import torch
+
+from .kernel import (decode_attention_cuda, paged_decode_attention_cuda,
+                     paged_verify_attention_cuda)
+from .ref import (decode_attention_ref, paged_decode_attention_ref,
+                  paged_verify_attention_ref)
 
 launches = 0
 verify_launches = 0
+dense_launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
@@ -47,3 +54,25 @@ def paged_verify_attention(q, k_pages, v_pages, block_table, lens, *,
         raise ValueError(f"no paged verify attention for device {q.device}")
     return paged_verify_attention_ref(q, k_pages, v_pages, block_table, lens,
                                       window=window)
+
+
+def decode_attention(q, k_cache, v_cache, lens, *, window: int = 0):
+    """q (B,1,H,D); caches (B,T,K,D); lens the valid lengths, an int or a
+    0-d tensor shared by the batch, or (B,) per sequence.  Returns
+    (B,1,H,D) in q's dtype."""
+    global dense_launches
+    if q.is_cuda:
+        b = q.shape[0]
+        if isinstance(lens, torch.Tensor):
+            lens = lens.to(q.device, torch.int32).expand(b).contiguous()
+        else:   # a host int: filled on the device, no host-to-device copy
+            lens = torch.full((b,), int(lens), dtype=torch.int32,
+                              device=q.device)
+        out = decode_attention_cuda(q, k_cache, v_cache, lens, window=window)
+        dense_launches += 1
+        return out
+    if q.device.type != "cpu":
+        raise ValueError(f"no decode attention for device {q.device}")
+    return decode_attention_ref(q, k_cache, v_cache,
+                                torch.as_tensor(lens, dtype=torch.int32),
+                                window=window)

@@ -1,0 +1,95 @@
+"""Python wrapper of the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``): one launch on the current stream.  It takes
+CUDA tensors only; the library builds from the repository's sources at
+first use."""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from repro_torch.kernels import _build
+
+THREADS = 512
+BK = 64                  # key positions per tile
+MAX_SMEM = 232_448       # dynamic shared memory one CTA may use (H100)
+# head dim -> (rows per warp, head dims per lane / 32) of the kernel instance
+INSTANCES = {16: (16, 1), 96: (16, 3), 120: (16, 4), 128: (16, 4),
+             256: (8, 8)}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@lru_cache(maxsize=1)
+def _launcher():
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_bytes(d: int, elem: int) -> int:
+    """Dynamic shared memory of one CTA at head dim ``d``: the p buffer
+    (R x 32 float32), the scaled Q block (R x D) and the K and V tiles
+    (64 x D, the row padded to an odd number of 16-byte units)."""
+    rows = (THREADS // 32) * INSTANCES[d][0]
+    units = d * elem // 16
+    units += 1 - units % 2
+    return 4 * rows * 32 + elem * rows * d + 2 * BK * units * 16
+
+
+def query_block(h: int, kh: int, d: int) -> int:
+    """Query positions per CTA: the instance's rows over the group size."""
+    return (THREADS // 32) * INSTANCES[d][0] // (h // kh)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
+                         q_offset: int = 0):
+    """q (B,Sq,H,D); k/v (B,Skv,K,D) of q's dtype (bfloat16 or float32),
+    contiguous, any Sq and Skv; D in {16, 96, 120, 128, 256}.  Query row i
+    sits at position ``q_offset + i``.  Returns (B,Sq,H,D) in q's dtype, the
+    contract of ``ref.flash_attention_chunked`` on every row with at least
+    one visible position."""
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} on {t.device}: q, k and v must lie on "
+                             "one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32 only")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("k and v must have q's dtype")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be (B,Sq,H,D) and k, v (B,Skv,K,D)")
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or sq < 1 or skv < 1:
+        raise ValueError("q/k/v shapes disagree")
+    if h % kh:
+        raise ValueError(f"H={h} must be a multiple of K={kh}")
+    if d not in INSTANCES:
+        raise ValueError(f"head dim {d}: the kernel takes {sorted(INSTANCES)}")
+    if query_block(h, kh, d) < 1:
+        raise ValueError(f"{h // kh} query heads per kv head exceed one CTA")
+    smem = smem_bytes(d, q.element_size())
+    if smem > MAX_SMEM:
+        raise ValueError(f"head dim {d} in {q.dtype} needs {smem} bytes of "
+                         f"shared memory, above {MAX_SMEM}")
+    if q_offset < 0:
+        raise ValueError("q_offset must be >= 0")
+    scale_q = float(torch.tensor(d ** -0.5, dtype=q.dtype))
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_launcher()(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, sq, skv, h, kh, d, int(bool(causal)),
+            int(window), int(q_offset), scale_q, stream),
+            "flash_attention_launch")
+    return out

@@ -1,18 +1,20 @@
 """Decoder LM for the dense family (attention + gated MLP layers).
 
-The port of ``repro.models.transformer.DecoderLM`` on the paths the paged
-serving plane runs: the full-sequence forward (``hidden``/``logits``),
-``prefill`` (which returns the KV cache), the paged single-token decode
-(``decode_step_paged``) and the paged multi-position verify of the
-speculative plane (``verify_step_paged``).  The parameter layout is the reference's:
+The port of ``repro.models.transformer.DecoderLM`` on the paths the serving
+planes run: the full-sequence forward (``hidden``/``logits``), ``prefill``
+(which returns the KV cache), the dense-cache single-token decode
+(``empty_cache``, ``decode_step``: the restart-batching baseline), the
+paged single-token decode (``decode_step_paged``) and the paged
+multi-position verify of the speculative plane (``verify_step_paged``).
+The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
 the layers takes the place of ``lax.scan``.
 
 Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention, the
-int8 KV pools, the dense-cache ``decode_step`` and the training loss;
-their configs raise ``NotImplementedError``.
+int8 KV caches and pools, and the training loss; their configs raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,25 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
     a, (k, v) = attention_block(cfg, params["attn"], h, causal=True,
                                 window=kind.window, q_offset=q_offset)
     return _ffn_residual(cfg, params, x + a), {"k": k, "v": v}
+
+
+def _decode_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
+                  x: torch.Tensor, stacked: dict, i: int, pos: int
+                  ) -> torch.Tensor:
+    """One decode layer against the dense cache: write this token's K/V
+    column at (layer i, :, pos) of the stacked ``(count, B, T, K, D)``
+    buffers, then attend over positions <= pos of every sequence."""
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    k_new, v_new = project_kv_token(cfg, params["attn"], h, pos)
+    # in place, as the paged step writes its pages: the reference's
+    # ``dynamic_update_slice`` on the scan carry writes one column too
+    stacked["k"][i, :, pos] = k_new[:, 0].to(stacked["k"].dtype)
+    stacked["v"][i, :, pos] = v_new[:, 0].to(stacked["v"].dtype)
+    # stacked[i] is contiguous (the layer axis leads): the kernel takes it
+    lc = {"k": stacked["k"][i], "v": stacked["v"][i], "pos": pos}
+    a, _ = attention_block(cfg, params["attn"], h, causal=True,
+                           window=kind.window, cache=lc, prewritten=True)
+    return _ffn_residual(cfg, params, x + a)
 
 
 def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
@@ -216,6 +237,18 @@ class DecoderLM:
         return logits_for(self._out_table(params), h).float()
 
     # -- caches -------------------------------------------------------------
+    def empty_cache(self, batch: int, t_max: int, device=None) -> dict:
+        """Dense decode cache: per pattern position, K and V buffers
+        ``(count, batch, t_max, K, D)`` and the shared position ``pos``."""
+        cfg = self.cfg
+        device = default_device(device)
+        shape = (batch, t_max, cfg.n_kv_heads, cfg.hd)
+        return {"pos": 0, "segs": [
+            [{key: torch.zeros((count,) + shape, dtype=cfg.dtype,
+                               device=device) for key in ("k", "v")}
+             for _ in pattern]
+            for count, pattern in self.plan]}
+
     def empty_paged_state(self, n_slots: int, n_pages: int, page_size: int,
                           device=None) -> dict:
         """Fixed-shape serving state: per pattern position, K and V page
@@ -248,6 +281,23 @@ class DecoderLM:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_for(self._out_table(params), h[:, -1]).float()
         return {"pos": tokens.shape[1], "segs": segs}, logits
+
+    # -- dense-cache single-token decode -------------------------------------
+    def decode_step(self, params, cache: dict, token: torch.Tensor):
+        """token (B,1) int32; cache from ``prefill`` grown by
+        ``zoo.pad_cache`` (or ``empty_cache``), ``pos`` a Python int shared
+        by the batch.  Writes the token's K/V at position pos of every
+        layer's buffers IN PLACE and returns ({"pos": pos + 1, "segs"},
+        float32 logits (B, V_padded)).  ``pos`` never leaves the host, so
+        the step reads nothing back from the device."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        x = embed_lookup(params["embed"], token)
+        for kind, lp, si, j, i in self._layers(params):
+            x = _decode_layer(cfg, kind, lp, x, cache["segs"][si][j], i, pos)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, -1]
+        return ({"pos": pos + 1, "segs": cache["segs"]},
+                _logits_f32(h, self._out_table(params)))
 
     # -- paged single-token decode -------------------------------------------
     def decode_step_paged(self, params, state: dict, token: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Model zoo facade and the page layout helpers of the paged serving plane.
+"""Model zoo facade, the dense cache's growth and the page layout helpers
+of the paged serving plane.
 
-The port of ``repro.models.zoo``: ``build_model`` and the admission path's
-helpers — prefill ONE request and scatter its cache into the endpoint's
-fixed-shape paged state (``prefill_into_pages``), zero a slot's recurrent
-state (``reset_slot``), and size a request's pages (``pages_per_request``).
-Families not ported yet (MoE, hybrid-SSM, xLSTM, encoder-decoder) raise.
+The port of ``repro.models.zoo``: ``build_model``; ``pad_cache``, which
+grows a prefill cache so ``decode_step`` can append (the restart baseline);
+and the admission path's helpers — prefill ONE request and scatter its
+cache into the endpoint's fixed-shape paged state (``prefill_into_pages``),
+zero a slot's recurrent state (``reset_slot``), and size a request's pages
+(``pages_per_request``).  Families not ported yet (MoE, hybrid-SSM, xLSTM,
+encoder-decoder) raise.
 """
 from __future__ import annotations
 
@@ -22,6 +25,21 @@ def build_model(cfg: ModelConfig) -> DecoderLM:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet")
     return DecoderLM(cfg)
+
+
+def pad_cache(cache: dict, t_max: int) -> dict:
+    """Grow the KV buffers (dim 2 of the ``(layers, B, T, K, D)`` leaves)
+    to ``t_max`` positions with zeros; a new cache, ``pos`` kept.  Needed
+    after ``prefill`` before ``decode_step`` can append new tokens."""
+    def grow(leaf):
+        if leaf.dim() != 5 or leaf.shape[2] >= t_max:
+            return leaf
+        return F.pad(leaf, (0, 0, 0, 0, 0, t_max - leaf.shape[2]))
+
+    return {"pos": cache["pos"],
+            "segs": [[{key: grow(leaf) if key in ("k", "v") else leaf
+                       for key, leaf in layer.items()} for layer in seg]
+                     for seg in cache["segs"]]}
 
 
 _PAGED_KV_KEYS = ("k", "v")

@@ -33,9 +33,14 @@ emitted — greedy output equal to the verify endpoint decoding alone.
 Rejected draft pages roll back through the allocator; acceptance feeds the
 router's ``AcceptanceTracker``.
 
+:class:`RestartEndpoint` keeps the reference's restart-based batching (re-
+prefill the whole packed, left-padded batch on every admit and completion,
+then decode it one token per step over a dense cache) as the baseline the
+paged endpoint is measured against; it serves behind the same server.
+
 Not ported yet (each raises ``NotImplementedError`` when turned on):
 hedging, the fault plan, the health plane, the stall watchdog, online
-fold-back and the sanitizer hooks; ``RestartEndpoint`` waits too.
+fold-back and the sanitizer hooks.
 """
 from __future__ import annotations
 
@@ -52,8 +57,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control import (AdmissionRule, ControlLoop,
                                       StreamController)
 from repro_torch.models import build_model
-from repro_torch.models.zoo import (PAGED_POOL_KEYS, pages_per_request,
-                                    prefill_into_pages, reset_slot)
+from repro_torch.models.zoo import (PAGED_POOL_KEYS, pad_cache,
+                                    pages_per_request, prefill_into_pages,
+                                    reset_slot)
 
 
 def null_route_features(batch):
@@ -477,6 +483,122 @@ class Endpoint:
         return out[:, :k], out[:, k], out[:, k + 1]
 
 
+class RestartEndpoint:
+    """The reference's restart-based batching, kept as the baseline: every
+    admit and completion re-prefills the *entire* packed batch (left-padded
+    to the longest sequence, whose cost every sequence pays), grows the
+    cache by ``t_max`` positions (``zoo.pad_cache``) and decodes one token
+    per step with ``DecoderLM.decode_step`` over the dense cache.  The left
+    pads are token-0 positions that every step attends, as in the
+    reference.  ``params`` replaces the random init from ``seed``; the
+    cache lives on ``device`` (CUDA unless named)."""
+
+    def __init__(self, cfg: ModelConfig, *, max_concurrency: int = 4,
+                 t_max: int = 128, seed: int = 0, params=None, device=None):
+        self.cfg = cfg
+        self.device = default_device(device)
+        self.L = max_concurrency
+        self.t_max = t_max
+        self.model = build_model(cfg)
+        self.params = (self.model.init(seed, self.device) if params is None
+                       else params)
+        self.active: List[Request] = []
+        self._cache = None
+        self._last_tokens = None
+        self.busy_steps = 0          # decode steps dispatched
+        self.decoded_tokens = 0
+        self.prefill_calls = 0       # one batched prefill per rebuild
+        self.batch_reprefills = 0    # rebuilds of the whole batch
+
+    def active_count(self) -> int:
+        return len(self.active)
+
+    def has_capacity(self) -> bool:
+        return len(self.active) < self.L
+
+    def active_requests(self) -> List[Request]:
+        return list(self.active)
+
+    def cancel(self, req: Request) -> bool:
+        """Drop a still-decoding request; the survivors pay one more
+        re-prefill."""
+        for k, r in enumerate(self.active):
+            if r is req:
+                self.active.pop(k)
+                self._rebuild()
+                return True
+        return False
+
+    def admit(self, req: Request):
+        """Merge the request into the active batch by re-prefilling the
+        whole packed batch."""
+        if not self.has_capacity():
+            raise RuntimeError("admit on a full endpoint")
+        req.started = time.perf_counter()
+        req.output = []
+        self.active.append(req)
+        self._rebuild()
+
+    def _rebuild(self):
+        if not self.active:
+            self._cache = None
+            return
+        self.batch_reprefills += 1
+        self.prefill_calls += 1
+        maxlen = max(len(r.tokens) + len(r.output or []) for r in self.active)
+        toks = np.zeros((len(self.active), maxlen), np.int32)
+        for i, r in enumerate(self.active):
+            seq = list(r.tokens) + list(r.output or [])
+            toks[i, -len(seq):] = seq  # left-pad
+        cache, _ = self.model.prefill(self.params,
+                                      _to_device(toks[:, :-1], self.device))
+        self._cache = pad_cache(cache, maxlen - 1 + self.t_max)
+        self._last_tokens = _to_device(toks[:, -1:], self.device)
+
+    def step_begin(self):
+        """Dispatch one batched decode step (async) — does not block."""
+        if not self.active:
+            return None
+        self._cache, logits = self.model.decode_step(
+            self.params, self._cache, self._last_tokens)
+        self.busy_steps += 1
+        return logits
+
+    def step_end(self, logits) -> List[Request]:
+        """Read the step's greedy tokens, emit them, and rebuild the batch
+        if any request finished."""
+        if logits is None:
+            return []
+        nxt = torch.argmax(logits[:, :self.cfg.vocab_size],
+                           dim=-1).to(torch.int32)
+        self._last_tokens = nxt[:, None]
+        host = nxt.cpu().numpy()
+        self.decoded_tokens += len(self.active)
+        finished, keep = [], []
+        for i, r in enumerate(self.active):
+            r.output.append(int(host[i]))
+            if len(r.output) >= r.max_new:
+                r.done = True
+                r.finished = time.perf_counter()
+                finished.append(r)
+            else:
+                keep.append(r)
+        if finished:
+            self.active = keep
+            self._rebuild()
+        return finished
+
+    def step(self) -> List[Request]:
+        """One batched decode step for every active sequence."""
+        return self.step_end(self.step_begin())
+
+
+def _can_serve(ep, req: Request) -> bool:
+    """Whether ``ep`` can ever fit ``req`` (an endpoint without fixed
+    shapes, the restart baseline, fits every request)."""
+    return getattr(ep, "can_serve", lambda r: True)(req)
+
+
 class _EngineExecutor:
     """The endpoint pool behind the control loop: the stream clock is the
     decode chunk index, ``advance`` dispatches every endpoint's chunk before
@@ -539,7 +661,7 @@ class _EngineExecutor:
                     rejected.append(req)
                 continue
             ep = srv.endpoints[j]
-            if not ep.can_serve(req):
+            if not _can_serve(ep, req):
                 # can NEVER fit this endpoint's fixed shapes: fail it cleanly
                 # instead of crashing the server or re-queueing forever
                 req.done = True
@@ -652,7 +774,7 @@ class MultiLLMServer:
         the engine clock (decode chunk index) reaches it.  A request NO
         endpoint can fit is failed here, before it is ever routed."""
         req.submitted = time.perf_counter()
-        if self.endpoints and not any(ep.can_serve(req)
+        if self.endpoints and not any(_can_serve(ep, req)
                                       for ep in self.endpoints):
             req.done = True
             req.output = []

@@ -40,6 +40,10 @@ def test_import_port_loads_no_jax_and_no_reference():
         "need = {'repro_torch.core.speculative', 'repro_torch.core.control',\n"
         "        'repro_torch.serving.engine',\n"
         "        'repro_torch.kernels.decode_attention.ops',\n"
+        "        'repro_torch.kernels.flash_attention.ops',\n"
+        "        'repro_torch.kernels.flash_attention.kernel',\n"
+        "        'repro_torch.kernels.flash_attention.ref',\n"
+        "        'repro_torch.models.zoo',\n"
         "        'repro_torch.kernels.lagrangian_assign.ops'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -20,6 +20,13 @@ and G > 1.  Verify is never held to decode by bit equality here (the JAX
 reference itself is not, ROADMAP C1); position s is held to the decode
 plain version at ``lens + s`` at 2e-5.
 
+The dense-cache decode: ``ops.decode_attention`` (the CPU path,
+``decode_attention_ref``) against the JAX ``decode_attention`` (the dense
+Pallas kernel in interpret mode, its splits merged) at
+``tests/test_kernels.py``'s five cases — ragged T of 700 and a window of
+128 among them — with the valid length given as a scalar and per sequence
+(B,), at 2e-5.
+
 The CUDA kernels have no CPU mode; they are held against these plain
 versions on the card by ``chip_smoke.py``.
 """
@@ -31,14 +38,16 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from repro.kernels.decode_attention.kernel import (  # noqa: E402
     paged_decode_attention_kernel, paged_verify_attention_kernel)
-from repro.kernels.decode_attention.ops import merge_partials as jax_merge  # noqa: E402
+from repro.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention as jax_decode, merge_partials as jax_merge)
 from repro.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref as jax_dense_ref, paged_decode_attention_np,
     paged_decode_attention_ref as jax_ref,
     paged_verify_attention_np as jax_verify_np)
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    paged_decode_attention_cuda, paged_verify_attention_cuda)
+    decode_attention_cuda, paged_decode_attention_cuda,
+    paged_verify_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, gather_pages, paged_verify_attention_np)
 
@@ -193,3 +202,45 @@ def test_verify_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_verify_attention_cuda(*[torch.from_numpy(a)
                                       for a in (q, kp, vp, bt, ln)])
+
+
+DENSE_CASES = [   # b, t, h, kh, d, window, pos (tests/test_kernels.py)
+    (2, 1024, 8, 2, 64, 0, 700),
+    (1, 2048, 4, 4, 128, 256, 1500),
+    (3, 512, 6, 3, 32, 0, 1),
+    (2, 700, 8, 2, 64, 0, 650),     # T not a multiple of the split
+    (1, 700, 4, 2, 64, 128, 700),   # ragged tail + window
+]
+
+
+@pytest.mark.parametrize("per_sequence", [False, True])
+@pytest.mark.parametrize("b,t,h,kh,d,window,pos", DENSE_CASES)
+def test_dense_decode_matches_jax_kernel(b, t, h, kh, d, window, pos,
+                                         per_sequence):
+    rng = np.random.RandomState(3)
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    kc, vc = (rng.randn(b, t, kh, d).astype(np.float32) for _ in range(2))
+    if per_sequence:   # every row at its own length, the last at ``pos``
+        lens = np.maximum(1, pos - 37 * np.arange(b)[::-1]).astype(np.int32)
+    else:
+        lens = pos
+    launches = ops.dense_launches
+    got = ops.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(lens) if per_sequence else lens,
+        window=window).numpy()
+    assert ops.dense_launches == launches    # a CPU tensor launches nothing
+    assert got.shape == q.shape and got.dtype == np.float32
+    want = np.asarray(jax_decode(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc), jnp.asarray(lens),
+                                 window=window, bs=256))
+    assert float(np.max(np.abs(got - want))) < 2e-5
+
+
+def test_dense_cuda_wrapper_refuses_cpu_tensors():
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(2, 1, 4, 16).astype(np.float32))
+    kc = torch.from_numpy(rng.randn(2, 30, 2, 16).astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(q, kc, kc.clone(),
+                              torch.tensor([5, 30], dtype=torch.int32))

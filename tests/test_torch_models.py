@@ -16,6 +16,15 @@ over by ``convert.model_params_from_numpy``:
   against four sequential ``decode_step_paged`` calls on a copy of the
   state (logits to the same tolerance, greedy tokens and the written pages
   equal);
+- the dense-cache path: ``prefill`` + ``zoo.pad_cache`` + four greedy
+  ``decode_step`` calls against JAX's (logits every step, greedy tokens
+  equal, the grown cache and ``empty_cache`` shaped as JAX's); within the
+  port, ``decode_step`` after a prefill reproduces the full-sequence
+  logits of the last token (``tests/test_models.py``'s
+  ``test_decode_matches_full_forward``, same tolerance), and the dense
+  decode and the paged decode give the same greedy tokens in the model
+  dtype (``tests/test_serving_paged.py``'s
+  ``test_paged_decode_matches_dense``);
 
 Tolerance: max |port - JAX| <= 1e-4 * max(1, max |JAX|).  Both sum float32
 products in another order; with random weights the activations reach ~20
@@ -33,13 +42,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
+from repro.models.zoo import pad_cache as jax_pad  # noqa: E402
 from repro.models.zoo import prefill_into_pages as jax_pip  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
-from repro_torch.models.zoo import (pages_per_request,  # noqa: E402
-                                    prefill_into_pages)
+from repro_torch.models.zoo import (pad_cache,  # noqa: E402
+                                    pages_per_request, prefill_into_pages)
 
 ARCHS = ["h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b"]
 
@@ -193,6 +203,107 @@ def test_paged_verify_matches_jax_and_sequential_decode(arch):
         for layer, seq_layer in zip(seg, seq_seg):
             for key in ("k", "v"):
                 _close(layer[key].numpy(), seq_layer[key].numpy())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dense_decode_step_matches_jax(arch):
+    jm, jp, pm, pp = _pair(arch, seed=3)
+    toks = np.random.RandomState(3).randint(
+        1, jm.cfg.vocab_size, (2, 15)).astype(np.int32)
+    jcache, _ = jm.prefill(jp, jnp.asarray(toks[:, :-1]))
+    pcache, _ = pm.prefill(pp, torch.from_numpy(toks[:, :-1]))
+    jcache, pcache = jax_pad(jcache, 24), pad_cache(pcache, 24)
+    empty = pm.empty_cache(2, 24, device="cpu")
+    assert empty["pos"] == 0 and pcache["pos"] == 14
+    for jseg, pseg, eseg in zip(jcache["segs"], pcache["segs"],
+                                empty["segs"]):
+        for jl, pl, el in zip(jseg, pseg, eseg):
+            for key in ("k", "v"):
+                assert tuple(pl[key].shape) == jl[key].shape \
+                    == tuple(el[key].shape)
+    last = toks[:, -1:]
+    vocab = jm.cfg.vocab_size
+    step = jax.jit(jm.decode_step)
+    for _ in range(4):
+        jcache, jlog = step(jp, jcache, jnp.asarray(last))
+        pcache, plog = pm.decode_step(pp, pcache, torch.from_numpy(last))
+        assert plog.dtype == torch.float32
+        _close(plog.numpy(), jlog)
+        nxt = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)
+        assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), nxt)
+        last = nxt[:, None]
+    assert pcache["pos"] == int(jcache["pos"]) == 18
+    for jseg, pseg in zip(jcache["segs"], pcache["segs"]):
+        for jl, pl in zip(jseg, pseg):
+            for key in ("k", "v"):
+                _close(pl[key].numpy(), jl[key])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_full_forward(arch):
+    """prefill + decode_step reproduces the full-forward last-token logits
+    (float32, to isolate logic from bf16 rounding)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        1, cfg.vocab_size, (2, 32)).astype(np.int32))
+    full = m.logits(params, toks)
+    cache, _ = m.prefill(params, toks[:, :-1])
+    _, lgd = m.decode_step(params, pad_cache(cache, 32), toks[:, -1:])
+    scale = float(full.abs().max())
+    assert float((lgd - full[:, -1]).abs().max()) / scale < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma3-4b"])
+def test_paged_decode_matches_dense(arch):
+    """Per-request paged prefill + decode reproduces the packed dense batch
+    token for token in the model dtype (equal prompt lengths, so the dense
+    batch has no pads)."""
+    cfg = get_smoke_config(arch)
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    rng = np.random.RandomState(0)
+    b, ps, p_max = 2, 8, 4
+    tb = rng.randint(1, cfg.vocab_size, (b, 11)).astype(np.int32)
+    cache, _ = m.prefill(params, torch.from_numpy(tb[:, :-1]))
+    cache = pad_cache(cache, p_max * ps)
+    state = m.empty_paged_state(b, 1 + b * p_max, ps, device="cpu")
+    bt = np.zeros((b, p_max), np.int32)
+    for i in range(b):
+        npg = pages_per_request(10, 6, ps)
+        bt[i, :npg] = np.arange(1 + i * npg, 1 + (i + 1) * npg)
+        pc, _ = m.prefill(params, torch.from_numpy(tb[i:i + 1, :-1]))
+        prefill_into_pages(state, pc, torch.from_numpy(bt[i, :2]), i, ps)
+    last_d = last_p = torch.from_numpy(tb[:, -1:])
+    lens = torch.tensor([10, 10], dtype=torch.int32)
+    for _ in range(6):
+        cache, ld = m.decode_step(params, cache, last_d)
+        _, lp = m.decode_step_paged(params, state, last_p,
+                                    torch.from_numpy(bt), lens)
+        nd = ld[:, :cfg.vocab_size].argmax(-1)
+        npg_ = lp[:, :cfg.vocab_size].argmax(-1)
+        assert torch.equal(nd, npg_)
+        last_d = nd[:, None].to(torch.int32)
+        last_p = npg_[:, None].to(torch.int32)
+        lens = lens + 1
+
+
+def test_dense_decode_of_several_positions_raises():
+    """The dense-cache branch takes one position per sequence; the
+    reference's multi-position dense verify is not ported."""
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                              dtype=torch.float32)
+    m = build_model(cfg)
+    p = {k: v[0] for k, v in m.init(0, "cpu")["segs"][0][0]["attn"].items()}
+    kv = torch.zeros(1, 8, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": kv, "v": kv.clone(), "pos": 3}
+    with pytest.raises(NotImplementedError):
+        attention_block(cfg, p, torch.zeros(1, 2, cfg.d_model), cache=cache,
+                        prewritten=True)
+    out, new_kv = attention_block(cfg, p, torch.zeros(1, 1, cfg.d_model),
+                                  cache=cache, prewritten=True)
+    assert out.shape == (1, 1, cfg.d_model) and new_kv is None
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m",

@@ -23,6 +23,16 @@
   request, the same window count and dual iterations — with and without a
   speculative pair column, and in budget mode with a stream ``horizon``.
   The deferred server options raise ``NotImplementedError``.
+- ``RestartEndpoint`` (the restart-batching baseline over the dense-cache
+  ``decode_step``) under churn with ragged prompts (left pads), in lockstep
+  with the JAX ``RestartEndpoint`` on the same float32 parameters: the same
+  completions every step, the same outputs, ``batch_reprefills`` and
+  ``prefill_calls``.  Behind ``MultiLLMServer`` over two smoke configs, the
+  paged and the restart endpoints give the same (endpoint, output) per
+  request (equal prompt lengths, float32, so the left pads are inert),
+  with no batch re-prefill on the paged side and some on the restart side
+  (``tests/test_serving_paged.py``'s ``test_server_paged_matches_restart_
+  engine``, hymba replaced by gemma3-4b, the port having no hymba).
 
 Greedy tokens are compared exactly: the logits agree to ~1e-5 (see
 ``tests/test_torch_models.py``), far inside these models' top-2 gaps.
@@ -56,7 +66,7 @@ from repro_torch.data.qaserve import DEFAULT_POOL, generate  # noqa: E402
 from repro_torch.data.tokenizer import encode_for_config  # noqa: E402
 from repro_torch.serving.engine import (Endpoint, MultiLLMServer,  # noqa: E402
                                         PageAllocator, Request,
-                                        null_route_features)
+                                        RestartEndpoint, null_route_features)
 
 ARCHS = ("h2o-danube-3-4b", "qwen2-72b")
 EP = dict(max_concurrency=3, t_max=64, page_size=8, sync_every=4)
@@ -365,3 +375,66 @@ def test_stream_over_omnirouter_matches_jax(case):
 def test_deferred_server_options_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         MultiLLMServer([], BalanceAware(), **option)
+
+
+def test_restart_endpoint_matches_jax_under_churn():
+    arch = ARCHS[0]
+    jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
+    pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    je = jax_engine.RestartEndpoint(jc, max_concurrency=3, t_max=16, seed=2)
+    je.params = jax.tree.map(lambda a: a.astype(jnp.float32), je.params)
+    pe = RestartEndpoint(pc, max_concurrency=3, t_max=16, device="cpu",
+                         params=convert.model_params_from_numpy(
+                             pc, jax.tree.map(np.asarray, je.params), "cpu"))
+    todo = _requests(6, seed=8)               # ragged prompts: left pads
+    jreqs = [jax_engine.Request(i, t, max_new=m) for i, (t, m) in
+             enumerate(todo)]
+    preqs = [Request(i, t, max_new=m) for i, (t, m) in enumerate(todo)]
+    nxt = 0
+    while nxt < len(todo) or pe.active_count():
+        while nxt < len(todo) and pe.has_capacity():
+            je.admit(jreqs[nxt])
+            pe.admit(preqs[nxt])
+            nxt += 1
+        assert [r.rid for r in je.step()] == [r.rid for r in pe.step()]
+        assert [r.rid for r in je.active] == [r.rid for r in pe.active]
+    for jr, pr in zip(jreqs, preqs):
+        assert pr.done and len(pr.output) == pr.max_new
+        assert pr.output == jr.output
+    assert (pe.batch_reprefills, pe.prefill_calls) == (
+        je.batch_reprefills, je.prefill_calls)
+    assert (pe.busy_steps, pe.decoded_tokens) == (je.busy_steps,
+                                                  je.decoded_tokens)
+    assert pe.batch_reprefills > len(todo)
+    # staticcheck: ignore[SC08] -- RestartEndpoint keeps no page pool and
+    # no slot free lists: drained is an empty batch with no cache
+    assert pe.active_count() == 0 and pe._cache is None
+
+
+def test_server_paged_matches_restart_engine():
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, 500, (9,)).astype(np.int32) for _ in range(9)]
+    outs, stats = {}, {}
+    for name, cls in (("paged", Endpoint), ("restart", RestartEndpoint)):
+        eps = [cls(dataclasses.replace(get_smoke_config(a),
+                                       dtype=torch.float32),
+                   max_concurrency=3, seed=i, device="cpu")
+               for i, a in enumerate(["h2o-danube-3-4b", "gemma3-4b"])]
+        srv = MultiLLMServer(eps, BalanceAware(), batch_size=6)
+        for i, p in enumerate(prompts):
+            srv.submit(Request(rid=i, tokens=p, max_new=6))
+        done = srv.run(null_route_features)
+        assert len(done) == len(prompts)
+        outs[name] = {r.rid: (r.endpoint, tuple(r.output)) for r in done}
+        stats[name] = sum(e.batch_reprefills for e in eps)
+    assert outs["paged"] == outs["restart"]
+    assert stats["paged"] == 0
+    assert stats["restart"] > 0        # the baseline restarts on every event
+
+
+def test_restart_endpoint_refuses_a_speculative_pair():
+    eps = [RestartEndpoint(dataclasses.replace(
+        get_smoke_config(ARCHS[0]), dtype=torch.float32), device="cpu")
+        for _ in range(2)]
+    with pytest.raises(NotImplementedError, match="paged"):
+        MultiLLMServer(eps, BalanceAware(), spec_pairs=(SpecPair(0, 1, k=3),))
