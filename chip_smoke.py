@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (routing plane, paged serving plane, the
-routed speculative stream and the dense-cache generation path) on one
-NVIDIA GPU.
+routed speculative stream, the dense-cache generation path, neighbour-only
+top-k retrieval and the seed's per-iteration solve) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the seven hand-written CUDA kernels from ``src/repro_torch/csrc``
+It builds the nine hand-written CUDA kernels from ``src/repro_torch/csrc``
 (one ``nvcc`` per source, all started together; the paged decode, paged
-verify and dense decode kernels share ``paged_decode.cu``) and holds each
-against its plain PyTorch version at the main path's shapes.
+verify and dense decode kernels share ``paged_decode.cu``, the vote and
+top-k kernels ``retrieval_vote.cu``, the shard statistics and the assign
+step ``shard_stats.cu``) and holds each against its plain PyTorch version
+at the main path's shapes.
 
 Routing plane: it routes a 16,384-query batch (quality and budget mode) and
 four 4,096-query streaming windows through ``repro_torch.core.OmniRouter``
@@ -45,6 +47,18 @@ decode kernel over the same rows laid out as pages (D1); ``RestartEndpoint``
 at h2o-danube-3-4b full width behind ``MultiLLMServer`` on the paged
 endpoint's prompts, beside the paged endpoint (R1); and a float32 smoke pool
 served by both endpoint kinds on the card and the CPU (R2).
+
+Neighbour-only retrieval and the assign step: the top-k kernel against its
+plain version on the vote's cases, at k = 64 and on a 700-row store, and
+the ``topk_retrieval`` entry point at the full route batch, bit for bit
+equal to the vote entry point's (vals, idx) (3c); the assign-step kernel
+against its plain version at the route batch's predictions with 3b's
+multipliers, at N 1,000, M 16 and a duplicated column (3d); the seed's
+per-iteration solve (``benchmarks/bench_routing.py``: 151 assign-step
+launches a solve) on the card with no host read, equal to the same loop on
+the CPU, beside the fused one-launch solve, and the legacy and sweep entry
+points (``solve_assignment_kernel``, ``solve_assignment``,
+``solve_budget``, ``DualSolver.solve_grid`` / ``solve_batch``) (3e).
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -98,6 +112,22 @@ def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn) -> float:
+    """The device's own time of one ``fn()``: GRAPH_CALLS calls captured in
+    a CUDA graph (after a warm-up call on a side stream) and replayed, so the
+    wrapper's host work is not on the clock."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return time_ms(torch, graph.replay, 20) / GRAPH_CALLS
 
 
 def check(cond: bool, what: str) -> None:
@@ -164,7 +194,7 @@ GRAFT_EMIT = 0.9        # least mean tokens per round, as a share of k
 # V4: the routed speculative stream
 ROUTED_SPEC_QUERIES, ROUTED_SPEC_TOKENS = 32, 32
 SPEC_CPU_REQS = 12
-GRAPH_CALLS = 50        # shard-statistics calls per captured CUDA graph
+GRAPH_CALLS = 50        # calls per captured CUDA graph (graph_ms)
 
 # -- the dense-cache generation path (F, D and R phases) ----------------------
 # F1: the flash kernel against its plain versions.  (tag, B, S, K, G, D,
@@ -939,18 +969,8 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
                                                    lblocks=1), 50)
     p_ms = time_ms(torch, lambda: shard_stats_ref(a, b, lam, lam2, nvs,
                                                   lblocks=1), 10)
-    # the device's own time: GRAPH_CALLS calls captured in a CUDA graph and
-    # replayed, so the wrapper's host work is not on the clock
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        shard_stats_cuda(a, b, lam, lam2, nvs, lblocks=1)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
-            shard_stats_cuda(a, b, lam, lam2, nvs, lblocks=1)
-    g_ms = time_ms(torch, graph.replay, 20) / GRAPH_CALLS
+    g_ms = graph_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
+                                                    lblocks=1))
     nbytes, nops = stats_bytes_ops(a.shape[0], mp, 1)
     bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
     say(f"shard stats kernel (N={a.shape[0]}, M={mp}, lblocks=1): "
@@ -1529,6 +1549,331 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
     return row
 
 
+# -- neighbour-only top-k and the one-step assignment (slice 5) ---------------
+
+TOPK_KMAX = 64          # the top-k kernel's largest k (paper Table 4)
+STEP_N = 1_000          # assign step: a batch that is not a block multiple
+STEP_M = 16             # assign step: the kernel's largest model count
+SEED_N = 16_384         # 3e: the seed loop of benchmarks/bench_routing.py
+SEED_M = 6
+SEED_ALPHA = 0.7
+SEED_ITERS = 150
+SEED_REPS = 5
+
+
+def topk_bytes_ops(b, n_rows, d, k):
+    """One top-k retrieval: store rows and queries read once, (vals, idx)
+    written once; 2·d operations per (query, valid row)."""
+    return 4 * (n_rows * d + b * d) + 8 * b * k, 2.0 * b * n_rows * d
+
+
+def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
+               n_valid):
+    """3c: the top-k kernel against its plain version on 3a's cases, at
+    k = 64 and on a 700-row store; the entry point at the full route batch
+    (the main path of this kernel, launches counted), bit for bit equal to
+    the vote entry point's (vals, idx).  Returns the kernels-line row."""
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.kernels.topk_retrieval.kernel import (
+        retrieval_vote_cuda, topk_retrieval_cuda)
+    from repro_torch.kernels.topk_retrieval.ref import (NEG_INF,
+                                                        topk_retrieval_ref)
+
+    def case(store, q, kk, nv, exact=False, tag="", out=None):
+        kv, ki = out if out is not None else topk_retrieval_cuda(store, q,
+                                                                 kk, nv)
+        torch.cuda.synchronize()
+        rv, ri = topk_retrieval_ref(store, q, kk, nv)
+        err = (kv - rv).abs().max().item()
+        agree = (torch.sort(ki, 1).values
+                 == torch.sort(ri, 1).values).float().mean().item()
+        say(f"top-k {tag}: B={q.shape[0]} N_db={store.shape[0]} k={kk} "
+            f"n_valid={nv} | max|dvals|={err:.3g} idx agree={agree:.6f}")
+        check(err <= 1e-5, f"top-k {tag} vals")
+        check(agree >= 0.999, f"top-k {tag} idx sets")
+        if exact:
+            check(bool((ki == ri).all()), f"top-k {tag} exact idx order")
+        live = min(nv, store.shape[0])
+        if kk > live:
+            check(bool((ki[:, live:] == -1).all()
+                       and (kv[:, live:] <= NEG_INF * 0.5).all()),
+                  f"top-k {tag} empty slots")
+        return err
+
+    q_cmp = q_route[:CMP_QUERIES]
+    dup = torch.cat([emb[:4096], emb[:4096]]).contiguous()
+    err = max(case(emb, q_cmp, k, n_valid, tag="full store"),
+              case(emb, q_cmp, 16, 100_003, tag="n_valid"),
+              case(emb[:10].contiguous(), q_cmp, 16, 10, tag="k>n_valid"),
+              case(dup, q_cmp, 16, 8192, exact=True, tag="duplicated rows"),
+              case(emb, q_cmp, TOPK_KMAX, n_valid, tag="k=64"),
+              case(emb[:700].contiguous(), q_cmp, k, 700,
+                   tag="700-row store"))
+    try:
+        topk_retrieval_cuda(emb, q_cmp, TOPK_KMAX + 1, n_valid)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"top-k k={TOPK_KMAX + 1} was not refused")
+
+    # the main path: the entry point a user calls, at the full route batch
+    torch.cuda.synchronize()
+    tr_ops.topk_launches = 0
+    vals, idx = tr_ops.topk_retrieval(emb, q_route, k, n_valid)
+    launches = tr_ops.topk_launches
+    torch.cuda.synchronize()
+    check(launches >= 1, "top-k: the kernel was not launched")
+    vv, vi, _ = retrieval_vote_cuda(emb, labels, q_route, k, n_valid)
+    same = bool(torch.equal(vals, vv) and torch.equal(idx, vi))
+    ordered = bool((vals[:, :-1] >= vals[:, 1:]).all())
+    say(f"top-k entry point (B={N_ROUTE}, N_db={n_valid}, k={k}): "
+        f"{launches} launch; (vals, idx) bit-identical to the vote entry "
+        f"point's: {same}; vals finite {bool(torch.isfinite(vals).all())}, "
+        f"descending {ordered}, idx in range "
+        f"{bool(((idx >= 0) & (idx < n_valid)).all())}")
+    check(same, "top-k and vote entry points differ")
+    check(vals.shape == (N_ROUTE, k) and bool(torch.isfinite(vals).all())
+          and ordered and bool(((idx >= 0) & (idx < n_valid)).all()),
+          "top-k output shape, finiteness, order or range")
+    # every row of the main path's output against the plain version
+    err = max(err, case(emb, q_route, k, n_valid, tag="main path, all rows",
+                        out=(vals, idx)))
+    del vv, vi, dup
+
+    ms = time_ms(torch, lambda: topk_retrieval_cuda(emb, q_route, k,
+                                                    n_valid), REPS)
+    plain_ms = time_ms(torch, lambda: topk_retrieval_ref(emb, q_route, k,
+                                                         n_valid), 3, warm=1)
+    store_t = emb[:n_valid].T
+    lib_ms = time_ms(torch, lambda: torch.matmul(q_route, store_t), REPS)
+    two_ms = time_ms(torch, lambda: torch.topk(torch.matmul(q_route, store_t),
+                                               k, dim=1), REPS)
+    del store_t
+    d = emb.shape[1]
+    nbytes, nops = topk_bytes_ops(N_ROUTE, n_valid, d, k)
+    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    say(f"top-k timing (B={N_ROUTE}, N_db={n_valid}, d={d}, k={k}): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul of the same "
+        f"fp32 product {lib_ms:.3f} ms, two calls torch.matmul + torch.topk "
+        f"{two_ms:.3f} ms; bound {bound:.3f} ms = max({nbytes / 1e6:.1f} MB"
+        f" / 3.35 TB/s, {nops / 1e12:.3f} TFLOP / 67 TFLOP/s fp32) | "
+        f"achieved {nops / ms / 1e9:.1f} TFLOP/s")
+    return dict(name="topk_retrieval", route="cuda",
+                source="src/repro_torch/csrc/retrieval_vote.cu",
+                replaces="src/repro/kernels/topk_retrieval/kernel.py:141",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
+                else "operations", library_ms=lib_ms,
+                matmul_topk_ms=two_ms, equal_to_vote=same)
+
+
+def step_bytes_ops(n, m):
+    """One assign step: cost and quality read once, λ1|λ2, x and
+    [qsum, csum, counts] written once; 5 operations per (row, model)."""
+    return 4 * (2 * n * m + 1 + m + n + 2 + m), 5.0 * n * m
+
+
+def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
+                      lam2):
+    """3d: the assign-step kernel against its plain version at the route
+    batch's predictions with 3b's multipliers, at N 1,000, at M 16 and with
+    a duplicated column; M 17 is refused.  Returns the kernels-line row
+    (launches are filled in by 3e, the kernel's main path)."""
+    from repro_torch.kernels.lagrangian_assign.kernel import assign_step_cuda
+    from repro_torch.kernels.lagrangian_assign.ref import assign_step_ref
+
+    def case(c, a, l1, l2, tag, tie=None):
+        x, cnt, qs, cs = assign_step_cuda(c, a, l1, l2)
+        torch.cuda.synchronize()
+        rx, rcnt, rq, rc = assign_step_ref(c, a, l1, l2, c.shape[0])
+        same_x = bool(torch.equal(x, rx))
+        same_cnt = bool(torch.equal(cnt, rcnt))
+        same_sums = bool(torch.equal(qs, rq) and torch.equal(cs, rc))
+        err = max(abs(float(qs) - float(rq)), abs(float(cs) - float(rc)))
+        say(f"assign step {tag}: N={c.shape[0]} M={c.shape[1]} | x equal "
+            f"{same_x}, counts equal {same_cnt} ({cnt.int().tolist()}), "
+            f"qsum/csum bit-identical {same_sums} ({float(qs):.6g}, "
+            f"{float(cs):.6g})")
+        check(same_x, f"assign step {tag}: x")
+        check(same_cnt and int(cnt.sum()) == c.shape[0],
+              f"assign step {tag}: counts")
+        check(same_sums, f"assign step {tag}: qsum/csum")
+        if tie is not None:
+            check(bool((x != tie).all()),
+                  f"assign step {tag}: a tie went to the higher index")
+        return err
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    c16 = torch.rand(N_ROUTE, STEP_M, generator=gen, device=dev)
+    a16 = torch.rand(N_ROUTE, STEP_M, generator=gen, device=dev)
+    l16 = torch.rand(STEP_M, generator=gen, device=dev) * 0.1
+    c6, a6 = c16[:, :6].clone(), a16[:, :6].clone()
+    c6[:, 3], a6[:, 3] = c6[:, 1], a6[:, 1]
+    l6 = l16[:6].clone()
+    l6[3] = l6[1]
+    l6[[0, 2, 4]] += 0.3          # so that columns 1 and 3 win often
+    lam_r = torch.tensor(2.5, device=dev)
+    err = max(case(cost, cap, lam1, lam2, "route batch, 3b's multipliers"),
+              case(cost[:STEP_N], cap[:STEP_N], lam1, lam2, "N=1,000"),
+              case(c16, a16, lam_r, l16, "M=16"),
+              case(c6, a6, lam_r, l6, "duplicated column", tie=3))
+    try:
+        assign_step_cuda(torch.rand(64, STEP_M + 1, device=dev),
+                         torch.rand(64, STEP_M + 1, device=dev), lam_r,
+                         torch.zeros(STEP_M + 1, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"assign step M={STEP_M + 1} was not refused")
+
+    n, m = cost.shape
+    k_ms = time_ms(torch, lambda: assign_step_cuda(cost, cap, lam1, lam2), 50)
+    p_ms = time_ms(torch, lambda: assign_step_ref(cost, cap, lam1, lam2, n),
+                   10)
+    g_ms = graph_ms(torch, lambda: assign_step_cuda(cost, cap, lam1, lam2))
+    nbytes, nops = step_bytes_ops(n, m)
+    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    say(f"assign step kernel (N={n}, M={m}): {k_ms * 1e3:.2f} us per call "
+        f"with its wrapper (two launches: blocks, then the block sums in "
+        f"order), {g_ms * 1e3:.2f} us on the device (replayed from a CUDA "
+        f"graph of {GRAPH_CALLS} calls), bound {bound * 1e3:.3f} us = max("
+        f"{nbytes / 1e3:.1f} KB / 3.35 TB/s, {nops / 1e6:.3f} MFLOP / "
+        f"67 TFLOP/s) -> launch latency is the floor; plain "
+        f"{p_ms * 1e3:.1f} us; library: none (no single PyTorch call)")
+    return dict(name="assign_step", route="cuda",
+                source="src/repro_torch/csrc/shard_stats.cu",
+                replaces="src/repro/kernels/lagrangian_assign/kernel.py:428",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
+                else "operations", library_ms=None, graph_ms=g_ms)
+
+
+def seed_loop(torch, step, c, a, alpha, loads, iters):
+    """The seed's per-iteration dual solve (``benchmarks/bench_routing.py``
+    ``_seed_per_iteration_launch``): one assign step per iteration and one
+    final step, the multipliers updated by tensor ops, so nothing is read
+    on the host.  Returns (x, λ1, λ2, found)."""
+    import math
+    n, m = c.shape
+    dev = c.device
+    n_t = torch.full((), float(n), device=dev)
+    lam1 = torch.zeros((), device=dev)
+    lam2 = torch.zeros(m, device=dev)
+    best_cost = torch.full((), float("inf"), device=dev)
+    best_x = torch.zeros(n, dtype=torch.int32, device=dev)
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    for t in range(iters):
+        x, counts, qsum, csum = step(c, a, lam1, lam2)
+        q = qsum / n_t
+        feasible = (q >= alpha) & torch.all(counts <= loads)
+        better = feasible & (csum < best_cost)
+        best_cost = torch.where(better, csum, best_cost)
+        best_x = torch.where(better, x, best_x)
+        found = found | feasible
+        lr = 1.0 / math.sqrt(1.0 + t)
+        lam1 = torch.clamp(lam1 + 4.0 * n * lr * (alpha - q), min=0.0)
+        lam2 = torch.clamp(lam2 + 0.5 * lr * (counts - loads), min=0.0)
+    x_last = step(c, a, lam1, lam2)[0]
+    return torch.where(found, best_x, x_last), lam1, lam2, found
+
+
+def seed_loop_phase(torch, say, check, time_ms, dev):
+    """3e: the seed's per-iteration structure on the card (151 assign-step
+    launches a solve, no host read: run under the sync debug mode "error"),
+    the same loop on the CPU's plain version (equal bit for bit), the fused
+    one-launch solve on the same inputs, and the legacy and sweep entry
+    points on the card.  Returns the assign step's main-path launches."""
+    from repro_torch.core import DualSolver, solve_assignment, solve_budget
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c = torch.rand(SEED_N, SEED_M, generator=gen, device=dev)
+    a = torch.rand(SEED_N, SEED_M, generator=gen, device=dev)
+    loads = torch.full((SEED_M,), SEED_N / 2.0, device=dev)
+    args = (c, a, SEED_ALPHA, loads, SEED_ITERS)
+    # the main path of the assign step: one seed solve, counted
+    torch.cuda.synchronize()
+    la_ops.step_launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, lam1, lam2, found = seed_loop(torch, la_ops.assign_step, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = la_ops.step_launches
+    torch.cuda.synchronize()
+    check(launches == SEED_ITERS + 1,
+          f"seed loop: {launches} assign-step launches, expected "
+          f"{SEED_ITERS + 1}")
+    xc, lam1c, lam2c, foundc = seed_loop(torch, la_ops.assign_step, c.cpu(),
+                                         a.cpu(), SEED_ALPHA, loads.cpu(),
+                                         SEED_ITERS)
+    same = bool(torch.equal(x.cpu(), xc) and torch.equal(lam1.cpu(), lam1c)
+                and torch.equal(lam2.cpu(), lam2c)
+                and bool(found) == bool(foundc))
+    xi = x.long()
+    q_mean = float(a.gather(1, xi[:, None]).mean())
+    dollars = float(c.gather(1, xi[:, None]).sum())
+    counts = torch.bincount(xi, minlength=SEED_M)
+    say(f"seed loop (N={SEED_N}, M={SEED_M}, alpha {SEED_ALPHA}, loads "
+        f"N/2, {SEED_ITERS} iterations): {launches} assign-step launches "
+        f"under sync debug mode 'error' (no host read); card = CPU plain "
+        f"loop bit for bit (x, lam1, lam2, found): {same}; found "
+        f"{bool(found)}, lam1 {float(lam1):.6g}, mean quality "
+        f"{q_mean:.4f}, cost {dollars:.2f}, counts {counts.tolist()}")
+    check(same, "seed loop: card and CPU differ")
+    check(bool(found) and q_mean >= SEED_ALPHA
+          and bool((counts <= loads.long()).all()),
+          "seed loop: no feasible assignment")
+
+    # the fused one-launch solve on the same inputs, and the legacy and
+    # sweep entry points on the card (all through the fused kernel)
+    xk, ik = la_ops.solve_assignment_kernel(c, a, SEED_ALPHA, loads)
+    xs, isv = solve_assignment(c, a, SEED_ALPHA, loads)
+    check(bool(torch.equal(xk, xs)) and int(ik.iters_run) == SEED_ITERS,
+          "solve_assignment_kernel differs from solve_assignment")
+    xb, ib = solve_budget(c, a, float(c.min(1).values.sum()) * 1.5, loads)
+    check(xb.shape == (SEED_N,) and bool(ib.feasible),
+          "solve_budget: no feasible assignment")
+    alphas = torch.tensor([0.6, 0.7, 0.8], device=dev)
+    solver = DualSolver()
+    xg, ig = solver.solve_grid(c, a, alphas, loads)
+    per_loads = torch.stack([loads, loads * 0.8, loads * 0.6])
+    xbt, ibt = solver.solve_batch(torch.stack([c, c, a]),
+                                  torch.stack([a, a, c]), alphas, per_loads)
+    grid_same = batch_same = True
+    for j in range(3):
+        x1, i1 = solver.solve(c, a, alphas[j], loads)
+        grid_same &= bool(torch.equal(xg[j], x1)) and all(
+            bool(torch.equal(f[j], g)) for f, g in zip(ig, i1))
+        cb, ab = (a, c) if j == 2 else (c, a)
+        x2, i2 = solver.solve(cb, ab, alphas[j], per_loads[j])
+        batch_same &= bool(torch.equal(xbt[j], x2)) and all(
+            bool(torch.equal(f[j], g)) for f, g in zip(ibt, i2))
+    say(f"legacy entry points on the card: solve_assignment_kernel == "
+        f"solve_assignment, iters {int(ik.iters_run)}, mean quality "
+        f"{float(ik.quality):.4f}, cost {float(ik.cost):.2f}; solve_budget "
+        f"feasible {bool(ib.feasible)}; solve_grid (alpha 0.6/0.7/0.8) "
+        f"elements == solve: {grid_same}, qualities "
+        f"{[round(float(v), 4) for v in ig.quality]}; solve_batch with "
+        f"(B, M) loads elements == solve: {batch_same}")
+    check(grid_same, "solve_grid: an element differs from solve")
+    check(batch_same, "solve_batch: an element differs from solve")
+    check(bool((ig.quality[1:] >= ig.quality[:-1] - 1e-6).all()),
+          "solve_grid: quality not monotone in alpha")
+
+    seed_ms = time_ms(torch, lambda: seed_loop(torch, la_ops.assign_step,
+                                               *args), SEED_REPS, warm=1)
+    fused_ms = time_ms(torch, lambda: la_ops.solve_assignment_kernel(
+        c, a, SEED_ALPHA, loads), REPS)
+    say(f"seed loop timing: {seed_ms:.3f} ms per solve ({SEED_ITERS + 1} "
+        f"assign-step launches + ~10 tensor ops per iteration, "
+        f"{seed_ms * 1e3 / (SEED_ITERS + 1):.1f} us per iteration) against "
+        f"the fused one-launch solve {fused_ms:.3f} ms "
+        f"({seed_ms / fused_ms:.2f}x)")
+    return launches, seed_ms, fused_ms
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1783,6 +2128,19 @@ def main() -> int:
         bound_by="bytes" if d_bytes / H100_HBM > d_ops / H100_FP32
         else "operations", library_ms=None, design_bound_ms=d_design)
 
+    # 3c. top-k retrieval; 3d. the assign step; 3e. the seed's
+    # per-iteration solve and the legacy / sweep entry points
+    rows["topk_retrieval"] = topk_phase(torch, say, check, time_ms, emb,
+                                        labels, q_route, k, n_valid)
+    p_q, iters_q, _ = solve_cases[("quality", "cold")]
+    _, i_q = la_ops.finish(dual_solve_cuda(*p_q.args, iters=iters_q,
+                                           patience=3), p_q)
+    rows["assign_step"] = assign_step_phase(torch, say, check, time_ms, dev,
+                                            cost, cap, i_q.lam, i_q.lam_load)
+    (rows["assign_step"]["launches"], rows["assign_step"]["seed_loop_ms"],
+     rows["assign_step"]["fused_solve_ms"]) = seed_loop_phase(
+        torch, say, check, time_ms, dev)
+
     # 4. the main path: route (both modes) and streaming windows
     tr_ops.launches = 0
     la_ops.launches = 0
@@ -1896,7 +2254,8 @@ def main() -> int:
     kernels = [rows[k] for k in ("retrieval_vote", "dual_solve",
                                  "paged_decode_attention", "shard_stats",
                                  "paged_verify_attention", "flash_attention",
-                                 "decode_attention")]
+                                 "decode_attention", "topk_retrieval",
+                                 "assign_step")]
     for r in kernels:
         check(set(r) >= {"name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

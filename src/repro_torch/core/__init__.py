@@ -5,10 +5,11 @@ from .features import FEAT_LEN, featurize_tokens, predicted_cost, projection
 from .hybrid import HybridConfig, HybridPredictor, hybrid_predict_device
 from .optimizer import (DualSolver, DualState, SolveInfo, brute_force,
                         budget_polish, fold_threshold, init_dual_state,
-                        primal_polish, repair_workload)
+                        primal_polish, repair_workload, solve_assignment,
+                        solve_budget)
 from .predictor import (PredictorConfig, PredictorNet, TrainedPredictor,
                         encode_queries, predict, trained_predict_device)
-from .retrieval import (RetrievalPredictor, VectorStore,
+from .retrieval import (RetrievalPredictor, VectorStore, cosine_topk,
                         retrieval_predict_device)
 from .router import OmniRouter, RouterConfig, evaluate_assignment
 
@@ -17,9 +18,10 @@ __all__ = [
     "HybridPredictor", "OmniRouter", "Oracle", "PerceptionOnly", "Policy",
     "PredictorConfig", "PredictorNet", "RandomPolicy", "RetrievalPredictor",
     "RouteBatch", "RouterConfig", "SolveInfo", "TrainedPredictor",
-    "VectorStore", "brute_force", "budget_polish", "encode_queries",
-    "evaluate_assignment", "featurize_tokens", "fold_threshold",
-    "hybrid_predict_device", "init_dual_state", "pad_batch", "pad_bucket",
-    "predict", "predicted_cost", "primal_polish", "projection",
-    "repair_workload", "retrieval_predict_device", "trained_predict_device",
+    "VectorStore", "brute_force", "budget_polish", "cosine_topk",
+    "encode_queries", "evaluate_assignment", "featurize_tokens",
+    "fold_threshold", "hybrid_predict_device", "init_dual_state",
+    "pad_batch", "pad_bucket", "predict", "predicted_cost", "primal_polish",
+    "projection", "repair_workload", "retrieval_predict_device",
+    "solve_assignment", "solve_budget", "trained_predict_device",
 ]

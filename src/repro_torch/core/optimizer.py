@@ -1,8 +1,9 @@
 """ECCOS/OmniRouter constrained optimizer (paper §3.2, Appendix A) in PyTorch.
 
 The port of ``repro.core.optimizer`` on one device: the one-shot solve,
-the streaming window and the blocked/masked window solve (``shards``,
-``n_valid``).
+the threshold sweeps (``solve_batch``, ``solve_grid``), the streaming window,
+the blocked/masked window solve (``shards``, ``n_valid``) and the legacy
+entry points ``solve_assignment`` / ``solve_budget``.
 Both modes share one code path through the unified parameterization
 
     scores_ij = A_ij + lam * B_ij + lam2_j,   feasible  ⇔  Σ B[i, x_i] <= t
@@ -782,13 +783,18 @@ class DualSolver:
         warm-starts the ascent from a previous window's multipliers;
         ``n_valid`` marks the valid-row prefix of a padded window."""
         cost, quality, loads = self._inputs(cost, quality, loads)
-        dev = cost.device
-        n, m = cost.shape
-        if self._blocked(n_valid, n):
+        if self._blocked(n_valid, cost.shape[0]):
             x, info, _, _ = self._blocked_call(
                 cost, quality, threshold, loads, state, n_valid, threshold,
                 polish=False)
             return x, info
+        return self._solve_whole(cost, quality, threshold, loads, state)
+
+    def _solve_whole(self, cost, quality, threshold, loads, state=None):
+        """The one-shot (unblocked) solve of device tensors: the fused
+        kernel on the card, ``_solve_ref`` on the CPU."""
+        dev = cost.device
+        m = cost.shape[1]
         lam0, lam20, step0 = self._warm(state, m, dev)
         kw = dict(mode=self.mode, iters=self.iters, lr_con=self.lr_constraint,
                   lr_load=self.lr_workload, patience=self.stall_patience,
@@ -802,6 +808,41 @@ class DualSolver:
             raise ValueError(f"no dual solve for device {dev}")
         return _solve_ref(cost, quality, threshold, loads, lam0, lam20,
                           self.stall_tol, step0, **kw)
+
+    def solve_batch(self, cost, quality, thresholds, loads
+                    ) -> Tuple[torch.Tensor, SolveInfo]:
+        """Independent cold solves over a leading batch axis: cost/quality
+        (B, N, M), thresholds (B,), loads (M,) or (B, M).  Returns x (B, N)
+        and a ``SolveInfo`` whose fields carry the batch axis.
+
+        The JAX package vmaps its reference; ``torch.vmap`` cannot take the
+        ascent's data-dependent exit, so this loops over the batch, each
+        element the one-shot solve on its device (the fused kernel on the
+        card, ``_solve_ref`` on the CPU; ``shards`` is not used): element
+        b equals ``solve`` on element b bit for bit."""
+        cost, quality, loads = self._inputs(cost, quality, loads)
+        thr = _f32(thresholds, cost.device).reshape(-1)
+        if loads.dim() == 1:
+            loads = loads.expand(cost.shape[0], -1)
+        return self._stack([self._solve_whole(cost[b], quality[b], thr[b],
+                                              loads[b])
+                            for b in range(cost.shape[0])])
+
+    def solve_grid(self, cost, quality, thresholds, loads
+                   ) -> Tuple[torch.Tensor, SolveInfo]:
+        """A (K,) grid of alpha/budget thresholds over one instance
+        (cost/quality (N, M)): x (K, N) and a ``SolveInfo`` with a leading
+        K axis; element k equals ``solve`` at threshold k bit for bit."""
+        cost, quality, loads = self._inputs(cost, quality, loads)
+        thr = _f32(thresholds, cost.device).reshape(-1)
+        return self._stack([self._solve_whole(cost, quality, t, loads)
+                            for t in thr])
+
+    @staticmethod
+    def _stack(results):
+        xs, infos = zip(*results)
+        return torch.stack(xs), SolveInfo(*(torch.stack(f)
+                                            for f in zip(*infos)))
 
     def route_arrays(self, cost, quality, threshold, loads,
                      polish_threshold=None,
@@ -885,3 +926,20 @@ class DualSolver:
             sr_deficit=state.sr_deficit + deficit,
             steps=state.steps + info.iters_run)
         return x, info, new_state
+
+
+# --- legacy entry points: thin wrappers over the one DualSolver code path ---
+# (the JAX ``use_kernel`` selects nothing in the port: the device decides)
+
+def solve_assignment(cost, quality, alpha, loads, *, iters: int = 150,
+                     lr_quality: float = 4.0, lr_workload: float = 0.5):
+    """Quality-constrained mode.  Returns (assignment (N,), SolveInfo)."""
+    return DualSolver("quality", iters, lr_quality, lr_workload).solve(
+        cost, quality, alpha, loads)
+
+
+def solve_budget(cost, quality, budget, loads, *, iters: int = 150,
+                 lr_budget: float = 50.0, lr_workload: float = 0.5):
+    """Budget mode: max (1/N)Σ a_ij x_ij  s.t. Σ c_ij x_ij <= B, loads."""
+    return DualSolver("budget", iters, lr_budget, lr_workload).solve(
+        cost, quality, budget, loads)

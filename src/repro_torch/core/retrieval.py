@@ -98,6 +98,17 @@ def retrieval_predict_device(store_emb, store_labels, n_valid, proj, tokens,
     return cap, exp_len, cost, conf
 
 
+def cosine_topk(store, queries, k: int = 8):
+    """store (N_db, d) L2-normalized; queries (B, d).  Returns (vals, idx).
+
+    The plain two-op path (matmul + sort), kept as the unfused baseline:
+    ``topk_retrieval_ref`` on every device.  k is clamped to the store size
+    and the clamped slots return (NEG_INF, -1), like the fused paths."""
+    from repro_torch.kernels.topk_retrieval.ref import topk_retrieval_ref
+
+    return topk_retrieval_ref(store, queries, k)
+
+
 class RetrievalPredictor:
     """ECCOS-R over a :class:`VectorStore`, fully device-resident."""
 

@@ -1,7 +1,14 @@
 // Fused cosine similarity -> running top-k -> per-label neighbour vote.
 //
-// Replaces the TPU kernel repro/kernels/topk_retrieval/kernel.py:
-// retrieval_vote_kernel (bodies _vote_kernel, _fold_topk, _masked_sims).
+// Replaces the TPU kernels repro/kernels/topk_retrieval/kernel.py:
+// retrieval_vote_kernel (bodies _vote_kernel, _fold_topk, _masked_sims),
+// entry point retrieval_vote_launch, and topk_retrieval_kernel (body
+// _topk_kernel, the vote kernel's phase 0), entry point
+// topk_retrieval_launch.  Both entry points run one kernel, templated on
+// VOTE: the same CTA, similarity tiles and fold, so their (vals, idx) are
+// equal bit for bit; the top-k one skips the label gather and the votes.
+// In a trace the vote is retrieval_kernel<true>, the top-k
+// retrieval_kernel<false>.
 //
 // Contract (the JAX package's): sim = Q . S^T in float32; store rows at or
 // past n_valid are masked to NEG_INF; a running top-k keeps ties on the lower
@@ -79,11 +86,13 @@ __device__ inline void fold_group(float c, int cidx, int lane, int k,
   }
 }
 
+template <bool VOTE>
 __global__ void __launch_bounds__(THREADS, 1)
-vote_kernel(const float* __restrict__ store, const float* __restrict__ labels,
-            const float* __restrict__ queries, float* __restrict__ vals,
-            int* __restrict__ idx, float* __restrict__ votes, int n_rows,
-            int d, int n_lab, int b, int k) {
+retrieval_kernel(const float* __restrict__ store,
+                 const float* __restrict__ labels,
+                 const float* __restrict__ queries, float* __restrict__ vals,
+                 int* __restrict__ idx, float* __restrict__ votes, int n_rows,
+                 int d, int n_lab, int b, int k) {
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);
   float* sT = qT + (size_t)d * BQ;
@@ -189,6 +198,7 @@ vote_kernel(const float* __restrict__ store, const float* __restrict__ labels,
       vals[(size_t)q * k + s] = tv[s];
       idx[(size_t)q * k + s] = ti[s];
     }
+    if constexpr (!VOTE) continue;
     int cnt = 0;
     for (int s = 0; s < k; ++s) cnt += ti[s] >= 0;
     float denom = fmaxf((float)cnt, 1.f);
@@ -203,6 +213,27 @@ vote_kernel(const float* __restrict__ store, const float* __restrict__ labels,
   }
 }
 
+// One launch of retrieval_kernel<VOTE> on ``stream``; labels and votes are
+// read and written only when VOTE.
+template <bool VOTE>
+int launch(const float* store, const float* labels, const float* queries,
+           float* vals, int* idx, float* votes, int n_db, int d, int n_lab,
+           int b, int k, int n_valid, void* stream) {
+  if (d <= 0 || d % 4 != 0 || k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  size_t bytes = smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      retrieval_kernel<VOTE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int n_rows = n_valid < n_db ? n_valid : n_db;
+  if (n_rows < 0) n_rows = 0;
+  int grid = (b + BQ - 1) / BQ;
+  if (grid == 0) return 0;
+  retrieval_kernel<VOTE><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      store, labels, queries, vals, idx, votes, n_rows, d, n_lab, b, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int retrieval_vote_launch(const float* store, const float* labels,
@@ -210,16 +241,14 @@ extern "C" int retrieval_vote_launch(const float* store, const float* labels,
                                      int* idx, float* votes, int n_db, int d,
                                      int n_lab, int b, int k, int n_valid,
                                      void* stream) {
-  if (d <= 0 || d % 4 != 0 || k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
-  size_t bytes = smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      vote_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  int n_rows = n_valid < n_db ? n_valid : n_db;
-  if (n_rows < 0) n_rows = 0;
-  int grid = (b + BQ - 1) / BQ;
-  if (grid == 0) return 0;
-  vote_kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      store, labels, queries, vals, idx, votes, n_rows, d, n_lab, b, k);
-  return (int)cudaGetLastError();
+  return launch<true>(store, labels, queries, vals, idx, votes, n_db, d,
+                      n_lab, b, k, n_valid, stream);
+}
+
+extern "C" int topk_retrieval_launch(const float* store, const float* queries,
+                                     float* vals, int* idx, int n_db, int d,
+                                     int b, int k, int n_valid,
+                                     void* stream) {
+  return launch<false>(store, nullptr, queries, vals, idx, nullptr, n_db, d,
+                       0, b, k, n_valid, stream);
 }

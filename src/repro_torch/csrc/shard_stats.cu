@@ -30,6 +30,18 @@
 // float atomics, so every run gives the same bits.  The TPU kernel carried
 // the per-shard sum from grid step to grid step in its output block; here the
 // block order of the second pass takes its place.
+//
+// Second entry point, assign_step_launch: one step of the seed's
+// per-iteration dual solve.  Replaces the TPU kernel
+// repro/kernels/lagrangian_assign/kernel.py: assign_step_kernel (body
+// _step_kernel).  Inputs cost, quality (N, M) float32 and lam = [lam1,
+// lam2 (M)] in device memory (so a loop of steps never reads the host).
+// Each row's scores are (c - (lam1*a)/N) + lam2, every operation rounded
+// on its own, argmin by the same strict < scan; x is written per row, and
+// [qsum, csum, histogram] = [sum a[i, x_i], sum c[i, x_i], counts] go
+// through the same block partials and block-order merge as the statistics
+// above.  Bound: bytes, (2*N*M + N)*4 read and written once — under a
+// microsecond at N = 16,384, M = 6, so the launch latency is the floor.
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,6 +57,42 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
+// Write one block's partial [sum va, sum vb, histogram of col] (2 + m
+// floats) to out: a shuffle-down tree inside each warp, then thread 0 over
+// the warp partials in order; the histogram from ballot counts.  Every
+// thread of the block calls it; col is -1 for a row that adds nothing.
+__device__ inline void block_partial(float va, float vb, int col, int m,
+                                     float* __restrict__ out) {
+  __shared__ float s_wa[WARPS], s_wb[WARPS];
+  __shared__ int s_wc[WARPS][MMAX];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  va = warp_sum(va);
+  vb = warp_sum(vb);
+  for (int j = 0; j < m; ++j) {
+    const int c = __popc(__ballot_sync(FULL, col == j));
+    if (lane == 0) s_wc[warp][j] = c;
+  }
+  if (lane == 0) {
+    s_wa[warp] = va;
+    s_wb[warp] = vb;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float ta = 0.f, tb = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      ta = __fadd_rn(ta, s_wa[w]);
+      tb = __fadd_rn(tb, s_wb[w]);
+    }
+    out[0] = ta;
+    out[1] = tb;
+    for (int j = 0; j < m; ++j) {
+      int c = 0;
+      for (int w = 0; w < WARPS; ++w) c += s_wc[w][j];
+      out[2 + j] = (float)c;
+    }
+  }
+}
+
 // grid (bps, lblocks); part (lblocks, bps, 2 + M)
 __global__ void __launch_bounds__(THREADS)
 block_stats_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -52,10 +100,8 @@ block_stats_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ lam2, const float* __restrict__ nv,
                    float* __restrict__ part, int nl, int m) {
   __shared__ float s_lam2[MMAX];
-  __shared__ float s_wa[WARPS], s_wb[WARPS];
-  __shared__ int s_wc[WARPS][MMAX];
   const int blk = blockIdx.x, s = blockIdx.y, bps = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   if (tid < m) s_lam2[tid] = lam2[tid];
   __syncthreads();
 
@@ -76,32 +122,43 @@ block_stats_kernel(const float* __restrict__ a, const float* __restrict__ b,
     va = a[row + col];
     vb = b[row + col];
   }
-  va = warp_sum(va);
-  vb = warp_sum(vb);
-  for (int j = 0; j < m; ++j) {
-    const int c = __popc(__ballot_sync(FULL, col == j));
-    if (lane == 0) s_wc[warp][j] = c;
-  }
-  if (lane == 0) {
-    s_wa[warp] = va;
-    s_wb[warp] = vb;
-  }
+  block_partial(va, vb, col, m, part + ((size_t)s * bps + blk) * (2 + m));
+}
+
+// grid (bps); part (bps, 2 + M): per 256-row block [qsum, csum, histogram]
+__global__ void __launch_bounds__(THREADS)
+assign_step_kernel(const float* __restrict__ cost,
+                   const float* __restrict__ quality,
+                   const float* __restrict__ lam, int* __restrict__ x,
+                   float* __restrict__ part, int n, int m) {
+  __shared__ float s_lam[1 + MMAX];
+  const int tid = threadIdx.x;
+  if (tid <= m) s_lam[tid] = lam[tid];
   __syncthreads();
-  if (tid == 0) {
-    float ta = 0.f, tb = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      ta = __fadd_rn(ta, s_wa[w]);
-      tb = __fadd_rn(tb, s_wb[w]);
+
+  const float lam1 = s_lam[0];
+  const float nf = (float)n;
+  const int r = blockIdx.x * THREADS + tid;
+  float vq = 0.f, vc = 0.f;
+  int col = -1;
+  if (r < n) {
+    const size_t row = (size_t)r * m;
+    float best = __fadd_rn(
+        __fsub_rn(cost[row], __fdiv_rn(__fmul_rn(lam1, quality[row]), nf)),
+        s_lam[1]);
+    col = 0;
+    for (int j = 1; j < m; ++j) {
+      const float sc = __fadd_rn(
+          __fsub_rn(cost[row + j],
+                    __fdiv_rn(__fmul_rn(lam1, quality[row + j]), nf)),
+          s_lam[1 + j]);
+      if (sc < best) { best = sc; col = j; }
     }
-    float* out = part + ((size_t)s * bps + blk) * (2 + m);
-    out[0] = ta;
-    out[1] = tb;
-    for (int j = 0; j < m; ++j) {
-      int c = 0;
-      for (int w = 0; w < WARPS; ++w) c += s_wc[w][j];
-      out[2 + j] = (float)c;
-    }
+    x[r] = col;
+    vq = quality[row + col];
+    vc = cost[row + col];
   }
+  block_partial(vq, vc, col, m, part + (size_t)blockIdx.x * (2 + m));
 }
 
 // grid (lblocks), one thread per output column: block partials in order
@@ -134,5 +191,24 @@ extern "C" int shard_stats_launch(const float* a, const float* b,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<lblocks, 32, 0, st>>>(part, out, bps, 2 + m);
+  return (int)cudaGetLastError();
+}
+
+// cost, quality (n, m) float32; lam (1 + m,) = [lam1, lam2]; x (n,) int32;
+// part (bps, 2 + m) scratch with bps = ceil(n / 256); out (2 + m,) =
+// [qsum, csum, counts].  Launches on ``stream``; allocates nothing.
+extern "C" int assign_step_launch(const float* cost, const float* quality,
+                                  const float* lam, int* x, float* part,
+                                  float* out, int n, int m, int bps,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0 || m < 1 || m > MMAX || (long long)bps * THREADS < n
+      || bps > 2147483647 / THREADS)
+    return (int)cudaErrorInvalidValue;
+  assign_step_kernel<<<bps, THREADS, 0, st>>>(cost, quality, lam, x, part,
+                                              n, m);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<1, 32, 0, st>>>(part, out, bps, 2 + m);
   return (int)cudaGetLastError();
 }

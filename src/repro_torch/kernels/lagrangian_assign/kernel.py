@@ -7,6 +7,9 @@ library builds from the repository's sources at first use.
 ``shard_stats_cuda`` (``csrc/shard_stats.cu``) computes one iteration's
 per-shard ``[ΣA, ΣB, histogram]`` for the blocked, masked window solve —
 the contract of ``ref.shard_stats_ref``.
+``assign_step_cuda`` (the second entry point of ``csrc/shard_stats.cu``)
+runs one step of the seed's per-iteration solve — reduced-cost argmin,
+histogram, qsum and csum — the contract of ``ref.assign_step_ref``.
 ``l2_read_probe_cuda`` measures the single-CTA design's own limit, one SM's
 L2 read rate; it is a measurement aid and no part of the routing path.
 """
@@ -36,6 +39,15 @@ def _launcher():
 def _stats_launcher():
     fn = _build.load("shard_stats").shard_stats_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _step_launcher():
+    fn = _build.load("shard_stats").assign_step_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -144,3 +156,42 @@ def shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
             nv_t.data_ptr(), part.data_ptr(), out.data_ptr(), lblocks, nl, m,
             bps, stream), "shard_stats_launch")
     return out
+
+
+def assign_step_cuda(cost, quality, lam1, lam2):
+    """Same arguments and result as ``ref.assign_step_ref`` with n = N:
+    cost/quality (N, M) float32, lam1 a 0-dim float32 tensor, lam2 (M,);
+    returns (x (N,) int32, counts (M,) f32, qsum, csum).  Every tensor must
+    lie on one CUDA device; nothing is read on the host."""
+    dev = cost.device
+    if dev.type != "cuda":
+        raise ValueError(f"assign_step_cuda needs CUDA tensors, got {dev}")
+    n, m = cost.shape
+    if tuple(quality.shape) != (n, m):
+        raise ValueError(f"cost {tuple(cost.shape)} and quality "
+                         f"{tuple(quality.shape)} differ in shape")
+    if not 1 <= m <= MMAX:
+        raise ValueError(f"assign_step_cuda holds 1..{MMAX} models, got {m}")
+    if n < 1:
+        raise ValueError("assign_step_cuda needs at least one row")
+
+    def f32(t, k):
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        if t.device != dev or t.numel() != k:
+            raise ValueError(f"argument on {t.device} with {t.numel()} "
+                             f"elements, expected {k} on {dev}")
+        return t.reshape(-1).contiguous()
+
+    c, a = f32(cost, n * m), f32(quality, n * m)
+    lam = torch.cat([f32(lam1, 1), f32(lam2, m)])
+    bps = -(-n // STATS_ROWS)
+    x = torch.empty(n, dtype=torch.int32, device=dev)
+    part = torch.empty((bps, 2 + m), dtype=torch.float32, device=dev)
+    out = torch.empty(2 + m, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_step_launcher()(
+            c.data_ptr(), a.data_ptr(), lam.data_ptr(), x.data_ptr(),
+            part.data_ptr(), out.data_ptr(), n, m, bps, stream),
+            "assign_step_launch")
+    return x, out[2:], out[0], out[1]

@@ -12,6 +12,12 @@ launches made through ``fused_dual_solve``.
 window solve (``core.optimizer._blocked_window_core``): the hand-written
 kernel on a CUDA tensor, the plain version on a CPU tensor;
 ``stats_launches`` counts its kernel launches.
+
+``assign_step`` is one step of the seed's per-iteration solve (one launch
+per dual iteration, the structure ``solve_fused`` replaced): the
+hand-written kernel on a CUDA tensor, the plain version on a CPU tensor;
+``step_launches`` counts its kernel launches.  ``solve_assignment_kernel``
+is the legacy quality-mode entry point over ``solve_fused``.
 """
 from __future__ import annotations
 
@@ -22,11 +28,27 @@ import torch
 from repro_torch.core.optimizer import (SolveInfo, _f32, _mode_params,
                                         _normalize_problem)
 
-from .kernel import dual_solve_cuda, shard_stats_cuda
-from .ref import fused_dual_solve_ref, shard_stats_ref
+from .kernel import assign_step_cuda, dual_solve_cuda, shard_stats_cuda
+from .ref import assign_step_ref, fused_dual_solve_ref, shard_stats_ref
 
 launches = 0
 stats_launches = 0
+step_launches = 0
+
+
+def assign_step(cost, quality, lam1, lam2):
+    """One reduced-cost step, scores ``c − λ1·a/N + λ2``: returns (x (N,)
+    int32, counts (M,), qsum, csum) (see ``ref.assign_step_ref``).  A CUDA
+    tensor launches the kernel or raises (M <= 16); a CPU tensor runs the
+    plain version."""
+    global step_launches
+    if cost.is_cuda:
+        out = assign_step_cuda(cost, quality, lam1, lam2)
+        step_launches += 1
+        return out
+    if cost.device.type != "cpu":
+        raise ValueError(f"no assign step for device {cost.device}")
+    return assign_step_ref(cost, quality, lam1, lam2, cost.shape[0])
 
 
 def shard_stats(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
@@ -151,3 +173,13 @@ def solve_fused(cost, quality, threshold, loads, *, mode: str = "quality",
                         norm_grad=norm_grad)
     return finish(fused_dual_solve(*p.args, iters=iters, patience=patience),
                   p)
+
+
+def solve_assignment_kernel(cost, quality, alpha, loads, *, iters: int = 150,
+                            lr_quality: float = 4.0,
+                            lr_workload: float = 0.5):
+    """Legacy quality-mode entry point: one fused dual solve
+    (``solve_fused``).  The JAX ``bq`` is TPU tiling and has no
+    counterpart: the device of ``cost`` (a tensor) decides the path."""
+    return solve_fused(cost, quality, alpha, loads, mode="quality",
+                       iters=iters, lr_con=lr_quality, lr_load=lr_workload)

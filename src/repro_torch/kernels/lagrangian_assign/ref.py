@@ -12,6 +12,11 @@
   the reference's ``_blocked_window_core`` — in plain PyTorch; the CPU path
   of ``ops.shard_stats`` and the yardstick of ``csrc/shard_stats.cu``,
   whose summation order it repeats, so the two agree bit for bit.
+- ``assign_step_ref``: one reduced-cost argmin step of the seed's
+  per-iteration solve (scores ``c − λ1·a/n + λ2``, argmin, histogram, qsum,
+  csum) in plain PyTorch; the CPU path of ``ops.assign_step`` and the
+  yardstick of ``csrc/shard_stats.cu``'s ``assign_step_launch``, whose
+  arithmetic and summation order it repeats, so the two agree bit for bit.
 - ``repair_workload_ref`` / ``primal_polish_ref`` / ``budget_polish_ref``:
   NumPy oracles, copied from the JAX package, for the device repair/polish
   loops in ``repro_torch.core.optimizer``.  They follow the same
@@ -136,6 +141,28 @@ def shard_stats_ref(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
             & valid[..., None]).sum(dim=1).float()
     return torch.cat([_kernel_order_sum(va)[:, None],
                       _kernel_order_sum(vb)[:, None], hist], dim=1)
+
+
+def assign_step_ref(cost, quality, lam1, lam2, n):
+    """One reduced-cost step: cost/quality (N, M) float32, lam1 a scalar
+    (rounded to float32 first), lam2 (M,).  Scores ``(c − (λ1·a)/n) + λ2``
+    in that order, each operation rounded on its own; the row argmin takes
+    the lowest index on ties.  Returns (x (N,) int32, counts (M,) f32,
+    qsum = Σ a[i, x_i], csum = Σ c[i, x_i]), the sums in the kernel's
+    order (:func:`_kernel_order_sum`)."""
+    dev = cost.device
+    m = cost.shape[1]
+    lam1 = torch.as_tensor(lam1, dtype=torch.float32, device=dev).reshape(())
+    lam2 = torch.as_tensor(lam2, dtype=torch.float32, device=dev).reshape(m)
+    # a tensor divisor: PyTorch's CUDA division by a Python number
+    # multiplies by its reciprocal, where the kernel divides
+    n_t = torch.as_tensor(n, dtype=torch.float32, device=dev)
+    x = torch.argmin((cost - (lam1 * quality) / n_t) + lam2[None, :], dim=1)
+    chosen = torch.stack([quality.gather(1, x[:, None])[:, 0],
+                          cost.gather(1, x[:, None])[:, 0]])     # (2, N)
+    qsum, csum = _kernel_order_sum(chosen)
+    counts = torch.bincount(x, minlength=m).float()
+    return x.to(torch.int32), counts, qsum, csum
 
 
 def repair_workload_ref(x, cost, quality, loads, lam1=0.0):

@@ -1,1 +1,1 @@
-"""Fused similarity → top-k → label vote (ECCOS-R / ECCOS-H hot loop)."""
+"""Fused similarity → top-k (→ label vote) (ECCOS-R / ECCOS-H hot loop)."""

@@ -1,13 +1,15 @@
-"""Plain versions of the fused similarity → top-k → label vote.
+"""Plain versions of the fused similarity → top-k (→ label vote).
 
-- ``retrieval_vote_ref`` — plain PyTorch with the kernel's contract: rows at
-  or past ``n_valid`` are masked to ``NEG_INF``; ``k`` greater than the
+- ``topk_retrieval_ref`` — plain PyTorch with the kernels' contract: rows
+  at or past ``n_valid`` are masked to ``NEG_INF``; ``k`` greater than the
   valid rows leaves ``(NEG_INF, -1)`` slots; ties go to the lower db index
-  (a stable descending sort); the vote is the mean label over the valid
-  neighbours only.  It is the CPU path of ``ops.retrieval_vote`` and the
-  yardstick the CUDA kernel is held against on the card.  The similarity is
-  a float32 ``matmul`` (on CUDA, ``torch.backends.cuda.matmul.allow_tf32``
-  must stay False, its default).
+  (a stable descending sort).  It is the CPU path of ``ops.topk_retrieval``
+  and the yardstick the CUDA kernel is held against on the card.  The
+  similarity is a float32 ``matmul`` (on CUDA,
+  ``torch.backends.cuda.matmul.allow_tf32`` must stay False, its default).
+- ``retrieval_vote_ref`` — ``topk_retrieval_ref`` plus the vote: the mean
+  label over the valid neighbours only, so the two give the same
+  ``(vals, idx)`` by construction.  The CPU path of ``ops.retrieval_vote``.
 - ``retrieval_vote_oracle`` — NumPy ground truth, a copy of the JAX
   package's.
 """
@@ -23,39 +25,52 @@ NEG_INF = -1e30
 _CHUNK = 1024
 
 
-def _vote_block(store, labels, queries, k: int, nv: int):
+def _topk_block(store, queries, k: int, nv: int):
     b = queries.shape[0]
     k_eff = min(k, nv)
     sims = queries.float() @ store[:nv].float().T             # (b, nv)
     vals, idx = torch.sort(sims, dim=1, descending=True, stable=True)
     vals, idx = vals[:, :k_eff], idx[:, :k_eff].to(torch.int32)
+    pad = k - k_eff
+    vals = torch.cat([vals, vals.new_full((b, pad), NEG_INF)], dim=1)
+    idx = torch.cat([idx, idx.new_full((b, pad), -1)], dim=1)
+    return vals, idx
+
+
+def _live_rows(store, n_valid) -> int:
+    return store.shape[0] if n_valid is None else min(int(n_valid),
+                                                      store.shape[0])
+
+
+def topk_retrieval_ref(store, queries, k: int, n_valid=None):
+    """store (N_db, d), queries (B, d) -> (vals (B, k) f32, idx (B, k)
+    int32).  Only the first ``n_valid`` store rows (default all) are
+    candidates, so every query has ``min(k, n_valid)`` neighbours; any k
+    is taken."""
+    nv = _live_rows(store, n_valid)
+    parts = [_topk_block(store, queries[i:i + _CHUNK], k, nv)
+             for i in range(0, queries.shape[0], _CHUNK)]
+    if not parts:
+        return (queries.new_empty((0, k)),
+                torch.empty((0, k), dtype=torch.int32, device=queries.device))
+    return tuple(torch.cat(p, dim=0) for p in zip(*parts))
+
+
+def retrieval_vote_ref(store, labels, queries, k: int, n_valid=None):
+    """store (N_db, d), labels (N_db, L), queries (B, d) -> (vals (B, k)
+    f32, idx (B, k) int32, votes (B, L) f32): ``topk_retrieval_ref`` and
+    the mean label of the ``min(k, n_valid)`` neighbours."""
+    vals, idx = topk_retrieval_ref(store, queries, k, n_valid)
+    k_eff = min(k, _live_rows(store, n_valid))
     # neighbour labels summed in slot order, as the kernel sums them
-    votes = torch.zeros((b, labels.shape[1]), device=queries.device)
+    votes = torch.zeros((queries.shape[0], labels.shape[1]),
+                        device=queries.device)
     for s in range(k_eff):
         votes = votes + labels[idx[:, s].long()].float()
     # a tensor divisor: PyTorch's CUDA division by a Python number
     # multiplies by its reciprocal, where the kernel divides
     votes = votes / torch.tensor(float(max(k_eff, 1)), device=votes.device)
-    pad = k - k_eff
-    vals = torch.cat([vals, vals.new_full((b, pad), NEG_INF)], dim=1)
-    idx = torch.cat([idx, idx.new_full((b, pad), -1)], dim=1)
     return vals, idx, votes
-
-
-def retrieval_vote_ref(store, labels, queries, k: int, n_valid=None):
-    """store (N_db, d), labels (N_db, L), queries (B, d) -> (vals (B, k)
-    f32, idx (B, k) int32, votes (B, L) f32).  Only the first ``n_valid``
-    store rows (default all) are candidates, so every valid query has
-    ``min(k, n_valid)`` neighbours."""
-    nv = store.shape[0] if n_valid is None else min(int(n_valid),
-                                                    store.shape[0])
-    parts = [_vote_block(store, labels, queries[i:i + _CHUNK], k, nv)
-             for i in range(0, queries.shape[0], _CHUNK)]
-    if not parts:
-        return (queries.new_empty((0, k)),
-                torch.empty((0, k), dtype=torch.int32, device=queries.device),
-                queries.new_empty((0, labels.shape[1])))
-    return tuple(torch.cat(p, dim=0) for p in zip(*parts))
 
 
 def retrieval_vote_oracle(store, labels, queries, k: int, n_valid=None):

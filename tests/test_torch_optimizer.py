@@ -35,6 +35,18 @@
   ``primal_polish`` and ``budget_polish`` exact against the JAX versions;
   ``shard_stats_ref`` against the JAX ``shard_stats`` kernel in interpret
   mode (histogram exact, sums within 1e-5 relative).
+- ``assign_step_ref`` (the assign-step kernel's plain version, the CPU path
+  of ``ops.assign_step``) against the JAX ``assign_step_kernel`` in
+  interpret mode (bq 32) and the JAX ``assign_step_ref``: ``x`` and the
+  counts exact, qsum and csum within 1e-5 relative (float32 sums in
+  another order); a duplicated column goes to the lower index.
+- ``solve_assignment`` / ``solve_budget`` against the JAX ones (``x`` and
+  ``iters_run`` exact, λ/λ2 within 1e-5 relative, cold);
+  ``solve_assignment_kernel`` equals ``solve_assignment`` on the CPU;
+  ``DualSolver.solve_grid`` / ``solve_batch`` elements equal ``solve``
+  exactly, ``solve_grid`` against the JAX vmapped sweep (``x`` and
+  ``iters_run`` exact, λ within 1e-4 relative: 200 undamped iterations of
+  the C4 drift, measured 7e-5).
 """
 import numpy as np
 import pytest
@@ -45,13 +57,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import optimizer as jopt  # noqa: E402
 from repro.data.qaserve import generate  # noqa: E402
 from repro.kernels.lagrangian_assign.kernel import (  # noqa: E402
-    fused_dual_solve, shard_stats as jax_shard_stats)
+    assign_step_kernel, fused_dual_solve, shard_stats as jax_shard_stats)
 from repro.kernels.lagrangian_assign.ref import (  # noqa: E402
-    budget_polish_ref, primal_polish_ref, repair_workload_ref)
+    assign_step_ref as jax_assign_step_ref, budget_polish_ref,
+    primal_polish_ref, repair_workload_ref)
 from repro_torch.core import optimizer as popt  # noqa: E402
 from repro_torch.kernels.lagrangian_assign import ops as pops  # noqa: E402
 from repro_torch.kernels.lagrangian_assign.ref import (  # noqa: E402
-    fused_dual_solve_ref, shard_stats_ref)
+    assign_step_ref, fused_dual_solve_ref, shard_stats_ref)
 
 RTOL = 1e-5
 WARM_RTOL = 1e-4     # normalized ascent: see the module docstring
@@ -510,3 +523,138 @@ def test_shard_stats_ref_matches_jax_kernel(lblocks):
     assert np.array_equal(pops.shard_stats(_t(a), _t(b), torch.tensor(0.4),
                                            _t(lam2), _t(nv),
                                            lblocks=lblocks).numpy(), got)
+
+
+def _step_inputs(n, m, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, m).astype(np.float32),
+            rng.rand(n, m).astype(np.float32), float(rng.rand() * 3),
+            rng.rand(m).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,m,seed", [(4, 2, 0), (17, 3, 1), (33, 8, 2),
+                                      (50, 5, 3), (63, 6, 4), (80, 4, 5)])
+def test_assign_step_ref_matches_jax(n, m, seed):
+    c, a, lam1, lam2 = _step_inputs(n, m, seed)
+    x, cnt, qs, cs = pops.assign_step(_t(c), _t(a), lam1, _t(lam2))
+    assert x.dtype == torch.int32 and cnt.shape == (m,)
+    for jx, jcnt, jq, jc in (
+            assign_step_kernel(c, a, lam1, lam2, bq=32),
+            jax_assign_step_ref(jnp.asarray(c), jnp.asarray(a), lam1,
+                                jnp.asarray(lam2), n)):
+        assert np.array_equal(x.numpy(), np.asarray(jx))
+        assert np.array_equal(cnt.numpy(), np.asarray(jcnt))
+        assert _close(qs, jq) and _close(cs, jc)
+    xi = x.numpy()
+    assert np.array_equal(cnt.numpy(), np.bincount(xi, minlength=m))
+    assert float(qs) == pytest.approx(float(a[np.arange(n), xi].sum()),
+                                      rel=1e-5)
+
+
+def test_assign_step_tie_goes_to_lower_index():
+    """Column 3 a copy of column 1 (cost, quality and λ2): every row that
+    would take either takes 1, as jnp.argmin does."""
+    c, a, lam1, lam2 = _step_inputs(70, 5, 9)
+    c[:, 3], a[:, 3], lam2[3] = c[:, 1], a[:, 1], lam2[1]
+    lam2[[0, 2, 4]] += 0.5             # make column 1 (= 3) win often
+    x, cnt, _, _ = assign_step_ref(_t(c), _t(a), lam1, _t(lam2), 70)
+    jx = np.asarray(assign_step_kernel(c, a, lam1, lam2, bq=32)[0])
+    assert np.array_equal(x.numpy(), jx)
+    assert int(cnt[3]) == 0 and int(cnt[1]) > 0
+
+
+def test_assign_step_dispatch_by_device():
+    from repro_torch.kernels.lagrangian_assign.kernel import assign_step_cuda
+    c, a, lam1, lam2 = _step_inputs(20, 3, 4)
+    before = pops.step_launches
+    got = pops.assign_step(_t(c), _t(a), lam1, _t(lam2))
+    assert pops.step_launches == before
+    want = assign_step_ref(_t(c), _t(a), lam1, _t(lam2), 20)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError):
+        pops.assign_step(meta, meta, 0.5, torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError):
+        assign_step_cuda(_t(c), _t(a), torch.tensor(lam1), _t(lam2))
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_legacy_solvers_match_jax(mode):
+    cost, qual = _qaserve(256, 1)
+    loads = np.full(6, 256 / 3.0, np.float32)
+    if mode == "quality":
+        xj, ij = jopt.solve_assignment(cost, qual, 0.7, loads)
+        xp, ip = popt.solve_assignment(_t(cost), _t(qual), 0.7, _t(loads))
+    else:
+        budget = _budget(cost)
+        xj, ij = jopt.solve_budget(cost, qual, budget, loads)
+        xp, ip = popt.solve_budget(_t(cost), _t(qual), budget, _t(loads))
+    assert np.array_equal(xp.numpy(), np.asarray(xj))
+    assert int(ip.iters_run) == int(ij.iters_run) == 150
+    assert _close(ip.lam, ij.lam) and _close(ip.lam_load, ij.lam_load)
+    assert bool(ip.feasible) == bool(ij.feasible)
+    assert np.array_equal(ip.counts.numpy(), np.asarray(ij.counts))
+
+
+def test_solve_assignment_kernel_matches_solve_assignment():
+    """The legacy fused entry point and the reference ascent give the same
+    solve (the JAX package's ``test_kernel_solver_matches_jnp_solver``)."""
+    rng = np.random.RandomState(0)
+    c, a = _t(rng.rand(200, 6)), _t(rng.rand(200, 6))
+    loads = torch.full((6,), 60.0)
+    x1, i1 = pops.solve_assignment_kernel(c, a, 0.6, loads, iters=80)
+    x2, i2 = popt.solve_assignment(c, a, 0.6, loads, iters=80)
+    assert torch.equal(x1, x2)
+    assert abs(float(i1.cost) - float(i2.cost)) < 1e-3
+    assert int(i1.iters_run) == int(i2.iters_run) == 80
+
+
+def _info_equal(batched, k, single):
+    return all(torch.equal(f[k], g) for f, g in zip(batched, single))
+
+
+def test_solve_grid_matches_jax_and_solve():
+    rng = np.random.RandomState(3)
+    c, a = rng.rand(80, 5).astype(np.float32), rng.rand(80, 5).astype(
+        np.float32)
+    loads = np.full(5, 40.0, np.float32)
+    alphas = np.array([0.3, 0.5, 0.7], np.float32)
+    solver = popt.DualSolver(iters=200, device="cpu")
+    xs, infos = solver.solve_grid(c, a, alphas, loads)
+    assert xs.shape == (3, 80) and infos.lam_load.shape == (3, 5)
+    for k, alpha in enumerate(alphas):
+        x1, i1 = solver.solve(c, a, float(alpha), loads)
+        assert torch.equal(xs[k], x1) and _info_equal(infos, k, i1)
+    xj, ij = jopt.DualSolver(iters=200).solve_grid(c, a, alphas, loads)
+    assert np.array_equal(xs.numpy(), np.asarray(xj))
+    assert np.array_equal(infos.iters_run.numpy(), np.asarray(ij.iters_run))
+    assert _close(infos.lam, ij.lam, WARM_RTOL)
+    quals = [a[np.arange(80), x].mean() for x in xs.numpy()]
+    assert quals[0] <= quals[1] + 1e-6 <= quals[2] + 2e-6
+
+
+@pytest.mark.parametrize("per_element_loads", [False, True])
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_solve_batch_elements_equal_solve(mode, per_element_loads):
+    rng = np.random.RandomState(7)
+    bsz, n, m = 3, 60, 4
+    c = rng.rand(bsz, n, m).astype(np.float32)
+    a = rng.rand(bsz, n, m).astype(np.float32)
+    if mode == "quality":
+        thr = np.array([0.5, 0.6, 0.7], np.float32)
+    else:
+        thr = (c.min(2).sum(1) * np.array([1.2, 1.5, 2.0])).astype(np.float32)
+    loads = (rng.randint(18, 30, (bsz, m)).astype(np.float32)
+             if per_element_loads else np.full(m, 20.0, np.float32))
+    solver = popt.DualSolver(mode=mode, iters=120, device="cpu",
+                             lr_constraint=4.0 if mode == "quality" else 50.0)
+    xs, infos = solver.solve_batch(c, a, thr, loads)
+    assert xs.shape == (bsz, n) and infos.iters_run.shape == (bsz,)
+    for b in range(bsz):
+        lb = loads[b] if per_element_loads else loads
+        x1, i1 = solver.solve(c[b], a[b], float(thr[b]), lb)
+        assert torch.equal(xs[b], x1) and _info_equal(infos, b, i1)
+    xj, ij = jopt.DualSolver(mode=mode, iters=120, lr_constraint=(
+        4.0 if mode == "quality" else 50.0)).solve_batch(c, a, thr, loads)
+    assert np.array_equal(xs.numpy(), np.asarray(xj))
+    assert np.array_equal(infos.iters_run.numpy(), np.asarray(ij.iters_run))

@@ -7,6 +7,14 @@
   duplicated store.  Tolerance 1e-5 on similarities and votes (float32 dot
   products summed in another order; the labels are in [0, 1)); indices
   exact, in order.
+- ``topk_retrieval_ref`` (the top-k kernel's plain version, the CPU path
+  of ``ops.topk_retrieval``) against the JAX ``topk_retrieval_kernel`` in
+  interpret mode and the JAX ``topk_retrieval_ref`` on the reference's four
+  crash cases (1e-5 on similarities; sorted index rows equal on >= 0.999,
+  the reference's own contract; ``(NEG_INF, -1)`` past N_db), exact index
+  order on a duplicated store, exact indices with ``n_valid``; its
+  ``(vals, idx)`` equal to ``retrieval_vote_ref``'s exactly; ``cosine_topk``
+  against the JAX ``cosine_topk`` (1e-5, indices exact).
 - ``featurize_tokens`` (``embedding_bag``) against the JAX gather-sum and
   the host oracle: 1e-5 (float32 sums in another order).
 - ``VectorStore`` growth, and ``RetrievalPredictor.predict_arrays`` over
@@ -18,11 +26,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.kernels.topk_retrieval.kernel import retrieval_vote_kernel  # noqa: E402
-from repro.kernels.topk_retrieval.ref import retrieval_vote_oracle  # noqa: E402
+from repro.kernels.topk_retrieval.kernel import (  # noqa: E402
+    retrieval_vote_kernel, topk_retrieval_kernel)
+from repro.kernels.topk_retrieval.ref import (  # noqa: E402
+    retrieval_vote_oracle, topk_retrieval_ref as jax_topk_ref)
 from repro_torch.kernels.topk_retrieval import ops as port_ops  # noqa: E402
 from repro_torch.kernels.topk_retrieval.ref import (  # noqa: E402
-    NEG_INF, retrieval_vote_ref)
+    NEG_INF, retrieval_vote_ref, topk_retrieval_ref)
 
 
 def _unit_rows(rng, shape):
@@ -104,6 +114,114 @@ def test_vote_dispatch_rejects_other_devices():
     st = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
         port_ops.retrieval_vote(st, torch.zeros((4, 2), device="meta"), st, 2)
+
+
+def _port_topk(store, queries, k, n_valid=None):
+    vals, idx = port_ops.topk_retrieval(torch.from_numpy(store),
+                                        torch.from_numpy(queries), k, n_valid)
+    return vals.numpy(), idx.numpy()
+
+
+@pytest.mark.parametrize("ndb,d,b,k,tile,bq", [
+    (700, 64, 17, 8, 512, 64),     # store not a tile multiple
+    (900, 32, 33, 4, 256, 32),     # non-multiple store + padded query block
+    (5, 32, 4, 8, 128, 64),        # k > n_db
+    (128, 16, 3, 128, 64, 64),     # k == n_db across tiles
+])
+def test_topk_crash_cases_match_jax(ndb, d, b, k, tile, bq):
+    rng = np.random.RandomState(ndb + k)
+    st = _unit_rows(rng, (ndb, d))
+    q = _unit_rows(rng, (b, d))
+    pv, pi = _port_topk(st, q, k)
+    assert pv.shape == (b, k) and pi.shape == (b, k) and pi.dtype == np.int32
+    refs = [jax_topk_ref(st, q, k)]
+    # k = 128 is past the card's k <= 64, so only the plain version takes
+    # it; the JAX kernel's fold over 128 slots takes ~8 s in interpret mode,
+    # and tests/test_prediction_plane.py holds it to the jnp ref there
+    if k <= 64:
+        refs.append(topk_retrieval_kernel(st, q, k, bq=bq, tile=tile,
+                                          interpret=True))
+    for v, i in refs:
+        assert np.abs(pv - np.asarray(v)).max() < 1e-5
+        assert (np.sort(pi, 1) == np.sort(np.asarray(i), 1)).mean() > 0.999
+    if k > ndb:                        # empty slots: (NEG_INF, -1)
+        assert np.all(pi[:, ndb:] == -1)
+        assert np.all(pv[:, ndb:] <= NEG_INF * 0.5)
+
+
+def test_topk_tie_order_on_duplicated_store():
+    """Every store row twice: exact order, lower db index first, as the
+    JAX kernel and ``jax.lax.top_k`` give it."""
+    rng = np.random.RandomState(6)
+    base = _unit_rows(rng, (8, 16))
+    st = np.concatenate([base, base])
+    q = _unit_rows(rng, (5, 16))
+    pv, pi = _port_topk(st, q, 6)
+    kv, ki = topk_retrieval_kernel(st, q, 6, bq=8, tile=8, interpret=True)
+    assert np.array_equal(pi, np.asarray(ki))
+    assert np.array_equal(pi, np.asarray(jax_topk_ref(st, q, 6)[1]))
+    assert np.abs(pv - np.asarray(kv)).max() < 1e-6
+    assert np.all(pi[:, 0] + 8 == pi[:, 1])
+
+
+def test_topk_dynamic_n_valid():
+    """n_valid = 100 of 256 rows: the same neighbours as a 100-row store."""
+    rng = np.random.RandomState(3)
+    st = _unit_rows(rng, (256, 32))
+    q = _unit_rows(rng, (9, 32))
+    pv, pi = _port_topk(st, q, 4, n_valid=100)
+    kv, ki = topk_retrieval_kernel(st, q, 4, bq=8, tile=64, interpret=True,
+                                   n_valid=100)
+    assert np.array_equal(pi, np.asarray(ki))
+    assert np.array_equal(pi, np.asarray(jax_topk_ref(st[:100], q, 4)[1]))
+    assert np.abs(pv - np.asarray(kv)).max() < 1e-6
+    assert pi.max() < 100
+
+
+@pytest.mark.parametrize("ndb,d,b,k,tile,bq,nl,nv", CASES)
+def test_topk_ref_equals_vote_ref(ndb, d, b, k, tile, bq, nl, nv):
+    """The vote's plain version is the top-k's plus the label mean: the
+    same (vals, idx), exactly."""
+    rng = np.random.RandomState(ndb + b)
+    st, q = torch.from_numpy(_unit_rows(rng, (ndb, d))), torch.from_numpy(
+        _unit_rows(rng, (b, d)))
+    lab = torch.rand(ndb, nl, generator=torch.Generator().manual_seed(ndb))
+    tv, ti = topk_retrieval_ref(st, q, k, nv)
+    vv, vi, _ = retrieval_vote_ref(st, lab, q, k, nv)
+    assert torch.equal(tv, vv) and torch.equal(ti, vi)
+
+
+@pytest.mark.parametrize("ndb,k", [(300, 8), (6, 10)])
+def test_cosine_topk_matches_jax(ndb, k):
+    from repro.core.retrieval import cosine_topk as jax_cosine_topk
+    from repro_torch.core import cosine_topk
+    rng = np.random.RandomState(ndb)
+    st, q = _unit_rows(rng, (ndb, 32)), _unit_rows(rng, (11, 32))
+    vals, idx = cosine_topk(torch.from_numpy(st), torch.from_numpy(q), k)
+    jv, ji = jax_cosine_topk(st, q, k)
+    assert vals.shape == (11, k)
+    assert np.abs(vals.numpy() - np.asarray(jv)).max() < 1e-5
+    assert np.array_equal(idx.numpy(), np.asarray(ji))
+    if k > ndb:
+        assert np.all(idx.numpy()[:, ndb:] == -1)
+
+
+def test_topk_dispatch_by_device():
+    """A CPU tensor runs the plain version and launches nothing; a device
+    without a kernel raises; the CUDA wrapper refuses CPU tensors."""
+    from repro_torch.kernels.topk_retrieval.kernel import topk_retrieval_cuda
+    rng = np.random.RandomState(1)
+    st, q = _unit_rows(rng, (40, 8)), _unit_rows(rng, (3, 8))
+    before = port_ops.topk_launches
+    pv, pi = _port_topk(st, q, 5)
+    assert port_ops.topk_launches == before
+    rv, ri = topk_retrieval_ref(torch.from_numpy(st), torch.from_numpy(q), 5)
+    assert np.array_equal(pv, rv.numpy()) and np.array_equal(pi, ri.numpy())
+    meta = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError):
+        port_ops.topk_retrieval(meta, meta, 2)
+    with pytest.raises(ValueError):
+        topk_retrieval_cuda(torch.from_numpy(st), torch.from_numpy(q), 5)
 
 
 @pytest.mark.parametrize("d,seed", [(128, 3), (256, 7)])
