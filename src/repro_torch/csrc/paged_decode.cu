@@ -39,20 +39,33 @@
 // kernel runs the Q.K dots on the CUDA cores as well, which a verify at
 // S*G = 32 does feel.
 //
-// Design (simple first): one 256-thread CTA per (split of pages, kv head,
-// sequence).  A split covers pages_per_split pages (<= 256 positions).  The
-// CTA reads its own page ids from the block table and clips its positions
-// to [max(0, lens - window), lens): a split with no valid position writes
-// the empty partial (o = 0, m = NEG_INF, l = 0) and touches no page, so the
-// dump page and free slots cost nothing.  Scores: one thread per position,
-// the K row read as 16-byte vectors against the S*G query rows held in
-// shared memory (up to 64 rows; above 48 KB the shared memory is dynamic).
-// Softmax: one warp per query row.  P.V: threads own one head dim
-// each (several position strides when D < 256), V read coalesced along D,
-// the strides summed through shared memory.  A second small launch merges
-// the splits per (sequence, kv head).  Nothing gathers a dense copy of the
-// cache.  Not yet done: overlapping the K loads (cp.async/TMA), vector V
-// loads, and tensor-core dots.
+// Design: one 256-thread CTA per (split of pages, kv head, sequence).  A
+// split covers pages_per_split pages (<= 256 positions).  The CTA reads its
+// own page ids from the block table into a per-position table of cache
+// rows and clips its positions to [max(0, lens - window), lens): a split
+// with no valid position writes the empty partial (o = 0, m = NEG_INF,
+// l = 0) and touches no page, so the dump page and free slots cost
+// nothing.  The K rows, then the V rows, of the positions the rows can see
+// stream through a ring of three shared-memory chunks (64 positions at
+// rows of up to 256 bytes; 32 or 16 at wider rows) by 16-byte cp.async
+// copies: neighbouring threads copy neighbouring 16-byte vectors of a row,
+// so a warp reads whole rows, and two chunks are in flight while one is
+// consumed.  The staged row stride is an odd number of 16-byte units, so
+// the 16-byte reads of eight rows hit distinct banks.
+//   Scores: the four lanes of a quad share a position; lane a takes the
+// K row's 16-byte vectors a, a + 4, .. (widened once) against every query
+// row, and a fixed xor tree adds the four partial sums as (s0 + s1) +
+// (s2 + s3).  Softmax: one warp per query row over the split.  P.V:
+// thread (row group, 16-byte vector of head dims, part) sums, for the rows
+// of its group, the positions i = part (mod NPART) in ascending order
+// (NPART = 64 / (D / vector) rounded down to a power of 2), V read as
+// 16-byte vectors; the NPART parts of a vector are neighbouring lanes and
+// meet in a fixed xor tree.  Each row's float32 operations and their order
+// depend on D and the element type only, never on the page size, on R or
+// on the other rows: hence dense == paged and verify row s == decode at
+// lens + s, bit for bit.  A second launch merges the splits, one CTA per
+// (sequence, kv head, row).  Nothing gathers a dense copy of the cache.
+// Not yet done: tensor-core Q.K dots for the verify rows, TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +77,8 @@ constexpr int SPLIT_POS = 256;   // positions per split at most (= THREADS)
 constexpr int GMAX = 8;          // query heads per kv head at most
 constexpr int RMAX_VERIFY = 64;  // verify rows (positions x heads) per CTA
 constexpr int DMAX = 256;
+constexpr int NBUF = 3;          // shared-memory chunks of the cp.async ring
+constexpr int PSTR = SPLIT_POS + 1;  // row stride of the score buffer
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 
@@ -74,19 +89,19 @@ __device__ inline void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(x);
 }
 
-// One 16-byte vector of a row, widened to float32.
+// One 16-byte vector of a row in shared memory, widened to float32.
 template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   static constexpr int N = 4;
   static __device__ void load(const float* p, float* out) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
 };
 template <> struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
   static __device__ void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -96,6 +111,40 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+
+// Shared-memory geometry, a function of D and the element size only.
+// 16-byte units of a staged K/V row: D * elem / 16 made odd.
+__host__ __device__ inline int row_units(int D, int elem) {
+  return (D * elem / 16) | 1;
+}
+// positions per staged chunk: at most 64 x 17 16-byte units
+__host__ __device__ inline int chunk_pos(int D, int elem) {
+  return D * elem <= 256 ? 64 : D * elem <= 512 ? 32 : 16;
+}
+// P.V position parts: the largest power of 2 <= 32 with parts * (16-byte
+// vectors of a row) <= 64
+__host__ __device__ inline int pv_parts(int D, int elem) {
+  const int dv = D * elem / 16;
+  int p = 1;
+  while (2 * p <= 32 && 2 * p * dv <= 64) p *= 2;
+  return p;
+}
+__host__ __device__ inline size_t split_smem(int R, int D, int elem) {
+  return (size_t)NBUF * chunk_pos(D, elem) * row_units(D, elem) * 16
+      + sizeof(float) * ((size_t)R * D + (size_t)R * PSTR);
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+__device__ inline void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ inline void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 __device__ inline float warp_max(float v) {
 #pragma unroll
@@ -111,7 +160,7 @@ __device__ inline float warp_sum(float v) {
 // One CTA per (split, kv head, sequence) over R = S*G query rows: row r is
 // query position s = r / G (valid length lens[b] + s) and query head k*G +
 // r % G.  Decode is S = 1.  Every per-row quantity is indexed by the position
-// t relative to the split's FIXED start t0 (never by the row's own first
+// i relative to the split's FIXED start t0 (never by the row's own first
 // valid position), and invalid positions are skipped, so a row runs the same
 // operations in the same order whatever the other rows are: verify row s is
 // bit-identical to the decode of the same query at lens[b] + s.
@@ -126,8 +175,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
              float* __restrict__ m_part, float* __restrict__ l_part, int H,
              int KH, int D, int PS, int P, int pps, int window, float scale,
              int S, int dense_t) {
-  extern __shared__ float smem[];
-  __shared__ int spage[SPLIT_POS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int srow[SPLIT_POS];       // cache row of each position
   __shared__ int r_lo[RMAX], r_hi[RMAX];
   __shared__ float row_m[RMAX], row_l[RMAX];
   const int sp = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
@@ -163,101 +212,195 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     return;
   }
-  const int npart = THREADS / D;        // position strides of the P.V pass
-  float* qs = smem;                     // [R][D], scaled float32
-  float* ps = qs + R * D;               // [R][SPLIT_POS] scores, then p
-  float* red = ps + R * SPLIT_POS;      // [npart][R][D] P.V partial sums
+  constexpr int V = Vec16<T>::N;
+  const int DV = D / V;                 // 16-byte vectors of a row
+  const int ST = row_units(D, sizeof(T)) * V;   // staged row stride
+  const int CH = chunk_pos(D, sizeof(T));
+  const int NPART = pv_parts(D, sizeof(T));
+  T* ring = reinterpret_cast<T*>(smem_raw);     // [NBUF][CH][ST]
+  float* qs = reinterpret_cast<float*>(ring + (size_t)NBUF * CH * ST);
+  float* ps = qs + R * D;               // [R][PSTR] scores, then p
 
   for (int i = tid; i < R * D; i += THREADS) {
     const int r = i / D, d = i - r * D;
-    const int srow = r / G, g = r - srow * G;
-    qs[i] = to_f32(q[(((size_t)b * S + srow) * H + k * G + g) * D + d]) * scale;
+    const int srow_q = r / G, g = r - srow_q * G;
+    qs[i] = to_f32(q[(((size_t)b * S + srow_q) * H + k * G + g) * D + d])
+        * scale;
   }
   const int pg0 = t0 / PS;
-  for (int i = tid; i < pps; i += THREADS)
-    spage[i] = pg0 + i >= P ? 0
-        : dense_t > 0 ? b * dense_t + pg0 + i : bt[(size_t)b * P + pg0 + i];
+  for (int i = tid; i < pps * PS; i += THREADS) {
+    const int pg = i / PS, pi = pg0 + pg;
+    const int page = pi >= P ? 0
+        : dense_t > 0 ? b * dense_t + pi : bt[(size_t)b * P + pi];
+    srow[i] = page * PS + i - pg * PS;
+  }
   __syncthreads();
 
-  // scores: one thread per position of the union, its K row read once for
-  // every row
-  if (tid >= u_lo && tid < u_hi) {
-    const int t = t0 + tid;
-    const int page = spage[tid / PS];
-    const T* kr = kp + (((size_t)page * PS + t % PS) * KH + k) * D;
-    float acc[RMAX];
+  // stages: the K chunks of the union, then its V chunks
+  const int c_first = u_lo / CH;
+  const int n_ch = (u_hi - 1) / CH - c_first + 1;
+  const int n_stages = 2 * n_ch;
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      const bool is_v = st >= n_ch;
+      const int c0 = (c_first + (is_v ? st - n_ch : st)) * CH;
+      const T* src = is_v ? vp : kp;
+      T* dst = ring + (size_t)(st % NBUF) * CH * ST;
+      const int i0 = max(c0, u_lo), i1 = min(c0 + CH, u_hi);
+      for (int x = tid; x < (i1 - i0) * DV; x += THREADS) {
+        const int j = x / DV, e = x - j * DV;
+        const int i = i0 + j;
+        cp_async16(dst + (i - c0) * ST + e * V,
+                   src + ((size_t)srow[i] * KH + k) * D + e * V);
+      }
+    }
+    cp_commit();                        // one group per stage, maybe empty
+  };
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
-    constexpr int V = Vec16<T>::N;
-    for (int d0 = 0; d0 < D; d0 += V) {
-      float kv[V];
-      Vec16<T>::load(kr + d0, kv);
+  for (int st = 0; st < NBUF - 1; ++st) issue(st);
+
+  // K stages, the scores: the lanes of quad j (position j of the chunk)
+  // take the 16-byte vectors e = a, a + 4, .. (a = lane % 4) of the K row
+  // for every query row; a row's dot is the four partial sums (each
+  // vector's elements in order) added as (s0 + s1) + (s2 + s3) by a fixed
+  // xor tree over the quad
+  const int quarter = tid & 3;
+  for (int st = 0; st < n_ch; ++st) {
+    issue(st + NBUF - 1);
+    cp_wait<NBUF - 1>();                // stage st has landed
+    __syncthreads();
+    const T* buf = ring + (size_t)(st % NBUF) * CH * ST;
+    const int c0 = (c_first + st) * CH;
+    for (int j = tid >> 2; j < CH; j += THREADS / 4) {  // warp-uniform
+      const int i = c0 + j;
+      const bool live = i >= u_lo && i < u_hi;           // quad-uniform
+      float sc[RMAX];
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) sc[r] = 0.f;
+      if (live) {
+        const T* kr = buf + j * ST;
+        for (int e = quarter; e < DV; e += 4) {
+          float kv[V];
+          Vec16<T>::load(kr + e * V, kv);
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r) {
+            if (r < R) {
+              const float* qr = qs + r * D + e * V;
+#pragma unroll
+              for (int x = 0; x < V; x += 4) {
+                const float4 q4 = *reinterpret_cast<const float4*>(qr + x);
+                sc[r] = fmaf(q4.x, kv[x], sc[r]);
+                sc[r] = fmaf(q4.y, kv[x + 1], sc[r]);
+                sc[r] = fmaf(q4.z, kv[x + 2], sc[r]);
+                sc[r] = fmaf(q4.w, kv[x + 3], sc[r]);
+              }
+            }
+          }
+        }
+      }
 #pragma unroll
       for (int r = 0; r < RMAX; ++r) {
         if (r < R) {
-#pragma unroll
-          for (int j = 0; j < V; ++j)
-            acc[r] = fmaf(qs[r * D + d0 + j], kv[j], acc[r]);
+          float v = sc[r];
+          v += __shfl_xor_sync(FULL, v, 1);
+          v += __shfl_xor_sync(FULL, v, 2);
+          if (live && quarter == (r & 3)) ps[r * PSTR + i] = v;
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < R) ps[r * SPLIT_POS + tid] = acc[r];
+    __syncthreads();                    // the chunk's buffer is free
   }
-  __syncthreads();
 
   // softmax of the split: one warp per row (rows warp, warp + 8, ...)
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < R; r += THREADS / 32) {
-    float* row = ps + r * SPLIT_POS;
-    const int lo = r_lo[r], hi = r_hi[r];
-    float mx = NEG_INF;
-    for (int i = lane; i < hi; i += 32)
-      if (i >= lo) mx = fmaxf(mx, row[i]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int i = lane; i < hi; i += 32) {
-      if (i >= lo) {
-        const float p = expf(row[i] - mx);
-        row[i] = p;
-        sum += p;
+  {
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int r = warp; r < R; r += THREADS / 32) {
+      float* row = ps + r * PSTR;
+      const int lo = r_lo[r], hi = r_hi[r];
+      float mx = NEG_INF;
+      for (int i = lane; i < hi; i += 32)
+        if (i >= lo) mx = fmaxf(mx, row[i]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int i = lane; i < hi; i += 32) {
+        if (i >= lo) {
+          const float p = expf(row[i] - mx);
+          row[i] = p;
+          sum += p;
+        }
       }
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      row_m[r] = lo < hi ? mx : NEG_INF;
-      row_l[r] = sum;
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        row_m[r] = lo < hi ? mx : NEG_INF;
+        row_l[r] = sum;
+      }
     }
   }
   __syncthreads();
 
-  // P.V: thread (part, d) sums positions part, part + npart, ... of each
-  // row's range; each V element read once for every row
-  const int d = tid % D, pi = tid / D;
-  if (pi < npart) {
-    float acc[RMAX];
+  // V stages, P.V: thread (row group rg, vector e, part) owns rows rg,
+  // rg + nrg, .. (nrg = THREADS / (DV * NPART) >= 4 groups) and sums the
+  // positions i = part (mod NPART) in ascending order, each V vector read
+  // once for its rows; the NPART parts of a (row group, vector) are
+  // neighbouring lanes and meet in a fixed xor tree
+  const int pairs = DV * NPART;
+  const int nrg = THREADS / pairs;
+  const int my_part = tid % NPART;
+  const int my_e = tid / NPART % DV;
+  const int my_rg = tid / pairs;
+  int rlo[RMAX / 4], rhi[RMAX / 4];
+  float acc[RMAX / 4][V];
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
-    for (int i = pi; i < u_hi; i += npart) {
-      if (i < u_lo) continue;
-      const int t = t0 + i;
-      const int page = spage[i / PS];
-      const float v = to_f32(vp[(((size_t)page * PS + t % PS) * KH + k) * D + d]);
+  for (int rr = 0; rr < RMAX / 4; ++rr) {
+    const int r = my_rg + rr * nrg;
+    const bool live = my_rg < nrg && r < R;
+    rlo[rr] = live ? r_lo[r] : 0;
+    rhi[rr] = live ? r_hi[r] : 0;
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R && i >= r_lo[r] && i < r_hi[r])
-          acc[r] = fmaf(ps[r * SPLIT_POS + i], v, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < R) red[(pi * R + r) * D + d] = acc[r];
+    for (int x = 0; x < V; ++x) acc[rr][x] = 0.f;
   }
-  __syncthreads();
-  for (int i = tid; i < R * D; i += THREADS) {
-    float o = 0.f;
-    for (int p = 0; p < npart; ++p) o += red[p * R * D + i];
-    o_part[part * R * D + i] = o;
+  for (int st = n_ch; st < n_stages; ++st) {
+    issue(st + NBUF - 1);
+    cp_wait<NBUF - 1>();
+    __syncthreads();
+    const T* buf = ring + (size_t)(st % NBUF) * CH * ST;
+    const int c0 = (c_first + st - n_ch) * CH;
+    if (my_rg < nrg) {
+      const int hi = min(c0 + CH, u_hi);
+      for (int i = c0 + my_part; i < hi; i += NPART) {
+        if (i < u_lo) continue;
+        float vv[V];
+        Vec16<T>::load(buf + (i - c0) * ST + my_e * V, vv);
+#pragma unroll
+        for (int rr = 0; rr < RMAX / 4; ++rr) {
+          if (i >= rlo[rr] && i < rhi[rr]) {
+            const float p = ps[(my_rg + rr * nrg) * PSTR + i];
+#pragma unroll
+            for (int x = 0; x < V; ++x)
+              acc[rr][x] = fmaf(p, vv[x], acc[rr][x]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int rr = 0; rr < RMAX / 4; ++rr) {
+    float o[V];
+#pragma unroll
+    for (int x = 0; x < V; ++x) {
+      o[x] = acc[rr][x];
+      for (int off = 1; off < NPART; off <<= 1)
+        o[x] += __shfl_xor_sync(FULL, o[x], off);
+    }
+    const int r = my_rg + rr * nrg;
+    if (my_rg < nrg && r < R && my_part == 0) {
+      float* dst = o_part + (part * R + r) * D + my_e * V;
+#pragma unroll
+      for (int x = 0; x < V; x += 4)
+        *reinterpret_cast<float4*>(dst + x) =
+            make_float4(o[x], o[x + 1], o[x + 2], o[x + 3]);
+    }
   }
   if (tid < R) {
     m_part[part * R + tid] = row_m[tid];
@@ -265,32 +408,30 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// grid (B * KH): merge the splits of one (sequence, kv head) -> out (B, S, H, D)
+// grid (B * KH, R), D threads: merge the splits of one (sequence, kv
+// head, row) -> out (B, S, H, D)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DMAX)
 merge_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
              const float* __restrict__ l_part, T* __restrict__ out, int H,
              int KH, int D, int n_splits, int S) {
-  const int bk = blockIdx.x;
+  const int bk = blockIdx.x, r = blockIdx.y, d = threadIdx.x;
   const int b = bk / KH, k = bk - b * KH;
   const int G = H / KH, R = S * G;
-  for (int i = threadIdx.x; i < R * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    const int srow = r / G, g = r - srow * G;
-    const float* m = m_part + (size_t)bk * n_splits * R + r;
-    const float* l = l_part + (size_t)bk * n_splits * R + r;
-    const float* o = o_part + (size_t)bk * n_splits * R * D + i;
-    float mg = NEG_INF;
-    for (int s = 0; s < n_splits; ++s) mg = fmaxf(mg, m[s * R]);
-    float lg = 0.f, og = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      const float c = expf(m[s * R] - mg);
-      lg = fmaf(l[s * R], c, lg);
-      og = fmaf(o[(size_t)s * R * D], c, og);
-    }
-    from_f32(og / fmaxf(lg, 1e-30f),
-             out + (((size_t)b * S + srow) * H + k * G + g) * D + d);
+  const int srow = r / G, g = r - srow * G;
+  const float* m = m_part + (size_t)bk * n_splits * R + r;
+  const float* l = l_part + (size_t)bk * n_splits * R + r;
+  const float* o = o_part + ((size_t)bk * n_splits * R + r) * D + d;
+  float mg = NEG_INF;
+  for (int s = 0; s < n_splits; ++s) mg = fmaxf(mg, m[s * R]);
+  float lg = 0.f, og = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float c = expf(m[s * R] - mg);
+    lg = fmaf(l[s * R], c, lg);
+    og = fmaf(o[(size_t)s * R * D], c, og);
   }
+  from_f32(og / fmaxf(lg, 1e-30f),
+           out + (((size_t)b * S + srow) * H + k * G + g) * D + d);
 }
 
 template <typename T, int RMAX>
@@ -300,13 +441,14 @@ int launch_rows(const void* q, const void* kp, const void* vp, const int* bt,
                 int window, float scale, int pps, int n_splits, int S,
                 int dense_t, cudaStream_t stream) {
   const int R = S * (H / KH);
-  const size_t smem = sizeof(float)
-      * ((size_t)R * D + (size_t)R * SPLIT_POS + (size_t)(THREADS / D) * R * D);
-  // Once per instance, at its largest layout (R = RMAX, THREADS / D * D <=
-  // THREADS), on the device of its first launch.
+  const size_t smem = split_smem(R, D, sizeof(T));
+  // Once per instance, at its largest layout (R = RMAX, D = DMAX, the ring
+  // at its largest: 64 positions x 17 units), on the device of its first
+  // launch.
   static const cudaError_t attr = cudaFuncSetAttribute(
       split_kernel<T, RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(float) * RMAX * (DMAX + SPLIT_POS + THREADS)));
+      (int)(NBUF * 64 * 17 * 16
+            + sizeof(float) * RMAX * ((size_t)DMAX + PSTR)));
   if (attr != cudaSuccess) return (int)attr;
   split_kernel<T, RMAX><<<dim3(n_splits, KH, B), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
@@ -314,7 +456,7 @@ int launch_rows(const void* q, const void* kp, const void* vp, const int* bt,
       PS, P, pps, window, scale, S, dense_t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<T><<<B * KH, THREADS, 0, stream>>>(
+  merge_kernel<T><<<dim3(B * KH, R), D, 0, stream>>>(
       o_part, m_part, l_part, static_cast<T*>(out), H, KH, D, n_splits, S);
   return (int)cudaGetLastError();
 }
@@ -334,6 +476,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
   return launch_rows<T, RM>(q, kp, vp, bt, lens, o_part, m_part, l_part, out, \
                             B, H, KH, D, PS, P, window, scale, pps, n_splits, \
                             S, dense_t, stream)
+  if (R <= 4) ROWS(4);
   if (R <= GMAX) ROWS(GMAX);
   if (R <= 16) ROWS(16);
   if (R <= 32) ROWS(32);

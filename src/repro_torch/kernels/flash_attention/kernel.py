@@ -1,7 +1,7 @@
 """Python wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``): one launch on the current stream.  It takes
-CUDA tensors only; the library builds from the repository's sources at
-first use."""
+(``csrc/flash_attention.cu``): one launch on the current stream, bfloat16
+on the tensor cores and float32 on the CUDA cores.  It takes CUDA tensors
+only; the library builds from the repository's sources at first use."""
 from __future__ import annotations
 
 import ctypes
@@ -11,10 +11,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-THREADS = 512
-BK = 64                  # key positions per tile
 MAX_SMEM = 232_448       # dynamic shared memory one CTA may use (H100)
-# head dim -> (rows per warp, head dims per lane / 32) of the kernel instance
+# bfloat16: the tensor-core kernel, 8 warps of 16 rows, K/V tiles of 64
+# positions (one online-softmax step each), two buffers of each
+TC_ROWS = 128
+TC_BK = 64
+# float32: the CUDA-core kernel, 512 threads, K/V tiles of 64 positions run
+# as two softmax steps of 32; head dim -> (rows per warp, head dims per
+# lane / 32) of the kernel instance
+THREADS = 512
+BK = 64
+HALF = 32
 INSTANCES = {16: (16, 1), 96: (16, 3), 120: (16, 4), 128: (16, 4),
              256: (8, 8)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -30,19 +37,42 @@ def _launcher():
     return fn
 
 
-def smem_bytes(d: int, elem: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``d``: the p buffer
-    (R x 32 float32), the scaled Q block (R x D) and the K and V tiles
-    (64 x D, the row padded to an odd number of 16-byte units)."""
-    rows = (THREADS // 32) * INSTANCES[d][0]
-    units = d * elem // 16
+def _rows(d: int, dtype) -> int:
+    """Rows (query position x head) of one CTA."""
+    if dtype == torch.bfloat16:
+        return TC_ROWS
+    return (THREADS // 32) * INSTANCES[d][0]
+
+
+def softmax_step(d: int, dtype) -> int:
+    """Key positions per online-softmax update at head dim ``d``, aligned
+    to multiples of it: the kernel rounds p to the operand type at the
+    same points as ``flash_attention_chunked(kv_chunk=softmax_step(...))``
+    over keys padded to a multiple of it."""
+    if d not in INSTANCES:
+        raise ValueError(f"head dim {d}: the kernel takes {sorted(INSTANCES)}")
+    return TC_BK if dtype == torch.bfloat16 else HALF
+
+
+def smem_bytes(d: int, dtype) -> int:
+    """Dynamic shared memory of one CTA at head dim ``d``.  bfloat16: the
+    scaled Q block (128 rows) and two K and two V tiles (64 positions), the
+    rows D rounded up to 16 plus 8 elements (an odd number of 16-byte
+    units); float32: the p buffer (R x 32), the scaled Q block (R x D) and
+    the K and V tiles (64 x D, the row padded to an odd number of 16-byte
+    units)."""
+    if dtype == torch.bfloat16:
+        stride = -(-d // 16) * 16 + 8
+        return 2 * stride * (TC_ROWS + 4 * TC_BK)
+    rows = _rows(d, dtype)
+    units = d * 4 // 16
     units += 1 - units % 2
-    return 4 * rows * 32 + elem * rows * d + 2 * BK * units * 16
+    return 4 * rows * HALF + 4 * rows * d + 2 * BK * units * 16
 
 
-def query_block(h: int, kh: int, d: int) -> int:
-    """Query positions per CTA: the instance's rows over the group size."""
-    return (THREADS // 32) * INSTANCES[d][0] // (h // kh)
+def query_block(h: int, kh: int, d: int, dtype) -> int:
+    """Query positions per CTA: the rows over the group size."""
+    return _rows(d, dtype) // (h // kh)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
@@ -75,9 +105,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
         raise ValueError(f"H={h} must be a multiple of K={kh}")
     if d not in INSTANCES:
         raise ValueError(f"head dim {d}: the kernel takes {sorted(INSTANCES)}")
-    if query_block(h, kh, d) < 1:
+    if query_block(h, kh, d, q.dtype) < 1:
         raise ValueError(f"{h // kh} query heads per kv head exceed one CTA")
-    smem = smem_bytes(d, q.element_size())
+    smem = smem_bytes(d, q.dtype)
     if smem > MAX_SMEM:
         raise ValueError(f"head dim {d} in {q.dtype} needs {smem} bytes of "
                          f"shared memory, above {MAX_SMEM}")

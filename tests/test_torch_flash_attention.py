@@ -28,7 +28,7 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
 from repro.models.attention import flash_attention_jnp  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    MAX_SMEM, flash_attention_cuda, query_block, smem_bytes)
+    MAX_SMEM, flash_attention_cuda, query_block, smem_bytes, softmax_step)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_chunked, flash_attention_ref)
 
@@ -110,17 +110,47 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         flash_attention_cuda(q, k, v, causal=True)
 
 
-@pytest.mark.parametrize("h,kh,d,dtype,block,fits", [
-    (32, 8, 120, torch.bfloat16, 64, True),     # h2o-danube-3-4b
-    (32, 8, 120, torch.float32, 64, True),
-    (8, 4, 256, torch.bfloat16, 64, True),      # gemma3-4b
-    (8, 4, 256, torch.float32, 64, False),
-    (4, 2, 16, torch.float32, 128, True),       # the smoke configs
-    (64, 8, 128, torch.bfloat16, 32, True),     # qwen2-72b
+@pytest.mark.parametrize("h,kh,d,dtype,block,fits,step", [
+    (32, 8, 120, torch.bfloat16, 32, True, 64),     # h2o-danube-3-4b
+    (32, 8, 120, torch.float32, 64, True, 32),
+    (8, 4, 256, torch.bfloat16, 64, True, 64),      # gemma3-4b
+    (8, 4, 256, torch.float32, 64, False, 32),
+    (4, 2, 16, torch.float32, 128, True, 32),       # the smoke configs
+    (4, 2, 16, torch.bfloat16, 64, True, 64),
+    (64, 8, 128, torch.bfloat16, 16, True, 64),     # qwen2-72b
+    (32, 32, 96, torch.bfloat16, 128, True, 64),    # phi-3-vision-4.2b
 ])
-def test_kernel_geometry(h, kh, d, dtype, block, fits):
-    """Query positions per CTA and whether one CTA's shared memory fits
-    (the wrapper refuses the shapes that do not)."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    assert query_block(h, kh, d) == block
-    assert (smem_bytes(d, elem) <= MAX_SMEM) == fits
+def test_kernel_geometry(h, kh, d, dtype, block, fits, step):
+    """Query positions per CTA (bf16: 128 rows on the tensor cores; float32:
+    512 threads of 16 or 8 rows a warp), whether one CTA's shared memory
+    fits (the wrapper refuses the shapes that do not) and the softmax
+    step."""
+    assert query_block(h, kh, d, dtype) == block
+    assert (smem_bytes(d, dtype) <= MAX_SMEM) == fits
+    assert softmax_step(d, dtype) == step
+
+
+@pytest.mark.parametrize("b,sq,h,kh,d,window,q_offset", [
+    (1, 150, 8, 2, 120, 4096, 0),       # h2o-danube-3-4b heads (G 4)
+    (1, 1100, 2, 1, 256, 1024, 0),      # gemma3-4b heads (G 2), window
+    (2, 70, 8, 2, 120, 0, 90),          # a block that continues a prefix
+])
+def test_chunked_at_kernel_step_matches_flash_attention_jnp(
+        b, sq, h, kh, d, window, q_offset):
+    """The object the bf16 kernel is held to on the card: the chunked plain
+    version at the kernel's softmax step, keys zero-padded to a multiple
+    of it (causality masks the pad), against the JAX model's
+    ``flash_attention_jnp`` at the bf16 bound."""
+    skv = q_offset + sq
+    (q, k, v), (jq, jk, jv) = _inputs(b, sq, skv, h, kh, d, "bfloat16",
+                                      seed=3)
+    step = softmax_step(d, torch.bfloat16)
+    pad = -skv % step
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (k, v))
+    got = flash_attention_chunked(q, kp, vp, causal=True, window=window,
+                                  q_offset=q_offset, kv_chunk=step)
+    want = flash_attention_jnp(jq, jk, jv, causal=True, window=window,
+                               q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _err(got, want) < 2e-2
