@@ -49,10 +49,15 @@ at h2o-danube-3-4b full width behind ``MultiLLMServer`` on the paged
 endpoint's prompts, beside the paged endpoint (R1); and a float32 smoke pool
 served by both endpoint kinds on the card and the CPU (R2).
 
-Neighbour-only retrieval and the assign step: the top-k kernel against its
-plain version on the vote's cases, at k = 64 and on a 700-row store, and
-the ``topk_retrieval`` entry point at the full route batch, bit for bit
-equal to the vote entry point's (vals, idx) (3c); the assign-step kernel
+The retrieval kernel (3xTF32 on the tensor cores; its SASS checked for
+tensor-core instructions in both instances): the vote entry point against
+its plain version on all 16,384 rows of the route batch and on the edge
+cases (n_valid inside the store, k > n_valid, a duplicated store in exact
+order, k = 64, a 700-row store, k = 65 refused) (3a); the top-k entry
+point on the same cases and on a store duplicated at an offset of no tile
+multiple, and at the full route batch, bit for bit equal to the vote entry
+point's (vals, idx) (3c); both timed at the route batch and the stream
+window beside their float32 and 3xTF32 bounds.  The assign-step kernel
 against its plain version at the route batch's predictions with 3b's
 multipliers, at N 1,000, M 16 and a duplicated column (3d); the seed's
 per-iteration solve (``benchmarks/bench_routing.py``: 151 assign-step
@@ -85,6 +90,7 @@ CMP_QUERIES = 1_024     # plain vote's (queries, N_db) block: 512 MiB
 REPS = 20               # timed kernel launches (median)
 H100_FP32 = 67e12       # FLOP/s outside the tensor cores (H100 SXM sheet)
 H100_BF16 = 989e12      # FLOP/s of bf16 on the tensor cores, dense
+H100_TF32 = 495e12      # FLOP/s of TF32 on the tensor cores, dense
 H100_HBM = 3.35e12      # bytes/s
 H100_SMS = 132
 PROBE_REPS = 200        # L2 probe: reads of the dual solve's (N, 2M) bytes
@@ -1412,20 +1418,20 @@ def sdpa_ms(torch, F, say, time_ms, q, k, v, mask=None, causal=False,
         return None
 
 
-def flash_sass_hmma():
-    """{kernel function: HMMA instructions} of the built flash library, from
-    ``cuobjdump --dump-sass`` beside ``nvcc``."""
+def sass_hmma(lib):
+    """{kernel function: tensor-core instructions (HMMA, HGMMA)} of the
+    built library ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` beside
+    ``nvcc``."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "--dump-sass",
-                           str(_build._target("flash_attention"))],
+    sass = subprocess.run([str(tool), "--dump-sass", str(_build._target(lib))],
                           capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
     return counts
 
@@ -1450,7 +1456,7 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
         flash_attention_cuda, softmax_step)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_chunked, flash_attention_ref)
-    hmma = flash_sass_hmma()
+    hmma = sass_hmma("flash_attention")
     say(f"flash SASS: HMMA instructions per kernel {hmma}")
     check(any(n > 0 for f, n in hmma.items() if "flash_tc_kernel" in f)
           and all(n == 0 for f, n in hmma.items() if "flash_kernel" in f),
@@ -1619,9 +1625,11 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
     return row
 
 
-# -- neighbour-only top-k and the one-step assignment (slice 5) ---------------
+# -- the retrieval kernel (3a, 3c), neighbour-only top-k and the one-step
+# assignment (slice 5) ---------------------------------------------------------
 
-TOPK_KMAX = 64          # the top-k kernel's largest k (paper Table 4)
+TOPK_KMAX = 64          # the retrieval kernel's largest k (paper Table 4)
+DUP_ODD = 4_133         # 3c: a duplicated store at an offset of no tile
 STEP_N = 1_000          # assign step: a batch that is not a block multiple
 STEP_M = 16             # assign step: the kernel's largest model count
 SEED_N = 16_384         # 3e: the seed loop of benchmarks/bench_routing.py
@@ -1631,44 +1639,183 @@ SEED_ITERS = 150
 SEED_REPS = 5
 
 
-def topk_bytes_ops(b, n_rows, d, k):
-    """One top-k retrieval: store rows and queries read once, (vals, idx)
-    written once; 2·d operations per (query, valid row)."""
-    return 4 * (n_rows * d + b * d) + 8 * b * k, 2.0 * b * n_rows * d
+def retrieval_bounds(b, n_rows, d, k, n_lab=0):
+    """What one retrieval must move and compute: store rows, their labels,
+    queries, (vals, idx) and votes once each; 2·d operations per (query,
+    valid row).  Returns (bytes, operations, the float32 bound on the CUDA
+    cores, the 3xTF32 bound on the tensor cores: three TF32 products per
+    operation), both bounds in ms."""
+    nbytes = 4 * (n_rows * d + n_rows * n_lab + b * d + b * n_lab) + 8 * b * k
+    nops = 2.0 * b * n_rows * d
+    t_bytes = nbytes / H100_HBM
+    return (nbytes, nops, max(t_bytes, nops / H100_FP32) * 1e3,
+            max(t_bytes, 3 * nops / H100_TF32) * 1e3)
+
+
+def retrieval_row(name, replaces, launches, err, b, n_rows, d, k, n_lab,
+                  ms, plain_ms, lib_ms, say, tag):
+    """Print the timing line at the route batch and return the kernels-line
+    row: its bound is the 3xTF32 one, the design that runs; the float32
+    CUDA-core bound rides beside it."""
+    nbytes, nops, fp32_ms, tf32_ms = retrieval_bounds(b, n_rows, d, k, n_lab)
+    say(f"{tag} timing (B={b}, N_db={n_rows}, d={d}, k={k}): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul of the same "
+        f"fp32 product {lib_ms:.3f} ms; bounds: 3xTF32 on the tensor cores "
+        f"{tf32_ms:.3f} ms = max({nbytes / 1e6:.1f} MB / 3.35 TB/s, 3 x "
+        f"{nops / 1e12:.3f} TFLOP / 495 TFLOP/s TF32), float32 on the CUDA "
+        f"cores {fp32_ms:.3f} ms (/ 67 TFLOP/s) | kernel at "
+        f"{tf32_ms / ms:.1%} of the 3xTF32 bound")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/csrc/retrieval_vote.cu",
+                replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=tf32_ms,
+                bound_by="bytes" if nbytes / H100_HBM > 3 * nops / H100_TF32
+                else "operations", library_ms=lib_ms, bound_fp32_ms=fp32_ms)
+
+
+def window_timing(torch, say, time_ms, fn, q_route, emb, n_valid, d, k,
+                  n_lab, tag):
+    """The kernel at the stream window's batch (N_WINDOW queries) beside
+    its bounds and ``torch.matmul``; returns the row's window keys."""
+    q_win = q_route[:N_WINDOW].contiguous()
+    ms = time_ms(torch, lambda: fn(q_win), REPS)
+    store_t = emb[:n_valid].T
+    lib = time_ms(torch, lambda: torch.matmul(q_win, store_t), REPS)
+    _, _, fp32_ms, tf32_ms = retrieval_bounds(N_WINDOW, n_valid, d, k, n_lab)
+    say(f"{tag} timing at the stream window (B={N_WINDOW}): kernel "
+        f"{ms:.3f} ms, torch.matmul {lib:.3f} ms; bounds 3xTF32 "
+        f"{tf32_ms:.3f} ms, float32 {fp32_ms:.3f} ms | kernel at "
+        f"{tf32_ms / ms:.1%} of the 3xTF32 bound")
+    return dict(window_b=N_WINDOW, window_ms=ms, window_library_ms=lib,
+                window_bound_ms=tf32_ms, window_bound_fp32_ms=fp32_ms)
+
+
+def retrieval_case(torch, say, check, store, q, kk, nv, labs=None,
+                   exact=False, tag="", out=None):
+    """The retrieval kernel against its plain version on one input: the
+    vote entry point when ``labs`` is given, else top-k (or ``out``, an
+    entry point's result on these inputs).  vals within 1e-5, sorted index
+    rows equal on >= 0.999, exact order where asked, (NEG_INF, -1) past the
+    valid rows; votes within 1e-5 relative to max(1, |vote|) on the rows
+    whose index sets agree (they hold output lengths up to 1024 beside 0/1
+    correctness; one float32 ulp at 1024 is 6e-5).  Returns the largest
+    error."""
+    from repro_torch.kernels.topk_retrieval.kernel import (
+        retrieval_vote_cuda, topk_retrieval_cuda)
+    from repro_torch.kernels.topk_retrieval.ref import (
+        NEG_INF, retrieval_vote_ref, topk_retrieval_ref)
+    if out is None:
+        out = (retrieval_vote_cuda(store, labs, q, kk, nv) if labs is not None
+               else topk_retrieval_cuda(store, q, kk, nv))
+    torch.cuda.synchronize()
+    ref = (retrieval_vote_ref(store, labs, q, kk, nv) if labs is not None
+           else topk_retrieval_ref(store, q, kk, nv))
+    (kv, ki), (rv, ri) = out[:2], ref[:2]
+    what = f"{'vote' if labs is not None else 'top-k'} {tag}"
+    err = err_vals = (kv - rv).abs().max().item()
+    same_rows = (torch.sort(ki, 1).values == torch.sort(ri, 1).values)
+    agree = same_rows.float().mean().item()
+    line = (f"{what}: B={q.shape[0]} N_db={store.shape[0]} k={kk} "
+            f"n_valid={nv} | max|dvals|={err:.3g} idx agree={agree:.6f}")
+    rel = 0.0
+    if labs is not None:
+        rows = same_rows.all(1)
+        dvote = (out[2] - ref[2])[rows].abs()
+        scale = torch.clamp(ref[2][rows].abs(), min=1.0)
+        err_vote = dvote.max().item() if rows.any() else 0.0
+        rel = (dvote / scale).max().item() if rows.any() else 0.0
+        line += f" max|dvote|={err_vote:.3g} (relative {rel:.3g})"
+        err = max(err, err_vote)
+    say(line)
+    check(err_vals <= 1e-5, f"{what} vals")
+    check(agree >= 0.999, f"{what} idx sets")
+    check(rel <= 1e-5, f"{what} votes")
+    if exact:
+        check(bool((ki == ri).all()), f"{what} exact idx order")
+    live = min(nv, store.shape[0])
+    if kk > live:
+        check(bool((ki[:, live:] == -1).all()
+                   and (kv[:, live:] <= NEG_INF * 0.5).all()),
+              f"{what} empty slots")
+    return err
+
+
+def k_refused(fn, what, check):
+    """k = TOPK_KMAX + 1 must raise before any launch."""
+    try:
+        fn(TOPK_KMAX + 1)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"{what} k={TOPK_KMAX + 1} was not refused")
+
+
+def vote_phase(torch, say, check, time_ms, emb, labels, q_route, k,
+               n_valid):
+    """3a: the vote entry point against its plain version on all of the
+    route batch's rows and on the edge cases (n_valid inside the store,
+    k > n_valid, a duplicated store in exact order, k = 64, a 700-row
+    store, k = 65 refused); its times at the route batch and the stream
+    window.  Returns the kernels-line row (launches filled in by phase 4)."""
+    from repro_torch.kernels.topk_retrieval.kernel import retrieval_vote_cuda
+    from repro_torch.kernels.topk_retrieval.ref import retrieval_vote_ref
+
+    def case(store, labs, q, kk, nv, **kw):
+        return retrieval_case(torch, say, check, store, q, kk, nv, labs=labs,
+                              **kw)
+
+    q_cmp = q_route[:CMP_QUERIES]
+    dup = torch.cat([emb[:4096], emb[:4096]]).contiguous()
+    dup_lab = torch.cat([labels[:4096], labels[:4096]]).contiguous()
+    err = max(
+        case(emb, labels, q_route, k, n_valid, tag="full store, all rows"),
+        case(emb, labels, q_cmp, 16, 100_003, tag="n_valid"),
+        case(emb[:10].contiguous(), labels[:10].contiguous(), q_cmp, 16, 10,
+             tag="k>n_valid"),
+        case(dup, dup_lab, q_cmp, 16, 8192, exact=True,
+             tag="duplicated rows"),
+        case(emb, labels, q_cmp, TOPK_KMAX, n_valid, tag="k=64"),
+        case(emb[:700].contiguous(), labels[:700].contiguous(), q_cmp, k, 700,
+             tag="700-row store"))
+    del dup, dup_lab
+    k_refused(lambda kk: retrieval_vote_cuda(emb, labels, q_cmp, kk,
+                                             n_valid), "vote", check)
+
+    ms = time_ms(torch, lambda: retrieval_vote_cuda(emb, labels, q_route, k,
+                                                    n_valid), REPS)
+    plain_ms = time_ms(torch, lambda: retrieval_vote_ref(
+        emb, labels, q_route, k, n_valid), 3, warm=1)
+    store_t = emb[:n_valid].T
+    lib_ms = time_ms(torch, lambda: torch.matmul(q_route, store_t), REPS)
+    del store_t
+    d, n_lab = emb.shape[1], labels.shape[1]
+    row = retrieval_row("retrieval_vote",
+                        "src/repro/kernels/topk_retrieval/kernel.py:185",
+                        None, err, N_ROUTE, n_valid, d, k, n_lab, ms,
+                        plain_ms, lib_ms, say, "vote")
+    row.update(window_timing(
+        torch, say, time_ms,
+        lambda q: retrieval_vote_cuda(emb, labels, q, k, n_valid), q_route,
+        emb, n_valid, d, k, n_lab, "vote"))
+    return row
 
 
 def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
                n_valid):
-    """3c: the top-k kernel against its plain version on 3a's cases, at
-    k = 64 and on a 700-row store; the entry point at the full route batch
-    (the main path of this kernel, launches counted), bit for bit equal to
-    the vote entry point's (vals, idx).  Returns the kernels-line row."""
+    """3c: the top-k entry point against its plain version on 3a's cases,
+    and on a store duplicated at an offset of no tile multiple (identical
+    rows must give bit-equal values in any tile position and slice); the
+    entry point at the full route batch (the main path of this kernel,
+    launches counted), bit for bit equal to the vote entry point's
+    (vals, idx), every row held to the plain version; its times at the
+    route batch and the stream window.  Returns the kernels-line row."""
     from repro_torch.kernels.topk_retrieval import ops as tr_ops
     from repro_torch.kernels.topk_retrieval.kernel import (
         retrieval_vote_cuda, topk_retrieval_cuda)
-    from repro_torch.kernels.topk_retrieval.ref import (NEG_INF,
-                                                        topk_retrieval_ref)
+    from repro_torch.kernels.topk_retrieval.ref import topk_retrieval_ref
 
-    def case(store, q, kk, nv, exact=False, tag="", out=None):
-        kv, ki = out if out is not None else topk_retrieval_cuda(store, q,
-                                                                 kk, nv)
-        torch.cuda.synchronize()
-        rv, ri = topk_retrieval_ref(store, q, kk, nv)
-        err = (kv - rv).abs().max().item()
-        agree = (torch.sort(ki, 1).values
-                 == torch.sort(ri, 1).values).float().mean().item()
-        say(f"top-k {tag}: B={q.shape[0]} N_db={store.shape[0]} k={kk} "
-            f"n_valid={nv} | max|dvals|={err:.3g} idx agree={agree:.6f}")
-        check(err <= 1e-5, f"top-k {tag} vals")
-        check(agree >= 0.999, f"top-k {tag} idx sets")
-        if exact:
-            check(bool((ki == ri).all()), f"top-k {tag} exact idx order")
-        live = min(nv, store.shape[0])
-        if kk > live:
-            check(bool((ki[:, live:] == -1).all()
-                       and (kv[:, live:] <= NEG_INF * 0.5).all()),
-                  f"top-k {tag} empty slots")
-        return err
+    def case(store, q, kk, nv, **kw):
+        return retrieval_case(torch, say, check, store, q, kk, nv, **kw)
 
     q_cmp = q_route[:CMP_QUERIES]
     dup = torch.cat([emb[:4096], emb[:4096]]).contiguous()
@@ -1679,12 +1826,19 @@ def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
               case(emb, q_cmp, TOPK_KMAX, n_valid, tag="k=64"),
               case(emb[:700].contiguous(), q_cmp, k, 700,
                    tag="700-row store"))
-    try:
-        topk_retrieval_cuda(emb, q_cmp, TOPK_KMAX + 1, n_valid)
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, f"top-k k={TOPK_KMAX + 1} was not refused")
+    # every row twice, DUP_ODD apart: each value comes an even number of
+    # times, so the sorted values pair up bit for bit
+    dup = torch.cat([emb[:DUP_ODD], emb[:DUP_ODD]]).contiguous()
+    vals, idx = topk_retrieval_cuda(dup, q_cmp, 16, 2 * DUP_ODD)
+    err = max(err, case(dup, q_cmp, 16, 2 * DUP_ODD, out=(vals, idx),
+                        tag=f"duplicated rows {DUP_ODD} apart"))
+    pairs = bool(torch.equal(vals[:, 0::2], vals[:, 1::2]))
+    say(f"top-k duplicated rows {DUP_ODD} apart: sorted values equal in "
+        f"pairs {pairs}")
+    check(pairs, "top-k: identical rows gave different values")
+    del dup
+    k_refused(lambda kk: topk_retrieval_cuda(emb, q_cmp, kk, n_valid),
+              "top-k", check)
 
     # the main path: the entry point a user calls, at the full route batch
     torch.cuda.synchronize()
@@ -1708,7 +1862,7 @@ def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
     # every row of the main path's output against the plain version
     err = max(err, case(emb, q_route, k, n_valid, tag="main path, all rows",
                         out=(vals, idx)))
-    del vv, vi, dup
+    del vv, vi
 
     ms = time_ms(torch, lambda: topk_retrieval_cuda(emb, q_route, k,
                                                     n_valid), REPS)
@@ -1718,24 +1872,23 @@ def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
     lib_ms = time_ms(torch, lambda: torch.matmul(q_route, store_t), REPS)
     two_ms = time_ms(torch, lambda: torch.topk(torch.matmul(q_route, store_t),
                                                k, dim=1), REPS)
+    q_win = q_route[:N_WINDOW]
+    two_win = time_ms(torch, lambda: torch.topk(torch.matmul(q_win, store_t),
+                                                k, dim=1), REPS)
     del store_t
     d = emb.shape[1]
-    nbytes, nops = topk_bytes_ops(N_ROUTE, n_valid, d, k)
-    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
-    say(f"top-k timing (B={N_ROUTE}, N_db={n_valid}, d={d}, k={k}): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul of the same "
-        f"fp32 product {lib_ms:.3f} ms, two calls torch.matmul + torch.topk "
-        f"{two_ms:.3f} ms; bound {bound:.3f} ms = max({nbytes / 1e6:.1f} MB"
-        f" / 3.35 TB/s, {nops / 1e12:.3f} TFLOP / 67 TFLOP/s fp32) | "
-        f"achieved {nops / ms / 1e9:.1f} TFLOP/s")
-    return dict(name="topk_retrieval", route="cuda",
-                source="src/repro_torch/csrc/retrieval_vote.cu",
-                replaces="src/repro/kernels/topk_retrieval/kernel.py:141",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound,
-                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-                else "operations", library_ms=lib_ms,
-                matmul_topk_ms=two_ms, equal_to_vote=same)
+    say(f"top-k: two calls torch.matmul + torch.topk {two_ms:.3f} ms at "
+        f"B={N_ROUTE}, {two_win:.3f} ms at B={N_WINDOW}")
+    row = retrieval_row("topk_retrieval",
+                        "src/repro/kernels/topk_retrieval/kernel.py:141",
+                        launches, err, N_ROUTE, n_valid, d, k, 0, ms,
+                        plain_ms, lib_ms, say, "top-k")
+    row.update(window_timing(
+        torch, say, time_ms, lambda q: topk_retrieval_cuda(emb, q, k, n_valid),
+        q_route, emb, n_valid, d, k, 0, "top-k"))
+    row.update(matmul_topk_ms=two_ms, window_matmul_topk_ms=two_win,
+               equal_to_vote=same)
+    return row
 
 
 def step_bytes_ops(n, m):
@@ -1982,8 +2135,6 @@ def main() -> int:
         dual_solve_cuda, l2_read_probe_cuda)
     from repro_torch.kernels.lagrangian_assign.ref import fused_dual_solve_ref
     from repro_torch.kernels.topk_retrieval import ops as tr_ops
-    from repro_torch.kernels.topk_retrieval.kernel import retrieval_vote_cuda
-    from repro_torch.kernels.topk_retrieval.ref import retrieval_vote_ref
 
     def say(*parts):
         print(*parts, flush=True)
@@ -2027,68 +2178,14 @@ def main() -> int:
     k = hp.hcfg.k
     rows = {}
 
-    # 3a. retrieval vote vs its plain version
-    def vote_case(store, labs, q, kk, nv, exact=False, tag=""):
-        kv, ki, kvo = retrieval_vote_cuda(store, labs, q, kk, nv)
-        torch.cuda.synchronize()
-        rv, ri, rvo = retrieval_vote_ref(store, labs, q, kk, nv)
-        err_v = (kv - rv).abs().max().item()
-        same_rows = (torch.sort(ki, 1).values
-                     == torch.sort(ri, 1).values).all(1)
-        agree = (torch.sort(ki, 1).values
-                 == torch.sort(ri, 1).values).float().mean().item()
-        # votes hold output lengths (up to 1024) beside 0/1 correctness:
-        # 1e-5 relative to max(1, |vote|), one float32 ulp at 1024 is 6e-5
-        dvote = (kvo - rvo)[same_rows].abs()
-        scale = torch.clamp(rvo[same_rows].abs(), min=1.0)
-        err_vote = dvote.max().item() if same_rows.any() else 0.0
-        rel_vote = (dvote / scale).max().item() if same_rows.any() else 0.0
-        say(f"vote {tag}: B={q.shape[0]} N_db={store.shape[0]} k={kk} "
-            f"n_valid={nv} | max|dvals|={err_v:.3g} idx agree={agree:.6f} "
-            f"max|dvote|={err_vote:.3g} (relative {rel_vote:.3g})")
-        check(err_v <= 1e-5, f"vote {tag} vals")
-        check(agree >= 0.999, f"vote {tag} idx sets")
-        check(rel_vote <= 1e-5, f"vote {tag} votes")
-        if exact:
-            check(bool((ki == ri).all()), f"vote {tag} exact idx order")
-        return max(err_v, err_vote)
-
-    q_cmp = q_route[:CMP_QUERIES]
-    vote_err = max(
-        vote_case(emb, labels, q_cmp, k, n_valid, tag="full store"),
-        vote_case(emb, labels, q_cmp, 16, 100_003, tag="n_valid"),
-        vote_case(emb[:10].contiguous(), labels[:10].contiguous(), q_cmp, 16,
-                  10, tag="k>n_valid"))
-    dup = torch.cat([emb[:4096], emb[:4096]]).contiguous()
-    dup_lab = torch.cat([labels[:4096], labels[:4096]]).contiguous()
-    vote_err = max(vote_err, vote_case(dup, dup_lab, q_cmp, 16, 8192,
-                                       exact=True, tag="duplicated rows"))
-
-    ms = time_ms(torch, lambda: retrieval_vote_cuda(emb, labels, q_route, k,
-                                                    n_valid), REPS)
-    plain_ms = time_ms(torch, lambda: retrieval_vote_ref(
-        emb, labels, q_route, k, n_valid), 3, warm=1)
-    store_t = emb[:n_valid].T
-    lib_ms = time_ms(torch, lambda: torch.matmul(q_route, store_t), REPS)
-    n_lab = labels.shape[1]
-    d = emb.shape[1]
-    v_bytes = 4 * (n_valid * d + n_valid * n_lab + N_ROUTE * d
-                   + N_ROUTE * n_lab) + 8 * N_ROUTE * k
-    v_ops = 2.0 * N_ROUTE * n_valid * d
-    v_bound = max(v_bytes / H100_HBM, v_ops / H100_FP32) * 1e3
-    say(f"vote timing (B={N_ROUTE}, N_db={n_valid}, d={d}, k={k}): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul of the same "
-        f"fp32 product {lib_ms:.3f} ms; bound {v_bound:.3f} ms = max("
-        f"{v_bytes / 1e6:.1f} MB / 3.35 TB/s, {v_ops / 1e12:.3f} TFLOP / "
-        f"67 TFLOP/s fp32) | achieved {v_ops / ms / 1e9:.1f} TFLOP/s")
-    rows["retrieval_vote"] = dict(
-        name="retrieval_vote", route="cuda",
-        source="src/repro_torch/csrc/retrieval_vote.cu",
-        replaces="src/repro/kernels/topk_retrieval/kernel.py:185",
-        max_abs_err=vote_err, ms=ms, plain_ms=plain_ms, bound_ms=v_bound,
-        bound_by="bytes" if v_bytes / H100_HBM > v_ops / H100_FP32
-        else "operations", library_ms=lib_ms)
-    del store_t
+    # 3a. retrieval vote vs its plain version; its SASS holds tensor-core
+    # instructions in both instances
+    mma = sass_hmma("retrieval_vote")
+    say(f"retrieval SASS: tensor-core instructions per kernel {mma}")
+    check(sum(1 for f, n in mma.items() if "retrieval_kernel" in f and n > 0)
+          == 2, "retrieval: a retrieval_kernel instance has no HMMA")
+    rows["retrieval_vote"] = vote_phase(torch, say, check, time_ms, emb,
+                                        labels, q_route, k, n_valid)
 
     # 3b. dual solve vs its plain version on the main path's predictions
     with torch.no_grad():

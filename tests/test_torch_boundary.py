@@ -7,7 +7,8 @@ The plain-Python and NumPy leaves the port copies (tokenizer, SynthQAServe,
 baselines, the featurizer projection, the arch configs, the layer plan,
 ``route_via_batch`` and the admission rule) must equal their originals
 exactly — same token ids, same dataset, same projection bits, same config
-values, same plans, same routes.
+values, same plans, same routes.  A scan of the CUDA sources finds no
+library kernel (cuBLAS, cuDNN, CUTLASS's device- or kernel-level GEMMs).
 """
 import os
 import re
@@ -74,6 +75,32 @@ def test_source_scan_pattern_catches_imports():
     for ok in ("import repro_torch", "from repro_torch.core import z",
                "# see repro.core.optimizer"):
         assert not _FORBIDDEN.search(ok), ok
+
+
+# a library's kernels in a CUDA source: cuBLAS, cuDNN, or CUTLASS's
+# device- or kernel-level GEMMs (its building blocks stay allowed)
+_LIBRARY_KERNEL = re.compile(
+    r"cublas|cudnn|cutlass/gemm/(device|kernel)/", re.I)
+
+
+def test_csrc_scan_finds_no_library_kernel():
+    """Every kernel of the port is written by hand."""
+    files = sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu*"))
+    assert len(files) >= 5
+    offenders = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in files
+                 for m in _LIBRARY_KERNEL.finditer(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_csrc_scan_pattern_catches_library_kernels():
+    for bad in ("#include <cublas_v2.h>", "cublasSgemm(h, ...)",
+                "#include <cudnn.h>",
+                "#include \"cutlass/gemm/device/gemm.h\"",
+                "#include <cutlass/gemm/kernel/default_gemm.h>"):
+        assert _LIBRARY_KERNEL.search(bad), bad
+    for ok in ("#include <cuda_runtime.h>", "mma.sync.aligned.m16n8k8",
+               "#include <cutlass/arch/mma_sm80.h>"):
+        assert not _LIBRARY_KERNEL.search(ok), ok
 
 
 @pytest.mark.parametrize("max_len", [48, 64])

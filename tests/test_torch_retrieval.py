@@ -20,6 +20,14 @@
 - ``VectorStore`` growth, and ``RetrievalPredictor.predict_arrays`` over
   the same store: capability within 1e-5; expected length and cost within
   1e-5 relative (lengths reach 1024, where a float32 ulp is 6e-5).
+- The CUDA kernel's two design arguments, which hold here where it cannot
+  run: its 3xTF32 product (a NumPy emulation: operands split into
+  round-to-nearest TF32 hi and lo, lo*hi' + hi*lo' + hi*hi' summed in
+  float32) lies within 1e-6 of the float64 product on unit d-256 vectors,
+  where one TF32 pass misses the 1e-5 contract, and gives bit-equal
+  similarities for duplicated rows; and the per-slice top-k lists, merged
+  in slice order by the same fold, are ``topk_retrieval_ref``'s
+  ``(vals, idx)`` exactly.  The wrapper's slice count fills the card.
 """
 import numpy as np
 import pytest
@@ -289,3 +297,115 @@ def test_retrieval_predictor_matches_jax(qaserve_splits, k):
         assert np.allclose(cost, want[2], rtol=1e-5, atol=1e-9)
     acc = port.eval_accuracy(test)
     assert acc == pytest.approx(ref.eval_accuracy(test), abs=1e-9)
+
+
+def _tf32_rna(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
+    from zero: the kernel's ``tf32_rna`` (cvt.rna.tf32.f32)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _sims_tf32(q, s, passes=3):
+    """The kernel's product, emulated: per k-step of 8, lo*hi', hi*lo',
+    hi*hi' (or hi*hi' alone, passes=1) added to a float32 sum.  Products
+    of two TF32 values are exact in float32."""
+    qh, sh = _tf32_rna(q), _tf32_rna(s)
+    ql, sl = _tf32_rna(q - qh), _tf32_rna(s - sh)
+    terms = ((ql, sh), (qh, sl), (qh, sh)) if passes == 3 else ((qh, sh),)
+    acc = np.zeros((q.shape[0], s.shape[0]), np.float32)
+    for k0 in range(0, q.shape[1], 8):
+        for a, b in terms:
+            for kk in range(k0, k0 + 8):
+                acc = acc + a[:, kk, None] * b[None, :, kk]
+    return acc
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_product_keeps_the_fp32_contract(seed):
+    """hi + lo holds x to 2**-22; the three-pass product stays within 1e-6
+    of the float64 product (one TF32 pass does not stay within 1e-5); and
+    identical store rows give bit-equal similarities."""
+    rng = np.random.RandomState(seed)
+    q, base = _unit_rows(rng, (48, 256)), _unit_rows(rng, (384, 256))
+    hi = _tf32_rna(q)
+    lo = _tf32_rna(q - hi)
+    resid = np.abs(q.astype(np.float64) - hi - lo)
+    assert np.all(resid <= 2.0 ** -22 * np.abs(q))
+    assert np.all(_tf32_rna(hi) == hi) and np.all(_tf32_rna(lo) == lo)
+    store = np.concatenate([base, base])
+    sims = _sims_tf32(q, store)
+    exact = q.astype(np.float64) @ store.astype(np.float64).T
+    assert np.abs(sims - exact).max() <= 1e-6
+    assert np.abs(_sims_tf32(q, base, passes=1) - exact[:, :384]).max() > 1e-5
+    assert sims[:, :384].tobytes() == sims[:, 384:].tobytes()
+
+
+def _fold(vals, idx, cand_v, cand_i, k):
+    """The kernel's fold: candidates in order; one enters only if strictly
+    above the k-th value and lands after every equal entry."""
+    for v, i in zip(cand_v, cand_i):
+        if v > vals[k - 1]:
+            pos = int(np.sum(vals >= v))
+            vals = np.insert(vals, pos, v)[:k]
+            idx = np.insert(idx, pos, i)[:k]
+    return vals, idx
+
+
+def _sliced_topk(sims, k, n_slices, tile=128):
+    """Per-slice lists over runs of whole tiles (the kernel's split), then
+    the last CTA's merge: the lists folded in slice order."""
+    n_rows = sims.shape[1]
+    n_tiles = -(-n_rows // tile)
+    out_v = np.full((sims.shape[0], k), NEG_INF, np.float32)
+    out_i = np.full((sims.shape[0], k), -1, np.int32)
+    for q in range(sims.shape[0]):
+        mv, mi = out_v[q], out_i[q]
+        for s in range(n_slices):
+            lo = n_tiles * s // n_slices * tile
+            hi = min(n_tiles * (s + 1) // n_slices * tile, n_rows)
+            sv, si = _fold(np.full(k, NEG_INF, np.float32),
+                           np.full(k, -1, np.int32), sims[q, lo:hi],
+                           np.arange(lo, hi, dtype=np.int32), k)
+            mv, mi = _fold(mv, mi, sv, si, k)
+        out_v[q], out_i[q] = mv, mi
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("case", ["n_valid in a slice", "k > n_valid",
+                                  "duplicated store"])
+def test_slice_merge_equals_the_plain_topk(case):
+    rng = np.random.RandomState(11)
+    q = _unit_rows(rng, (9, 32))
+    if case == "n_valid in a slice":
+        store, k, nv, n_slices = _unit_rows(rng, (700, 32)), 8, 300, 3
+    elif case == "k > n_valid":
+        store, k, nv, n_slices = _unit_rows(rng, (10, 32)), 16, 10, 1
+    else:   # rows i and i + 301 tie exactly; 301 is no tile multiple
+        base = _unit_rows(rng, (301, 32))
+        store, k, nv, n_slices = np.concatenate([base, base]), 16, 602, 4
+    st, qt = torch.from_numpy(store), torch.from_numpy(q)
+    want_v, want_i = topk_retrieval_ref(st, qt, k, nv)
+    sims = (qt @ st[:nv].T).numpy()        # the plain version's product
+    got_v, got_i = _sliced_topk(sims, k, n_slices)
+    assert np.array_equal(got_v, want_v.numpy())
+    assert np.array_equal(got_i, want_i.numpy())
+    if case == "duplicated store":
+        assert np.all(got_i[:, 0] + 301 == got_i[:, 1])
+
+
+def test_slices_fill_the_card():
+    """The grid covers all 132 SMs at the route batch and the stream
+    window, fills its waves to FILL, and keeps MIN_SLICE_TILES tiles a
+    slice; a store of one tile gets one slice."""
+    from repro_torch.kernels.topk_retrieval.kernel import (
+        BQ, FILL, MIN_SLICE_TILES, TN, slices)
+    for b in (16_384, 4_096, 1_024, 512):
+        s = slices(b, 131_072, 132)
+        ctas = -(-b // BQ) * s
+        assert ctas >= 132 and ctas / (132 * -(-ctas // 132)) >= FILL
+        assert 131_072 // TN // s >= MIN_SLICE_TILES
+    assert (slices(16_384, 131_072, 132), slices(4_096, 131_072, 132)) == (
+        2, 8)
+    assert slices(4_096, 700, 132) == 1 and slices(0, 131_072, 132) == 1
