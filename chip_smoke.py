@@ -31,8 +31,11 @@ CPU with the same result.
 
 Routed speculative stream: the paged verify kernel against its plain
 version and, bit for bit, against the decode kernel (V1); the
-shard-statistics kernel against its plain version and the padded, masked
-streaming solve on the card against the CPU (V2); a (2-layer draft, 24-layer verify) h2o-danube-3-4b pair
+shard-statistics kernel against its plain version, the padded, masked
+streaming solve on the card (one launch of the blocked dual ascent a
+window, no host read) against the CPU bit for bit, and the blocked ascent
+kernel against its plain version on every window's inputs (V2); a
+(2-layer draft, 24-layer verify) h2o-danube-3-4b pair
 at full width decoding speculatively, its output held to the verify model
 alone in float32, and a grafted verify model that accepts nearly every draft
 (V3); ``MultiLLMServer(stream=True, spec_pairs=...)`` behind the port's
@@ -48,6 +51,12 @@ same rows laid out as pages (D1); ``RestartEndpoint``
 at h2o-danube-3-4b full width behind ``MultiLLMServer`` on the paged
 endpoint's prompts, beside the paged endpoint (R1); and a float32 smoke pool
 served by both endpoint kinds on the card and the CPU (R2).
+
+The dual solve (3b): one thread-block cluster (16 CTAs where the card
+places one, else 8) against its plain version on the route batch's
+predictions in six cases and on a 131,072 x 16 problem whose rows do not
+fit shared memory; its time at N 16,384, 4,096 and one row per CTA, and
+its design bound.
 
 The retrieval kernel (3xTF32 on the tensor cores; its SASS checked for
 tensor-core instructions in both instances): the vote entry point against
@@ -92,8 +101,6 @@ H100_FP32 = 67e12       # FLOP/s outside the tensor cores (H100 SXM sheet)
 H100_BF16 = 989e12      # FLOP/s of bf16 on the tensor cores, dense
 H100_TF32 = 495e12      # FLOP/s of TF32 on the tensor cores, dense
 H100_HBM = 3.35e12      # bytes/s
-H100_SMS = 132
-PROBE_REPS = 200        # L2 probe: reads of the dual solve's (N, 2M) bytes
 
 
 def gpu_line() -> str:
@@ -895,10 +902,63 @@ def stats_bytes_ops(n, m, lblocks):
     return 4 * (2 * n * m + m + 1 + lblocks + lblocks * (2 + m)), 4.0 * n * m
 
 
+class BlockedCalls:
+    """Stands in for ``ops.blocked_dual_ascent`` and, while ``on``, keeps
+    each call: its inputs and the packed output the path got, to hold them
+    against the plain version after the run."""
+
+    def __init__(self, la_ops):
+        self.ops, self.orig = la_ops, la_ops.blocked_dual_ascent
+        self.calls, self.on = [], False
+        la_ops.blocked_dual_ascent = self
+
+    def __call__(self, *args, **kw):
+        out, reads = self.orig(*args, **kw)
+        if self.on:
+            self.calls.append((args, kw, out))
+        return out, reads
+
+    def restore(self):
+        self.ops.blocked_dual_ascent = self.orig
+
+
+def hold_blocked_calls(torch, say, check, calls, tag):
+    """Holds the blocked ascent's kept calls to the plain version on the
+    card, bit for bit: the output the path got and a fresh launch on the
+    same inputs.  Returns (max |kernel - plain|, the calls whose 256-row
+    blocks are fewer than the cluster's CTAs, so that some CTAs own none)."""
+    from repro_torch.kernels.lagrangian_assign import kernel as la_kernel
+    from repro_torch.kernels.lagrangian_assign.ref import (
+        blocked_dual_ascent_ref)
+    err, exact, sparse = 0.0, True, 0
+    for args, kw, path_out in calls:
+        got = la_kernel.blocked_dual_ascent_cuda(*args, **kw)
+        ctas = la_kernel.cluster[0]
+        want, _ = blocked_dual_ascent_ref(*args, **kw)
+        shards = args[2].numel()
+        blocks = shards * max(-(-(args[0].shape[0] // shards)
+                                // la_kernel.STATS_ROWS), 1)
+        sparse += blocks < ctas
+        err = max(err, float((got - want).abs().max()),
+                  float((path_out - want).abs().max()))
+        exact = (exact and bool(torch.equal(got, want))
+                 and bool(torch.equal(path_out, want)))
+    say(f"{tag}: blocked dual ascent kernel vs plain version on the "
+        f"{len(calls)} calls' inputs (the path's outputs and a fresh launch;"
+        f" {sparse} with fewer 256-row blocks than CTAs): "
+        f"max|kernel-plain|={err:.3g}, bit-identical {exact}")
+    check(len(calls) > 0 and exact, f"{tag}: the blocked dual ascent "
+          "kernel differs from its plain version")
+    return err, sparse
+
+
 def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
     """V2: the shard-statistics kernel against its plain version, and the
-    padded, masked streaming solve with pair columns on the card against
-    the CPU plain path.  Returns the kernels-line row of ``shard_stats``."""
+    padded, masked streaming solve with pair columns on the card (one
+    launch of the blocked dual ascent a window) against the CPU plain path;
+    the blocked ascent kernel against its plain version on every window's
+    inputs.  Returns the kernels-line row of table row 4 (the blocked
+    ascent, which took over the shard statistics' place on the path)."""
     from repro_torch.core import optimizer as opt
     from repro_torch.core.speculative import (AcceptanceTracker, SpecPair,
                                               expand_pair_columns,
@@ -906,8 +966,10 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
     from repro_torch.data import tokenizer
     from repro_torch.data.qaserve import generate
     from repro_torch.kernels.lagrangian_assign import ops as la_ops
-    from repro_torch.kernels.lagrangian_assign.kernel import shard_stats_cuda
-    from repro_torch.kernels.lagrangian_assign.ref import shard_stats_ref
+    from repro_torch.kernels.lagrangian_assign.kernel import (
+        blocked_dual_ascent_cuda, shard_stats_cuda)
+    from repro_torch.kernels.lagrangian_assign.ref import (
+        blocked_dual_ascent_ref, shard_stats_ref)
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err_max, exact = 0.0, True
@@ -930,9 +992,8 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
             f"max|kernel-plain|={err:.3g}, bit-identical {same}")
         check(bool(torch.equal(got[:, 2:], want[:, 2:])),
               f"shard stats N={n} lblocks={lb}: histogram differs")
-        check(bool(((got[:, :2] - want[:, :2]).abs()
-                    <= 1e-5 * want[:, :2].abs().clamp(min=1.0)).all()),
-              f"shard stats N={n} lblocks={lb}: sums differ")
+        check(same, f"shard stats N={n} lblocks={lb}: sums differ from "
+              "the plain version's bits")
 
     # the streaming run: ECCOS-H predictions of four windows, 6 base
     # columns + 2 pair columns, padded to power-of-two buckets
@@ -960,6 +1021,10 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
         c[nv:], q[nv:] = 7.0, 0.5
         start += nv
         windows.append((c, q, nv))
+    # the blocked ascent's calls on the card are kept, to hold the kernel
+    # against its plain version on the same inputs below
+    kept = BlockedCalls(la_ops)
+    fields = ("lam", "lam_load", "iters_run")
     for shards in (1, 4):
         runs = {}
         for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -967,65 +1032,101 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
                                     lr_constraint=3.0, stall_tol=1e-2,
                                     norm_grad=True, shards=shards)
             state, out = None, []
+            kept.on = tag == "card"
             for w, (c, q, nv) in enumerate(windows):
                 loads = torch.full((mp,), float(nv // 4), device=where)
-                l0, r0 = la_ops.stats_launches, opt.host_reads
+                before = (la_ops.blocked_launches, opt.solve_host_reads)
+                st = {}
                 t0 = time.perf_counter()
                 x, info, state = solver.route_window(
                     c.to(where), q.to(where), 0.75, loads, state,
                     share=1.0 / (len(windows) - w), polish_margin=0.03,
-                    n_valid=nv)
+                    n_valid=nv, stats=st)
                 torch.cuda.synchronize()
-                out.append((x[:nv].cpu(), int(info.iters_run),
-                            float(state.lam), time.perf_counter() - t0,
-                            la_ops.stats_launches - l0,
-                            opt.host_reads - r0,
-                            float(state.budget_spent)))
+                after = (la_ops.blocked_launches, opt.solve_host_reads)
+                out.append(dict(
+                    x=x[:nv].cpu(), wall=time.perf_counter() - t0,
+                    solve_ms=st["solve_s"] * 1e3,
+                    counts=[y - z for y, z in zip(after, before)],
+                    spent=float(state.budget_spent),
+                    **{f: getattr(info, f).cpu() for f in fields}))
             runs[tag] = out
         for w, (card, cpu) in enumerate(zip(runs["card"], runs["cpu"])):
-            same_x = bool(torch.equal(card[0], cpu[0]))
-            drift = abs(card[2] - cpu[2]) / (1.0 + abs(cpu[2]))
+            same = {f: bool(torch.equal(card[f], cpu[f]))
+                    for f in ("x",) + fields}
             nv, n_pad = STREAM_WINDOWS[w]
+            blocked_n, reads = card["counts"]
             say(f"masked stream shards={shards} window {w} ({nv} valid of "
-                f"{n_pad}, M={mp}): x equal {same_x}, iters_run "
-                f"{card[1]}/{cpu[1]} (card/CPU), lam rel drift {drift:.3g},"
-                f" card {card[3] * 1e3:.1f} ms with {card[4]} shard-stats "
-                f"launches and {card[5]} host reads, CPU {cpu[3]:.2f} s; "
-                f"ledger spent {card[6]:.6f}/{cpu[6]:.6f} $")
-            check(same_x, f"masked stream shards={shards} window {w}: x")
-            check(card[1] == cpu[1],
-                  f"masked stream shards={shards} window {w}: iters_run")
+                f"{n_pad}, M={mp}): card = CPU (torch.equal) {same}, "
+                f"iters_run {int(card['iters_run'])}, lam "
+                f"{float(card['lam']):.6g}; card solve "
+                f"{card['solve_ms']:.3f} ms ({blocked_n} blocked-ascent "
+                f"launch, {reads} host reads), window "
+                f"{card['wall'] * 1e3:.1f} ms; CPU solve "
+                f"{cpu['solve_ms']:.1f} ms ({cpu['counts'][1]} host reads);"
+                f" ledger spent {card['spent']:.6f}/{cpu['spent']:.6f} $")
+            for f, ok in same.items():
+                check(ok, f"masked stream shards={shards} window {w}: {f} "
+                      "differs between card and CPU")
+            check(blocked_n == 1 and reads == 0,
+                  f"masked stream shards={shards} window {w}: the solve "
+                  "was not one blocked launch without host reads")
+    kept.restore()
 
-    # the kernel at a window's shape (8,192 padded rows, M = 8)
+    # the blocked ascent kernel against its plain version (on the card)
+    # on each window's inputs, as the solve passed them
+    check(len(kept.calls) == 2 * len(windows),
+          "masked stream: a window's solve was not kept")
+    b_err, _ = hold_blocked_calls(torch, say, check, kept.calls,
+                                  "masked stream")
+
+    # the kernel at a window's shape (8,192 padded rows, M = 8, one shard)
+    args, kw, _ = kept.calls[1]
+    k_ms = time_ms(torch, lambda: blocked_dual_ascent_cuda(*args, **kw), 50)
+    p_ms = time_ms(torch, lambda: blocked_dual_ascent_ref(*args, **kw), 3,
+                   warm=1)
+    out = blocked_dual_ascent_cuda(*args, **kw)
+    it_run, nv_rows = int(out[6]), int(args[2].sum())
+    nbytes = 4 * (2 * nv_rows * mp + args[2].numel() + 8 + 4 * mp)
+    nops = float(it_run) * nv_rows * (4 * mp + 1)
+    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    say(f"blocked dual ascent kernel (window 1: {nv_rows} valid of "
+        f"{args[0].shape[0]} rows, M={mp}, {it_run} iterations): "
+        f"{k_ms:.4f} ms ({k_ms * 1e3 / max(it_run, 1):.3f} us/iteration) "
+        f"with its wrapper, plain {p_ms:.1f} ms; bound {bound * 1e3:.3f} us"
+        f" = max({nbytes / 1e3:.1f} KB / 3.35 TB/s, {nops / 1e6:.2f} MFLOP"
+        f" [iters x rows x (4M+1)] / 67 TFLOP/s); library: none")
+
+    # the per-iteration shard-statistics kernel at the same shape
     c, q, nv = windows[1]
     a = c.contiguous()
     b = (-q / float(nv)).contiguous()
     nvs = torch.tensor([float(nv)], device=dev)
     lam = torch.tensor(0.5, device=dev)
     lam2 = torch.zeros(mp, device=dev)
-    k_ms = time_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
+    s_ms = time_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
                                                    lblocks=1), 50)
-    p_ms = time_ms(torch, lambda: shard_stats_ref(a, b, lam, lam2, nvs,
-                                                  lblocks=1), 10)
     g_ms = graph_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
                                                     lblocks=1))
-    nbytes, nops = stats_bytes_ops(a.shape[0], mp, 1)
-    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    s_bytes, s_ops = stats_bytes_ops(a.shape[0], mp, 1)
+    s_bound = max(s_bytes / H100_HBM, s_ops / H100_FP32) * 1e3
     say(f"shard stats kernel (N={a.shape[0]}, M={mp}, lblocks=1): "
-        f"{k_ms * 1e3:.2f} us per call with its wrapper (two launches: "
+        f"{s_ms * 1e3:.2f} us per call with its wrapper (two launches: "
         f"blocks, then the block sums in order), {g_ms * 1e3:.2f} us on the"
         f" device (replayed from a CUDA graph of {GRAPH_CALLS} calls), "
-        f"bound {bound * 1e3:.3f} us = max("
-        f"{nbytes / 1e3:.1f} KB / 3.35 TB/s, {nops / 1e6:.3f} MFLOP / "
-        f"67 TFLOP/s) -> launch latency is the floor; plain {p_ms * 1e3:.1f}"
-        f" us; library: none (no single PyTorch call)")
+        f"bound {s_bound * 1e3:.3f} us; {it_run} such iterations were "
+        f"{it_run * s_ms:.3f} ms of wrapper time before the blocked kernel")
     return dict(name="shard_stats", route="cuda",
-                source="src/repro_torch/csrc/shard_stats.cu",
+                source="src/repro_torch/csrc/dual_solve.cu",
+                entry="blocked_dual_ascent_launch",
                 replaces="src/repro/kernels/lagrangian_assign/kernel.py:368",
-                max_abs_err=err_max, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                max_abs_err=b_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-                else "operations", library_ms=None, graph_ms=g_ms,
-                bit_identical=exact)
+                else "operations", library_ms=None, iterations=it_run,
+                per_iteration_kernel=dict(
+                    source="src/repro_torch/csrc/shard_stats.cu",
+                    ms=s_ms, graph_ms=g_ms, bound_ms=s_bound,
+                    max_abs_err=err_max, bit_identical=exact))
 
 
 def _graft(torch, verify, draft):
@@ -1123,13 +1224,14 @@ def _drained(ep):
 
 def speculative_plane(torch, np, dev, say, check, time_ms):
     """V3, V4 and the float32 smoke spec pool card vs CPU.  Returns the
-    kernels-line row of the paged verify kernel and the shard-statistics
-    launches of the routed stream."""
+    kernels-line row of the paged verify kernel, and the blocked dual-ascent
+    launches of the routed stream and their largest |kernel - plain|."""
     import dataclasses
     import torch.nn.functional as F
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (BalanceAware, HybridPredictor, OmniRouter,
                                   PredictorConfig, RouterConfig)
+    from repro_torch.core import optimizer as opt
     from repro_torch.core.speculative import SpecPair
     from repro_torch.data.qaserve import DEFAULT_POOL, generate
     from repro_torch.data.tokenizer import encode_for_config
@@ -1270,16 +1372,22 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     for rid, text in enumerate(ds.queries):
         srv.submit(Request(rid, encode_for_config(cfg, text),
                            max_new=ROUTED_SPEC_TOKENS), at_step=arrive[rid])
+    # every solve's blocked ascent is kept, to hold it to its plain version
+    kept = BlockedCalls(la_ops)
+    kept.on = True
     pd_ops.launches = pd_ops.verify_launches = 0
-    la_ops.launches = la_ops.stats_launches = 0
+    la_ops.launches = la_ops.blocked_launches = 0
+    reads0 = opt.solve_host_reads
     tr_ops.launches = 0
     t0 = time.perf_counter()
     served = srv.run(lambda b: ds.subset(np.array([r.rid for r in b])))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     v4 = dict(decode=pd_ops.launches, verify=pd_ops.verify_launches,
-              stats=la_ops.stats_launches, vote=tr_ops.launches,
-              dual_solve=la_ops.launches)
+              blocked=la_ops.blocked_launches,
+              solve_host_reads=opt.solve_host_reads - reads0,
+              vote=tr_ops.launches, dual_solve=la_ops.launches)
+    kept.restore()
     per_col = np.bincount([r.endpoint for r in served], minlength=3)
     state = srv._controller.state
     spent = float(state.budget_spent)
@@ -1302,7 +1410,15 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     check(int(router.acceptance.rounds.sum()) == srv.spec_rounds,
           "routed spec stream: acceptance rounds != spec rounds")
     check(spent <= budget, "routed spec stream: budget overspent")
-    check(v4["stats"] > 0 and v4["verify"] > 0 and v4["decode"] > 0
+    check(v4["solve_host_reads"] == 0,
+          "routed spec stream: the solve read the host")
+    check(len(kept.calls) == v4["blocked"],
+          "routed spec stream: a blocked launch was not kept")
+    blocked_err, sparse = hold_blocked_calls(torch, say, check, kept.calls,
+                                             "routed spec stream")
+    check(sparse > 0, "routed spec stream: no window left a CTA of the "
+          "cluster without a block")
+    check(v4["blocked"] > 0 and v4["verify"] > 0 and v4["decode"] > 0
           and v4["vote"] > 0, "routed spec stream: a kernel never ran")
     check(_drained(d_ep) and _drained(v_ep),
           "routed spec stream: allocator leak")
@@ -1384,7 +1500,7 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     check(len(card) == len(host_run) == SPEC_CPU_REQS and n_pair > 0,
           "spec pool card vs CPU: a request lost or no pair request")
     check(same == 1.0, "spec pool card vs CPU: outputs differ")
-    return row, v4["stats"]
+    return row, v4["blocked"], blocked_err
 
 
 def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem):
@@ -2097,6 +2213,269 @@ def seed_loop_phase(torch, say, check, time_ms, dev):
     return launches, seed_ms, fused_ms
 
 
+DUAL_BIG = (131_072, 16)   # 3b: a problem whose rows do not fit shared memory
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared-memory bandwidth (32 banks x 4 B)
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
+    """3b: the cluster dual-solve kernel against its plain version on the
+    route batch's predictions (quality and budget; cold, cold with the
+    stall exit, warm), on two problems whose rows do not fit shared memory
+    (a dyadic grid and continuous random data) and on the two launches that
+    time the fixed cost (one row per CTA; a few rows in one block, so that
+    most CTAs own none); its time at N 16,384, 4,096 and one row per CTA,
+    and its design bound.  Returns the kernels-line row and the solved
+    cases."""
+    from repro_torch.kernels.lagrangian_assign import kernel as la_kernel
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.lagrangian_assign.kernel import (
+        blocked_dual_ascent_cuda, dual_solve_cuda)
+    from repro_torch.kernels.lagrangian_assign.ref import (
+        blocked_dual_ascent_ref, fused_dual_solve_ref)
+
+    n, m = cost.shape
+    loads = torch.full((m,), float(int(0.3 * n)), device=dev)
+    lam_err = 0.0
+
+    def compare(tag, p, iters):
+        nonlocal lam_err
+        out_k = dual_solve_cuda(*p.args, iters=iters, patience=3)
+        chosen = la_kernel.cluster
+        out_r = fused_dual_solve_ref(*p.args, iters=iters, patience=3)
+        xk, ik = la_ops.finish(out_k, p)
+        xr, ir = la_ops.finish(out_r, p)
+        same_x = bool((xk == xr).all())
+        it_k, it_r = int(ik.iters_run), int(ir.iters_run)
+        lam_k, lam_r = float(ik.lam), float(ir.lam)
+        rel = abs(lam_k - lam_r) / (1.0 + abs(lam_r))
+        rel2 = float(((ik.lam_load - ir.lam_load).abs()
+                      / (1.0 + ir.lam_load.abs())).max())
+        lam_err = max(lam_err, abs(lam_k - lam_r))
+        say(f"dual solve {tag}: N={p.a_mat.shape[0]} M={p.a_mat.shape[1]} "
+            f"| cluster {chosen[0]} CTAs, rows in shared memory {chosen[1]}"
+            f" | x equal {same_x}, iters_run {it_k}/{it_r}, lam {lam_k:.6g}/"
+            f"{lam_r:.6g} (rel {rel:.2g}, lam2 rel {rel2:.2g}), "
+            f"feasible {bool(ik.feasible)}")
+        check(chosen[0] > 1, f"dual solve {tag}: a cluster of one CTA")
+        check(same_x, f"dual solve {tag}: x")
+        check(it_k == it_r, f"dual solve {tag}: iters_run")
+        check(rel <= 1e-3 and rel2 <= 1e-3, f"dual solve {tag}: lambda")
+        return out_k, out_r, chosen, it_k
+
+    def x_of(out, a, b):
+        """The assignment the packed output names (``ops.finish``'s argmin
+        on the unified problem)."""
+        mm = a.shape[1]
+        found = out[3] > 0.0
+        lam = torch.where(found, out[1], out[0])
+        lam2 = torch.where(found, out[8 + mm:8 + 2 * mm], out[8:8 + mm])
+        return torch.argmin(a + lam * b + lam2[None, :], dim=1)
+
+    def x_of_lam(out):
+        """The multiplier the packed output's assignment is taken at."""
+        return out[1] if out[3] > 0.0 else out[0]
+
+    def held(tag, out_k, args, iters, nv=None, x_exact=True):
+        """``out_k`` (one launch on ``args``) against the blocked plain
+        version bit for bit (over ``nv``, else one shard of every row), and
+        against the fused plain version by the x / iters_run / lambda
+        contract; without ``x_exact`` the rows whose x differs are counted,
+        beside a float64 trajectory's, and not required to be 0."""
+        a, b = args[0], args[1]
+        rest = args[3:] if nv is not None else args[2:]
+        nv = nv if nv is not None else torch.tensor([float(a.shape[0])],
+                                                    device=dev)
+        out_b, _ = blocked_dual_ascent_ref(a, b, nv, *rest, iters=iters,
+                                           patience=3)
+        out_r = fused_dual_solve_ref(a, b, *rest, iters=iters, patience=3)
+        same_b = bool(torch.equal(out_k, out_b))
+        x_diff = int((x_of(out_k, a, b) != x_of(out_r, a, b)).sum())
+        it_k, it_r = int(out_k[6]), int(out_r[6])
+        rel = float(((out_k[[0, 1]] - out_r[[0, 1]]).abs()
+                     / (1.0 + out_r[[0, 1]].abs())).max())
+        rel2 = float(((out_k[8:] - out_r[8:]).abs()
+                      / (1.0 + out_r[8:].abs())).max())
+        say(f"dual solve {tag}: N={a.shape[0]} M={a.shape[1]}, "
+            f"{nv.numel()} shards | kernel = blocked plain version bit for "
+            f"bit {same_b}; fused plain version: x differs in {x_diff} rows,"
+            f" iters_run {it_k}/{it_r}, lam rel {rel:.2g}, lam2 rel "
+            f"{rel2:.2g}")
+        check(same_b, f"dual solve {tag}: kernel != its order's plain "
+              "version")
+        check(it_k == it_r, f"dual solve {tag}: iters_run differs from "
+              "the fused plain version")
+        check(x_diff == 0 or not x_exact, f"dual solve {tag}: x differs "
+              "from the fused plain version")
+        check(rel <= 1e-3 and rel2 <= 1e-3, f"dual solve {tag}: lambda")
+        if not x_exact:
+            # which float32 order lands nearer exact sums: the fused plain
+            # version with float64 A and B (so float64 sums and lambda)
+            a64, b64 = a.double(), b.double()
+            out_64 = fused_dual_solve_ref(a64, b64, *rest, iters=iters,
+                                          patience=3)
+            x64 = x_of(out_64, a64, b64)
+            lam64 = float(x_of_lam(out_64))
+            say(f"dual solve {tag}: float64 sums give lam {lam64:.9g} "
+                f"(iters_run {int(out_64[6])}); off by: kernel "
+                f"{abs(float(x_of_lam(out_k)) - lam64):.4g}, fused plain "
+                f"{abs(float(x_of_lam(out_r)) - lam64):.4g}; x differs "
+                f"from its x in {int((x_of(out_k, a, b) != x64).sum())} "
+                f"rows (kernel), {int((x_of(out_r, a, b) != x64).sum())} "
+                "(fused plain)")
+
+    solve_cases = {}
+    for mode in ("quality", "budget"):
+        thr = 0.75 if mode == "quality" else budget
+        cold = dict(mode=mode, lr_con=4.0 if mode == "quality" else 50.0,
+                    lr_load=0.5)
+        stream = dict(mode=mode, lr_con=3.0, lr_load=0.5, norm_grad=True,
+                      stall_tol=1e-2)
+        p_cold = la_ops.prepare_problem(cost, cap, thr, loads, **cold)
+        p_sc = la_ops.prepare_problem(cost, cap, thr, loads, **stream)
+        _, i_sc = la_ops.finish(dual_solve_cuda(*p_sc.args, iters=300,
+                                                patience=3), p_sc)
+        p_warm = la_ops.prepare_problem(
+            cost, cap, thr, loads, lam0=i_sc.lam, lam20=i_sc.lam_load,
+            step0=i_sc.iters_run.float(), **stream)
+        for case, p, iters in (("cold", p_cold, 150),
+                               ("cold stall", p_sc, 300),
+                               ("warm", p_warm, 300)):
+            _, _, chosen, it_k = compare(f"{mode} {case}", p, iters)
+            check(chosen[1], f"dual solve {mode} {case}: N={n} rows should "
+                  "sit in shared memory")
+            solve_cases[(mode, case)] = (p, iters, it_k)
+
+    # beyond shared memory: random costs and qualities on a dyadic grid
+    # (torch.randint), so every float32 sum is exact in any order and the
+    # kernel and the fused plain version (Tensor.sum) walk one trajectory
+    # bit for bit; also held bit for bit to the blocked plain version over
+    # one shard, the kernel's own order
+    big_n, big_m = DUAL_BIG
+    gen = torch.Generator(device=dev).manual_seed(23)
+    b_cost = torch.randint(1, 65, (big_n, big_m), generator=gen,
+                           device=dev).float() * 2.0 ** -16
+    b_qual = torch.randint(0, 17, (big_n, big_m), generator=gen,
+                           device=dev).float() / 16.0
+    p_big = la_ops.prepare_problem(
+        b_cost, b_qual, 0.9, torch.full((big_m,), float(big_n // 12),
+                                        device=dev),
+        mode="quality", lr_con=4.0, lr_load=0.5)
+    out_k, out_r, chosen, _ = compare("beyond shared memory", p_big, 150)
+    check(not chosen[1], f"dual solve N={big_n} M={big_m}: the rows should "
+          "not fit shared memory")
+    out_b, _ = blocked_dual_ascent_ref(
+        p_big.a_mat, p_big.b_mat, torch.tensor([float(big_n)], device=dev),
+        *p_big.args[2:], iters=150, patience=3)
+    same_blocked = bool(torch.equal(out_k, out_b))
+    same_fused = bool(torch.equal(out_k[:2], out_r[:2])
+                      and torch.equal(out_k[8:], out_r[8:]))
+    say(f"dual solve beyond shared memory: kernel = blocked plain version "
+        f"(one shard) bit for bit {same_blocked}; lam, lam_best, lam2 = the "
+        f"fused plain version's bit for bit {same_fused}")
+    check(same_blocked, "dual solve beyond shared memory: kernel != its "
+          "order's plain version")
+    check(same_fused, "dual solve beyond shared memory: exact sums, yet "
+          "the multipliers differ from the fused plain version")
+    del b_cost, b_qual, p_big
+    # beyond shared memory on continuous random data: sums that round, so
+    # a fault in the L2 path's order shows against the blocked plain
+    # version.  The fused plain version sums with Tensor.sum in an order
+    # of its own: its lambda drifts from the kernel's by float32 rounding,
+    # and on 131,072 continuous rows a few sit within that drift of a tie,
+    # so there the rows whose x differs are counted, not required to be 0
+    c_cost = torch.rand(big_n, big_m, generator=gen, device=dev) * 1e-3
+    c_qual = torch.rand(big_n, big_m, generator=gen, device=dev)
+    p_cont = la_ops.prepare_problem(
+        c_cost, c_qual, 0.9, torch.full((big_m,), float(big_n // 12),
+                                        device=dev),
+        mode="quality", lr_con=4.0, lr_load=0.5)
+    out_k = dual_solve_cuda(*p_cont.args, iters=150, patience=3)
+    check(not la_kernel.cluster[1], f"dual solve N={big_n} M={big_m} "
+          "continuous: the rows should not fit shared memory")
+    held("beyond shared memory, continuous", out_k, p_cont.args, 150,
+         x_exact=False)
+    del c_cost, c_qual, p_cont
+
+    p, iters, it_run = solve_cases[("quality", "cold")]
+    d_ms = time_ms(torch, lambda: dual_solve_cuda(*p.args, iters=iters,
+                                                  patience=3), REPS)
+    c_size, in_smem = la_kernel.cluster
+    d_plain = time_ms(torch, lambda: fused_dual_solve_ref(
+        *p.args, iters=iters, patience=3), 5, warm=1)
+    pw, iters_w, it_w = solve_cases[("quality", "warm")]
+    d_warm = time_ms(torch, lambda: dual_solve_cuda(*pw.args, iters=iters_w,
+                                                    patience=3), REPS)
+    n4 = 4_096
+    args_4k = (p.a_mat[:n4].contiguous(), p.b_mat[:n4].contiguous(),
+               *p.args[2:])
+    d_4k = time_ms(torch, lambda: dual_solve_cuda(*args_4k, iters=iters,
+                                                  patience=3), REPS)
+    # the fixed cost of an iteration (barrier, gather, in-order sums,
+    # bookkeeping) with no rows to speak of (stall_tol 0, so every
+    # iteration runs): one row per CTA (c_size one-row shards through the
+    # blocked entry point, so c_size blocks to gather and c_size shard
+    # sums) and c_size rows in one block of one shard; the smaller is the
+    # fixed cost of the design bound
+    args_1 = (p.a_mat[:c_size].contiguous(), p.b_mat[:c_size].contiguous(),
+              torch.ones(c_size, device=dev), *p.args[2:])
+    held(f"one row per CTA ({c_size} one-row shards)",
+         blocked_dual_ascent_cuda(*args_1, iters=iters, patience=3), args_1,
+         iters, nv=args_1[2])
+    check(la_kernel.cluster[0] == c_size, "dual solve: the one-row-per-CTA "
+          "launch took another cluster size")
+    row_ms = time_ms(torch, lambda: blocked_dual_ascent_cuda(
+        *args_1, iters=iters, patience=3), REPS)
+    args_b = (p.a_mat[:c_size].contiguous(), p.b_mat[:c_size].contiguous(),
+              *p.args[2:])
+    held(f"{c_size} rows in one block ({c_size - 1} CTAs own none)",
+         dual_solve_cuda(*args_b, iters=iters, patience=3), args_b, iters)
+    block_ms = time_ms(torch, lambda: dual_solve_cuda(
+        *args_b, iters=iters, patience=3), REPS)
+    fixed_ms = min(row_ms, block_ms)
+    t_fixed = fixed_ms * 1e-3 / iters                       # s / iteration
+    smem_rate = SMEM_BYTES_PER_CLOCK * sm_clock_hz()        # bytes/s, one SM
+    ab_bytes = 4 * n * 2 * m
+    d_design = it_run * (t_fixed + ab_bytes / (c_size * smem_rate)) * 1e3
+    d_bytes = 4 * (n * 2 * m + 6 + 2 * m + 8 + 3 * m)
+    d_ops = float(it_run) * n * (4 * m + 1)
+    d_bound = max(d_bytes / H100_HBM, d_ops / H100_FP32) * 1e3
+    say(f"dual solve timing (quality, cold, M={m}, {it_run} iterations; a "
+        f"cluster of {c_size} CTAs, rows in shared memory {in_smem}): "
+        f"N={n} kernel {d_ms:.4f} ms ({d_ms * 1e3 / max(it_run, 1):.3f} "
+        f"us/iteration), N={n4} {d_4k:.4f} ms, one row per CTA "
+        f"({c_size} one-row shards) {row_ms:.4f} ms "
+        f"({row_ms * 1e3 / iters:.3f} us/iteration), {c_size} rows in one "
+        f"block {block_ms:.4f} ms ({block_ms * 1e3 / iters:.3f} "
+        f"us/iteration); plain {d_plain:.3f} ms; warm ({it_w} iterations) "
+        f"kernel {d_warm:.4f} ms")
+    say(f"dual solve design bound: {d_design:.4f} ms = {it_run} x "
+        f"({t_fixed * 1e6:.3f} us fixed + {ab_bytes / 1e3:.0f} KB / "
+        f"({c_size} SMs x {smem_rate / 1e9:.1f} GB/s shared memory)); "
+        f"kernel at {d_design / d_ms:.1%} of it; whole-card floor "
+        f"{d_bound * 1e3:.2f} us = max({d_bytes / 1e3:.0f} KB / 3.35 TB/s, "
+        f"{d_ops / 1e6:.1f} MFLOP [iters x N x (4M+1)] / 67 TFLOP/s)")
+    row = dict(
+        name="dual_solve", route="cuda",
+        source="src/repro_torch/csrc/dual_solve.cu",
+        replaces="src/repro/kernels/lagrangian_assign/kernel.py:251",
+        max_abs_err=lam_err, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound,
+        bound_by="bytes" if d_bytes / H100_HBM > d_ops / H100_FP32
+        else "operations", library_ms=None, design_bound_ms=d_design,
+        cluster=c_size, rows_in_shared_memory=in_smem, ms_n4096=d_4k,
+        ms_one_row_per_cta=row_ms, ms_one_block=block_ms,
+        fixed_us_per_iteration=t_fixed * 1e6)
+    return row, solve_cases
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2131,9 +2510,7 @@ def main() -> int:
     from repro_torch.data.qaserve import generate
     from repro_torch.kernels import _build
     from repro_torch.kernels.lagrangian_assign import ops as la_ops
-    from repro_torch.kernels.lagrangian_assign.kernel import (
-        dual_solve_cuda, l2_read_probe_cuda)
-    from repro_torch.kernels.lagrangian_assign.ref import fused_dual_solve_ref
+    from repro_torch.kernels.lagrangian_assign.kernel import dual_solve_cuda
     from repro_torch.kernels.topk_retrieval import ops as tr_ops
 
     def say(*parts):
@@ -2199,101 +2576,9 @@ def main() -> int:
                             device=dev),
             torch.as_tensor(route_ds.price_out, dtype=torch.float32,
                             device=dev))
-    loads = torch.full((m,), float(int(0.3 * N_ROUTE)), device=dev)
     budget = float(cost.min(1).values.sum()) * 1.6
-    lam_err = 0.0
-    solve_cases = {}
-    for mode in ("quality", "budget"):
-        thr = 0.75 if mode == "quality" else budget
-        cold = dict(mode=mode, lr_con=4.0 if mode == "quality" else 50.0,
-                    lr_load=0.5)
-        stream = dict(mode=mode, lr_con=3.0, lr_load=0.5, norm_grad=True,
-                      stall_tol=1e-2)
-        p_cold = la_ops.prepare_problem(cost, cap, thr, loads, **cold)
-        p_sc = la_ops.prepare_problem(cost, cap, thr, loads, **stream)
-        _, i_sc = la_ops.finish(dual_solve_cuda(*p_sc.args, iters=300,
-                                                patience=3), p_sc)
-        p_warm = la_ops.prepare_problem(
-            cost, cap, thr, loads, lam0=i_sc.lam, lam20=i_sc.lam_load,
-            step0=i_sc.iters_run.float(), **stream)
-        for case, p, iters in (("cold", p_cold, 150),
-                               ("cold stall", p_sc, 300),
-                               ("warm", p_warm, 300)):
-            out_k = dual_solve_cuda(*p.args, iters=iters, patience=3)
-            out_r = fused_dual_solve_ref(*p.args, iters=iters, patience=3)
-            xk, ik = la_ops.finish(out_k, p)
-            xr, ir = la_ops.finish(out_r, p)
-            same_x = bool((xk == xr).all())
-            it_k, it_r = int(ik.iters_run), int(ir.iters_run)
-            lam_k, lam_r = float(ik.lam), float(ir.lam)
-            rel = abs(lam_k - lam_r) / (1.0 + abs(lam_r))
-            rel2 = float(((ik.lam_load - ir.lam_load).abs()
-                          / (1.0 + ir.lam_load.abs())).max())
-            lam_err = max(lam_err, abs(lam_k - lam_r))
-            say(f"dual solve {mode} {case}: N={N_ROUTE} M={m} | x equal "
-                f"{same_x}, iters_run {it_k}/{it_r}, lam {lam_k:.6g}/"
-                f"{lam_r:.6g} (rel {rel:.2g}, lam2 rel {rel2:.2g}), "
-                f"feasible {bool(ik.feasible)}")
-            check(same_x, f"dual solve {mode} {case}: x")
-            check(it_k == it_r, f"dual solve {mode} {case}: iters_run")
-            check(rel <= 1e-3 and rel2 <= 1e-3,
-                  f"dual solve {mode} {case}: lambda")
-            solve_cases[(mode, case)] = (p, iters, it_k)
-
-    p, iters, it_run = solve_cases[("quality", "cold")]
-    d_ms = time_ms(torch, lambda: dual_solve_cuda(*p.args, iters=iters,
-                                                  patience=3), REPS)
-    d_plain = time_ms(torch, lambda: fused_dual_solve_ref(
-        *p.args, iters=iters, patience=3), 5, warm=1)
-    pw, iters_w, it_w = solve_cases[("quality", "warm")]
-    d_warm = time_ms(torch, lambda: dual_solve_cuda(*pw.args, iters=iters_w,
-                                                    patience=3), REPS)
-    d_bytes = 4 * (N_ROUTE * 2 * m + 6 + 2 * m + 8 + 3 * m)
-    d_ops = float(it_run) * N_ROUTE * (4 * m + 1)
-    d_bound = max(d_bytes / H100_HBM, d_ops / H100_FP32) * 1e3
-    # The design's own bound: one CTA re-reads the (N, 2M) problem from L2
-    # every iteration, so each iteration takes at least its bytes over one
-    # SM's L2 read rate (measured by the probe) or its operations over one
-    # SM's share of the fp32 rate, plus the fixed cost of the iteration's
-    # barriers, reductions and thread-0 bookkeeping (measured as the
-    # kernel's time per iteration at one row per thread, less that row's
-    # bytes).
-    ab_bytes = 4 * N_ROUTE * 2 * m
-    probe = torch.rand(N_ROUTE * 2 * m, device=dev)
-    probe_ms = time_ms(torch, lambda: l2_read_probe_cuda(probe, PROBE_REPS),
-                       REPS)
-    sm_l2 = ab_bytes * PROBE_REPS / (probe_ms * 1e-3)            # bytes/s
-    rows_1 = slice(0, 1024)
-    args_1 = (p.args[0][rows_1], p.args[1][rows_1], *p.args[2:])
-    small_ms = time_ms(torch, lambda: dual_solve_cuda(*args_1, iters=iters,
-                                                      patience=3), REPS)
-    t_fixed = max(small_ms * 1e-3 / iters - 4 * 1024 * 2 * m / sm_l2, 0.0)
-    sm_fp32 = H100_FP32 / H100_SMS
-    per_iter = max(ab_bytes / sm_l2, N_ROUTE * (4 * m + 1) / sm_fp32)
-    d_design = it_run * (per_iter + t_fixed) * 1e3
-    say(f"dual solve timing (quality, cold, N={N_ROUTE}, M={m}, {it_run} "
-        f"iterations): kernel {d_ms:.3f} ms ({d_ms * 1e3 / max(it_run, 1):.2f}"
-        f" us/iteration, {it_run * ab_bytes / d_ms / 1e6:.1f} GB/s"
-        f" of A|B re-read), plain {d_plain:.3f} ms; warm ({it_w} iterations)"
-        f" kernel {d_warm:.3f} ms")
-    say(f"dual solve bound of this one-CTA design: {d_design:.3f} ms = "
-        f"{it_run} x (max({ab_bytes / 1e3:.0f} KB / {sm_l2 / 1e9:.1f} GB/s "
-        f"one-SM L2 read [probe: {PROBE_REPS} reads in {probe_ms:.3f} ms], "
-        f"{N_ROUTE * (4 * m + 1) / 1e3:.0f} kFLOP / "
-        f"{sm_fp32 / 1e12:.3f} TFLOP/s one SM's fp32) + {t_fixed * 1e6:.2f} "
-        f"us fixed per iteration [1,024 rows: {small_ms:.3f} ms for {iters}]"
-        f"); kernel at {d_design / d_ms:.1%} of it")
-    say(f"dual solve whole-card floor (a multi-CTA design): "
-        f"{d_bound * 1e3:.2f} us = max({d_bytes / 1e3:.0f} KB / 3.35 TB/s, "
-        f"{d_ops / 1e6:.1f} MFLOP [iters x N x (4M+1)] / 67 TFLOP/s)")
-    del probe
-    rows["dual_solve"] = dict(
-        name="dual_solve", route="cuda",
-        source="src/repro_torch/csrc/dual_solve.cu",
-        replaces="src/repro/kernels/lagrangian_assign/kernel.py:251",
-        max_abs_err=lam_err, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound,
-        bound_by="bytes" if d_bytes / H100_HBM > d_ops / H100_FP32
-        else "operations", library_ms=None, design_bound_ms=d_design)
+    rows["dual_solve"], solve_cases = dual_solve_phase(
+        torch, say, check, time_ms, dev, cost, cap, budget)
 
     # 3c. top-k retrieval; 3d. the assign step; 3e. the seed's
     # per-iteration solve and the legacy / sweep entry points
@@ -2410,10 +2695,12 @@ def main() -> int:
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
     # V3, V4 and the smoke spec pool card vs CPU
-    rows["paged_verify_attention"], stats_launches = speculative_plane(
-        torch, np, dev, say, check, time_ms)
+    (rows["paged_verify_attention"], blocked_launches,
+     blocked_err) = speculative_plane(torch, np, dev, say, check, time_ms)
     rows["paged_verify_attention"]["max_abs_err"] = verify_err
-    rows["shard_stats"]["launches"] = stats_launches
+    rows["shard_stats"]["launches"] = blocked_launches
+    rows["shard_stats"]["max_abs_err"] = max(
+        rows["shard_stats"]["max_abs_err"], blocked_err)
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

@@ -42,15 +42,16 @@ import numpy as np
 import torch
 
 from repro_torch.common import default_device
-from repro_torch.kernels.lagrangian_assign.ref import sqrt32
+from repro_torch.kernels.lagrangian_assign.ref import (in_shard_order,
+                                                       ordered_sum, sqrt32)
 
 SYNC_EVERY = 32      # repair/polish moves between host reads of `done`
-SOLVE_SYNC_EVERY = 8  # blocked dual iterations between host reads of the
-#                       loop's active flag (frozen iterations change nothing)
 
 # host reads of a device flag made by the repair/polish loops and the
-# blocked solve's loop (a sync each on the card)
+# blocked solve's loop (a sync each on the card); solve_host_reads counts
+# the blocked solve's alone (none on the card: its loop is one launch)
 host_reads = 0
+solve_host_reads = 0
 
 
 class SolveInfo(NamedTuple):
@@ -143,35 +144,10 @@ def _chosen_sum(mat, x):
     return mat.gather(1, x[:, None]).sum()
 
 
-def _ordered_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in one fixed order on every device: a
-    pairwise tree of elementwise float32 adds (zero padding to a power of
-    two).  ``Tensor.sum`` reduces in an order of its own on each device;
-    the masked window solve takes every float sum this way, so the card
-    and the CPU walk the same trajectory bit for bit."""
-    n = v.shape[-1]
-    width = 1 << max(n - 1, 0).bit_length()
-    if width > n:
-        v = torch.nn.functional.pad(v, (0, width - n))
-    while v.shape[-1] > 1:
-        h = v.shape[-1] // 2
-        v = v[..., :h] + v[..., h:]
-    return v[..., 0]
-
-
-def _in_shard_order(part: torch.Tensor) -> torch.Tensor:
-    """Sum per-shard partials (lblocks, ...) in shard order (the
-    reference's ordered cross-shard combine)."""
-    total = part[0]
-    for s in range(1, part.shape[0]):
-        total = total + part[s]
-    return total
-
-
 def _shards_sum(v: torch.Tensor) -> torch.Tensor:
     """(lblocks, ...) per-shard values -> their sum: each shard's values in
-    :func:`_ordered_sum` order, then the partials in shard order."""
-    return _in_shard_order(_ordered_sum(v.reshape(v.shape[0], -1)))
+    :func:`ordered_sum` order, then the partials in shard order."""
+    return in_shard_order(ordered_sum(v.reshape(v.shape[0], -1)))
 
 
 def _solve_ref(cost, quality, threshold, loads, lam0=0.0, lam20=None,
@@ -400,7 +376,7 @@ def _masked_chosen_sum(mat, x, vf):
     if vf is None:
         return _chosen_sum(mat, x)
     # a masked window (the blocked solve): the device-independent order
-    return _ordered_sum(mat.gather(1, x[:, None])[:, 0] * vf)
+    return ordered_sum(mat.gather(1, x[:, None])[:, 0] * vf)
 
 
 def primal_polish(x, cost, quality, alpha, loads, n_valid=None, *,
@@ -504,12 +480,13 @@ def brute_force(cost: np.ndarray, quality: np.ndarray, threshold: float,
 # The only cross-query coupling in the dual ascent is the per-iteration
 # reduction [ΣA, ΣB, histogram].  ``shards`` turns it into a BLOCKED one:
 # the (N, M) problem is viewed as (S, N/S, M), each shard produces its
-# contiguous partial sums (``ops.shard_stats``: the hand-written kernel on
-# the card, the plain version on the CPU), and the partials combine in shard
-# order.  Repair and polish run shard-locally against an exact integer
-# partition of the capacity vector.  The same path carries the masked
-# window: ``n_valid`` marks the valid-row prefix of a padded window; padding
-# rows are zeroed out of every matrix, masked out of every histogram and
+# contiguous partial sums, and the partials combine in shard order; the
+# whole ascent is ``ops.blocked_dual_ascent`` (one launch of the cluster
+# kernel on the card, the plain loop over ``shard_stats_ref`` on the CPU).
+# Repair and polish run shard-locally against an exact integer partition
+# of the capacity vector.  The same path carries the masked window:
+# ``n_valid`` marks the valid-row prefix of a padded window; padding rows
+# are zeroed out of every matrix, masked out of every histogram and
 # excluded from repair/polish moves, so they never touch the ledger.  The
 # reference runs this core on one device or one shard per device; the port
 # runs every shard on one device (multi-GPU waits).
@@ -526,43 +503,19 @@ def _shard_quotas(loads, shard_ids, gshards: int):
                        loads[None, :])
 
 
-def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
-                         lr_eff, lr_load_eff, lam0, lam20, stall_tol, step0,
-                         n_valid, *, mode: str, iters: int, patience: int,
-                         lblocks: int, polish: bool, norm_grad: bool,
-                         lr_con: float, lr_load: float,
-                         stats: Optional[dict] = None):
-    """Dual ascent (+ optional repair/polish + ledger sums) over ``lblocks``
-    query shards, all on the tensors' device.  Returns (x (N,), SolveInfo,
-    final csum, final qsum).
-
-    The loop keeps the reference's semantics (stall early exit,
-    ``iters_run`` exact) without reading its condition every iteration: an
-    iteration past the exit is frozen on the device (it changes nothing, as
-    in the fused TPU kernel), and the host reads the loop's active flag once
-    every ``SOLVE_SYNC_EVERY`` iterations."""
-    global host_reads
-    from repro_torch.kernels.lagrangian_assign.ops import shard_stats
+def _blocked_prologue(a_mat, b_mat, t_eff, loads, lr_eff, lr_load_eff, lam0,
+                      lam20, n_valid, *, lblocks: int, norm_grad: bool,
+                      lr_con: float, lr_load: float):
+    """The problem the blocked ascent runs on: the per-shard valid-row
+    counts ``nv_loc`` (the padding is a suffix of the window) and, with
+    ``norm_grad``, the scale-free conditioning.  Returns (a_mat, b_mat,
+    nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar, b_bar)."""
     dev = a_mat.device
     nloc, m = a_mat.shape
     nl = nloc // lblocks
     one, tiny = _f32(1.0, dev), _f32(1e-30, dev)
     shard_ids = torch.arange(lblocks, device=dev)
-    # per-shard valid-row counts: the padding is a suffix of the window
     nv_loc = torch.clamp(n_valid - shard_ids.float() * nl, 0.0, float(nl))
-    rows = torch.arange(nl, device=dev)
-    valid2 = rows[None, :] < nv_loc.long()[:, None]           # (S, nl)
-    cols = torch.arange(m, device=dev)
-    c3 = cost.reshape(lblocks, nl, m)
-    q3 = quality.reshape(lblocks, nl, m)
-
-    def onehot(x2):
-        return ((x2[..., None] == cols) & valid2[..., None]).float()
-
-    def chosen(mat3, x2):
-        vals = mat3.gather(2, x2[..., None])[..., 0]
-        return _shards_sum(torch.where(valid2, vals, 0.0))
-
     a_bar = b_bar = one
     if norm_grad:
         denom = n_valid * _f32(m, dev) + tiny
@@ -573,55 +526,66 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
         a_mat, b_mat = a_mat / a_bar, b_mat / b_bar
         t_eff = t_eff / b_bar
         lr_eff = _f32(lr_con, dev) / (one + t_eff.abs())
-        lr_load_eff = _f32(lr_load, dev) / (one + _ordered_sum(loads)
+        lr_load_eff = _f32(lr_load, dev) / (one + ordered_sum(loads)
                                              / _f32(m, dev))
         lam0 = lam0 * b_bar / a_bar
         lam20 = lam20 / a_bar
-    a_mat, b_mat = a_mat.contiguous(), b_mat.contiguous()
+    return (a_mat.contiguous(), b_mat.contiguous(), nv_loc, t_eff, lr_eff,
+            lr_load_eff, _f32(lam0, dev).reshape(()),
+            _f32(lam20, dev).reshape(m), a_bar, b_bar)
+
+
+def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
+                         lr_eff, lr_load_eff, lam0, lam20, stall_tol, step0,
+                         n_valid, *, mode: str, iters: int, patience: int,
+                         lblocks: int, polish: bool, norm_grad: bool,
+                         lr_con: float, lr_load: float,
+                         stats: Optional[dict] = None):
+    """Dual ascent (+ optional repair/polish + ledger sums) over ``lblocks``
+    query shards, all on the tensors' device.  Returns (x (N,), SolveInfo,
+    final csum, final qsum).
+
+    The whole ascent is one call of ``ops.blocked_dual_ascent``: one
+    launch of the cluster kernel on the card (no host read), the plain loop
+    on the CPU (a host read every ``ref.SYNC_EVERY`` iterations); both keep
+    the reference's semantics (stall early exit, ``iters_run`` exact) and
+    give the same bits."""
+    global host_reads, solve_host_reads
+    from repro_torch.kernels.lagrangian_assign.ops import blocked_dual_ascent
+    dev = a_mat.device
+    nloc, m = a_mat.shape
+    nl = nloc // lblocks
+    (a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar,
+     b_bar) = _blocked_prologue(a_mat, b_mat, t_eff, loads, lr_eff,
+                                lr_load_eff, lam0, lam20, n_valid,
+                                lblocks=lblocks, norm_grad=norm_grad,
+                                lr_con=lr_con, lr_load=lr_load)
+    shard_ids = torch.arange(lblocks, device=dev)
+    rows = torch.arange(nl, device=dev)
+    valid2 = rows[None, :] < nv_loc.long()[:, None]           # (S, nl)
+    cols = torch.arange(m, device=dev)
+    c3 = cost.reshape(lblocks, nl, m)
+    q3 = quality.reshape(lblocks, nl, m)
     a3 = a_mat.reshape(lblocks, nl, m)
     b3 = b_mat.reshape(lblocks, nl, m)
 
+    def onehot(x2):
+        return ((x2[..., None] == cols) & valid2[..., None]).float()
+
+    def chosen(mat3, x2):
+        vals = mat3.gather(2, x2[..., None])[..., 0]
+        return _shards_sum(torch.where(valid2, vals, 0.0))
+
     t0 = time.perf_counter()
-    lam = _f32(lam0, dev).reshape(())
-    lam2 = _f32(lam20, dev).reshape(m)
-    best_a = _f32(float("inf"), dev)
-    lam_b, lam2_b = _f32(0.0, dev), torch.zeros(m, device=dev)
-    found = torch.zeros((), dtype=torch.bool, device=dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    t_run = torch.zeros((), dtype=torch.int32, device=dev)
-    t = 0
-    while t < iters:
-        for _ in range(min(SOLVE_SYNC_EVERY, iters - t)):
-            active = stall < patience
-            tot = _in_shard_order(shard_stats(a_mat, b_mat, lam, lam2,
-                                              nv_loc, lblocks=lblocks))
-            asum, bsum, cnt = tot[0], tot[1], tot[2:]
-            feasible = active & (bsum <= t_eff) & torch.all(cnt <= loads)
-            better = feasible & (asum < best_a)
-            best_a = torch.where(better, asum, best_a)
-            lam_b = torch.where(better, lam, lam_b)
-            lam2_b = torch.where(better, lam2, lam2_b)
-            found = found | feasible
-            step = one / sqrt32(one + step0 + t)
-            lam_new = torch.clamp(lam + lr_eff * step * (bsum - t_eff),
-                                  min=0.0)
-            lam2_new = torch.clamp(
-                lam2 + lr_load_eff * step * (cnt - loads), min=0.0)
-            delta = ((lam_new - lam).abs()
-                     + _ordered_sum((lam2_new - lam2).abs()))
-            denom = one + lam_new.abs() + _ordered_sum(lam2_new.abs())
-            resid = (bsum - t_eff).abs() / (one + t_eff.abs())
-            stalled = found & ((delta < stall_tol * denom)
-                               | (resid < stall_tol))
-            # cumulative — see _solve_ref
-            stall = stall + (active & stalled).int()
-            lam = torch.where(active, lam_new, lam)
-            lam2 = torch.where(active, lam2_new, lam2)
-            t_run = t_run + active.int()
-            t += 1
-        host_reads += 1
-        if not bool(stall < patience):
-            break
+    out, reads = blocked_dual_ascent(
+        a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
+        stall_tol, step0, loads, iters=iters, patience=patience)
+    host_reads += reads
+    solve_host_reads += reads
+    lam, lam_b, best_a = out[0], out[1], out[2]
+    found = out[3] > 0.0
+    t_run = out[6].to(torch.int32)
+    lam2, lam2_b = out[8:8 + m], out[8 + m:8 + 2 * m]
 
     lam_sel = torch.where(found, lam_b, lam)
     lam2_sel = torch.where(found, lam2_b, lam2)
@@ -713,8 +677,8 @@ class DualSolver:
 
     ``shards`` > 1, or a masked window (``n_valid``), takes the blocked
     solve (:func:`_blocked_window_core`): every shard on the one device,
-    its per-iteration statistics through ``ops.shard_stats`` (the kernel on
-    the card).  The reference's query mesh (one shard per device) waits for
+    the whole ascent through ``ops.blocked_dual_ascent`` (one kernel
+    launch on the card).  The reference's query mesh (one shard per device) waits for
     multi-GPU ``torch.distributed``.
     """
 

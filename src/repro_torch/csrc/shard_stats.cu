@@ -23,8 +23,9 @@
 //
 // Design (simple first): grid (blocks per shard, lblocks), one 256-thread CTA
 // per 256-row block of a shard, one row per thread.  Each CTA writes its
-// block's partial [sum A, sum B, histogram] in a fixed order: a warp-shuffle
-// tree inside each warp, then warp 0 over the eight warp partials; the
+// block's partial [sum A, sum B, histogram] in a fixed order
+// (block_partial.cuh, shared with the dual solve): a warp-shuffle tree
+// inside each warp, then thread 0 over the eight warp partials; the
 // histogram is exact (ballot counts).  A second small launch sums each
 // shard's block partials in block order, one thread per output column.  No
 // float atomics, so every run gives the same bits.  The TPU kernel carried
@@ -44,54 +45,12 @@
 // microsecond at N = 16,384, M = 6, so the launch latency is the floor.
 #include <cuda_runtime.h>
 
+#include "block_partial.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;      // rows per block (one per thread)
-constexpr int WARPS = THREADS / 32;
-constexpr int MMAX = 16;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(FULL, v, o));
-  return v;
-}
-
-// Write one block's partial [sum va, sum vb, histogram of col] (2 + m
-// floats) to out: a shuffle-down tree inside each warp, then thread 0 over
-// the warp partials in order; the histogram from ballot counts.  Every
-// thread of the block calls it; col is -1 for a row that adds nothing.
-__device__ inline void block_partial(float va, float vb, int col, int m,
-                                     float* __restrict__ out) {
-  __shared__ float s_wa[WARPS], s_wb[WARPS];
-  __shared__ int s_wc[WARPS][MMAX];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  va = warp_sum(va);
-  vb = warp_sum(vb);
-  for (int j = 0; j < m; ++j) {
-    const int c = __popc(__ballot_sync(FULL, col == j));
-    if (lane == 0) s_wc[warp][j] = c;
-  }
-  if (lane == 0) {
-    s_wa[warp] = va;
-    s_wb[warp] = vb;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float ta = 0.f, tb = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      ta = __fadd_rn(ta, s_wa[w]);
-      tb = __fadd_rn(tb, s_wb[w]);
-    }
-    out[0] = ta;
-    out[1] = tb;
-    for (int j = 0; j < m; ++j) {
-      int c = 0;
-      for (int w = 0; w < WARPS; ++w) c += s_wc[w][j];
-      out[2 + j] = (float)c;
-    }
-  }
-}
+using ascent::MMAX;
+constexpr int THREADS = ascent::UNIT;   // rows per block (one per thread)
 
 // grid (bps, lblocks); part (lblocks, bps, 2 + M)
 __global__ void __launch_bounds__(THREADS)
@@ -122,7 +81,7 @@ block_stats_kernel(const float* __restrict__ a, const float* __restrict__ b,
     va = a[row + col];
     vb = b[row + col];
   }
-  block_partial(va, vb, col, m, part + ((size_t)s * bps + blk) * (2 + m));
+  ascent::block_partial<1>(va, vb, col, m, part + ((size_t)s * bps + blk) * (2 + m));
 }
 
 // grid (bps); part (bps, 2 + M): per 256-row block [qsum, csum, histogram]
@@ -158,7 +117,7 @@ assign_step_kernel(const float* __restrict__ cost,
     vq = quality[row + col];
     vc = cost[row + col];
   }
-  block_partial(vq, vc, col, m, part + (size_t)blockIdx.x * (2 + m));
+  ascent::block_partial<1>(vq, vc, col, m, part + (size_t)blockIdx.x * (2 + m));
 }
 
 // grid (lblocks), one thread per output column: block partials in order

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports a plain C launcher and compiles on its own
 into ``build/repro_torch/lib<name>-<hash>.so`` at the repository root (the
-hash covers the source and the flags, so an edited source never loads a
-stale library).  Nothing is built at import: the first launch builds, or
-:func:`build_all` builds every source at once, one ``nvcc`` per source, all
-started together.  A failed build raises; there is no fallback.
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source never loads a stale library).  Nothing is built at
+import: the first launch builds, or :func:`build_all` builds every source
+at once, one ``nvcc`` per source, all started together.  A failed build
+raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(FLAGS[name]).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{tag}.so"
 

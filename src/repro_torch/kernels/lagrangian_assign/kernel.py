@@ -1,17 +1,23 @@
-"""Python wrapper of the hand-written CUDA dual solve (``csrc/dual_solve.cu``).
+"""Python wrappers of the hand-written CUDA kernels of the dual solve.
 
-``dual_solve_cuda`` runs the whole dual ascent in one launch on the current
-stream and returns the packed, fully finalised ``(8 + 3M,)`` vector — the
-contract of ``ref.fused_dual_solve_ref``.  It takes CUDA tensors only; the
-library builds from the repository's sources at first use.
+``dual_solve_cuda`` (``csrc/dual_solve.cu``) runs the whole dual ascent in
+one launch of one thread-block cluster on the current stream and returns
+the packed, fully finalised ``(8 + 3M,)`` vector — the contract of
+``ref.fused_dual_solve_ref``.  ``blocked_dual_ascent_cuda`` (the same
+kernel's second entry point) runs the blocked, masked window solve's whole
+ascent over S query shards — the contract of
+``ref.blocked_dual_ascent_ref``, bit for bit.  Both record the cluster
+they launched in ``cluster`` (CTAs, whether the rows sit in shared memory)
+and print it the first time it changes.
 ``shard_stats_cuda`` (``csrc/shard_stats.cu``) computes one iteration's
-per-shard ``[ΣA, ΣB, histogram]`` for the blocked, masked window solve —
-the contract of ``ref.shard_stats_ref``.
+per-shard ``[ΣA, ΣB, histogram]`` of that ascent on its own — the contract
+of ``ref.shard_stats_ref``; the ascent's kernel reduces each block in the
+same order (``csrc/block_partial.cuh``).
 ``assign_step_cuda`` (the second entry point of ``csrc/shard_stats.cu``)
 runs one step of the seed's per-iteration solve — reduced-cost argmin,
 histogram, qsum and csum — the contract of ``ref.assign_step_ref``.
-``l2_read_probe_cuda`` measures the single-CTA design's own limit, one SM's
-L2 read rate; it is a measurement aid and no part of the routing path.
+They take CUDA tensors only; the libraries build from the repository's
+sources at first use.
 """
 from __future__ import annotations
 
@@ -24,13 +30,19 @@ from repro_torch.kernels import _build
 
 MMAX = 16     # models per solve the kernels hold in shared memory
 STATS_ROWS = 256   # rows per block of the shard-statistics kernel
+# every CTA of the dual-ascent cluster holds every 256-row block's partial
+# (2 + M floats): at most this many bytes of them (csrc/dual_solve.cu)
+MAX_GATHER_BYTES = 160 * 1024
+
+# the last dual-solve launch's cluster: (CTAs, rows in shared memory)
+cluster = None
 
 
-@lru_cache(maxsize=1)
-def _launcher():
-    fn = _build.load("dual_solve").dual_solve_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+@lru_cache(maxsize=None)
+def _ascent_launcher(entry: str, pointers: int, ints: int):
+    fn = getattr(_build.load("dual_solve"), entry)
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,30 +65,61 @@ def _step_launcher():
     return fn
 
 
-@lru_cache(maxsize=1)
-def _probe_launcher():
-    fn = _build.load("dual_solve").l2_read_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _ascent(entry, what, a_mat, b_mat, nv, scalars, lam20, loads, *,
+            iters: int, patience: int):
+    """Check the arguments, allocate the output, launch ``entry``; ``nv``
+    None is the one-shot solve (one shard, every row valid)."""
+    global cluster
+    nloc, m = a_mat.shape
+    if tuple(b_mat.shape) != (nloc, m):
+        raise ValueError(f"A {tuple(a_mat.shape)} and B "
+                         f"{tuple(b_mat.shape)} differ in shape")
+    if not 1 <= m <= MMAX:
+        raise ValueError(f"{what} holds 1..{MMAX} models, got {m}")
+    lblocks = 1
+    if nv is not None:
+        nv = torch.as_tensor(nv)
+        if nv.dim() != 1 or len(nv) < 1 or nloc % len(nv):
+            raise ValueError(f"nv_loc {tuple(nv.shape)} is not one count "
+                             f"per shard of {nloc} rows")
+        lblocks = len(nv)
+    units = lblocks * max(-(-(nloc // lblocks) // STATS_ROWS), 1)
+    if units * (2 + m) * 4 > MAX_GATHER_BYTES:
+        raise ValueError(f"{what}: {units} blocks of 256 rows exceed the "
+                         f"cluster's {MAX_GATHER_BYTES} bytes of partials")
+    dev = a_mat.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
 
+    def f32(t, n):
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        if t.device != dev or t.numel() != n:
+            raise ValueError(f"argument on {t.device} with {t.numel()} "
+                             f"elements, expected {n} on {dev}")
+        return t.contiguous()
 
-def l2_read_probe_cuda(buf: torch.Tensor, reps: int) -> torch.Tensor:
-    """One CTA as wide as the dual solve's reads the contiguous float32
-    CUDA tensor ``buf`` (numel a multiple of 4) ``reps`` times; returns the
-    (1,) sum.  Timing it gives one SM's L2 read rate when ``buf`` fits L2."""
-    if buf.device.type != "cuda" or buf.dtype != torch.float32:
-        raise ValueError("l2_read_probe_cuda needs a float32 CUDA tensor")
-    if not buf.is_contiguous() or buf.numel() % 4 or buf.numel() < 4:
-        raise ValueError("l2_read_probe_cuda needs a contiguous buffer of "
-                         "a multiple of 4 floats")
-    out = torch.empty(1, dtype=torch.float32, device=buf.device)
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        _build.check(_probe_launcher()(buf.data_ptr(), buf.numel(), int(reps),
-                                       out.data_ptr(), stream),
-                     "l2_read_probe_launch")
+    ptrs = [f32(a_mat, nloc * m), f32(b_mat, nloc * m)]
+    if nv is not None:
+        ptrs.append(f32(nv, lblocks))
+    t_eff, lr_eff, lr_load, lam0, stall_tol, step0 = (f32(v, 1)
+                                                      for v in scalars)
+    ptrs += [t_eff, lr_eff, lr_load, lam0, f32(lam20, m), stall_tol, step0,
+             f32(loads, m)]
+    out = torch.empty(8 + 3 * m, dtype=torch.float32, device=dev)
+    ints = ((nloc,) if nv is None else (lblocks, nloc // lblocks)) + (
+        m, int(iters), int(patience))
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_ascent_launcher(entry, len(ptrs) + 1, len(ints))(
+            *(t.data_ptr() for t in ptrs), out.data_ptr(), *ints,
+            ctypes.addressof(info), stream), entry)
+    chosen = (info[0], bool(info[1]))
+    if chosen != cluster:
+        cluster = chosen
+        print(f"dual ascent kernel: a cluster of {chosen[0]} CTAs, rows "
+              f"{'in shared memory' if chosen[1] else 'read from L2'}",
+              flush=True)
     return out
 
 
@@ -84,37 +127,22 @@ def dual_solve_cuda(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,
                     stall_tol, step0, loads, *, iters: int, patience: int):
     """Same arguments and result as ``ref.fused_dual_solve_ref``; every
     tensor must lie on one CUDA device."""
-    dev = a_mat.device
-    if dev.type != "cuda":
-        raise ValueError(f"dual_solve_cuda needs CUDA tensors, got {dev}")
-    n, m = a_mat.shape
-    if b_mat.shape != (n, m):
-        raise ValueError(f"A {tuple(a_mat.shape)} and B {tuple(b_mat.shape)} "
-                         "differ in shape")
-    if not 1 <= m <= MMAX:
-        raise ValueError(f"dual_solve_cuda holds 1..{MMAX} models, got {m}")
+    return _ascent("dual_solve_launch", "dual_solve_cuda", a_mat, b_mat,
+                   None, (thresh, lr_eff, lr_load, lam0, stall_tol, step0),
+                   lam20, loads, iters=iters, patience=patience)
 
-    def f32(v):
-        t = torch.as_tensor(v, dtype=torch.float32, device=dev)
-        if t.device != dev:
-            raise ValueError(f"argument on {t.device}, expected {dev}")
-        return t.reshape(-1)
 
-    ab = torch.cat([f32(a_mat).reshape(n, m), f32(b_mat).reshape(n, m)],
-                   dim=1).contiguous()                        # (N, 2M)
-    scal = torch.cat([f32(v) for v in (thresh, lr_eff, lr_load, lam0,
-                                       stall_tol, step0)]).contiguous()
-    aux = torch.cat([f32(loads), f32(lam20)]).contiguous()    # loads | λ2_0
-    if scal.numel() != 6 or aux.numel() != 2 * m:
-        raise ValueError("scalars must be 0-dim; loads and lam20 (M,)")
-    out = torch.empty(8 + 3 * m, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(_launcher()(ab.data_ptr(), scal.data_ptr(),
-                                 aux.data_ptr(), out.data_ptr(), n, m,
-                                 int(iters), int(patience), stream),
-                     "dual_solve_launch")
-    return out
+def blocked_dual_ascent_cuda(a_mat, b_mat, nv_loc, t_eff, lr_eff,
+                             lr_load_eff, lam0, lam20, stall_tol, step0,
+                             loads, *, iters: int, patience: int):
+    """Same arguments and packed result as ``ref.blocked_dual_ascent_ref``
+    (without its host-read count): a_mat/b_mat (S·nl, M) float32, nv_loc
+    (S,) valid rows per shard.  Every tensor must lie on one CUDA device;
+    nothing is read on the host, and the output is the one allocation."""
+    return _ascent("blocked_dual_ascent_launch", "blocked_dual_ascent_cuda",
+                   a_mat, b_mat, nv_loc,
+                   (t_eff, lr_eff, lr_load_eff, lam0, stall_tol, step0),
+                   lam20, loads, iters=iters, patience=patience)
 
 
 def shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):

@@ -8,10 +8,10 @@ tensor — and then replays the winning argmin from the emitted multipliers
 and builds ``SolveInfo`` (``finish``).  ``launches`` counts the kernel
 launches made through ``fused_dual_solve``.
 
-``shard_stats`` is the per-iteration statistics pass of the blocked, masked
-window solve (``core.optimizer._blocked_window_core``): the hand-written
-kernel on a CUDA tensor, the plain version on a CPU tensor;
-``stats_launches`` counts its kernel launches.
+``blocked_dual_ascent`` is the whole ascent of the blocked, masked window
+solve (``core.optimizer._blocked_window_core``): one launch of the
+hand-written cluster kernel on a CUDA tensor, the plain loop on a CPU
+tensor; ``blocked_launches`` counts its kernel launches.
 
 ``assign_step`` is one step of the seed's per-iteration solve (one launch
 per dual iteration, the structure ``solve_fused`` replaced): the
@@ -28,11 +28,11 @@ import torch
 from repro_torch.core.optimizer import (SolveInfo, _f32, _mode_params,
                                         _normalize_problem)
 
-from .kernel import assign_step_cuda, dual_solve_cuda, shard_stats_cuda
-from .ref import assign_step_ref, fused_dual_solve_ref, shard_stats_ref
+from .kernel import assign_step_cuda, blocked_dual_ascent_cuda, dual_solve_cuda
+from .ref import assign_step_ref, blocked_dual_ascent_ref, fused_dual_solve_ref
 
 launches = 0
-stats_launches = 0
+blocked_launches = 0
 step_launches = 0
 
 
@@ -51,18 +51,24 @@ def assign_step(cost, quality, lam1, lam2):
     return assign_step_ref(cost, quality, lam1, lam2, cost.shape[0])
 
 
-def shard_stats(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
-    """Per-shard [ΣA, ΣB, histogram] (lblocks, 2 + M) of one dual iteration
-    (see ``ref.shard_stats_ref``).  A CUDA tensor launches the kernel or
-    raises; a CPU tensor runs the plain version."""
-    global stats_launches
+def blocked_dual_ascent(a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff,
+                        lam0, lam20, stall_tol, step0, loads, *, iters: int,
+                        patience: int):
+    """The blocked window solve's whole ascent over ``len(nv_loc)`` query
+    shards; returns (the packed (8 + 3M,) vector, host reads made) (see
+    ``ref.blocked_dual_ascent_ref``).  A CUDA tensor launches the kernel
+    or raises, and reads the host 0 times; a CPU tensor runs the plain
+    loop."""
+    global blocked_launches
+    args = (a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
+            stall_tol, step0, loads)
     if a_mat.is_cuda:
-        out = shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
-        stats_launches += 1
-        return out
+        out = blocked_dual_ascent_cuda(*args, iters=iters, patience=patience)
+        blocked_launches += 1
+        return out, 0
     if a_mat.device.type != "cpu":
-        raise ValueError(f"no shard statistics for device {a_mat.device}")
-    return shard_stats_ref(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
+        raise ValueError(f"no blocked dual ascent for device {a_mat.device}")
+    return blocked_dual_ascent_ref(*args, iters=iters, patience=patience)
 
 
 def fused_dual_solve(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,

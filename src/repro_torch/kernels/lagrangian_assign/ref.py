@@ -9,9 +9,15 @@
   the kernel is held against on the card.
 - ``shard_stats_ref``: one dual iteration's per-shard ``[ΣA, ΣB,
   histogram]`` of the blocked (masked) window solve — the stats path of
-  the reference's ``_blocked_window_core`` — in plain PyTorch; the CPU path
-  of ``ops.shard_stats`` and the yardstick of ``csrc/shard_stats.cu``,
-  whose summation order it repeats, so the two agree bit for bit.
+  the reference's ``_blocked_window_core`` — in plain PyTorch; the
+  building block of ``blocked_dual_ascent_ref`` and the yardstick of
+  ``csrc/shard_stats.cu``, whose summation order it repeats, so the two
+  agree bit for bit.
+- ``blocked_dual_ascent_ref``: the blocked window solve's whole ascent
+  (``optimizer._blocked_window_core``'s loop) over ``shard_stats_ref``;
+  the CPU path of ``ops.blocked_dual_ascent`` and the yardstick of
+  ``csrc/dual_solve.cu``'s ``blocked_dual_ascent_launch``, whose order it
+  repeats, so the two agree bit for bit.
 - ``assign_step_ref``: one reduced-cost argmin step of the seed's
   per-iteration solve (scores ``c − λ1·a/n + λ2``, argmin, histogram, qsum,
   csum) in plain PyTorch; the CPU path of ``ops.assign_step`` and the
@@ -118,6 +124,31 @@ def _kernel_order_sum(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ordered_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order on every device: a
+    pairwise tree of elementwise float32 adds (zero padding to a power of
+    two).  ``Tensor.sum`` reduces in an order of its own on each device;
+    the masked window solve takes every float sum this way, so the card
+    and the CPU walk the same trajectory bit for bit."""
+    n = v.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def in_shard_order(part: torch.Tensor) -> torch.Tensor:
+    """Sum per-shard partials (lblocks, ...) in shard order (the
+    reference's ordered cross-shard combine)."""
+    total = part[0]
+    for s in range(1, part.shape[0]):
+        total = total + part[s]
+    return total
+
+
 def shard_stats_ref(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
     """Per-shard [ΣA, ΣB, histogram] for one dual iteration.
 
@@ -141,6 +172,84 @@ def shard_stats_ref(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
             & valid[..., None]).sum(dim=1).float()
     return torch.cat([_kernel_order_sum(va)[:, None],
                       _kernel_order_sum(vb)[:, None], hist], dim=1)
+
+
+SYNC_EVERY = 8   # blocked iterations between host reads of the loop's
+#                  active flag (frozen iterations change nothing)
+
+
+def blocked_dual_ascent_ref(a_mat, b_mat, nv_loc, t_eff, lr_eff,
+                            lr_load_eff, lam0, lam20, stall_tol, step0,
+                            loads, *, iters: int, patience: int):
+    """The blocked window solve's dual ascent on the unified, normalised
+    problem: a_mat/b_mat (S·nl, M) as S contiguous query shards, nv_loc
+    (S,) valid rows per shard; scalars 0-dim float32 tensors; lam20 and
+    loads (M,).  Each iteration takes [ΣA, ΣB, histogram] from
+    :func:`shard_stats_ref` and combines the shards in order.
+
+    The loop keeps the reference's semantics (stall early exit,
+    ``iters_run`` exact) without reading its condition every iteration: an
+    iteration past the exit is frozen (it changes nothing, as in the fused
+    TPU kernel), and the host reads the loop's active flag once every
+    ``SYNC_EVERY`` iterations.  Returns the packed (8 + 3M,) float32 vector
+    of :func:`fused_dual_solve_ref` and the number of host reads made."""
+    dev = a_mat.device
+    m = a_mat.shape[1]
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    nv_loc = f32(nv_loc).reshape(-1)
+    lblocks = nv_loc.shape[0]
+    t_eff, lr_eff, lr_load_eff, lam, stall_tol, step0 = (
+        f32(v).reshape(()) for v in (t_eff, lr_eff, lr_load_eff, lam0,
+                                     stall_tol, step0))
+    lam2 = f32(lam20).reshape(m)
+    loads = f32(loads).reshape(m)
+    one = f32(1.0)
+    best_a = torch.full((), float("inf"), device=dev)
+    lam_b, lam2_b = torch.zeros((), device=dev), torch.zeros(m, device=dev)
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    stall = torch.zeros((), dtype=torch.int32, device=dev)
+    t_run = torch.zeros((), dtype=torch.int32, device=dev)
+    t = reads = 0
+    while t < iters:
+        for _ in range(min(SYNC_EVERY, iters - t)):
+            active = stall < patience
+            tot = in_shard_order(shard_stats_ref(a_mat, b_mat, lam, lam2,
+                                                 nv_loc, lblocks=lblocks))
+            asum, bsum, cnt = tot[0], tot[1], tot[2:]
+            feasible = active & (bsum <= t_eff) & torch.all(cnt <= loads)
+            better = feasible & (asum < best_a)
+            best_a = torch.where(better, asum, best_a)
+            lam_b = torch.where(better, lam, lam_b)
+            lam2_b = torch.where(better, lam2, lam2_b)
+            found = found | feasible
+            step = one / sqrt32(one + step0 + t)
+            lam_new = torch.clamp(lam + lr_eff * step * (bsum - t_eff),
+                                  min=0.0)
+            lam2_new = torch.clamp(
+                lam2 + lr_load_eff * step * (cnt - loads), min=0.0)
+            delta = ((lam_new - lam).abs()
+                     + ordered_sum((lam2_new - lam2).abs()))
+            denom = one + lam_new.abs() + ordered_sum(lam2_new.abs())
+            resid = (bsum - t_eff).abs() / (one + t_eff.abs())
+            stalled = found & ((delta < stall_tol * denom)
+                               | (resid < stall_tol))
+            # cumulative — see optimizer._solve_ref
+            stall = stall + (active & stalled).int()
+            lam = torch.where(active, lam_new, lam)
+            lam2 = torch.where(active, lam2_new, lam2)
+            t_run = t_run + active.int()
+            t += 1
+        reads += 1
+        if not bool(stall < patience):
+            break
+    zero = torch.zeros((), device=dev)
+    return torch.cat([
+        torch.stack([lam, lam_b, best_a, found.float(), zero, zero,
+                     t_run.float(), zero]),
+        lam2, lam2_b, torch.zeros_like(lam2)]), reads
 
 
 def assign_step_ref(cost, quality, lam1, lam2, n):

@@ -103,6 +103,21 @@ def test_csrc_scan_pattern_catches_library_kernels():
         assert not _LIBRARY_KERNEL.search(ok), ok
 
 
+def test_library_tag_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared header (``csrc/*.cuh``) gives every library a
+    new name, so no stale build of an including source is loaded."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setitem(_build.FLAGS, "k", ["-O3"])
+    before = _build._target("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != before
+    (tmp_path / "h.cuh").write_text("// one\n")
+    assert _build._target("k") == before
+
+
 @pytest.mark.parametrize("max_len", [48, 64])
 def test_tokenizer_copy_is_bit_identical(max_len):
     from repro.data import tokenizer as ref_tok

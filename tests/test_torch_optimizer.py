@@ -35,6 +35,15 @@
   ``primal_polish`` and ``budget_polish`` exact against the JAX versions;
   ``shard_stats_ref`` against the JAX ``shard_stats`` kernel in interpret
   mode (histogram exact, sums within 1e-5 relative).
+- ``blocked_dual_ascent_ref`` (the blocked ascent's plain version, the CPU
+  path of ``ops.blocked_dual_ascent`` and the cluster kernel's yardstick)
+  on the port's own prologue against the JAX ``_blocked_window_core``
+  (``DualSolver.solve`` with ``n_valid``), both modes, ``shards`` 1 and 4,
+  masked and unmasked, cold and warm: ``iters_run`` and ``found`` exact,
+  λ/λ2 in true units within 1e-3 relative (the C4 drift above), and the
+  port's ``DualSolver.solve`` bit for bit on it; with one shard and every
+  row valid it is the fused plain version up to float32 summation order;
+  the dispatch by device and what ``blocked_dual_ascent_cuda`` refuses.
 - ``assign_step_ref`` (the assign-step kernel's plain version, the CPU path
   of ``ops.assign_step``) against the JAX ``assign_step_kernel`` in
   interpret mode (bq 32) and the JAX ``assign_step_ref``: ``x`` and the
@@ -64,7 +73,8 @@ from repro.kernels.lagrangian_assign.ref import (  # noqa: E402
 from repro_torch.core import optimizer as popt  # noqa: E402
 from repro_torch.kernels.lagrangian_assign import ops as pops  # noqa: E402
 from repro_torch.kernels.lagrangian_assign.ref import (  # noqa: E402
-    assign_step_ref, fused_dual_solve_ref, shard_stats_ref)
+    SYNC_EVERY, assign_step_ref, blocked_dual_ascent_ref,
+    fused_dual_solve_ref, shard_stats_ref)
 
 RTOL = 1e-5
 WARM_RTOL = 1e-4     # normalized ascent: see the module docstring
@@ -520,9 +530,129 @@ def test_shard_stats_ref_matches_jax_kernel(lblocks):
     assert got.shape == (lblocks, 2 + m)
     assert np.array_equal(got[:, 2:], want[:, 2:])
     assert np.allclose(got[:, :2], want[:, :2], rtol=1e-5, atol=1e-6)
-    assert np.array_equal(pops.shard_stats(_t(a), _t(b), torch.tensor(0.4),
-                                           _t(lam2), _t(nv),
-                                           lblocks=lblocks).numpy(), got)
+
+
+STALL_TOL = 2e-3
+
+
+def _blocked_args(c, q, thr, loads, mode, shards, nv, state):
+    """The port's blocked solve up to its ascent: ``_blocked_window``'s
+    zeroed padding and unified mapping, then the core's prologue.  Returns
+    (the ascent's positional arguments, a_bar, b_bar)."""
+    n, m = c.shape
+    nvf = torch.tensor(float(nv))
+    validr = (torch.arange(n) < nvf)[:, None]
+    a, b, t_eff, lr_eff = popt._mode_params(
+        _t(c) * validr, _t(q) * validr, torch.tensor(thr, dtype=torch.float32),
+        3.0, budget_mode=(mode == "budget"), n_eff=nvf)
+    lam0, lam20, step0 = ((torch.zeros(()), torch.zeros(m), torch.zeros(()))
+                          if state is None else state)
+    (a, b, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar,
+     b_bar) = popt._blocked_prologue(
+        a, b, t_eff, _t(loads), torch.as_tensor(lr_eff, dtype=torch.float32),
+        torch.tensor(0.5), lam0, lam20, nvf, lblocks=shards, norm_grad=True,
+        lr_con=3.0, lr_load=0.5)
+    return ((a, b, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
+             torch.tensor(STALL_TOL), step0, _t(loads)), a_bar, b_bar)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_blocked_dual_ascent_ref_matches_jax(mode, shards, masked, warm):
+    """The blocked ascent's plain version against the JAX blocked core's
+    multipliers and ``iters_run``; warm from a cold JAX solve of another
+    window, as a stream would be."""
+    m, nv = 5, (77 if masked else 128)
+    loads = np.full(m, 30.0, np.float32)
+    thr = 0.55 if mode == "quality" else 0.12 * nv / 128    # both bind
+    kw = dict(mode=mode, iters=60, lr_constraint=3.0, stall_tol=STALL_TOL,
+              norm_grad=True, shards=shards)
+    jsolver = jopt.DualSolver(**kw)
+    jstate = pstate = warm_args = None
+    if warm:
+        c0, q0 = _padded_instance(128, 100, m=m, seed=7)
+        _, i0 = jsolver.solve(c0, q0, thr, loads, n_valid=100)
+        lam, lam2 = np.float32(i0.lam), np.array(i0.lam_load, np.float32)
+        steps = np.float32(i0.iters_run)
+        z = jnp.zeros(())
+        jstate = jopt.DualState(jnp.asarray(lam), jnp.asarray(lam2), z, z,
+                                jnp.asarray(steps))
+        pstate = popt.DualState(torch.tensor(lam), _t(lam2), torch.zeros(()),
+                                torch.zeros(()), torch.tensor(steps))
+        warm_args = (pstate.lam, pstate.lam_load,
+                     torch.clamp(pstate.steps, max=400.0))
+    c, q = _padded_instance(128, nv, m=m, seed=shards + 2 * masked)
+    _, ij = jsolver.solve(c, q, thr, loads, jstate, n_valid=nv)
+    args, a_bar, b_bar = _blocked_args(c, q, thr, loads, mode, shards, nv,
+                                       warm_args)
+    out, reads = blocked_dual_ascent_ref(*args, iters=60, patience=3)
+    t_run = int(out[6])
+    assert t_run == int(ij.iters_run)
+    assert bool(out[3] > 0) == bool(ij.feasible)
+    assert reads == -(-t_run // SYNC_EVERY)
+    lam, lam2 = out[0] * a_bar / b_bar, out[8:8 + m] * a_bar
+    assert _close(lam, ij.lam, FUSED_WARM_RTOL)
+    assert _close(lam2, ij.lam_load, FUSED_WARM_RTOL)
+    # the port's solve runs exactly this ascent
+    _, ip = popt.DualSolver(**kw, device="cpu").solve(c, q, thr, loads,
+                                                      pstate, n_valid=nv)
+    assert torch.equal(ip.lam, lam) and torch.equal(ip.lam_load, lam2)
+    assert int(ip.iters_run) == t_run
+
+
+@pytest.mark.parametrize("mode", ["quality", "budget"])
+def test_blocked_ascent_one_shard_is_the_fused_ascent(mode):
+    """One shard, every row valid: the blocked plain version walks the
+    fused plain version's ascent — the one-shot and the blocked entry
+    points of the cluster kernel are one loop.  Same ``iters_run``, found
+    and replayed ``x``; multipliers within 1e-5 relative (the fused
+    version sums with ``Tensor.sum``)."""
+    c, q = _padded_instance(300, 300, m=6, seed=11)
+    loads = np.full(6, 80.0, np.float32)
+    thr = 0.55 if mode == "quality" else 0.25
+    p = pops.prepare_problem(_t(c), _t(q), thr, _t(loads), mode=mode,
+                             lr_con=3.0, stall_tol=1e-2, norm_grad=True)
+    fused = fused_dual_solve_ref(*p.args, iters=80, patience=3)
+    blocked, _ = blocked_dual_ascent_ref(
+        p.a_mat, p.b_mat, torch.tensor([300.0]), *p.args[2:], iters=80,
+        patience=3)
+    assert float(blocked[6]) == float(fused[6]) and blocked[3] == fused[3]
+    assert _close(blocked, fused)
+    xf, _ = pops.finish(fused, p)
+    xb, _ = pops.finish(blocked, p)
+    assert torch.equal(xf, xb)
+
+
+def test_blocked_dual_ascent_dispatch_by_device():
+    from repro_torch.kernels.lagrangian_assign.kernel import (
+        blocked_dual_ascent_cuda)
+    rng = np.random.default_rng(3)
+    a = _t(rng.uniform(0, 1, (64, 4)))
+    b = _t(rng.uniform(-1, 1, (64, 4)) / 64)
+    rest = (torch.tensor(-0.3), torch.tensor(2.0), torch.tensor(0.1),
+            torch.tensor(0.0), torch.zeros(4), torch.tensor(1e-2),
+            torch.tensor(0.0), torch.full((4,), 12.0))
+    nv = _t([32.0, 9.0])
+    before = pops.blocked_launches
+    got, reads = pops.blocked_dual_ascent(a, b, nv, *rest, iters=30,
+                                          patience=3)
+    assert pops.blocked_launches == before
+    want, want_reads = blocked_dual_ascent_ref(a, b, nv, *rest, iters=30,
+                                               patience=3)
+    assert torch.equal(got, want) and reads == want_reads >= 1
+    meta = torch.zeros((64, 4), device="meta")
+    with pytest.raises(ValueError):
+        pops.blocked_dual_ascent(meta, meta, nv, *rest, iters=3, patience=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        blocked_dual_ascent_cuda(a, b, nv, *rest, iters=3, patience=3)
+    wide = torch.zeros((64, 17))
+    with pytest.raises(ValueError, match="models"):
+        blocked_dual_ascent_cuda(wide, wide, nv, *rest, iters=3, patience=3)
+    for bad in (_t([1.0, 2.0, 3.0]), _t([[32.0], [9.0]]), _t([])):
+        with pytest.raises(ValueError, match="nv_loc"):
+            blocked_dual_ascent_cuda(a, b, bad, *rest, iters=3, patience=3)
 
 
 def _step_inputs(n, m, seed):
