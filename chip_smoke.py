@@ -68,12 +68,18 @@ multiple, and at the full route batch, bit for bit equal to the vote entry
 point's (vals, idx) (3c); both timed at the route batch and the stream
 window beside their float32 and 3xTF32 bounds.  The assign-step kernel
 against its plain version at the route batch's predictions with 3b's
-multipliers, at N 1,000, M 16 and a duplicated column (3d); the seed's
-per-iteration solve (``benchmarks/bench_routing.py``: 151 assign-step
-launches a solve) on the card with no host read, equal to the same loop on
-the CPU, beside the fused one-launch solve, and the legacy and sweep entry
-points (``solve_assignment_kernel``, ``solve_assignment``,
-``solve_budget``, ``DualSolver.solve_grid`` / ``solve_batch``) (3e).
+multipliers, at N 1,000, M 16 and a duplicated column, two calls in a
+row, three replays of one captured call, and its fast path against its
+slow one; its device kernels a step (one launch: the last CTA adds the
+block partials in order and resets its ticket counter), its time with the
+wrapper, the wrapper's host time, its device time beside one launch's
+floor and its bound (3d); the seed's per-iteration solve
+(``benchmarks/bench_routing.py``: 151 assign-step launches a solve) on the
+card with no host read, and captured once into a CUDA graph (151 launches
+at the capture) and replayed, both equal to the same loop on the CPU,
+beside the fused one-launch solve, and the legacy and sweep entry points
+(``solve_assignment_kernel``, ``solve_assignment``, ``solve_budget``,
+``DualSolver.solve_grid`` / ``solve_batch``) (3e).
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -128,19 +134,30 @@ def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def graph_ms(torch, fn) -> float:
-    """The device's own time of one ``fn()``: GRAPH_CALLS calls captured in
-    a CUDA graph (after a warm-up call on a side stream) and replayed, so the
-    wrapper's host work is not on the clock."""
+def captured_call(torch, fn):
+    """``fn()`` captured once into a CUDA graph on a side stream, after one
+    call there (which makes the assign step's scratch for that stream).
+    Returns (graph, what the captured call returned)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
-    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
+        outs = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, outs
+
+
+def graph_ms(torch, fn) -> float:
+    """The device's own time of one ``fn()``: GRAPH_CALLS calls captured in
+    a CUDA graph (``captured_call``) and replayed, so the wrapper's host
+    work is not on the clock."""
+    def calls():
         for _ in range(GRAPH_CALLS):
             fn()
+
+    graph, _ = captured_call(torch, calls)
     return time_ms(torch, graph.replay, 20) / GRAPH_CALLS
 
 
@@ -209,6 +226,7 @@ GRAFT_EMIT = 0.9        # least mean tokens per round, as a share of k
 ROUTED_SPEC_QUERIES, ROUTED_SPEC_TOKENS = 32, 32
 SPEC_CPU_REQS = 12
 GRAPH_CALLS = 50        # calls per captured CUDA graph (graph_ms)
+HOST_CALLS = 1_000      # calls enqueued back to back (host_us)
 
 # -- the dense-cache generation path (F, D and R phases) ----------------------
 # F1: the flash kernel against its plain versions.  (tag, B, S, K, G, D,
@@ -2008,23 +2026,75 @@ def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
 
 
 def step_bytes_ops(n, m):
-    """One assign step: cost and quality read once, λ1|λ2, x and
+    """One assign step: cost and quality read once, λ1, λ2, x and
     [qsum, csum, counts] written once; 5 operations per (row, model)."""
     return 4 * (2 * n * m + 1 + m + n + 2 + m), 5.0 * n * m
+
+
+def device_kernels(torch, fn):
+    """The names of the device kernels one ``fn()`` enqueues, from
+    ``torch.profiler`` (after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's µs per ``fn()``: ``calls`` calls enqueued back to back
+    with no synchronisation between them, so a wrapper whose host work
+    outlasts its kernel is timed by that work alone."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def launch_floor_ms(torch, dev) -> float:
+    """One launch's floor on the device: ``zero_()`` of a one-element
+    tensor, replayed from a CUDA graph of GRAPH_CALLS calls."""
+    t = torch.zeros(1, device=dev)
+    return graph_ms(torch, t.zero_)
+
+
+def step_timing(torch, step, c, a, lam1, lam2):
+    """The assign step's times at (c, a, λ1, λ2): ms a call with the
+    wrapper (CUDA events), the wrapper's host µs, ms on the device
+    (``graph_ms``), the launch floor, and the device kernels one call
+    enqueues."""
+    def fn():
+        return step(c, a, lam1, lam2)
+    return dict(ms=time_ms(torch, fn, 50), host_us=host_us(torch, fn),
+                graph_ms=graph_ms(torch, fn),
+                floor_ms=launch_floor_ms(torch, c.device),
+                device_kernels=device_kernels(torch, fn))
 
 
 def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
                       lam2):
     """3d: the assign-step kernel against its plain version at the route
     batch's predictions with 3b's multipliers, at N 1,000, at M 16 and with
-    a duplicated column; M 17 is refused.  Returns the kernels-line row
-    (launches are filled in by 3e, the kernel's main path)."""
-    from repro_torch.kernels.lagrangian_assign.kernel import assign_step_cuda
+    a duplicated column, two calls in a row, three replays of one captured
+    call, the fast path against the slow one; M 17 is refused.  Then its
+    times: with the wrapper, the wrapper's host work, on the device, the
+    launch floor, and the device kernels one step enqueues (1).  Returns the
+    kernels-line row (launches are filled in by 3e, the kernel's main
+    path)."""
+    from repro_torch.kernels.lagrangian_assign import kernel as la_kernel
     from repro_torch.kernels.lagrangian_assign.ref import assign_step_ref
+    assign_step_cuda = la_kernel.assign_step_cuda
 
-    def case(c, a, l1, l2, tag, tie=None):
-        x, cnt, qs, cs = assign_step_cuda(c, a, l1, l2)
-        torch.cuda.synchronize()
+    def hold(got, c, a, l1, l2, tag, tie=None):
+        x, cnt, qs, cs = got
         rx, rcnt, rq, rc = assign_step_ref(c, a, l1, l2, c.shape[0])
         same_x = bool(torch.equal(x, rx))
         same_cnt = bool(torch.equal(cnt, rcnt))
@@ -2043,6 +2113,11 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
                   f"assign step {tag}: a tie went to the higher index")
         return err
 
+    def case(c, a, l1, l2, tag, tie=None):
+        got = assign_step_cuda(c, a, l1, l2)
+        torch.cuda.synchronize()
+        return hold(got, c, a, l1, l2, tag, tie)
+
     gen = torch.Generator(device=dev).manual_seed(13)
     c16 = torch.rand(N_ROUTE, STEP_M, generator=gen, device=dev)
     a16 = torch.rand(N_ROUTE, STEP_M, generator=gen, device=dev)
@@ -2053,10 +2128,49 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
     l6[3] = l6[1]
     l6[[0, 2, 4]] += 0.3          # so that columns 1 and 3 win often
     lam_r = torch.tensor(2.5, device=dev)
+    check(la_kernel._fast_ok(cost, cap, lam1, lam2),
+          "assign step: the route batch does not take the fast path")
     err = max(case(cost, cap, lam1, lam2, "route batch, 3b's multipliers"),
               case(cost[:STEP_N], cap[:STEP_N], lam1, lam2, "N=1,000"),
               case(c16, a16, lam_r, l16, "M=16"),
               case(c6, a6, lam_r, l6, "duplicated column", tie=3))
+    # two calls in a row, no synchronisation between them: the second
+    # finds the ticket counter the first left at 0
+    first = assign_step_cuda(cost, cap, lam1, lam2)
+    second = assign_step_cuda(cost, cap, lam_r, lam2 * 0.5)
+    torch.cuda.synchronize()
+    err = max(err, hold(first, cost, cap, lam1, lam2, "first of two"),
+              hold(second, cost, cap, lam_r, lam2 * 0.5, "second of two"))
+    # one call captured into a CUDA graph and replayed three times, its
+    # outputs overwritten before each replay
+    graph, outs = captured_call(
+        torch, lambda: assign_step_cuda(cost, cap, lam1, lam2))
+    for i in range(3):
+        outs[0].fill_(-1)
+        for t in outs[1:]:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        err = max(err, hold(outs, cost, cap, lam1, lam2,
+                            f"graph replay {i + 1} of 3"))
+    tickets = [int(v[3].item()) for v in la_kernel._step_scratch.values()]
+    say(f"assign step scratch: {len(tickets)} (device, stream, shape) "
+        f"entries, ticket counters after every launch {tickets}")
+    check(all(t == 0 for t in tickets),
+          "assign step: a ticket counter was not reset")
+    # the slow path (a strided cost, a Python-number λ1, a float64 λ2)
+    # against the fast path on the same values
+    cost_t = cost.t().contiguous().t()
+    slow_args = (cost_t, cap, float(lam1), lam2.double())
+    check(not la_kernel._fast_ok(*slow_args),
+          "assign step: the slow path's arguments took the fast path")
+    fast = assign_step_cuda(cost, cap, lam1, lam2)
+    slow = assign_step_cuda(*slow_args)
+    torch.cuda.synchronize()
+    same_paths = all(bool(torch.equal(f, g)) for f, g in zip(fast, slow))
+    say(f"assign step fast path == slow path (strided cost, float lam1, "
+        f"float64 lam2): {same_paths}")
+    check(same_paths, "assign step: the fast and slow paths differ")
     try:
         assign_step_cuda(torch.rand(64, STEP_M + 1, device=dev),
                          torch.rand(64, STEP_M + 1, device=dev), lam_r,
@@ -2067,25 +2181,33 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
     check(refused, f"assign step M={STEP_M + 1} was not refused")
 
     n, m = cost.shape
-    k_ms = time_ms(torch, lambda: assign_step_cuda(cost, cap, lam1, lam2), 50)
+    tm = step_timing(torch, assign_step_cuda, cost, cap, lam1, lam2)
     p_ms = time_ms(torch, lambda: assign_step_ref(cost, cap, lam1, lam2, n),
                    10)
-    g_ms = graph_ms(torch, lambda: assign_step_cuda(cost, cap, lam1, lam2))
     nbytes, nops = step_bytes_ops(n, m)
     bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
-    say(f"assign step kernel (N={n}, M={m}): {k_ms * 1e3:.2f} us per call "
-        f"with its wrapper (two launches: blocks, then the block sums in "
-        f"order), {g_ms * 1e3:.2f} us on the device (replayed from a CUDA "
-        f"graph of {GRAPH_CALLS} calls), bound {bound * 1e3:.3f} us = max("
-        f"{nbytes / 1e3:.1f} KB / 3.35 TB/s, {nops / 1e6:.3f} MFLOP / "
-        f"67 TFLOP/s) -> launch latency is the floor; plain "
-        f"{p_ms * 1e3:.1f} us; library: none (no single PyTorch call)")
+    share = max(bound, tm["floor_ms"]) / tm["graph_ms"]
+    names = tm.pop("device_kernels")
+    say(f"assign step: device kernels one step enqueues (torch.profiler): "
+        f"{len(names)} {names}")
+    check(len(names) == 1 and "assign_step_kernel" in names[0],
+          "assign step: one step enqueued other than one kernel")
+    say(f"assign step kernel (N={n}, M={m}): {tm['ms'] * 1e3:.2f} us per "
+        f"call with its wrapper (one launch; the last CTA sums the blocks "
+        f"in order), host {tm['host_us']:.2f} us per call (enqueue time over "
+        f"{HOST_CALLS} calls), {tm['graph_ms'] * 1e3:.3f} us on the device "
+        f"(replayed from a CUDA graph of {GRAPH_CALLS} calls); launch floor "
+        f"{tm['floor_ms'] * 1e3:.3f} us (zero_ of one element, same "
+        f"graph), bound {bound * 1e3:.3f} us = max({nbytes / 1e3:.1f} KB / "
+        f"3.35 TB/s, {nops / 1e6:.3f} MFLOP / 67 TFLOP/s); max(bound, "
+        f"floor) / device = {share:.3f}; plain {p_ms * 1e3:.1f} us; "
+        f"library: none (no single PyTorch call)")
     return dict(name="assign_step", route="cuda",
                 source="src/repro_torch/csrc/shard_stats.cu",
                 replaces="src/repro/kernels/lagrangian_assign/kernel.py:428",
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                max_abs_err=err, plain_ms=p_ms, bound_ms=bound,
                 bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-                else "operations", library_ms=None, graph_ms=g_ms)
+                else "operations", library_ms=None, **tm)
 
 
 def seed_loop(torch, step, c, a, alpha, loads, iters):
@@ -2117,26 +2239,40 @@ def seed_loop(torch, step, c, a, alpha, loads, iters):
     return torch.where(found, best_x, x_last), lam1, lam2, found
 
 
-def seed_loop_phase(torch, say, check, time_ms, dev):
-    """3e: the seed's per-iteration structure on the card (151 assign-step
-    launches a solve, no host read: run under the sync debug mode "error"),
-    the same loop on the CPU's plain version (equal bit for bit), the fused
-    one-launch solve on the same inputs, and the legacy and sweep entry
-    points on the card.  Returns the assign step's main-path launches."""
-    from repro_torch.core import DualSolver, solve_assignment, solve_budget
-    from repro_torch.kernels.lagrangian_assign import ops as la_ops
-
+def seed_inputs(torch, dev):
+    """3e's problem: uniform cost and quality from a seeded generator on
+    ``dev``, loads N/2; the arguments of ``seed_loop`` after ``step``."""
     gen = torch.Generator(device=dev).manual_seed(17)
     c = torch.rand(SEED_N, SEED_M, generator=gen, device=dev)
     a = torch.rand(SEED_N, SEED_M, generator=gen, device=dev)
     loads = torch.full((SEED_M,), SEED_N / 2.0, device=dev)
-    args = (c, a, SEED_ALPHA, loads, SEED_ITERS)
+    return c, a, SEED_ALPHA, loads, SEED_ITERS
+
+
+def same_solve(u, v) -> bool:
+    """Two seed-loop results (x, λ1, λ2, found) equal bit for bit."""
+    return all(p.cpu().equal(q.cpu()) for p, q in zip(u, v))
+
+
+def seed_loop_phase(torch, say, check, time_ms, dev):
+    """3e: the seed's per-iteration structure on the card (151 assign-step
+    launches a solve, no host read: run under the sync debug mode "error"),
+    the same solve captured once into a CUDA graph (151 launches at the
+    capture) and replayed, the same loop on the CPU's plain version (all
+    three equal bit for bit), the fused one-launch solve on the same
+    inputs, and the legacy and sweep entry points on the card.  Returns the
+    assign step's main-path launches and the three solves' ms."""
+    from repro_torch.core import DualSolver, solve_assignment, solve_budget
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+
+    args = seed_inputs(torch, dev)
+    c, a, _, loads, _ = args
     # the main path of the assign step: one seed solve, counted
     torch.cuda.synchronize()
     la_ops.step_launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        x, lam1, lam2, found = seed_loop(torch, la_ops.assign_step, *args)
+        eager = seed_loop(torch, la_ops.assign_step, *args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = la_ops.step_launches
@@ -2144,12 +2280,21 @@ def seed_loop_phase(torch, say, check, time_ms, dev):
     check(launches == SEED_ITERS + 1,
           f"seed loop: {launches} assign-step launches, expected "
           f"{SEED_ITERS + 1}")
-    xc, lam1c, lam2c, foundc = seed_loop(torch, la_ops.assign_step, c.cpu(),
-                                         a.cpu(), SEED_ALPHA, loads.cpu(),
-                                         SEED_ITERS)
-    same = bool(torch.equal(x.cpu(), xc) and torch.equal(lam1.cpu(), lam1c)
-                and torch.equal(lam2.cpu(), lam2c)
-                and bool(found) == bool(foundc))
+    x, lam1, lam2, found = eager
+    cpu = seed_loop(torch, la_ops.assign_step, c.cpu(), a.cpu(), SEED_ALPHA,
+                    loads.cpu(), SEED_ITERS)
+    same = same_solve(eager, cpu)
+    # the same solve as one captured program (JAX runs it under jit)
+    la_ops.step_launches = 0
+    graph, captured = captured_call(
+        torch, lambda: seed_loop(torch, la_ops.assign_step, *args))
+    # the warm-up solve on the capture's stream launches first
+    captured_launches = la_ops.step_launches - (SEED_ITERS + 1)
+    for t in captured:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same_graph = same_solve(captured, eager)
     xi = x.long()
     q_mean = float(a.gather(1, xi[:, None]).mean())
     dollars = float(c.gather(1, xi[:, None]).sum())
@@ -2157,10 +2302,15 @@ def seed_loop_phase(torch, say, check, time_ms, dev):
     say(f"seed loop (N={SEED_N}, M={SEED_M}, alpha {SEED_ALPHA}, loads "
         f"N/2, {SEED_ITERS} iterations): {launches} assign-step launches "
         f"under sync debug mode 'error' (no host read); card = CPU plain "
-        f"loop bit for bit (x, lam1, lam2, found): {same}; found "
+        f"loop bit for bit (x, lam1, lam2, found): {same}; captured once "
+        f"into a CUDA graph ({captured_launches} launches at the capture) "
+        f"and replayed = eager bit for bit: {same_graph}; found "
         f"{bool(found)}, lam1 {float(lam1):.6g}, mean quality "
         f"{q_mean:.4f}, cost {dollars:.2f}, counts {counts.tolist()}")
     check(same, "seed loop: card and CPU differ")
+    check(captured_launches == SEED_ITERS + 1,
+          f"seed loop: {captured_launches} launches at the capture")
+    check(same_graph, "seed loop: the captured solve differs from eager")
     check(bool(found) and q_mean >= SEED_ALPHA
           and bool((counts <= loads.long()).all()),
           "seed loop: no feasible assignment")
@@ -2201,16 +2351,30 @@ def seed_loop_phase(torch, say, check, time_ms, dev):
     check(bool((ig.quality[1:] >= ig.quality[:-1] - 1e-6).all()),
           "solve_grid: quality not monotone in alpha")
 
-    seed_ms = time_ms(torch, lambda: seed_loop(torch, la_ops.assign_step,
-                                               *args), SEED_REPS, warm=1)
-    fused_ms = time_ms(torch, lambda: la_ops.solve_assignment_kernel(
-        c, a, SEED_ALPHA, loads), REPS)
-    say(f"seed loop timing: {seed_ms:.3f} ms per solve ({SEED_ITERS + 1} "
-        f"assign-step launches + ~10 tensor ops per iteration, "
-        f"{seed_ms * 1e3 / (SEED_ITERS + 1):.1f} us per iteration) against "
-        f"the fused one-launch solve {fused_ms:.3f} ms "
-        f"({seed_ms / fused_ms:.2f}x)")
-    return launches, seed_ms, fused_ms
+    tm = seed_timing(torch, la_ops.assign_step, args, graph,
+                     lambda: la_ops.solve_assignment_kernel(
+                         c, a, SEED_ALPHA, loads))
+    say(f"seed loop timing: eager {tm['seed_loop_ms']:.3f} ms per solve "
+        f"({SEED_ITERS + 1} assign-step launches + ~17 tensor ops per "
+        f"iteration from Python, "
+        f"{tm['seed_loop_ms'] * 1e3 / (SEED_ITERS + 1):.1f} us per "
+        f"iteration), captured {tm['seed_graph_ms']:.3f} ms per replay "
+        f"({tm['seed_graph_ms'] * 1e3 / (SEED_ITERS + 1):.2f} us per "
+        f"iteration), against the fused one-launch solve "
+        f"{tm['fused_solve_ms']:.3f} ms (eager "
+        f"{tm['seed_loop_ms'] / tm['fused_solve_ms']:.2f}x, captured "
+        f"{tm['seed_graph_ms'] / tm['fused_solve_ms']:.2f}x)")
+    return launches, tm
+
+
+def seed_timing(torch, step, args, graph, fused):
+    """ms a seed-loop solve eager (``step`` from Python), as one replay of
+    its captured ``graph``, and of the ``fused`` one-launch solve."""
+    return dict(
+        seed_loop_ms=time_ms(torch, lambda: seed_loop(torch, step, *args),
+                             SEED_REPS, warm=1),
+        seed_graph_ms=time_ms(torch, graph.replay, SEED_REPS, warm=1),
+        fused_solve_ms=time_ms(torch, fused, REPS))
 
 
 DUAL_BIG = (131_072, 16)   # 3b: a problem whose rows do not fit shared memory
@@ -2589,9 +2753,9 @@ def main() -> int:
                                            patience=3), p_q)
     rows["assign_step"] = assign_step_phase(torch, say, check, time_ms, dev,
                                             cost, cap, i_q.lam, i_q.lam_load)
-    (rows["assign_step"]["launches"], rows["assign_step"]["seed_loop_ms"],
-     rows["assign_step"]["fused_solve_ms"]) = seed_loop_phase(
+    rows["assign_step"]["launches"], seed_tm = seed_loop_phase(
         torch, say, check, time_ms, dev)
+    rows["assign_step"].update(seed_tm)
 
     # 4. the main path: route (both modes) and streaming windows
     tr_ops.launches = 0

@@ -15,7 +15,11 @@ of ``ref.shard_stats_ref``; the ascent's kernel reduces each block in the
 same order (``csrc/block_partial.cuh``).
 ``assign_step_cuda`` (the second entry point of ``csrc/shard_stats.cu``)
 runs one step of the seed's per-iteration solve — reduced-cost argmin,
-histogram, qsum and csum — the contract of ``ref.assign_step_ref``.
+histogram, qsum and csum — the contract of ``ref.assign_step_ref``, in
+one launch: the CTA that finishes last adds the block partials in block
+order and resets the ticket counter it drew from.  Its fast path (float32,
+contiguous, every tensor on one device) allocates only the two outputs;
+the partials and the counter are scratch kept per (device, stream).
 They take CUDA tensors only; the libraries build from the repository's
 sources at first use.
 """
@@ -59,10 +63,39 @@ def _stats_launcher():
 @lru_cache(maxsize=1)
 def _step_launcher():
     fn = _build.load("shard_stats").assign_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# The assign step's scratch, by (device, stream, blocks, M): the block
+# partials and the ticket counter, as data pointers beside their tensors.
+# The stream is in the key because launches on one stream run in order and
+# may share one counter and one set of partials, while two streams may run
+# at once and would race on them; so a CUDA-graph capture on a side stream
+# gets scratch of its own.  The counter is zeroed once, when its entry is
+# made, and every launch leaves it at 0.  Entries are never freed: a
+# captured graph keeps their addresses.  An entry is made outside a CUDA-graph
+# capture only (a zeroing captured into a graph would run at replays alone):
+# call the step once on a stream before capturing on it.
+_step_scratch = {}
+
+
+def _scratch(dev, stream, bps, m):
+    key = (dev.index, stream, bps, m)
+    got = _step_scratch.get(key)
+    if got is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "assign_step_cuda: first call on this stream, with these "
+                "shapes, inside a CUDA-graph capture; call it once on the "
+                "stream before capturing")
+        part = torch.empty(bps * (2 + m), dtype=torch.float32, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = _step_scratch[key] = (part.data_ptr(), ticket.data_ptr(),
+                                    part, ticket)
+    return got
 
 
 def _ascent(entry, what, a_mat, b_mat, nv, scalars, lam20, loads, *,
@@ -186,14 +219,28 @@ def shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
     return out
 
 
-def assign_step_cuda(cost, quality, lam1, lam2):
-    """Same arguments and result as ``ref.assign_step_ref`` with n = N:
-    cost/quality (N, M) float32, lam1 a 0-dim float32 tensor, lam2 (M,);
-    returns (x (N,) int32, counts (M,) f32, qsum, csum).  Every tensor must
-    lie on one CUDA device; nothing is read on the host."""
+def _fast_ok(cost, quality, lam1, lam2) -> bool:
+    """Whether the arguments go to the kernel as they are: float32 tensors
+    on ``cost``'s device, cost/quality (N, M) contiguous with 1 <= M <= 16
+    and N >= 1, lam1 one element, lam2 (M,) contiguous."""
+    f32 = torch.float32
+    if not (isinstance(lam1, torch.Tensor) and isinstance(lam2, torch.Tensor)
+            and cost.dtype is f32 and quality.dtype is f32
+            and lam1.dtype is f32 and lam2.dtype is f32
+            and cost.dim() == 2 and quality.shape == cost.shape):
+        return False
+    n, m = cost.shape
     dev = cost.device
-    if dev.type != "cuda":
-        raise ValueError(f"assign_step_cuda needs CUDA tensors, got {dev}")
+    return (1 <= m <= MMAX and n >= 1 and lam1.numel() == 1
+            and lam2.numel() == m and quality.device == dev
+            and lam1.device == dev and lam2.device == dev
+            and cost.is_contiguous() and quality.is_contiguous()
+            and lam2.is_contiguous())
+
+
+def _slow_args(dev, cost, quality, lam1, lam2):
+    """Check and convert what the fast path does not take: numbers, other
+    dtypes and strides; a tensor on another device than ``dev`` raises."""
     n, m = cost.shape
     if tuple(quality.shape) != (n, m):
         raise ValueError(f"cost {tuple(cost.shape)} and quality "
@@ -204,22 +251,45 @@ def assign_step_cuda(cost, quality, lam1, lam2):
         raise ValueError("assign_step_cuda needs at least one row")
 
     def f32(t, k):
+        if isinstance(t, torch.Tensor) and t.device != dev:
+            raise ValueError(f"argument on {t.device}, expected {dev}")
         t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-        if t.device != dev or t.numel() != k:
-            raise ValueError(f"argument on {t.device} with {t.numel()} "
-                             f"elements, expected {k} on {dev}")
+        if t.numel() != k:
+            raise ValueError(f"argument with {t.numel()} elements, "
+                             f"expected {k}")
         return t.reshape(-1).contiguous()
 
-    c, a = f32(cost, n * m), f32(quality, n * m)
-    lam = torch.cat([f32(lam1, 1), f32(lam2, m)])
-    bps = -(-n // STATS_ROWS)
+    return (f32(cost, n * m), f32(quality, n * m), f32(lam1, 1),
+            f32(lam2, m), n, m)
+
+
+def _launch_step(dev, c, a, lam1, lam2, n, m):
+    idx = dev.index
+    if idx != torch.cuda.current_device():
+        with torch.cuda.device(idx):
+            return _launch_step(dev, c, a, lam1, lam2, n, m)
     x = torch.empty(n, dtype=torch.int32, device=dev)
-    part = torch.empty((bps, 2 + m), dtype=torch.float32, device=dev)
     out = torch.empty(2 + m, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(_step_launcher()(
-            c.data_ptr(), a.data_ptr(), lam.data_ptr(), x.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n, m, bps, stream),
-            "assign_step_launch")
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    part, ticket, _, _ = _scratch(dev, stream, -(-n // STATS_ROWS), m)
+    _build.check(_step_launcher()(
+        c.data_ptr(), a.data_ptr(), lam1.data_ptr(), lam2.data_ptr(),
+        x.data_ptr(), part, ticket, out.data_ptr(), n, m, stream),
+        "assign_step_launch")
     return x, out[2:], out[0], out[1]
+
+
+def assign_step_cuda(cost, quality, lam1, lam2):
+    """Same arguments and result as ``ref.assign_step_ref`` with n = N:
+    cost/quality (N, M) float32, lam1 a 0-dim float32 tensor, lam2 (M,);
+    returns (x (N,) int32, counts (M,) f32, qsum, csum).  Every tensor must
+    lie on one CUDA device; nothing is read on the host.  Float32 contiguous
+    tensors take the fast path (``_fast_ok``); numbers, other dtypes and
+    strides are converted first.  Both launch the kernel."""
+    dev = cost.device
+    if dev.type != "cuda":
+        raise ValueError(f"assign_step_cuda needs CUDA tensors, got {dev}")
+    if _fast_ok(cost, quality, lam1, lam2):
+        n, m = cost.shape
+        return _launch_step(dev, cost, quality, lam1, lam2, n, m)
+    return _launch_step(dev, *_slow_args(dev, cost, quality, lam1, lam2))

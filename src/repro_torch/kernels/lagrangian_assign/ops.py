@@ -14,10 +14,13 @@ hand-written cluster kernel on a CUDA tensor, the plain loop on a CPU
 tensor; ``blocked_launches`` counts its kernel launches.
 
 ``assign_step`` is one step of the seed's per-iteration solve (one launch
-per dual iteration, the structure ``solve_fused`` replaced): the
-hand-written kernel on a CUDA tensor, the plain version on a CPU tensor;
-``step_launches`` counts its kernel launches.  ``solve_assignment_kernel``
-is the legacy quality-mode entry point over ``solve_fused``.
+per dual iteration, the structure ``solve_fused`` replaced): on a CUDA
+tensor one launch of the hand-written kernel, whose last CTA adds the block
+partials in order and resets its ticket counter (scratch kept per device
+and stream, so a step captured into a CUDA graph replays clean); the plain
+version on a CPU tensor; ``step_launches`` counts its kernel launches.
+``solve_assignment_kernel`` is the legacy quality-mode entry point over
+``solve_fused``.
 """
 from __future__ import annotations
 
@@ -39,8 +42,8 @@ step_launches = 0
 def assign_step(cost, quality, lam1, lam2):
     """One reduced-cost step, scores ``c − λ1·a/N + λ2``: returns (x (N,)
     int32, counts (M,), qsum, csum) (see ``ref.assign_step_ref``).  A CUDA
-    tensor launches the kernel or raises (M <= 16); a CPU tensor runs the
-    plain version."""
+    tensor launches the kernel once or raises (M <= 16); a CPU tensor runs
+    the plain version."""
     global step_launches
     if cost.is_cuda:
         out = assign_step_cuda(cost, quality, lam1, lam2)

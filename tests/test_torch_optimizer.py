@@ -693,8 +693,8 @@ def test_assign_step_tie_goes_to_lower_index():
     assert int(cnt[3]) == 0 and int(cnt[1]) > 0
 
 
-def test_assign_step_dispatch_by_device():
-    from repro_torch.kernels.lagrangian_assign.kernel import assign_step_cuda
+def test_assign_step_dispatch_by_device(monkeypatch):
+    from repro_torch.kernels.lagrangian_assign import kernel as pkernel
     c, a, lam1, lam2 = _step_inputs(20, 3, 4)
     before = pops.step_launches
     got = pops.assign_step(_t(c), _t(a), lam1, _t(lam2))
@@ -704,8 +704,81 @@ def test_assign_step_dispatch_by_device():
     meta = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):
         pops.assign_step(meta, meta, 0.5, torch.zeros(3, device="meta"))
-    with pytest.raises(ValueError):
-        assign_step_cuda(_t(c), _t(a), torch.tensor(lam1), _t(lam2))
+
+    # CPU, meta and mixed-device arguments raise before any CUDA call, on
+    # the fast path's arguments (float32 contiguous tensors) and on the
+    # slow path's (numbers, float64, strides)
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("a CUDA call was made")
+
+    monkeypatch.setattr(pkernel, "_launch_step", no_cuda)
+    monkeypatch.setattr(pkernel, "_step_launcher", no_cuda)
+    monkeypatch.setattr(torch.cuda, "current_device", no_cuda)
+
+    def fast(dc, dq, dl):
+        return (_t(c).to(dc), _t(a).to(dq), torch.tensor(lam1).to(dl),
+                _t(lam2).to(dl))
+
+    def slow(dc, dq, dl):
+        return (torch.as_tensor(c, dtype=torch.float64).to(dc),
+                _t(a).t().contiguous().t().to(dq), float(lam1),
+                lam2.tolist())
+
+    for args in (fast, slow):
+        for devs in (("cpu",) * 3, ("meta",) * 3, ("meta", "cpu", "meta"),
+                     ("cpu", "meta", "cpu"), ("meta", "meta", "cpu")):
+            with pytest.raises(ValueError):
+                pkernel.assign_step_cuda(*args(*devs))
+
+
+def test_assign_step_cuda_path_choice():
+    """What the wrapper's fast path takes (``_fast_ok``, device-agnostic
+    so meta tensors stand for the card here) and what the slow path
+    converts or refuses (``_slow_args``)."""
+    from repro_torch.kernels.lagrangian_assign.kernel import (_fast_ok,
+                                                              _slow_args)
+    meta = torch.device("meta")
+
+    def args(**kw):
+        d = dict(cost=torch.zeros(40, 3, device=meta),
+                 quality=torch.zeros(40, 3, device=meta),
+                 lam1=torch.zeros((), device=meta),
+                 lam2=torch.zeros(3, device=meta))
+        d.update(kw)
+        return d
+
+    assert _fast_ok(**args())
+    assert _fast_ok(**args(lam1=torch.zeros(1, device=meta)))
+    for kw in (dict(quality=torch.zeros(40, 3)), dict(lam2=torch.zeros(3)),
+               dict(lam1=torch.zeros(())), dict(lam1=0.5),
+               dict(lam2=[0.0, 0.0, 0.0]),
+               dict(cost=torch.zeros(40, 3, device=meta,
+                                     dtype=torch.float64)),
+               dict(lam2=torch.zeros(3, device=meta, dtype=torch.float64)),
+               dict(cost=torch.zeros(3, 40, device=meta).t()),
+               dict(lam2=torch.zeros(6, device=meta)[::2]),
+               dict(quality=torch.zeros(40, 4, device=meta)),
+               dict(cost=torch.zeros(40, 17, device=meta),
+                    quality=torch.zeros(40, 17, device=meta),
+                    lam2=torch.zeros(17, device=meta)),
+               dict(cost=torch.zeros(0, 3, device=meta),
+                    quality=torch.zeros(0, 3, device=meta))):
+        assert not _fast_ok(**args(**kw)), kw
+    c, a, l1, l2, n, m = _slow_args(meta, **args(lam1=0.5,
+                                                 lam2=[0.0, 1.0, 2.0]))
+    assert (n, m) == (40, 3) and c.shape == (120,) and l1.shape == (1,)
+    assert all(t.device == meta and t.dtype == torch.float32
+               for t in (c, a, l1, l2))
+    for kw in (dict(quality=torch.zeros(40, 3)), dict(lam2=torch.zeros(3)),
+               dict(lam1=torch.zeros(())), dict(lam2=[0.0, 1.0]),
+               dict(quality=torch.zeros(40, 4, device=meta)),
+               dict(cost=torch.zeros(40, 17, device=meta),
+                    quality=torch.zeros(40, 17, device=meta),
+                    lam2=torch.zeros(17, device=meta)),
+               dict(cost=torch.zeros(0, 3, device=meta),
+                    quality=torch.zeros(0, 3, device=meta))):
+        with pytest.raises(ValueError):
+            _slow_args(meta, **args(**kw))
 
 
 @pytest.mark.parametrize("mode", ["quality", "budget"])
