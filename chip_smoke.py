@@ -81,6 +81,28 @@ beside the fused one-launch solve, and the legacy and sweep entry points
 (``solve_assignment_kernel``, ``solve_assignment``, ``solve_budget``,
 ``DualSolver.solve_grid`` / ``solve_batch``) (3e).
 
+The event-driven serving simulator (phase S): ``run_serving`` through
+``OmniRouter`` over ECCOS-R on the card.  S1, the paper's Table 2 pool
+(``generate(n=2700, seed=0).split()``, 271 test queries, loads 4):
+batching (the fused dual solve), the streaming strawman over the first
+108 queries, and batching with ``fold_online`` (the store grows by 271
+rows mid-stream).  S2, ``benchmarks/bench_robust.py``'s degraded pool at
+its full size (800 test queries, Poisson 80/s, windows of 0.25 s, budget
+3.5 x the surviving pool's floor): healthy, naive under the fault plan
+(endpoint 0 hard down at t = 1, endpoint 1 erroring at 0.6 over
+[0.5, 4)), and robust (breakers, the LCB solve at kappa 0.5; a warm-up
+pass, then a timed one), held to the bench's acceptance.  Every window's
+vote and blocked launches are held to their plain versions, and every
+run is replayed on the CPU against the card's recorded predictions: the
+replay's ``ServeResult`` must equal the card's in every field but the
+wall time.  A plain CPU run with its own predictions is printed beside
+it.  S3, a 16,384-query Poisson stream (~60 s of traffic, 64 arrivals a
+window) over the 131,072-row store in budget mode (B = 2.5 x the true
+floor), every 16th window's launches held: every query served within
+1.05 B.  Each run prints its windows, dual iterations, route ms a window
+(median and p90, by part), scheduling and LLM seconds and their ratio,
+the makespan, the simulation's wall time and its launches.
+
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
@@ -920,24 +942,28 @@ def stats_bytes_ops(n, m, lblocks):
     return 4 * (2 * n * m + m + 1 + lblocks + lblocks * (2 + m)), 4.0 * n * m
 
 
-class BlockedCalls:
-    """Stands in for ``ops.blocked_dual_ascent`` and, while ``on``, keeps
-    each call: its inputs and the packed output the path got, to hold them
-    against the plain version after the run."""
+class KeptCalls:
+    """Stands in for the entry point ``module.name`` and, while ``on``,
+    keeps every ``every``-th call: its inputs and what the path got, to
+    hold them against the plain version after the run."""
 
-    def __init__(self, la_ops):
-        self.ops, self.orig = la_ops, la_ops.blocked_dual_ascent
+    def __init__(self, module, name: str, every: int = 1):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.every, self.seen = every, 0
         self.calls, self.on = [], False
-        la_ops.blocked_dual_ascent = self
+        setattr(module, name, self)
 
     def __call__(self, *args, **kw):
-        out, reads = self.orig(*args, **kw)
+        out = self.orig(*args, **kw)
         if self.on:
-            self.calls.append((args, kw, out))
-        return out, reads
+            if self.seen % self.every == 0:
+                self.calls.append((args, kw, out))
+            self.seen += 1
+        return out
 
     def restore(self):
-        self.ops.blocked_dual_ascent = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
 def hold_blocked_calls(torch, say, check, calls, tag):
@@ -949,7 +975,7 @@ def hold_blocked_calls(torch, say, check, calls, tag):
     from repro_torch.kernels.lagrangian_assign.ref import (
         blocked_dual_ascent_ref)
     err, exact, sparse = 0.0, True, 0
-    for args, kw, path_out in calls:
+    for args, kw, (path_out, _) in calls:
         got = la_kernel.blocked_dual_ascent_cuda(*args, **kw)
         ctas = la_kernel.cluster[0]
         want, _ = blocked_dual_ascent_ref(*args, **kw)
@@ -1041,7 +1067,7 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
         windows.append((c, q, nv))
     # the blocked ascent's calls on the card are kept, to hold the kernel
     # against its plain version on the same inputs below
-    kept = BlockedCalls(la_ops)
+    kept = KeptCalls(la_ops, "blocked_dual_ascent")
     fields = ("lam", "lam_load", "iters_run")
     for shards in (1, 4):
         runs = {}
@@ -1391,7 +1417,7 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
         srv.submit(Request(rid, encode_for_config(cfg, text),
                            max_new=ROUTED_SPEC_TOKENS), at_step=arrive[rid])
     # every solve's blocked ascent is kept, to hold it to its plain version
-    kept = BlockedCalls(la_ops)
+    kept = KeptCalls(la_ops, "blocked_dual_ascent")
     kept.on = True
     pd_ops.launches = pd_ops.verify_launches = 0
     la_ops.launches = la_ops.blocked_launches = 0
@@ -2640,6 +2666,455 @@ def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
     return row, solve_cases
 
 
+# -- phase S: the event-driven serving simulator ----------------------------
+
+S1_N = 2_700            # benchmarks/common.py: the paper's pool (Table 7)
+S1_STREAM = 108         # benchmarks/common.py: streaming_subset
+S1_ALPHA = 0.75         # benchmarks/bench_serving.py: the paper's alpha
+S2_N = 1_600            # benchmarks/bench_robust.py at its full size
+S2_RATE = 80.0
+S2_KAPPA = 0.5
+S2_RETRY = 6
+S2_FAULTY = (0, 1)      # hard down at t = 1; error rate 0.6 over [0.5, 4)
+S3_SECONDS = 60.0       # benchmarks/bench_streaming.py: ~60 s of traffic
+S3_WINDOW_ARRIVALS = 64  # benchmarks/bench_streaming.py: WINDOW_ARRIVALS
+S3_LOADS = 64           # per model: 384 slots against ~116 in flight
+S3_TOKENS_PER_SEC = 600.0
+S3_HOLD_EVERY = 16      # S3 holds every 16th window's launches
+CPU_WORKERS = 8         # processes for the CPU replays and plain runs
+
+
+class RecordedPredictor:
+    """The device predict contract of ``inner`` (``device``, ``token_len``,
+    ``device_inputs``, ``predict_device``; ``observe`` passes through),
+    keeping every call's inputs and predictions on the card, so that the
+    CPU can replay the run against the card's predictions."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    @property
+    def token_len(self):
+        return self.inner.token_len
+
+    def device_inputs(self):
+        return self.inner.device_inputs()
+
+    def observe(self, texts, correct, out_len):
+        return self.inner.observe(texts, correct, out_len)
+
+    def predict_device(self, inputs, tokens, input_len, price_in, price_out):
+        out = self.inner.predict_device(inputs, tokens, input_len, price_in,
+                                        price_out)
+        self.calls.append(tuple(a.clone() for a in (
+            tokens, input_len, price_in, price_out, out[0], out[2])))
+        return out
+
+
+class ReplayPredictor:
+    """Answers each predict on the CPU with the next recorded call's
+    (capability, cost) (NumPy arrays), after checking that the call's
+    inputs (tokens, input lengths, prices) are the recorded ones."""
+
+    def __init__(self, calls, token_len):
+        import torch
+        self.calls, self.token_len = calls, token_len
+        self.device = torch.device("cpu")
+        self.next = 0
+
+    def device_inputs(self):
+        return None
+
+    def observe(self, texts, correct, out_len):
+        return self     # the card's store grew; its votes are recorded
+
+    def predict_device(self, inputs, tokens, input_len, price_in, price_out):
+        import numpy as np
+        import torch
+        w = self.next
+        if w >= len(self.calls):
+            raise RuntimeError("the CPU replay asked for more predictions "
+                               "than the card made")
+        *want, cap, cost = self.calls[w]
+        if not all(np.array_equal(a.numpy(), b) for a, b in zip(
+                (tokens, input_len, price_in, price_out), want)):
+            raise RuntimeError(f"the CPU replay's window {w} differs from "
+                               "the card's in its inputs")
+        self.next += 1
+        return torch.from_numpy(cap), None, torch.from_numpy(cost)
+
+
+def _host(x):
+    """A kept call's tensors as NumPy arrays (other values as they are)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    return x.cpu().numpy() if hasattr(x, "cpu") else x
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def sim_case(case):
+    """(train, served ds, RouterConfig kwargs, SchedulerConfig kwargs) of
+    one S1 / S2 run, by its name."""
+    import numpy as np
+    from repro_torch.data.qaserve import generate
+    if case.startswith("S1"):
+        train, _, test = generate(n=S1_N, seed=0).split()
+        ds = (test.subset(np.arange(S1_STREAM)) if case == "S1 streaming"
+              else test)
+        cfg = dict(mode="streaming" if case == "S1 streaming"
+                   else "batching", loads=4,
+                   fold_online=case == "S1 batching fold_online")
+        return train, ds, dict(alpha=S1_ALPHA), cfg
+    from repro_torch.serving import faults
+    train, _, test = generate(n=S2_N, seed=3).split(0.5, 0.0, seed=0)
+    budget = 3.5 * float(np.delete(test.cost_matrix(), S2_FAULTY,
+                                   axis=1).min(1).sum())
+    robust = case == "S2 robust"
+    cfg = dict(arrival="poisson", arrival_rate=S2_RATE, window=0.25,
+               streaming_dual=True, horizon=test.n)
+    if case != "S2 healthy":
+        plan = faults.FaultPlan(
+            {S2_FAULTY[0]: (faults.FaultSpec("hard_down", start=1.0),),
+             S2_FAULTY[1]: (faults.FaultSpec("error_rate", rate=0.6,
+                                             start=0.5, end=4.0),)}, seed=1)
+        cfg.update(fault_plan=plan, retry_budget=S2_RETRY, health=robust)
+    return train, test, dict(budget=budget, robust=robust,
+                             kappa=S2_KAPPA if robust else 1.0), cfg
+
+
+def cpu_sim_job(case, recorded=None, token_len=None, blocked=None):
+    """One CPU run of a phase S case (``sim_case``'s four values), in a
+    worker process.  With ``recorded`` (the card's predictions, NumPy) it
+    replays the card's run and keeps every blocked-ascent call, to hold
+    the card's launches to the plain version on the same inputs; without,
+    it predicts with its own ECCOS-R store.  Returns (the ServeResult,
+    seconds, the blocked calls that differ from the card's, or None)."""
+    import torch
+    from repro_torch.core import (OmniRouter, RetrievalPredictor,
+                                  RouterConfig, SchedulerConfig, run_serving)
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    torch.set_num_threads(1)
+    train, ds, rkw, skw = case
+    if recorded is None:
+        pred = RetrievalPredictor(k=8, device="cpu").fit(train)
+    else:
+        pred = ReplayPredictor(recorded, token_len)
+    kept = KeptCalls(la_ops, "blocked_dual_ascent")
+    kept.on = True
+    t0 = time.perf_counter()
+    try:
+        res = run_serving(ds, OmniRouter(pred, RouterConfig(**rkw)),
+                          SchedulerConfig(**skw))
+    finally:
+        kept.restore()
+    seconds = time.perf_counter() - t0
+    if recorded is None:
+        return res, seconds, None
+    if pred.next != len(recorded):
+        raise RuntimeError("the CPU replay made fewer predictions than the "
+                           "card")
+    # the blocked plain version on the card's launches' inputs: the replay
+    # makes the same calls, so its outputs are the plain version's
+    ours = [(_host(a), _host(kw), _host(out[0])) for a, kw, out in kept.calls]
+    bad = ([i for i, (c, p) in enumerate(zip(blocked, ours))
+            if not (_same(c[0], p[0]) and _same(c[1], p[1]))
+            or not _same(c[2], p[2])]
+           if len(blocked) == len(ours) else ["count"])
+    return res, seconds, bad
+
+
+def result_diff(a, b):
+    """The ``ServeResult`` fields, all but the wall time, that differ."""
+    import dataclasses
+    import numpy as np
+    return [f.name for f in dataclasses.fields(a)
+            if f.name != "scheduling_seconds"
+            and not np.array_equal(np.asarray(getattr(a, f.name)),
+                                   np.asarray(getattr(b, f.name)))]
+
+
+def result_line(res):
+    return (f"SR {res.success_rate:.6f}, $ {res.cost:.6f}, makespan "
+            f"{res.makespan:.3f} s, counts {res.per_model_counts.tolist()}, "
+            f"windows {res.windows}, dual iters {res.dual_iters}, hedged "
+            f"{res.hedged}, failures {res.failures}, retries {res.retries}, "
+            f"trips {res.breaker_trips}")
+
+
+def hold_vote_calls(torch, say, check, calls, tag):
+    """3a's contract on the kept vote launches, over all their rows: vals
+    within 1e-5, sorted index rows equal on >= 0.999 of the rows, votes
+    within 1e-5 relative to max(1, |vote|) on the rows whose index sets
+    agree.  Returns (largest error, windows whose index sets differ)."""
+    from repro_torch.kernels.topk_retrieval.ref import retrieval_vote_ref
+    err_vals = err_vote = rel = 0.0
+    rows = same_rows = differ = 0
+    for (store, labels, q, k), kw, out in calls:
+        ref = retrieval_vote_ref(store, labels, q, k, kw.get("n_valid"))
+        same = (torch.sort(out[1], 1).values
+                == torch.sort(ref[1], 1).values).all(1)
+        err_vals = max(err_vals, float((out[0] - ref[0]).abs().max()))
+        if bool(same.any()):
+            d = (out[2] - ref[2])[same].abs()
+            err_vote = max(err_vote, float(d.max()))
+            rel = max(rel, float((d / torch.clamp(ref[2][same].abs(),
+                                                  min=1.0)).max()))
+        rows += q.shape[0]
+        same_rows += int(same.sum())
+        differ += int(not bool(same.all()))
+    agree = same_rows / max(rows, 1)
+    say(f"{tag}: vote kernel vs plain version on {len(calls)} windows "
+        f"({rows} rows): max|dvals|={err_vals:.3g}, idx agree={agree:.6f} "
+        f"({differ} windows with a differing index set), "
+        f"max|dvote|={err_vote:.3g} (relative {rel:.3g})")
+    check(len(calls) > 0, f"{tag}: no vote launch was kept")
+    check(err_vals <= 1e-5, f"{tag}: vote vals")
+    check(agree >= 0.999, f"{tag}: vote idx sets")
+    check(rel <= 1e-5, f"{tag}: votes")
+    return max(err_vals, err_vote), differ
+
+
+def percentiles(np, xs):
+    return (float(np.median(xs)), float(np.percentile(xs, 90))) if xs else (
+        0.0, 0.0)
+
+
+def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
+    """S: ``run_serving`` on the card through ``OmniRouter`` over ECCOS-R.
+
+    S1, the paper's Table 2 pool: batching (the fused dual solve), the
+    streaming strawman over the first 108 queries, and batching with
+    ``fold_online``.  S2, ``benchmarks/bench_robust.py``'s degraded pool:
+    healthy, naive and robust (breakers + LCB solve) streams.  Every
+    window's vote launch is held to its plain version on the card; every
+    run is replayed on the CPU (in worker processes, after the card's
+    runs) against the card's predictions, whose ``ServeResult`` must equal
+    the card's and whose blocked-ascent calls, the plain version on the
+    card's launches' inputs, must equal the card's bit for bit; a plain
+    CPU run with its own predictions is printed beside it.  S3: a
+    16,384-query Poisson stream over the 131,072-row store, every 16th
+    window's launches held.  Returns the launches of rows 1, 2 and 4, the
+    largest vote and blocked errors and the per-run summaries."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.core import (OmniRouter, RetrievalPredictor,
+                                  RouterConfig, SchedulerConfig, run_serving)
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.serving import faults
+
+    t_phase = time.perf_counter()
+    total = dict(vote=0, dual_solve=0, blocked=0)
+    errs = dict(vote=0.0, blocked=0.0)
+    summary, card, cpu_jobs = {}, {}, []
+
+    def card_run(tag, ds, router, cfg, every=1, hold=True):
+        """One run on the card: launches counted from 0, every
+        ``every``-th vote and blocked launch kept, the votes held,
+        per-window route times, the simulation's wall time."""
+        laps = []
+        for name in ("route", "route_window"):
+            fn = getattr(router, name)
+
+            def lapped(*a, _fn=fn, **kw):
+                out = _fn(*a, **kw)
+                laps.append(dict(router.last_timing))
+                return out
+            setattr(router, name, lapped)
+        votes = KeptCalls(tr_ops, "retrieval_vote", every)
+        blocked = KeptCalls(la_ops, "blocked_dual_ascent", every)
+        votes.on = blocked.on = hold
+        tr_ops.launches = la_ops.launches = la_ops.blocked_launches = 0
+        reads0 = opt.solve_host_reads
+        t0 = time.perf_counter()
+        try:
+            res = run_serving(ds, router, cfg)
+            torch.cuda.synchronize()
+        finally:
+            votes.restore()
+            blocked.restore()
+        wall = time.perf_counter() - t0
+        n = dict(vote=tr_ops.launches, dual_solve=la_ops.launches,
+                 blocked=la_ops.blocked_launches)
+        reads = opt.solve_host_reads - reads0
+        for key in total:
+            total[key] += n[key]
+        parts = {p: [lap[p] * 1e3 for lap in laps]
+                 for p in ("tokenize_s", "predict_solve_s", "polish_s")}
+        whole = [sum(v) for v in zip(*parts.values())]
+        med, p90 = percentiles(np, whole)
+        split = ", ".join(f"{p[:-2]} {percentiles(np, v)[0]:.2f}/"
+                          f"{percentiles(np, v)[1]:.2f}"
+                          for p, v in parts.items())
+        ratio = res.scheduling_seconds / max(res.llm_seconds, 1e-12)
+        say(f"{tag} (card): {result_line(res)}")
+        say(f"{tag} (card): {len(laps)} routed windows, route ms a window "
+            f"median {med:.2f} / p90 {p90:.2f} ({split}); scheduling "
+            f"{res.scheduling_seconds:.3f} s, LLM {res.llm_seconds:.1f} s, "
+            f"ratio {ratio:.3g}; simulation wall {wall:.2f} s; launches "
+            f"{n}, solve host reads {reads}")
+        check(len(laps) == res.windows, f"{tag}: a window went unrouted")
+        check(n["vote"] > 0, f"{tag}: the vote kernel was not launched")
+        vote_differ = 0
+        if hold:
+            e, vote_differ = hold_vote_calls(torch, say, check, votes.calls,
+                                             tag)
+            errs["vote"] = max(errs["vote"], e)
+        summary[tag] = dict(windows=res.windows, dual_iters=res.dual_iters,
+                            route_ms_median=med, route_ms_p90=p90,
+                            scheduling_s=res.scheduling_seconds,
+                            llm_s=res.llm_seconds, ratio=ratio,
+                            makespan_s=res.makespan, wall_s=wall,
+                            launches=n, solve_host_reads=reads,
+                            sr=res.success_rate, cost=res.cost,
+                            vote_windows_differ=vote_differ)
+        return res, n, reads, blocked.calls
+
+    def card_case(tag, case, rec, res, blocked_calls):
+        """Queue the CPU replay of a card run and the plain CPU run."""
+        card[tag] = res
+        calls = [_host(c) for c in rec.calls]
+        kept = [(_host(a), _host(kw), _host(out[0]))
+                for a, kw, out in blocked_calls]
+        cpu_jobs.append((tag, "replay", (case, calls, rec.token_len, kept)))
+        cpu_jobs.append((tag, "plain", (case,)))
+
+    # S1. the paper's Table 2 pool at paper scale
+    for tag in ("S1 batching", "S1 streaming", "S1 batching fold_online"):
+        case = train, ds, rkw, skw = sim_case(tag)
+        ret = RetrievalPredictor(k=8, device=dev).fit(train)
+        size0 = ret.vstore.size
+        rec = RecordedPredictor(ret)
+        router = OmniRouter(rec, RouterConfig(**rkw), name="ECCOS-R")
+        res, n, _, bl = card_run(tag, ds, router, SchedulerConfig(**skw))
+        check(res.per_model_counts.sum() == ds.n and res.failures == 0,
+              f"{tag}: not every query served")
+        check(n["dual_solve"] > 0, f"{tag}: the dual solve kernel was not "
+              "launched")
+        if skw["fold_online"]:
+            say(f"{tag}: store {size0} -> {ret.vstore.size} rows "
+                f"(capacity {ret.vstore.capacity})")
+            check(ret.vstore.size == size0 + ds.n,
+                  f"{tag}: the store did not grow by {ds.n}")
+        card_case(tag, case, rec, res, bl)
+
+    # S2. benchmarks/bench_robust.py's degraded pool at its full size
+    ret2 = None
+    for tag in ("S2 healthy", "S2 naive", "S2 robust"):
+        case = train, test, rkw, skw = sim_case(tag)
+        budget2 = rkw["budget"]
+        ret2 = ret2 or RetrievalPredictor(k=8, device=dev).fit(train)
+        rec = RecordedPredictor(ret2)
+        router = OmniRouter(rec, RouterConfig(**rkw), name="ECCOS-R")
+        cfg = SchedulerConfig(**skw)
+        faults.reset_counters()
+        if rkw["robust"]:
+            # a warm-up pass, then the timed pass on the same router
+            warm, _, _, _ = card_run(tag + " warm-up", test, router, cfg,
+                                     hold=False)
+            rec.calls.clear()
+        res, n, reads, bl = card_run(tag, test, router, cfg)
+        check(n["blocked"] > 0 and len(bl) == n["blocked"],
+              f"{tag}: a blocked ascent launch was not made or not kept")
+        check(reads == 0, f"{tag}: the padded solve read the host")
+        if tag == "S2 healthy":
+            say(f"{tag}: fault counters {faults.counters}")
+            check(faults.counters == {"checks": 0, "injected": 0},
+                  f"{tag}: the fault plane did work with no plan attached")
+        if rkw["robust"]:
+            check(not result_diff(warm, res),
+                  f"{tag}: the timed pass differs from the warm-up pass")
+        card_case(tag, case, rec, res, bl)
+    healthy, naive, robust = (card[k] for k in ("S2 healthy", "S2 naive",
+                                                "S2 robust"))
+    say(f"S2 acceptance: robust SR {robust.success_rate:.4f} vs 0.95 x "
+        f"healthy {0.95 * healthy.success_rate:.4f}; robust $ "
+        f"{robust.cost:.6f} vs B {budget2:.6f}; naive SR "
+        f"{naive.success_rate:.4f}; trips {robust.breaker_trips}")
+    check(robust.success_rate >= 0.95 * healthy.success_rate,
+          "S2: robust SR below 0.95 x healthy")
+    check(robust.cost <= budget2 * 1.0001, "S2: robust overspent B")
+    check(robust.success_rate > naive.success_rate,
+          "S2: robust did not beat naive")
+    check(robust.breaker_trips >= 1, "S2: no breaker tripped")
+
+    # S3. a 16,384-query stream on the routing plane's 131,072-row store
+    rate = route_ds.n / S3_SECONDS
+    budget3 = 2.5 * float(route_ds.cost_matrix().min(1).sum())
+    cfg3 = SchedulerConfig(arrival="poisson", arrival_rate=rate,
+                           window=S3_WINDOW_ARRIVALS / rate,
+                           streaming_dual=True, horizon=route_ds.n,
+                           tokens_per_sec=S3_TOKENS_PER_SEC, loads=S3_LOADS)
+    res3, n3, reads3, bl3 = card_run(
+        "S3 stream", route_ds, OmniRouter(big_retrieval, RouterConfig(
+            budget=budget3), name="ECCOS-R"), cfg3, every=S3_HOLD_EVERY)
+    e, _ = hold_blocked_calls(torch, say, check, bl3, "S3 stream")
+    errs["blocked"] = max(errs["blocked"], e)
+    say(f"S3 stream: {route_ds.n} queries at {rate:.1f}/s, window "
+        f"{cfg3.window:.4f} s, loads {S3_LOADS} x {route_ds.m}, store "
+        f"{big_retrieval.vstore.size} rows; $ {res3.cost:.4f} vs B "
+        f"{budget3:.4f} ({res3.cost / budget3:.4f} B)")
+    check(res3.per_model_counts.sum() == route_ds.n and res3.failures == 0,
+          "S3: not every query served")
+    check(res3.cost <= 1.05 * budget3, "S3: spent more than 1.05 B")
+    check(res3.windows > 100 and res3.dual_iters > 0,
+          "S3: too few windows or no dual iterations")
+    check(n3["blocked"] > 0 and reads3 == 0,
+          "S3: no blocked launch, or the solve read the host")
+
+    # the CPU runs of S1 and S2, in worker processes, the longest (S2's)
+    # first
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(CPU_WORKERS, multiprocessing.get_context(
+            "spawn")) as pool:
+        futures = [(tag, kind, pool.submit(cpu_sim_job, *args))
+                   for tag, kind, args in sorted(
+                       cpu_jobs, key=lambda j: not j[0].startswith("S2"))]
+        for tag, kind, fut in futures:
+            try:
+                res, seconds, bad = fut.result()
+            except RuntimeError as err:
+                check(False, f"{tag}: CPU {kind}: {err}")
+            diff = result_diff(res, card[tag])
+            if kind == "replay":
+                say(f"{tag}: CPU replay on the card's predictions "
+                    f"({seconds:.2f} s): differing fields {diff}; blocked "
+                    f"launches held bit for bit to the plain version on "
+                    f"their inputs: {summary[tag]['launches']['blocked']}, "
+                    f"differing {bad}")
+                check(not diff, f"{tag}: the CPU replay's ServeResult "
+                      f"differs from the card's in {diff}")
+                check(not bad, f"{tag}: blocked launches {bad} differ from "
+                      "the plain version on their inputs")
+            else:
+                say(f"{tag} (CPU, own predictions, {seconds:.2f} s): "
+                    f"{result_line(res)}; differing from the card's in "
+                    f"{diff}")
+    say(f"phase S CPU runs: {len(futures)} in {CPU_WORKERS} processes, "
+        f"{time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    say(f"phase S: {seconds:.1f} s; launches (vote, dual solve, blocked) "
+        f"{total}")
+    return dict(launches=total, errs=errs, runs=summary, seconds=seconds)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2684,6 +3159,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    t_mark = [t_all]
+
+    def mark(tag):
+        """Print the seconds since the previous mark."""
+        now = time.perf_counter()
+        say(f"time: {tag} {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
 
     # 1. device
     card = gpu_line()
@@ -2708,6 +3190,7 @@ def main() -> int:
     t0 = time.perf_counter()
     hp = HybridPredictor(seed=0, device=dev).fit_store(store_ds)
     torch.cuda.synchronize()
+    mark("device and build")
     say(f"data: generate {t_gen:.2f} s, tokenize+embed store "
         f"{time.perf_counter() - t0:.2f} s; store {hp.retrieval.vstore.size}"
         f" rows x {hp.retrieval.d}, k={hp.hcfg.k}")
@@ -2743,6 +3226,7 @@ def main() -> int:
     budget = float(cost.min(1).values.sum()) * 1.6
     rows["dual_solve"], solve_cases = dual_solve_phase(
         torch, say, check, time_ms, dev, cost, cap, budget)
+    mark("data, 3a and 3b")
 
     # 3c. top-k retrieval; 3d. the assign step; 3e. the seed's
     # per-iteration solve and the legacy / sweep entry points
@@ -2756,6 +3240,7 @@ def main() -> int:
     rows["assign_step"]["launches"], seed_tm = seed_loop_phase(
         torch, say, check, time_ms, dev)
     rows["assign_step"].update(seed_tm)
+    mark("3c, 3d and 3e")
 
     # 4. the main path: route (both modes) and streaming windows
     tr_ops.launches = 0
@@ -2841,8 +3326,15 @@ def main() -> int:
           "card and CPU success rates differ")
 
     # V2. the shard-statistics kernel and the masked stream, card vs CPU
+    mark("4 and 5")
     rows["shard_stats"] = masked_solve_phase(torch, np, dev, say, check,
                                              time_ms, hp)
+    mark("V2")
+
+    # S. the event-driven serving simulator (run_serving) on the card
+    sim = serving_sim_phase(torch, np, dev, say, check, hp.retrieval,
+                            route_ds)
+    mark("S")
 
     del hp, hp_cpu, hp_gpu, emb, labels, proj, q_route
     # F1 and D1. the flash and dense decode kernels against their plain
@@ -2851,20 +3343,35 @@ def main() -> int:
                                                  time_ms)
     rows["decode_attention"] = dense_decode_phase(torch, say, check, dev,
                                                   time_ms)
+    mark("F1 and D1")
     rows["paged_decode_attention"], main = serving_plane(
         torch, np, dev, say, check, time_ms)
     rows["flash_attention"]["launches"] = main["flash"]
     rows["decode_attention"]["launches"] = main["dense"]
+    mark("serving plane, R1 and R2")
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
+    mark("V1")
     # V3, V4 and the smoke spec pool card vs CPU
     (rows["paged_verify_attention"], blocked_launches,
      blocked_err) = speculative_plane(torch, np, dev, say, check, time_ms)
+    mark("V3, V4 and the smoke spec pool")
     rows["paged_verify_attention"]["max_abs_err"] = verify_err
     rows["shard_stats"]["launches"] = blocked_launches
     rows["shard_stats"]["max_abs_err"] = max(
         rows["shard_stats"]["max_abs_err"], blocked_err)
+
+    # phase S's launches join those of the main path's other runs
+    for key, row in (("vote", "retrieval_vote"), ("dual_solve", "dual_solve"),
+                     ("blocked", "shard_stats")):
+        rows[row]["launches"] += sim["launches"][key]
+        rows[row]["serving_sim_launches"] = sim["launches"][key]
+    rows["retrieval_vote"]["max_abs_err"] = max(
+        rows["retrieval_vote"]["max_abs_err"], sim["errs"]["vote"])
+    rows["shard_stats"]["max_abs_err"] = max(
+        rows["shard_stats"]["max_abs_err"], sim["errs"]["blocked"])
+    say("phase S runs: " + json.dumps(sim["runs"]))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

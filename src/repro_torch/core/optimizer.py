@@ -692,6 +692,11 @@ class DualSolver:
     norm_grad: bool = False        # scale-free subgradient (streaming)
     shards: int = 1                # blocked stats reduction over the query
     #                                axis (all shards on one device)
+    robust: bool = False           # route_window solves against the quality
+    #                                lower-confidence bound q - kappa*sigma
+    kappa: float = 1.0             # LCB width (0 == bit-identical to robust
+    #                                off: q - 0*sigma is exact for finite
+    #                                sigma)
     device: Optional[str] = None   # where non-tensor inputs go; None = CUDA
 
     def __post_init__(self):
@@ -699,6 +704,8 @@ class DualSolver:
             raise ValueError(f"unknown solver mode: {self.mode!r}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1: {self.shards}")
+        if self.kappa < 0.0:
+            raise ValueError(f"kappa must be >= 0: {self.kappa}")
 
     @staticmethod
     def _check_divisible(n: int, gshards: int):
@@ -849,7 +856,7 @@ class DualSolver:
     def route_window(self, cost, quality, threshold, loads,
                      state: Optional[DualState] = None, *, share=1.0,
                      polish_margin: float = 0.0, n_valid=None,
-                     stats: Optional[dict] = None
+                     quality_std=None, stats: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, SolveInfo, DualState]:
         """One streaming window: fold the cumulative ledger into this
         window's effective threshold, warm-start the ascent from the
@@ -858,9 +865,25 @@ class DualSolver:
         ``share`` is the window's fraction of the remaining horizon (budget
         mode only).  ``n_valid`` marks the valid-row prefix of a padded
         window: padding rows never touch the ledger (their cost/quality are
-        zeroed and masked from every sum)."""
+        zeroed and masked from every sum).
+
+        With ``robust=True`` the solve runs against the lower-confidence
+        bound ``q - kappa*sigma`` (``quality_std`` when given, else the
+        Bernoulli std of the clipped predicted quality), taken in float32
+        on the solve's device before the path is chosen, so the fused, the
+        blocked and the padded solves and the ledger all see the bound."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
+        if self.robust:
+            if quality_std is None:
+                qc = torch.clamp(quality, 0.0, 1.0)
+                sigma = torch.sqrt(qc * (1.0 - qc))
+            else:
+                sigma = torch.as_tensor(quality_std, dtype=torch.float32,
+                                        device=dev)
+            kappa = torch.full((), self.kappa, dtype=torch.float32,
+                               device=dev)
+            quality = quality - kappa * sigma
         n, m = cost.shape
         if state is None:
             state = init_dual_state(m, dev)

@@ -17,8 +17,10 @@ splices the (draft, verify) columns between predict and solve
 (``core.speculative.expand_pair_columns``, on the device, priced by the
 live acceptance EWMA), so the solve and the warm state span M + P columns.
 
-Not in this slice: the robust LCB streaming solve (``robust`` must be
-False) and the sanitizer hooks.
+With ``robust=True`` the streaming solve runs against the quality
+lower-confidence bound ``q - kappa*sigma`` (``DualSolver.robust``), taken
+after the pair columns are spliced in.  The reference's sanitizer hooks
+are not ported.
 """
 from __future__ import annotations
 
@@ -56,7 +58,11 @@ class RouterConfig:
     # query-axis shards of the streaming solver: >1 runs the blocked dual
     # solve (all shards on one device)
     shards: int = 1
-    robust: bool = False         # LCB streaming solve: a later slice
+    # robust=True solves streaming windows against the quality lower-
+    # confidence bound q - kappa*sigma (Bernoulli sigma); kappa=0 is
+    # bit-identical to robust off
+    robust: bool = False
+    kappa: float = 1.0
     # speculative cascade: (draft, verify) SpecPair columns grow the
     # streaming solve to (N, M + P); () leaves the solve as it is
     spec_pairs: tuple = ()
@@ -74,9 +80,6 @@ class OmniRouter(Policy):
 
     def __init__(self, predictor, cfg: RouterConfig = RouterConfig(),
                  name: str = "ECCOS"):
-        if cfg.robust:
-            raise NotImplementedError(
-                "the robust (LCB) streaming solve is not ported yet")
         self.predictor = predictor
         self.cfg = cfg
         self.name = name
@@ -89,7 +92,8 @@ class OmniRouter(Policy):
             mode=mode, iters=cfg.iters, lr_constraint=cfg.lr_stream,
             lr_workload=cfg.lr_workload, use_kernel=cfg.use_assign_kernel,
             stall_tol=cfg.stall_tol, stall_patience=cfg.stall_patience,
-            norm_grad=True, shards=cfg.shards)
+            norm_grad=True, shards=cfg.shards, robust=cfg.robust,
+            kappa=cfg.kappa)
         # speculative cascade: pair columns + the acceptance EWMAs that
         # reprice them (the engine records verify rounds into the tracker)
         self.pairs = tuple(cfg.spec_pairs)

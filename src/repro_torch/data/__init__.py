@@ -1,1 +1,2 @@
-"""NumPy data leaves copied from ``repro.data`` (tokenizer, SynthQAServe)."""
+"""NumPy data leaves copied from ``repro.data`` (tokenizer, SynthQAServe,
+arrival processes)."""

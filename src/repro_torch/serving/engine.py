@@ -55,7 +55,7 @@ import torch
 from repro_torch.common import default_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control import (AdmissionRule, ControlLoop,
-                                      StreamController)
+                                      FoldBuffer, StreamController)
 from repro_torch.models import build_model
 from repro_torch.models.zoo import (PAGED_POOL_KEYS, pad_cache,
                                     pages_per_request, prefill_into_pages,
@@ -706,6 +706,9 @@ class _EngineExecutor:
         self.server.completed.extend(done)
         return done, progressed
 
+    def tick(self):
+        """The loop's post-event hook: the engine does not hedge."""
+
 
 class MultiLLMServer:
     """Router + endpoint pool behind the streaming control loop: admission
@@ -876,8 +879,10 @@ class MultiLLMServer:
         executor = _EngineExecutor(self, max_steps)
         loop = ControlLoop(
             executor=executor, controller=controller, rule=self.rule,
-            items=items, features=route_features, arrival_times=times,
-            window=self.window_steps)
+            items=items, features=route_features,
+            fold=FoldBuffer(self.policy, route_features),
+            arrival_times=times, window=self.window_steps,
+            drain_admissions=False, requeue_front=True)
         loop.run()
         # an early exit (max_steps) leaves un-served requests in the loop's
         # queues — put them back, REBASED to the fresh clock a later run()

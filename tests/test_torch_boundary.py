@@ -5,9 +5,11 @@ a subprocess imports every module of the port and checks ``sys.modules``,
 and a source scan finds no such import in the port or in ``chip_smoke.py``.
 The plain-Python and NumPy leaves the port copies (tokenizer, SynthQAServe,
 baselines, the featurizer projection, the arch configs, the layer plan,
-``route_via_batch`` and the admission rule) must equal their originals
-exactly — same token ids, same dataset, same projection bits, same config
-values, same plans, same routes.  A scan of the CUDA sources finds no
+``route_via_batch``, the admission rule, the arrival processes, the health
+tracker and the fault plans) must equal their originals exactly — same
+token ids, same dataset, same projection bits, same config values, same
+plans, same routes, same arrival times, same breaker states, same fault
+answers.  A scan of the CUDA sources finds no
 library kernel (cuBLAS, cuDNN, CUTLASS's device- or kernel-level GEMMs).
 """
 import os
@@ -39,6 +41,8 @@ def test_import_port_loads_no_jax_and_no_reference():
         "             or m.startswith(('jax.', 'repro.')))\n"
         "print(len(names), bad)\n"
         "need = {'repro_torch.core.speculative', 'repro_torch.core.control',\n"
+        "        'repro_torch.core.scheduler', 'repro_torch.core.health',\n"
+        "        'repro_torch.data.arrivals', 'repro_torch.serving.faults',\n"
         "        'repro_torch.serving.engine',\n"
         "        'repro_torch.kernels.decode_attention.ops',\n"
         "        'repro_torch.kernels.flash_attention.ops',\n"
@@ -252,3 +256,97 @@ def test_admission_rule_copy_takes_the_same(batch_size, cap, queued,
     assert (got.batch_size, got.max_inflight) == (want.batch_size,
                                                   want.max_inflight)
     assert got.take(queued, inflight) == want.take(queued, inflight)
+
+
+@pytest.mark.parametrize("kind", ["poisson", "bursty", "diurnal", "batch"])
+def test_arrivals_copy_gives_the_same_times(kind):
+    from repro.data import arrivals as ref_arr
+    from repro_torch.data import arrivals as port_arr
+    for n, rate, seed in ((1, 16.0, 0), (500, 40.0, 3), (2000, 273.1, 1)):
+        got = port_arr.make(kind, n, rate=rate, seed=seed)
+        want = ref_arr.make(kind, n, rate=rate, seed=seed)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        for a, b in zip(port_arr.window_slices(got, 0.25),
+                        ref_arr.window_slices(want, 0.25)):
+            assert np.array_equal(a, b)
+    with pytest.raises(ValueError):
+        port_arr.make("nope", 3)
+
+
+def test_health_copy_follows_the_same_trace():
+    """One seeded trace of outcomes, admits and clock advances: the same
+    breaker states, EWMAs, trips and views after every event."""
+    from repro.core.health import HealthConfig as RefCfg
+    from repro.core.health import HealthTracker as RefTracker
+    from repro_torch.core.health import HealthConfig, HealthTracker
+    fields = ("breaker_state", "fail_ewma", "lat_ewma", "open_until",
+              "probe_inflight", "probe_wins", "events_seen")
+    kw = dict(cooldown=2.0, min_events=2, probe_slots=2)
+    port, ref = HealthTracker(5, HealthConfig(**kw)), RefTracker(5,
+                                                                 RefCfg(**kw))
+    rng = np.random.RandomState(0)
+    now = 0.0
+    for _ in range(600):
+        j = int(rng.randint(5))
+        ev = rng.rand()
+        if ev < 0.6:
+            ok = bool(rng.rand() > (0.7 if j < 2 else 0.1))
+            lat = float(rng.rand() * (3.0 if j == 4 else 1.0))
+            port.record(j, ok, lat if ok else None, now=now)
+            ref.record(j, ok, lat if ok else None, now=now)
+        elif ev < 0.8:
+            port.note_admit(j)
+            ref.note_admit(j)
+        else:
+            now += float(rng.rand())
+            port.advance(now)
+            ref.advance(now)
+        for f in fields:
+            a, b = getattr(port, f), getattr(ref, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b,
+                                                         equal_nan=True), f
+        assert port.trips == ref.trips
+        assert port.next_wake(now) == ref.next_wake(now)
+        loads = np.full(5, 4.0)
+        assert np.array_equal(port.effective_loads(loads),
+                              ref.effective_loads(loads))
+        assert np.array_equal(port.price_multiplier(), ref.price_multiplier())
+        assert [port.admissible(i) for i in range(5)] == [
+            ref.admissible(i) for i in range(5)]
+    assert port.trips > 0
+
+
+def test_faults_copy_answers_the_same():
+    """Every question a plan answers, on a grid of times, keys and salts:
+    the same answers, and the same counter increments."""
+    from repro.serving import faults as ref_f
+    from repro_torch.serving import faults as port_f
+
+    def plan(mod):
+        s = mod.FaultSpec
+        return mod.FaultPlan({
+            0: (s("hard_down", start=1.0, end=3.0),),
+            1: (s("error_rate", rate=0.6, start=0.5, end=4.0),
+                s("error_rate", rate=0.2)),
+            2: (s("latency_spike", start=1.0, factor=3.0),
+                s("rate_limit", capacity=2), s("rate_limit", capacity=3,
+                                                start=2.0))}, seed=7)
+
+    port, ref = plan(port_f), plan(ref_f)
+    port_f.reset_counters()
+    ref_f.reset_counters()
+    for t in np.arange(0.0, 5.0, 0.25):
+        for j in range(4):
+            assert port.down(j, t) == ref.down(j, t)
+            assert port.down_during(j, t, t + 0.6) == ref.down_during(
+                j, t, t + 0.6)
+            assert port.latency_factor(j, t) == ref.latency_factor(j, t)
+            assert port.rate_limit(j, t) == ref.rate_limit(j, t)
+            for key in range(6):
+                for salt in range(3):
+                    assert port.flake(j, t, key, salt) == ref.flake(
+                        j, t, key, salt)
+    assert port_f.counters == ref_f.counters
+    assert port_f.counters["injected"] > 0
+    with pytest.raises(ValueError):
+        port_f.FaultSpec("nope")

@@ -149,10 +149,3 @@ def test_d_padded_windows_match_jax(carried, qaserve_splits, mode):
                                float(getattr(js, field)), rtol=1e-5,
                                atol=1e-9), (k, field)
 
-
-def test_unported_router_options_raise(carried):
-    """The robust LCB solve still waits; pair columns and shards are
-    ported (``tests/test_torch_speculative.py`` holds them to JAX)."""
-    _, port = carried
-    with pytest.raises(NotImplementedError):
-        OmniRouter(port, RouterConfig(robust=True))
