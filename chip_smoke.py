@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (routing plane, paged serving plane, the
 routed speculative stream, the dense-cache generation path, neighbour-only
-top-k retrieval and the seed's per-iteration solve) on one NVIDIA GPU.
+top-k retrieval, the seed's per-iteration solve, the serving simulator,
+predictor training and the serving engine's failure plane) on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments:
 
@@ -81,14 +83,26 @@ beside the fused one-launch solve, and the legacy and sweep entry points
 (``solve_assignment_kernel``, ``solve_assignment``, ``solve_budget``,
 ``DualSolver.solve_grid`` / ``solve_batch``) (3e).
 
+Predictor training (phase T): ECCOS-T (150 steps of batch 64), ECCOS-H
+(the same heads and the store) and the S3 baseline (``S3Cost.prepare``:
+100 steps of batch 48) fit on the card on the Table 2 pool's training
+split, in full float32 (TF32 off), every parameter and AdamW state on the
+card; the same fits run on the CPU in phase S's worker processes, and
+step 1's loss (within 1e-5 relative) and every ``eval_accuracy`` field
+(within 0.02) are held card against CPU, beside the gradient gap, the
+loss gaps and the card's ms a step.
+
 The event-driven serving simulator (phase S): ``run_serving`` through
 ``OmniRouter`` over ECCOS-R on the card.  S1, the paper's Table 2 pool
 (``generate(n=2700, seed=0).split()``, 271 test queries, loads 4):
 batching (the fused dual solve), the streaming strawman over the first
 108 queries, and batching with ``fold_online`` (the store grows by 271
-rows mid-stream).  S2, ``benchmarks/bench_robust.py``'s degraded pool at
-its full size (800 test queries, Poisson 80/s, windows of 0.25 s, budget
-3.5 x the surviving pool's floor): healthy, naive under the fault plan
+rows mid-stream); then the other five policies of Table 2 in batching
+mode (BA, S3, PO, and ECCOS-T and ECCOS-H behind ``OmniRouter`` on phase
+T's fits), their SR and $ printed as the paper's Table 2.  S2,
+``benchmarks/bench_robust.py``'s degraded pool at its full size (800
+test queries, Poisson 80/s, windows of 0.25 s, budget 3.5 x the
+surviving pool's floor): healthy, naive under the fault plan
 (endpoint 0 hard down at t = 1, endpoint 1 erroring at 0.6 over
 [0.5, 4)), and robust (breakers, the LCB solve at kappa 0.5; a warm-up
 pass, then a timed one), held to the bench's acceptance.  Every window's
@@ -102,6 +116,20 @@ floor), every 16th window's launches held: every query served within
 1.05 B.  Each run prints its windows, dual iterations, route ms a window
 (median and p90, by part), scheduling and LLM seconds and their ratio,
 the makespan, the simulation's wall time and its launches.
+
+The serving engine's failure plane (phase E).  E1: a float32 pool of the
+h2o-danube-3-4b and gemma3-4b smoke configs behind ``MultiLLMServer`` on
+the card and the CPU, once with hedging, endpoint 0 hard down over
+chunks [6, 40), endpoint 1 erroring at 0.05, health, retries and the
+stall watchdog, and once hedging against not hedging: card == CPU in the
+completed requests, their order and outputs, the counters, trips and
+breaker states; every allocator drains.  E2 (after the routed server):
+h2o-danube-3-4b at full width and depth beside five smoke endpoints (one
+per model of Table 2's pool) behind ``OmniRouter`` over phase T's ECCOS-H
+with fold-back, health, hedging, the watchdog and one smoke endpoint hard
+down mid-run: every request resolves once, the store grows by the folded
+count, every allocator drains, and the vote, dual solve, paged decode and
+flash kernels launch on the card.
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -285,6 +313,19 @@ DENSE_MAIN = 0
 RESTART_T_MAX = 128     # R1: the restart endpoint's cache growth per rebuild
 R2_POOL = ("h2o-danube-3-4b", "gemma3-4b")
 R2_REQS, R2_LEN, R2_NEW = 9, 9, 6
+# -- phase E: the serving engine's failure plane ------------------------------
+# E1: the float32 smoke pool of the reference's engine fault tests (with
+# gemma3-4b in hymba's place), on the card and the CPU
+E1_POOL = R2_POOL
+E1_EP = dict(max_concurrency=2, t_max=32, page_size=8, sync_every=2)
+E1_REQS, E1_NEW = 5, 8
+E1_HEDGE_NEW = 12
+# E2: full-width danube beside five smoke endpoints (Table 2's six models)
+E2_SMOKE = ("internlm2-20b", "qwen2-72b", "gemma3-4b", "internlm2-20b",
+            "qwen2-72b")
+E2_REQS, E2_NEW = 48, 32
+E2_DOWN = (3, 3.0)      # (endpoint, chunk) hard down from that chunk on
+E2_HEDGE, E2_STALL = 2, 2   # chunks; a request takes E2_NEW / 8 = 4
 # S4's prefill median per request when the chunked plain attention ran
 # prefill on the card (NVIDIA H100 80GB HBM3, 700 W), printed beside the
 # kernel's
@@ -416,9 +457,10 @@ def _unit_scores(tree):
     return dict(tree, segs=segs)
 
 
-def serving_plane(torch, np, dev, say, check, time_ms):
-    """The serving-plane phases; returns the kernels-line row of the paged
-    decode kernel."""
+def serving_plane(torch, np, dev, say, check, time_ms, heads):
+    """The serving-plane phases and E2 (``heads``: phase T's fitted
+    ECCOS-H encoder); returns the kernels-line row of the paged decode
+    kernel and the other kernels' launches."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (BalanceAware, HybridPredictor, OmniRouter,
                                   PredictorConfig, RouterConfig)
@@ -657,7 +699,10 @@ def serving_plane(torch, np, dev, say, check, time_ms):
           "routed server: not every request served")
     check(bool((per_ep > 0).all()), "routed server: an endpoint served none")
     check(routed_launches > 0, "routed server: the kernel never ran")
-    del eps, srv, params
+    del eps, srv
+    e2 = failure_plane_full_width(torch, np, dev, say, check, cfg, params,
+                                  heads)
+    del params
 
     # S6. the all-smoke float32 pool behind BalanceAware, card vs CPU
     cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
@@ -686,13 +731,98 @@ def serving_plane(torch, np, dev, say, check, time_ms):
           "card vs CPU: a request was lost")
     check(same_ep >= 0.95 and same_out >= 0.95,
           "card vs CPU: outputs differ on more than 5% of requests")
-    row["launches"] = ep_launches + routed_launches
+    row["launches"] = ep_launches + routed_launches + e2["paged"]
     say(f"paged decode launches on the main path: endpoint {ep_launches}, "
-        f"routed server {routed_launches}")
+        f"routed server {routed_launches}, E2 {e2['paged']}")
 
     # R2. the float32 smoke pool, paged vs restart, card vs CPU
     restart_smoke_pool(torch, np, dev, say, check)
-    return row, {"flash": s4_flash + r1["flash"], "dense": r1["dense"]}
+    return row, {"flash": s4_flash + r1["flash"] + e2["flash"],
+                 "dense": r1["dense"], "vote": e2["vote"],
+                 "dual_solve": e2["dual_solve"]}
+
+
+def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
+                             heads):
+    """E2, engine-faults-danube: h2o-danube-3-4b at full width and depth
+    (bf16) beside five smoke endpoints, one per model of Table 2's pool,
+    behind ``OmniRouter`` over phase T's fitted ECCOS-H heads and the
+    Table 2 store, serving the first 48 test queries with online
+    fold-back, health, hedging, the stall watchdog and smoke endpoint 3
+    hard down from chunk 3.  Every request resolves exactly once, the
+    store grows by the folded count, every allocator drains, and the
+    vote, dual solve, paged decode and flash kernels launch on the card.
+    Returns those launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (HybridPredictor, OmniRouter,
+                                  PredictorConfig, RouterConfig)
+    from repro_torch.data.qaserve import generate
+    from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.serving.engine import Endpoint, MultiLLMServer, Request
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    train, _, test = generate(n=S1_N, seed=0).split()
+    ds = test.subset(np.arange(E2_REQS))
+    smoke = [get_smoke_config(a) for a in E2_SMOKE]
+    eps = [Endpoint(cfg, max_concurrency=4, t_max=128, page_size=16,
+                    sync_every=8, params=params, device=dev)]
+    eps += [Endpoint(c, max_concurrency=4, t_max=128, page_size=16,
+                     sync_every=8, seed=i + 1, device=dev)
+            for i, c in enumerate(smoke)]
+    hp = HybridPredictor(PredictorConfig(n_models=train.m, n_buckets=10),
+                         params=heads, device=dev).fit_store(train)
+    size0 = hp.retrieval.vstore.size
+    down, at = E2_DOWN
+    srv = MultiLLMServer(
+        eps, OmniRouter(hp, RouterConfig(alpha=S1_ALPHA)), fold_online=True,
+        health=True, hedge_after_steps=E2_HEDGE,
+        stall_after_chunks=E2_STALL,
+        fault_plan=FaultPlan({down: (FaultSpec("hard_down", start=at),)},
+                             seed=0))
+    small_vocab = min([cfg] + smoke, key=lambda c: c.vocab_size)
+    for rid, text in enumerate(ds.queries):
+        srv.submit(Request(rid, encode_for_config(small_vocab, text),
+                           max_new=E2_NEW))
+    tr_ops.launches = la_ops.launches = pd_ops.launches = 0
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    done = srv.run(lambda b: ds.subset(np.array([r.rid for r in b])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = dict(vote=tr_ops.launches, dual_solve=la_ops.launches,
+             paged=pd_ops.launches, flash=fa_ops.launches)
+    rids = [r.rid for r in done]
+    per_ep = np.bincount([r.endpoint for r in done if not r.failed],
+                         minlength=len(eps))
+    size1 = hp.retrieval.vstore.size
+    say(f"E2 engine-faults-danube (danube full width + "
+        f"{', '.join(c.name for c in smoke)}; OmniRouter over phase T's "
+        f"ECCOS-H, endpoint {down} hard down from chunk {at:g}): "
+        f"{len(done)}/{E2_REQS} resolved ({sum(r.failed for r in done)} "
+        f"failed), per endpoint {per_ep.tolist()}, failures "
+        f"{srv.failures}, retries {srv.retries}, hedged {srv.hedged}, trips "
+        f"{srv.health.trips}, breakers {srv.health.breaker_state.tolist()},"
+        f" folded {srv.folded} (store {size0} -> {size1}), {srv.windows} "
+        f"windows, wall {wall:.2f} s, launches {n}")
+    check(sorted(rids) == list(range(E2_REQS)),
+          "E2: a request was lost or resolved twice")
+    check(all(r.failed or (r.done and len(r.output) == E2_NEW)
+              for r in done), "E2: a served request is short")
+    check(srv.folded > 0 and size1 == size0 + srv.folded,
+          "E2: the store did not grow by the folded count")
+    check(all(_drained(e) for e in eps) and not srv._hedges
+          and not srv._shadow_ids, "E2: an allocator did not drain")
+    check(srv.retries > 0 and srv.hedged > 0 and srv.health.trips >= 1
+          and srv.health.breaker_state[down] != 0,
+          "E2: no retry or hedge, or the dead endpoint's breaker is closed")
+    check(all(e.device.type == "cuda" for e in eps)
+          and hp.device.type == "cuda", "E2: a part ran off the card")
+    check(all(v > 0 for v in n.values()), f"E2: a kernel was not launched "
+          f"({n})")
+    return n
 
 
 def restart_phase(torch, np, dev, say, check, cfg, params, prompts):
@@ -846,6 +976,86 @@ def restart_smoke_pool(torch, np, dev, say, check):
           and card_launches[("card", "restart")][1] > 0
           and card_launches[("cpu", "restart")] == (0, 0),
           "R2: the card did not run the kernels, or the CPU launched them")
+
+
+def e1_fault_plan():
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    return FaultPlan({0: (FaultSpec("hard_down", start=6.0, end=40.0),),
+                      1: (FaultSpec("error_rate", rate=0.05),)}, seed=1)
+
+
+def failure_plane_smoke(torch, np, dev, say, check):
+    """E1: the failure plane on the float32 smoke pool, on the card and on
+    the CPU.  Run 1: hedging after 4 chunks, endpoint 0 hard down over
+    chunks [6, 40), endpoint 1 erroring at 0.05, health, 3 retries with
+    backoff 2, the stall watchdog at 3 chunks.  Run 2: hedging after 2
+    chunks against none.  Card and CPU must agree on the completed
+    requests in order (id, endpoint, ``failed``, output), the counters,
+    the trips and the breaker states; every allocator drains.  Returns
+    the card's (paged decode, flash) launches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import BalanceAware
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            null_route_features)
+    cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
+            for a in E1_POOL]
+    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 500, (9,)).astype(np.int32)
+               for _ in range(E1_REQS)]
+    runs = {"faults": (E1_NEW, lambda: dict(
+                hedge_after_steps=4, fault_plan=e1_fault_plan(), health=True,
+                retry_budget=3, backoff_steps=2.0, stall_after_chunks=3)),
+            "hedge 2": (E1_HEDGE_NEW, lambda: dict(hedge_after_steps=2)),
+            "hedge 0": (E1_HEDGE_NEW, lambda: {})}
+    got, launches = {}, [0, 0]
+    t0 = time.perf_counter()
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        for run, (max_new, kw) in runs.items():
+            eps = [Endpoint(c, device=where, params=_tree_to(host[i], where),
+                            **E1_EP) for i, c in enumerate(cfgs)]
+            srv = MultiLLMServer(eps, BalanceAware(), batch_size=2, **kw())
+            for rid, p in enumerate(prompts):
+                srv.submit(Request(rid, p, max_new=max_new))
+            pd_ops.launches = fa_ops.launches = 0
+            done = srv.run(null_route_features, max_steps=600)
+            if tag == "card":
+                launches[0] += pd_ops.launches
+                launches[1] += fa_ops.launches
+            h = srv.health
+            got[(tag, run)] = dict(
+                trace=[(r.rid, r.endpoint, r.failed, tuple(r.output))
+                       for r in done],
+                counters=(srv.failures, srv.retries, srv.hedged),
+                health=(h.trips, h.breaker_state.tolist()) if h else None)
+            check(sorted(r.rid for r in done) == list(range(E1_REQS)),
+                  f"E1 {run} ({tag}): a request was lost or repeated")
+            check(all(_drained(e) for e in eps) and not srv._hedges
+                  and not srv._shadow_ids,
+                  f"E1 {run} ({tag}): an allocator did not drain")
+    for run in runs:
+        c, h = got[("card", run)], got[("cpu", run)]
+        say(f"E1 {run}: failures, retries, hedged {c['counters']}; trips "
+            f"and breaker states {c['health']}; completion order "
+            f"{[t[0] for t in c['trace']]} (endpoints "
+            f"{[t[1] for t in c['trace']]}); card == CPU {c == h}")
+        check(c == h, f"E1 {run}: the card and the CPU differ")
+    f = got[("card", "faults")]
+    check(f["counters"][1] > 0 and f["health"][0] >= 1,
+          "E1 faults: no retry or no breaker trip")
+    hedged, plain = got[("card", "hedge 2")], got[("card", "hedge 0")]
+    check(hedged["counters"][2] > 0 and sorted(hedged["trace"])
+          == sorted(plain["trace"]),
+          "E1 hedging: no hedge fired, or the outputs changed")
+    say(f"E1: card launches (paged decode, flash) {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(launches[0] > 0 and launches[1] > 0,
+          "E1: the card did not run the kernels")
+    return launches
 
 
 # -- the routed speculative stream ----------------------------------------------
@@ -2666,6 +2876,203 @@ def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
     return row, solve_cases
 
 
+# -- phase T: the predictors fit on the card ---------------------------------
+
+T_STEPS, T_BATCH = 150, 64   # benchmarks/common.py: ECCOS-T and ECCOS-H fits
+S3COST_STEPS = 100           # benchmarks/common.py: s3_policy
+S3COST_BATCH = 48            # S3Cost.prepare's batch
+T_LOSS1_REL = 1e-5           # step 1's loss, card against CPU (relative)
+# Each eval_accuracy field, card against CPU.  AdamW's normalised step
+# amplifies float sum-order differences, so fits that differ only in that
+# order end apart: five CPU fits that differed only in PyTorch's thread
+# count (1, 2, 3, 4, 6) spread over 0.028 (ECCOS-T) and 0.034 (S3) in
+# capability_acc.
+T_ACC_BAND = 0.05
+TABLE2 = ("BA", "S3", "PO", "ECCOS-T", "ECCOS-R", "ECCOS-H")
+FITTED = ("ECCOS-T", "ECCOS-H", "S3")
+
+
+def table2_predictor(name, train, device):
+    """The predictor behind Table 2's policy ``name`` on ``device``, built
+    through the port's entry points at ``benchmarks/common.py``'s
+    settings, and its fit's per-step losses (None where nothing trains):
+    ECCOS-R a k = 8 store, PO a k = 1 store (``PerceptionOnly.prepare``),
+    ECCOS-T and ECCOS-H 150 steps of batch 64 from seed 0, S3 100 steps of
+    batch 48 (``S3Cost.prepare``); BA has none."""
+    from repro_torch.core import (HybridPredictor, PerceptionOnly,
+                                  PredictorConfig, RetrievalPredictor,
+                                  S3Cost, TrainedPredictor)
+    from repro_torch.core import predictor as pmod
+    if name == "BA":
+        return None, None
+    if name == "ECCOS-R":
+        return RetrievalPredictor(k=8, device=device).fit(train), None
+    if name == "PO":
+        return PerceptionOnly(device=device).prepare(train).ret, None
+    kept, fit = [], pmod.TrainedPredictor.fit
+
+    def keep(self, *a, **kw):       # S3Cost.prepare drops the losses
+        kept.append(fit(self, *a, **kw))
+        return kept[-1]
+    pmod.TrainedPredictor.fit = keep
+    try:
+        cfg = PredictorConfig(n_models=train.m, n_buckets=10)
+        if name == "S3":
+            pred = S3Cost(steps=S3COST_STEPS, device=device).prepare(
+                train).pred
+        elif name == "ECCOS-T":
+            pred = TrainedPredictor(cfg, device=device)
+            pred.fit(train, steps=T_STEPS, batch=T_BATCH, seed=0)
+        else:
+            pred = HybridPredictor(cfg, device=device).fit(
+                train, steps=T_STEPS, batch=T_BATCH, seed=0)
+    finally:
+        pmod.TrainedPredictor.fit = fit
+    return pred, kept[0]
+
+
+def table2_policy(name, pred, rkw):
+    """Table 2's policy ``name`` over the predictor ``pred`` (or its
+    recording or replay): ``OmniRouter`` for the ECCOS rows, else the
+    baseline with ``pred`` in place of the one ``prepare`` builds."""
+    from repro_torch.core import (BalanceAware, OmniRouter, PerceptionOnly,
+                                  RouterConfig, S3Cost)
+    if name == "BA":
+        return BalanceAware()
+    if name.startswith("ECCOS"):
+        return OmniRouter(pred, RouterConfig(**rkw), name=name)
+    if name == "S3":
+        pol = S3Cost()
+        pol.pred = pred
+    else:
+        pol = PerceptionOnly()
+        pol.ret = pred
+    return pol
+
+
+def first_step(name, train, device):
+    """Step 1 of ``name``'s fit on ``device``: the loss and the gradient
+    leaves at the seed-0 initial tree on the first batch (the batch
+    order of ``TrainedPredictor.fit``)."""
+    import numpy as np
+    import torch
+    from repro_torch.common import init_params
+    from repro_torch.core.predictor import (PredictorConfig, loss_fn,
+                                            predictor_decls)
+    from repro_torch.data import tokenizer
+    from repro_torch.data.qaserve import bucketize
+    from repro_torch.training import tree_leaves
+    cfg = PredictorConfig(n_models=train.m, n_buckets=10)
+    batch = S3COST_BATCH if name == "S3" else T_BATCH
+    params = init_params(predictor_decls(cfg),
+                         torch.Generator().manual_seed(0), device)
+    flat = tree_leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    idx = np.random.RandomState(0).choice(train.n, size=min(batch, train.n),
+                                          replace=False)
+    loss, _ = loss_fn(cfg, params, {
+        "tokens": torch.as_tensor(tokenizer.encode_batch(
+            [train.queries[i] for i in idx], cfg.max_len), device=device),
+        "correct": torch.as_tensor(train.correct[idx], device=device),
+        "len_bucket": torch.as_tensor(
+            bucketize(train.out_len[idx], cfg.n_buckets), device=device)})
+    grads = torch.autograd.grad(loss, flat)
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def fit_info(name, pred, losses, train, test, device):
+    """What phase T compares of one fit: its losses, the three
+    ``eval_accuracy`` fields on the test split and its first step."""
+    return dict(losses=losses, acc=pred.eval_accuracy(test),
+                first=first_step(name, train, device))
+
+
+def predictor_fit_phase(torch, np, dev, say, check):
+    """T: ECCOS-T, ECCOS-H and S3 fit on the card at
+    ``benchmarks/common.py``'s settings, every parameter and optimizer
+    state on the card (each AdamW update checks its tensors' devices), in
+    full float32 (TF32 off).  Returns {name: (predictor, fit info, ms a
+    step)}; the same fits run on the CPU in phase S's worker processes
+    and ``predictor_fit_report`` holds the two against each other."""
+    from repro_torch.data.qaserve import generate
+    from repro_torch.training import optim
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "T: float32 matmuls would run in TF32")
+    train, _, test = generate(n=S1_N, seed=0).split()
+    seen = dict(calls=0, off=0)
+    update = optim.AdamW.update
+
+    def on_card(self, grads, state, params):
+        leaves = optim.tree_leaves([grads, state["m"], state["v"], params])
+        seen["calls"] += 1
+        seen["off"] += sum(t.device.type != "cuda" for t in leaves)
+        return update(self, grads, state, params)
+
+    out = {}
+    t_phase = time.perf_counter()
+    optim.AdamW.update = on_card
+    try:
+        for name in FITTED:
+            seen.update(calls=0, off=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, losses = table2_predictor(name, train, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            steps = len(losses)
+            info = fit_info(name, pred, losses, train, test, dev)
+            say(f"T {name} (card): {steps} steps in {secs:.2f} s"
+                + (" (with the store's build)" if name == "ECCOS-H" else "")
+                + f", {secs / steps * 1e3:.2f} ms a step; loss "
+                f"{losses[0]:.6f} -> {losses[-1]:.6f}; accuracy "
+                f"{info['acc']}; AdamW updates {seen['calls']}, tensors off "
+                f"the card {seen['off']}")
+            check(seen["calls"] == steps and seen["off"] == 0,
+                  f"T {name}: an update ran off the card")
+            check(bool(np.all(np.isfinite(losses))), f"T {name}: a loss is "
+                  "not finite")
+            check(np.mean(losses[-10:]) < np.mean(losses[:10]),
+                  f"T {name}: the loss did not fall")
+            out[name] = (pred, info, secs / steps * 1e3)
+    finally:
+        optim.AdamW.update = update
+    say(f"phase T (card): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def predictor_fit_report(np, say, check, card, cpu):
+    """T's comparison: each card fit against the same fit on the CPU."""
+    summary = {}
+    for name in FITTED:
+        _, c, ms = card[name]
+        h = cpu[name]
+        lc, lh = np.array(c["losses"]), np.array(h["losses"])
+        rel = np.abs(lc - lh) / np.abs(lh)
+        (l1c, gc), (l1h, gh) = c["first"], h["first"]
+        ggap = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                   for a, b in zip(gc, gh))
+        acc = {k: (c["acc"][k], h["acc"][k]) for k in h["acc"]}
+        say(f"T {name}, card against CPU: step 1 loss {lc[0]:.7f} / "
+            f"{lh[0]:.7f} (relative {rel[0]:.3g}; first step alone "
+            f"{abs(l1c - l1h) / abs(l1h):.3g}), largest gradient gap "
+            f"{ggap:.3g} of a leaf's largest element; largest relative "
+            f"loss gap over steps 1-5 {rel[:5].max():.3g}, at step "
+            f"{len(lh)} {rel[-1]:.3g}; accuracy card / CPU "
+            + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in
+                        acc.items()) + f"; {ms:.2f} ms a step on the card")
+        check(len(lc) == len(lh), f"T {name}: step counts differ")
+        check(rel[0] <= T_LOSS1_REL, f"T {name}: step 1's loss differs")
+        check(all(abs(a - b) <= T_ACC_BAND for a, b in acc.values()),
+              f"T {name}: an accuracy differs by more than {T_ACC_BAND}")
+        summary[name] = dict(ms_step=ms, loss1_rel=float(rel[0]),
+                             loss_rel_max_1_5=float(rel[:5].max()),
+                             loss_rel_last=float(rel[-1]), grad_gap=ggap,
+                             acc_card=c["acc"], acc_cpu=h["acc"])
+    return summary
+
+
 # -- phase S: the event-driven serving simulator ----------------------------
 
 S1_N = 2_700            # benchmarks/common.py: the paper's pool (Table 7)
@@ -2686,9 +3093,10 @@ CPU_WORKERS = 8         # processes for the CPU replays and plain runs
 
 class RecordedPredictor:
     """The device predict contract of ``inner`` (``device``, ``token_len``,
-    ``device_inputs``, ``predict_device``; ``observe`` passes through),
-    keeping every call's inputs and predictions on the card, so that the
-    CPU can replay the run against the card's predictions."""
+    ``device_inputs``, ``predict_device``; ``observe`` passes through) and
+    its ``predict_arrays`` (the S3 and PO baselines' path), keeping every
+    call's inputs and predictions, so that the CPU can replay the run
+    against the card's predictions."""
 
     def __init__(self, inner):
         self.inner, self.calls = inner, []
@@ -2714,6 +3122,14 @@ class RecordedPredictor:
             tokens, input_len, price_in, price_out, out[0], out[2])))
         return out
 
+    def predict_arrays(self, batch):
+        import numpy as np
+        out = self.inner.predict_arrays(batch)
+        self.calls.append((list(batch.queries), np.asarray(batch.input_len),
+                           np.asarray(batch.price_in),
+                           np.asarray(batch.price_out), out[0], out[2]))
+        return out
+
 
 class ReplayPredictor:
     """Answers each predict on the CPU with the next recorded call's
@@ -2732,20 +3148,34 @@ class ReplayPredictor:
     def observe(self, texts, correct, out_len):
         return self     # the card's store grew; its votes are recorded
 
-    def predict_device(self, inputs, tokens, input_len, price_in, price_out):
+    def _take(self, got):
+        """The next recorded call's (capability, cost), after checking
+        that its inputs are ``got``."""
         import numpy as np
-        import torch
         w = self.next
         if w >= len(self.calls):
             raise RuntimeError("the CPU replay asked for more predictions "
                                "than the card made")
         *want, cap, cost = self.calls[w]
-        if not all(np.array_equal(a.numpy(), b) for a, b in zip(
-                (tokens, input_len, price_in, price_out), want)):
+        if not (len(want) == len(got) and all(
+                np.array_equal(a, b) for a, b in zip(got, want))):
             raise RuntimeError(f"the CPU replay's window {w} differs from "
                                "the card's in its inputs")
         self.next += 1
+        return cap, cost
+
+    def predict_device(self, inputs, tokens, input_len, price_in, price_out):
+        import torch
+        cap, cost = self._take([a.numpy() for a in (
+            tokens, input_len, price_in, price_out)])
         return torch.from_numpy(cap), None, torch.from_numpy(cost)
+
+    def predict_arrays(self, batch):
+        import numpy as np
+        cap, cost = self._take([
+            list(batch.queries), np.asarray(batch.input_len),
+            np.asarray(batch.price_in), np.asarray(batch.price_out)])
+        return cap, None, cost
 
 
 def _host(x):
@@ -2769,18 +3199,20 @@ def _same(a, b) -> bool:
 
 
 def sim_case(case):
-    """(train, served ds, RouterConfig kwargs, SchedulerConfig kwargs) of
-    one S1 / S2 run, by its name."""
+    """(train, served ds, RouterConfig kwargs, SchedulerConfig kwargs,
+    Table 2 policy) of one S1 / S2 run, by its name: an S1 name ends in
+    its policy, or names none for ECCOS-R."""
     import numpy as np
     from repro_torch.data.qaserve import generate
     if case.startswith("S1"):
         train, _, test = generate(n=S1_N, seed=0).split()
-        ds = (test.subset(np.arange(S1_STREAM)) if case == "S1 streaming"
-              else test)
-        cfg = dict(mode="streaming" if case == "S1 streaming"
-                   else "batching", loads=4,
+        streaming = case == "S1 streaming"
+        ds = test.subset(np.arange(S1_STREAM)) if streaming else test
+        cfg = dict(mode="streaming" if streaming else "batching", loads=4,
                    fold_online=case == "S1 batching fold_online")
-        return train, ds, dict(alpha=S1_ALPHA), cfg
+        last = case.split()[-1]
+        return (train, ds, dict(alpha=S1_ALPHA), cfg,
+                last if last in TABLE2 else "ECCOS-R")
     from repro_torch.serving import faults
     train, _, test = generate(n=S2_N, seed=3).split(0.5, 0.0, seed=0)
     budget = 3.5 * float(np.delete(test.cost_matrix(), S2_FAULTY,
@@ -2795,37 +3227,42 @@ def sim_case(case):
                                              start=0.5, end=4.0),)}, seed=1)
         cfg.update(fault_plan=plan, retry_budget=S2_RETRY, health=robust)
     return train, test, dict(budget=budget, robust=robust,
-                             kappa=S2_KAPPA if robust else 1.0), cfg
+                             kappa=S2_KAPPA if robust else 1.0), cfg, \
+        "ECCOS-R"
 
 
 def cpu_sim_job(case, recorded=None, token_len=None, blocked=None):
-    """One CPU run of a phase S case (``sim_case``'s four values), in a
+    """One CPU run of a phase S case (``sim_case``'s five values), in a
     worker process.  With ``recorded`` (the card's predictions, NumPy) it
     replays the card's run and keeps every blocked-ascent call, to hold
     the card's launches to the plain version on the same inputs; without,
-    it predicts with its own ECCOS-R store.  Returns (the ServeResult,
-    seconds, the blocked calls that differ from the card's, or None)."""
+    it builds and fits its own predictor on the CPU (phase T's CPU fit,
+    whose ``fit_info`` it returns for the trained policies).  Returns (the
+    ServeResult, seconds, the blocked calls that differ from the card's or
+    None, the fit's info or None)."""
     import torch
-    from repro_torch.core import (OmniRouter, RetrievalPredictor,
-                                  RouterConfig, SchedulerConfig, run_serving)
+    from repro_torch.core import SchedulerConfig, run_serving
     from repro_torch.kernels.lagrangian_assign import ops as la_ops
     torch.set_num_threads(1)
-    train, ds, rkw, skw = case
+    train, ds, rkw, skw, name = case
+    fit = None
     if recorded is None:
-        pred = RetrievalPredictor(k=8, device="cpu").fit(train)
+        pred, losses = table2_predictor(name, train, "cpu")
+        if losses is not None:
+            fit = fit_info(name, pred, losses, train, ds, "cpu")
     else:
         pred = ReplayPredictor(recorded, token_len)
     kept = KeptCalls(la_ops, "blocked_dual_ascent")
     kept.on = True
     t0 = time.perf_counter()
     try:
-        res = run_serving(ds, OmniRouter(pred, RouterConfig(**rkw)),
+        res = run_serving(ds, table2_policy(name, pred, rkw),
                           SchedulerConfig(**skw))
     finally:
         kept.restore()
     seconds = time.perf_counter() - t0
     if recorded is None:
-        return res, seconds, None
+        return res, seconds, None, fit
     if pred.next != len(recorded):
         raise RuntimeError("the CPU replay made fewer predictions than the "
                            "card")
@@ -2836,7 +3273,7 @@ def cpu_sim_job(case, recorded=None, token_len=None, blocked=None):
             if not (_same(c[0], p[0]) and _same(c[1], p[1]))
             or not _same(c[2], p[2])]
            if len(blocked) == len(ours) else ["count"])
-    return res, seconds, bad
+    return res, seconds, bad, None
 
 
 def result_diff(a, b):
@@ -2895,12 +3332,15 @@ def percentiles(np, xs):
         0.0, 0.0)
 
 
-def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
+def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds,
+                      fits):
     """S: ``run_serving`` on the card through ``OmniRouter`` over ECCOS-R.
 
     S1, the paper's Table 2 pool: batching (the fused dual solve), the
     streaming strawman over the first 108 queries, and batching with
-    ``fold_online``.  S2, ``benchmarks/bench_robust.py``'s degraded pool:
+    ``fold_online``; then the other five policies of Table 2 in batching
+    mode (BA, S3, PO, and ECCOS-T and ECCOS-H behind ``OmniRouter``; the
+    fitted ones from phase T's ``fits``).  S2, ``benchmarks/bench_robust.py``'s degraded pool:
     healthy, naive and robust (breakers + LCB solve) streams.  Every
     window's vote launch is held to its plain version on the card; every
     run is replayed on the CPU (in worker processes, after the card's
@@ -2909,8 +3349,10 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
     card's launches' inputs, must equal the card's bit for bit; a plain
     CPU run with its own predictions is printed beside it.  S3: a
     16,384-query Poisson stream over the 131,072-row store, every 16th
-    window's launches held.  Returns the launches of rows 1, 2 and 4, the
-    largest vote and blocked errors and the per-run summaries."""
+    window's launches held.  The CPU runs of S1's trained policies are
+    phase T's CPU fits.  Returns the launches of rows 1, 2 and 4, the
+    largest vote and blocked errors, the per-run summaries and the CPU
+    fits' infos."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.core import (OmniRouter, RetrievalPredictor,
@@ -2923,19 +3365,24 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
     t_phase = time.perf_counter()
     total = dict(vote=0, dual_solve=0, blocked=0)
     errs = dict(vote=0.0, blocked=0.0)
-    summary, card, cpu_jobs = {}, {}, []
+    summary, card, cpu_jobs, cpu_fits = {}, {}, [], {}
 
-    def card_run(tag, ds, router, cfg, every=1, hold=True):
+    def card_run(tag, ds, router, cfg, every=1, hold=True, voted=True):
         """One run on the card: launches counted from 0, every
-        ``every``-th vote and blocked launch kept, the votes held,
-        per-window route times, the simulation's wall time."""
+        ``every``-th vote and blocked launch kept, the votes held (a
+        policy that votes must have launched the vote), per-window route
+        times (by part behind ``OmniRouter``), the simulation's wall
+        time."""
         laps = []
-        for name in ("route", "route_window"):
+        timed = hasattr(router, "last_timing")
+        for name in ("route", "route_window") if timed else ("route",):
             fn = getattr(router, name)
 
             def lapped(*a, _fn=fn, **kw):
+                t0 = time.perf_counter()
                 out = _fn(*a, **kw)
-                laps.append(dict(router.last_timing))
+                laps.append(dict(router.last_timing) if timed else
+                            {"route_s": time.perf_counter() - t0})
                 return out
             setattr(router, name, lapped)
         votes = KeptCalls(tr_ops, "retrieval_vote", every)
@@ -2957,7 +3404,8 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
         for key in total:
             total[key] += n[key]
         parts = {p: [lap[p] * 1e3 for lap in laps]
-                 for p in ("tokenize_s", "predict_solve_s", "polish_s")}
+                 for p in (("tokenize_s", "predict_solve_s", "polish_s")
+                           if timed else ("route_s",))}
         whole = [sum(v) for v in zip(*parts.values())]
         med, p90 = percentiles(np, whole)
         split = ", ".join(f"{p[:-2]} {percentiles(np, v)[0]:.2f}/"
@@ -2971,9 +3419,10 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
             f"ratio {ratio:.3g}; simulation wall {wall:.2f} s; launches "
             f"{n}, solve host reads {reads}")
         check(len(laps) == res.windows, f"{tag}: a window went unrouted")
-        check(n["vote"] > 0, f"{tag}: the vote kernel was not launched")
+        check(n["vote"] > 0 if voted else n["vote"] == 0,
+              f"{tag}: vote launches {n['vote']}")
         vote_differ = 0
-        if hold:
+        if hold and voted:
             e, vote_differ = hold_vote_calls(torch, say, check, votes.calls,
                                              tag)
             errs["vote"] = max(errs["vote"], e)
@@ -2990,35 +3439,49 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
     def card_case(tag, case, rec, res, blocked_calls):
         """Queue the CPU replay of a card run and the plain CPU run."""
         card[tag] = res
-        calls = [_host(c) for c in rec.calls]
+        calls = [_host(c) for c in rec.calls] if rec is not None else []
         kept = [(_host(a), _host(kw), _host(out[0]))
                 for a, kw, out in blocked_calls]
-        cpu_jobs.append((tag, "replay", (case, calls, rec.token_len, kept)))
+        cpu_jobs.append((tag, "replay", (
+            case, calls, getattr(rec, "token_len", None), kept)))
         cpu_jobs.append((tag, "plain", (case,)))
 
-    # S1. the paper's Table 2 pool at paper scale
-    for tag in ("S1 batching", "S1 streaming", "S1 batching fold_online"):
-        case = train, ds, rkw, skw = sim_case(tag)
-        ret = RetrievalPredictor(k=8, device=dev).fit(train)
-        size0 = ret.vstore.size
-        rec = RecordedPredictor(ret)
-        router = OmniRouter(rec, RouterConfig(**rkw), name="ECCOS-R")
-        res, n, _, bl = card_run(tag, ds, router, SchedulerConfig(**skw))
+    # S1. the paper's Table 2 pool at paper scale: ECCOS-R in three
+    # modes, then the other five policies in batching mode
+    table2 = {}
+    for tag in ("S1 batching", "S1 streaming", "S1 batching fold_online",
+                *(f"S1 batching {p}" for p in TABLE2 if p != "ECCOS-R")):
+        case = train, ds, rkw, skw, name = sim_case(tag)
+        pred = (fits[name][0] if name in fits
+                else table2_predictor(name, train, dev)[0])
+        ret = getattr(pred, "retrieval", pred)
+        size0 = getattr(getattr(ret, "vstore", None), "size", None)
+        rec = RecordedPredictor(pred) if pred is not None else None
+        router = table2_policy(name, rec, rkw)
+        res, n, _, bl = card_run(tag, ds, router, SchedulerConfig(**skw),
+                                 voted=name in ("ECCOS-R", "ECCOS-H", "PO"))
         check(res.per_model_counts.sum() == ds.n and res.failures == 0,
               f"{tag}: not every query served")
-        check(n["dual_solve"] > 0, f"{tag}: the dual solve kernel was not "
-              "launched")
+        check(n["dual_solve"] > 0 if name.startswith("ECCOS")
+              else n["dual_solve"] == 0,
+              f"{tag}: dual solve launches {n['dual_solve']}")
         if skw["fold_online"]:
             say(f"{tag}: store {size0} -> {ret.vstore.size} rows "
                 f"(capacity {ret.vstore.capacity})")
             check(ret.vstore.size == size0 + ds.n,
                   f"{tag}: the store did not grow by {ds.n}")
+        if skw["mode"] == "batching" and not skw["fold_online"]:
+            table2[name] = res
         card_case(tag, case, rec, res, bl)
+    say("S1 Table 2 on the card (batching, alpha 0.75, loads 4, "
+        f"{ds.n} test queries): " + "; ".join(
+            f"{p} SR {table2[p].success_rate:.4f} $ {table2[p].cost:.6f}"
+            for p in TABLE2))
 
     # S2. benchmarks/bench_robust.py's degraded pool at its full size
     ret2 = None
     for tag in ("S2 healthy", "S2 naive", "S2 robust"):
-        case = train, test, rkw, skw = sim_case(tag)
+        case = train, test, rkw, skw, _ = sim_case(tag)
         budget2 = rkw["budget"]
         ret2 = ret2 or RetrievalPredictor(k=8, device=dev).fit(train)
         rec = RecordedPredictor(ret2)
@@ -3079,19 +3542,26 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
     check(n3["blocked"] > 0 and reads3 == 0,
           "S3: no blocked launch, or the solve read the host")
 
-    # the CPU runs of S1 and S2, in worker processes, the longest (S2's)
-    # first
+    # the CPU runs of S1 and S2, in worker processes, the longest (S2's
+    # and the fits of phase T) first
+    def longest_first(job):
+        tag, kind, _ = job
+        return not (tag.startswith("S2") or (
+            kind == "plain" and tag.split()[-1] in FITTED))
+
     t0 = time.perf_counter()
     with ProcessPoolExecutor(CPU_WORKERS, multiprocessing.get_context(
             "spawn")) as pool:
         futures = [(tag, kind, pool.submit(cpu_sim_job, *args))
-                   for tag, kind, args in sorted(
-                       cpu_jobs, key=lambda j: not j[0].startswith("S2"))]
+                   for tag, kind, args in sorted(cpu_jobs,
+                                                 key=longest_first)]
         for tag, kind, fut in futures:
             try:
-                res, seconds, bad = fut.result()
+                res, seconds, bad, fit = fut.result()
             except RuntimeError as err:
                 check(False, f"{tag}: CPU {kind}: {err}")
+            if fit is not None:
+                cpu_fits[tag.split()[-1]] = fit
             diff = result_diff(res, card[tag])
             if kind == "replay":
                 say(f"{tag}: CPU replay on the card's predictions "
@@ -3112,7 +3582,8 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds):
     seconds = time.perf_counter() - t_phase
     say(f"phase S: {seconds:.1f} s; launches (vote, dual solve, blocked) "
         f"{total}")
-    return dict(launches=total, errs=errs, runs=summary, seconds=seconds)
+    return dict(launches=total, errs=errs, runs=summary, seconds=seconds,
+                cpu_fits=cpu_fits)
 
 
 def _leaves(tree):
@@ -3331,9 +3802,15 @@ def main() -> int:
                                              time_ms, hp)
     mark("V2")
 
-    # S. the event-driven serving simulator (run_serving) on the card
+    # T. ECCOS-T, ECCOS-H and S3 fit on the card
+    fits = predictor_fit_phase(torch, np, dev, say, check)
+    mark("T (card)")
+
+    # S. the event-driven serving simulator (run_serving) on the card, with
+    # Table 2's six policies in S1; the CPU side of T runs in its workers
     sim = serving_sim_phase(torch, np, dev, say, check, hp.retrieval,
-                            route_ds)
+                            route_ds, fits)
+    fit_summary = predictor_fit_report(np, say, check, fits, sim["cpu_fits"])
     mark("S")
 
     del hp, hp_cpu, hp_gpu, emb, labels, proj, q_route
@@ -3344,11 +3821,19 @@ def main() -> int:
     rows["decode_attention"] = dense_decode_phase(torch, say, check, dev,
                                                   time_ms)
     mark("F1 and D1")
+    heads = fits["ECCOS-H"][0].trained.params
+    del fits
     rows["paged_decode_attention"], main = serving_plane(
-        torch, np, dev, say, check, time_ms)
-    rows["flash_attention"]["launches"] = main["flash"]
+        torch, np, dev, say, check, time_ms, heads)
+    mark("serving plane, R1, R2 and E2")
+    # E1. the failure plane on the float32 smoke pool, card vs CPU
+    e1_paged, e1_flash = failure_plane_smoke(torch, np, dev, say, check)
+    mark("E1")
+    rows["paged_decode_attention"]["launches"] += e1_paged
+    rows["flash_attention"]["launches"] = main["flash"] + e1_flash
     rows["decode_attention"]["launches"] = main["dense"]
-    mark("serving plane, R1 and R2")
+    rows["retrieval_vote"]["launches"] += main["vote"]
+    rows["dual_solve"]["launches"] += main["dual_solve"]
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
@@ -3372,6 +3857,7 @@ def main() -> int:
     rows["shard_stats"]["max_abs_err"] = max(
         rows["shard_stats"]["max_abs_err"], sim["errs"]["blocked"])
     say("phase S runs: " + json.dumps(sim["runs"]))
+    say("phase T: " + json.dumps(fit_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

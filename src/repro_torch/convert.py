@@ -27,6 +27,16 @@ def predictor_params_from_numpy(tree, device=None):
     return torch.from_numpy(np.array(tree, np.float32)).to(device)
 
 
+def predictor_params_to_numpy(tree):
+    """The inverse of :func:`predictor_params_from_numpy`: a tree of
+    tensors (on any device) -> the same tree of float32 NumPy arrays."""
+    if isinstance(tree, dict):
+        return {k: predictor_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [predictor_params_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy()
+
+
 def vector_store_from_numpy(emb, labels, size: int, device=None
                             ) -> VectorStore:
     """Rebuild a :class:`VectorStore` around given (capacity, d) embedding

@@ -8,9 +8,10 @@ event-driven simulator (``core.scheduler``) and the real serving engine
 one straight from its request queue.
 
 A NumPy copy of ``repro.core.baselines``.  Baselines from the paper's
-evaluation (§4.2) — S3 (the trained length-bucket encoder) waits for the
-port's predictor-training slice:
+evaluation (§4.2):
 BA — balance-aware: least-loaded model, random tie-break.
+S3 — length-bucket encoder (the trained ECCOS-T predictor), then the
+     cheapest predicted cost within each model's capacity.
 PO — perception-only decoder length predictor, also cost-adapted; realized
      here as a noisier single-neighbour retrieval length estimate.
 random / oracle — bounds. Oracle knows true correctness and picks the
@@ -158,17 +159,44 @@ class BalanceAware(Policy):
         return out
 
 
+class S3Cost(Policy):
+    """Length-bucket predictor (encoder) -> cheapest predicted cost.
+    ``device`` is where ``prepare`` fits the encoder (None: the card)."""
+
+    name = "S3"
+
+    def __init__(self, n_buckets: int = 10, steps: int = 200, device=None):
+        self.n_buckets = n_buckets
+        self.steps = steps
+        self.device = device
+        self.pred = None
+
+    def prepare(self, train_ds):
+        from .predictor import PredictorConfig, TrainedPredictor
+        self.pred = TrainedPredictor(PredictorConfig(
+            n_models=train_ds.m, n_buckets=self.n_buckets),
+            device=self.device)
+        self.pred.fit(train_ds, steps=self.steps, batch=48)
+        return self
+
+    def route(self, batch, rng=None):
+        _, _, cost = self.pred.predict_arrays(batch)
+        return _capacity_greedy(cost, batch.loads, batch.counts, rng)
+
+
 class PerceptionOnly(Policy):
-    """Generative length perception (noisy) -> cheapest predicted cost."""
+    """Generative length perception (noisy) -> cheapest predicted cost.
+    ``device`` is where ``prepare`` builds the store (None: the card)."""
 
     name = "PO"
 
-    def __init__(self):
+    def __init__(self, device=None):
+        self.device = device
         self.ret = None
 
     def prepare(self, train_ds):
         from .retrieval import RetrievalPredictor
-        self.ret = RetrievalPredictor(k=1).fit(train_ds)
+        self.ret = RetrievalPredictor(k=1, device=self.device).fit(train_ds)
         return self
 
     def route(self, batch, rng=None):

@@ -59,8 +59,10 @@ class HybridPredictor:
 
     ``params`` are the encoder's weights (a JAX-layout tree, e.g. from
     ``convert.predictor_params_from_numpy``); without them the encoder is
-    initialised from ``seed``.  The store fills with ``fit_store`` or
-    ``observe``, or is handed over as ``retrieval.vstore``."""
+    initialised from ``seed``.  ``fit`` trains the heads and builds the
+    store; ``fit_store`` builds the store alone, for given heads.  The
+    store grows with ``observe``, or is handed over as
+    ``retrieval.vstore``."""
 
     def __init__(self, pcfg: Optional[PredictorConfig] = None,
                  hcfg: HybridConfig = HybridConfig(),
@@ -73,6 +75,14 @@ class HybridPredictor:
         self.retrieval = RetrievalPredictor(
             d=hcfg.d_retrieval, k=hcfg.k, seed=hcfg.feat_seed,
             device=self.device)
+
+    def fit(self, ds, *, steps: int = 300, batch: int = 64, seed: int = 0,
+            init: Optional[dict] = None) -> "HybridPredictor":
+        """Train the heads (``TrainedPredictor.fit``), then build the
+        store from the same dataset."""
+        self.trained.fit(ds, steps=steps, batch=batch, seed=seed, init=init)
+        self.retrieval.fit(ds)
+        return self
 
     def fit_store(self, ds) -> "HybridPredictor":
         """Build the vector store from a labelled dataset."""

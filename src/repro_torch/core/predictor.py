@@ -10,7 +10,10 @@ embedding e_j; two heads read the interaction vector q ⊙ e_j:
 Parameters keep the JAX layout (``wqkv`` is (d, 3, h, hd), ``wo`` is
 (h, hd, d)), so weights carry across unchanged (``repro_torch.convert``).
 ``PredictorNet`` holds them as an ``nn.Module``; the functions below take
-the plain dict tree.  Training (AdamW ``fit``) comes with a later slice.
+the plain dict tree.  ``TrainedPredictor.fit`` trains the heads with BCE
+(capability) + CE (length buckets) under AdamW (``repro_torch.training``),
+with the reference's batch order; the backward pass is autograd over the
+same einsums.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common import ParamDecl, default_device, init_params
+from repro_torch.configs.base import TrainConfig
 from repro_torch.data import tokenizer
 from repro_torch.data.qaserve import L_MAX, bucketize
+from repro_torch.training.optim import AdamW, tree_leaves, tree_map
 
 from .features import predicted_cost
 
@@ -125,6 +130,22 @@ def trained_predict_device(cfg: PredictorConfig, params: dict, tokens,
                                         price_out)
 
 
+def loss_fn(cfg: PredictorConfig, params: dict, batch: Dict):
+    """BCE over the capability logits + CE over the length buckets, in the
+    reference's forms; returns (loss, {"bce", "ce"})."""
+    q = encode_queries(cfg, params, batch["tokens"])
+    inter = q[:, None, :] * params["model_embed"][None]
+    cap_logit = inter @ params["cap_w"] + params["cap_b"]      # (B, M)
+    len_logits = inter @ params["len_w"] + params["len_b"]     # (B, M, K)
+    y = batch["correct"].to(torch.float32)
+    bce = torch.mean(torch.clamp(cap_logit, min=0) - cap_logit * y
+                     + torch.log1p(torch.exp(-cap_logit.abs())))
+    lb = batch["len_bucket"].long()
+    ce = -torch.mean(torch.gather(torch.log_softmax(len_logits, -1), -1,
+                                  lb[..., None]))
+    return bce + ce, {"bce": bce, "ce": ce}
+
+
 def prediction_accuracy(ds, cap, exp_len, n_buckets: int
                         ) -> Dict[str, float]:
     """Capability accuracy and length-bucket hit rates of NumPy predictions
@@ -163,7 +184,8 @@ class PredictorNet(nn.Module):
 
 
 class TrainedPredictor:
-    """ECCOS-T over given parameters, or ones initialised from ``seed``."""
+    """ECCOS-T over given parameters, or ones initialised from ``seed``;
+    :meth:`fit` trains them."""
 
     def __init__(self, cfg: PredictorConfig, params: Optional[dict] = None,
                  *, seed: int = 0, device=None):
@@ -177,6 +199,50 @@ class TrainedPredictor:
     @property
     def params(self) -> dict:
         return self.net.tree()
+
+    def fit(self, ds, *, steps: int = 300, batch: int = 64, seed: int = 0,
+            log_every: int = 0, init: Optional[dict] = None):
+        """Train on a labelled dataset with AdamW (lr ``cfg.lr``, weight
+        decay 0.01, fp32 moments, clip 1.0); returns the per-step losses.
+
+        The batches are the reference's: ``np.random.RandomState(seed)``
+        draws each one without replacement.  The parameters start from
+        ``init`` (a tree, e.g. the JAX package's initial parameters) or
+        from ``torch.Generator().manual_seed(seed)``.  The data moves to
+        the device once and the losses are read once, at the end."""
+        cfg, dev = self.cfg, self.device
+        if init is None:
+            init = init_params(predictor_decls(cfg),
+                               torch.Generator().manual_seed(seed), dev)
+        params = tree_map(lambda t: t.detach().to(dev, torch.float32)
+                          .clone().requires_grad_(True), init)
+        # one flat list in the reference's leaf order (dict keys sorted):
+        # AdamW's global norm sums the leaves in that order
+        flat = tree_leaves(params)
+        opt = AdamW(TrainConfig(learning_rate=cfg.lr, weight_decay=0.01,
+                                moment_dtype="fp32", grad_clip=1.0))
+        state = opt.init(flat)
+        toks = torch.as_tensor(
+            tokenizer.encode_batch(ds.queries, cfg.max_len), device=dev)
+        correct = torch.as_tensor(np.asarray(ds.correct), device=dev)
+        buckets = torch.as_tensor(bucketize(ds.out_len, cfg.n_buckets),
+                                  device=dev)
+        rng = np.random.RandomState(seed)
+        order = torch.as_tensor(np.array(
+            [rng.choice(ds.n, size=min(batch, ds.n), replace=False)
+             for _ in range(steps)], np.int64), device=dev)
+        losses = []
+        for it in range(steps):
+            idx = order[it]
+            loss, _ = loss_fn(cfg, params, {"tokens": toks[idx],
+                                            "correct": correct[idx],
+                                            "len_bucket": buckets[idx]})
+            opt.update(list(torch.autograd.grad(loss, flat)), state, flat)
+            losses.append(loss.detach())
+            if log_every and it % log_every == 0:
+                print(f"predictor step {it}: loss {float(loss):.4f}")
+        self.net = PredictorNet(cfg, tree_map(torch.Tensor.detach, params))
+        return torch.stack(losses).tolist() if losses else []
 
     # --- the device predict contract (shared with Retrieval/Hybrid) -------
     @property

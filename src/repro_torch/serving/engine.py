@@ -38,9 +38,21 @@ prefill the whole packed, left-padded batch on every admit and completion,
 then decode it one token per step over a dense cache) as the baseline the
 paged endpoint is measured against; it serves behind the same server.
 
-Not ported yet (each raises ``NotImplementedError`` when turned on):
-hedging, the fault plan, the health plane, the stall watchdog, online
-fold-back and the sanitizer hooks.
+The failure plane: ``hedge_after_steps`` duplicates a request still
+decoding that many chunks after admission onto the least-loaded other
+endpoint (first finisher wins, the straggler is cancelled);
+``fault_plan`` (``serving.faults.FaultPlan``) skips the chunks of a hard-
+down or slowed endpoint, fails connects to a dead one, sheds past a rate
+limit and flips a transient-error coin per request and chunk; ``health``
+(``True`` or a ``core.health.HealthTracker``) keeps a breaker per
+endpoint, fed in a fixed order each chunk; ``stall_after_chunks`` is the
+watchdog that cancels a request whose output has not grown for that many
+chunks.  A failed request re-enters the queue after ``backoff_steps`` ·
+2^(k−1) chunks on its k-th retry, up to ``retry_budget`` retries, then
+completes as ``failed``.  ``fold_online`` folds completions into the
+policy's store every ``fold_chunk`` requests.
+
+Not ported yet: the sanitizer hooks.
 """
 from __future__ import annotations
 
@@ -56,6 +68,8 @@ from repro_torch.common import default_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control import (AdmissionRule, ControlLoop,
                                       FoldBuffer, StreamController)
+from repro_torch.core.health import HealthTracker
+from repro_torch.core.scheduler import fold_completions
 from repro_torch.models import build_model
 from repro_torch.models.zoo import (PAGED_POOL_KEYS, pad_cache,
                                     pages_per_request, prefill_into_pages,
@@ -107,7 +121,10 @@ class Request:
     done: bool = False
     started: float = 0.0
     finished: float = 0.0
+    hedged: bool = False
     admit_step: float = 0.0      # engine clock (decode chunk) at admission
+    retries: int = 0             # failed attempts so far (failure plane)
+    failed: bool = False         # permanently failed (retry budget spent)
 
 
 class PageAllocator:
@@ -610,6 +627,9 @@ class _EngineExecutor:
         self.max_steps = max_steps
         self.steps = 0
         self.stopped = False
+        self.requeue = None       # bound by ControlLoop: (req, at_step)
+        self._progress: dict = {}  # id(req) -> (req, len(output), step) for
+        #                            the stranded-request watchdog
 
     def now(self) -> float:
         return float(self.steps)
@@ -640,6 +660,9 @@ class _EngineExecutor:
         rejected = []
         x = np.asarray(x)
         srv = self.server
+        plan = srv.fault_plan
+        h = srv.health
+        t = float(self.steps)
         for req, j in zip(items, x):
             j = int(j)
             if j >= len(srv.endpoints):
@@ -670,10 +693,29 @@ class _EngineExecutor:
                 req.finished = time.perf_counter()
                 srv.completed.append(req)
                 continue
+            if h is not None and not h.admissible(j):
+                rejected.append(req)    # breaker open / probes exhausted
+                continue
+            if plan is not None:
+                cap = plan.rate_limit(j, t)
+                if cap is not None and ep.active_count() >= cap:
+                    # 429: shed the request back to the queue, health hears
+                    if h is not None:
+                        h.record(j, False, None, now=t)
+                    rejected.append(req)
+                    continue
+                if plan.down(j, t):
+                    # connect-time failure on a dead endpoint
+                    if h is not None:
+                        h.record(j, False, None, now=t)
+                    self._retry_or_fail(req)
+                    continue
             if ep.has_capacity():
                 req.endpoint = j
                 req.admit_step = float(self.steps)
                 ep.admit(req)
+                if h is not None:
+                    h.note_admit(j)
             else:  # paper's queueing: wait for capacity
                 rejected.append(req)
         return rejected
@@ -689,7 +731,13 @@ class _EngineExecutor:
             self.steps = int(np.ceil(wake_at))
             return [], True
         # dispatch every endpoint's chunk before blocking on any result
-        pending = [(e, e.step_begin()) for e in eps]
+        plan = self.server.fault_plan
+        pending = []
+        for i in self._pool_order(len(eps)):
+            if plan is not None and self._fault_skips(i):
+                pending.append((eps[i], None))      # faulted: chunk skipped
+            else:
+                pending.append((eps[i], eps[i].step_begin()))
         done: List[Request] = []
         progressed = False
         for e, p in pending:
@@ -703,11 +751,219 @@ class _EngineExecutor:
             done.extend(self.server._spec_round())
             progressed = True
         self.steps += 1
+        done = self._resolve_hedges(self._completion_order(done))
+        h = self.server.health
+        events = []                 # (endpoint, ok, latency, rid)
+        if h is not None:
+            for req in done:
+                events.append((int(req.endpoint), True,
+                               float(self.steps) - float(req.admit_step),
+                               int(req.rid)))
+        if plan is not None:
+            self._apply_flakes(plan, events)
+        if self.server.stall_after_chunks > 0:
+            self._watchdog(events)
+        if h is not None:
+            # a fixed order: the EWMA folds do not commute, so the chunk's
+            # events are sorted before they reach the breakers
+            for j, ok, lat, _ in sorted(events):
+                h.record(j, ok, lat if ok else None, now=float(self.steps))
         self.server.completed.extend(done)
         return done, progressed
 
+    # -- ordering seams (identity here; a schedule race checker permutes
+    # them to show that same-chunk completions, hedges and cancels
+    # commute) ----------------------------------------------------------------
+    def _pool_order(self, k: int):
+        return range(k)
+
+    def _completion_order(self, done: List[Request]) -> List[Request]:
+        return done
+
+    def _fault_candidates(self):
+        return [(i, req) for i, ep in enumerate(self.server.endpoints)
+                for req in ep.active_requests()]
+
+    # -- fault injection (server.fault_plan; dormant when None) ----------------
+    def _fault_skips(self, i: int) -> bool:
+        """Whether endpoint ``i`` loses this decode chunk to a fault: a
+        hard-down endpoint makes no progress at all; a latency spike of
+        factor f advances one chunk in every f (so its effective service
+        time stretches by f without touching the paged state)."""
+        plan = self.server.fault_plan
+        t = float(self.steps)
+        if plan.down(i, t):
+            return True
+        f = plan.latency_factor(i, t)
+        return f > 1.0 and self.steps % max(int(round(f)), 1) != 0
+
+    def _apply_flakes(self, plan, events):
+        """Transient errors mid-decode: each active request flips a coin
+        keyed on (endpoint, rid, step) — stateless, so the outcome is
+        independent of sweep order and fresh every chunk."""
+        t = float(self.steps)
+        for i, req in self._fault_candidates():
+            if req.rid in self.server._spec:
+                continue    # spec sequences live outside the fault plane
+            if plan.flake(i, t, req.rid, self.steps):
+                if self.server.health is not None:
+                    events.append((int(i), False, 0.0, int(req.rid)))
+                self._fail_request(req)
+
+    def _watchdog(self, events):
+        """Stranded-request detector: a request whose output has not grown
+        for ``stall_after_chunks`` chunks (its endpoint is dead or wedged)
+        is cancelled through ``Endpoint.cancel`` — its slot and pages go
+        back to the free lists — and retried elsewhere."""
+        k = self.server.stall_after_chunks
+        seen = set()
+        for i, req in self._fault_candidates():
+            if req.rid in self.server._spec:
+                continue    # spec sequences live outside the fault plane
+            seen.add(id(req))
+            out_len = len(req.output or ())
+            ent = self._progress.get(id(req))
+            if ent is None or ent[0] is not req or ent[1] != out_len:
+                self._progress[id(req)] = (req, out_len, self.steps)
+                continue
+            if self.steps - ent[2] >= k:
+                del self._progress[id(req)]
+                seen.discard(id(req))
+                if self.server.health is not None:
+                    events.append((int(i), False, 0.0, int(req.rid)))
+                self._fail_request(req)
+        for key in [key for key in self._progress if key not in seen]:
+            del self._progress[key]    # completed/failed: stop tracking
+
+    def _fail_request(self, req: Request):
+        """Remove a live request from the pool after a fault.  A hedged
+        pair fails as a unit (both copies cancelled, the primary retries);
+        ``_resolve_hedges`` has run by then, so a pair in ``_hedges`` still
+        has both copies in flight."""
+        srv = self.server
+        pair = srv._hedges.pop(req.rid, None)
+        if pair is not None:
+            primary, pi, shadow, si = pair
+            srv.endpoints[pi].cancel(primary)
+            srv.endpoints[si].cancel(shadow)
+            srv._shadow_ids.discard(id(shadow))
+            self._retry_or_fail(primary)
+            return
+        if id(req) in srv._shadow_ids:
+            srv._shadow_ids.discard(id(req))
+            for ep in srv.endpoints:
+                if ep.cancel(req):
+                    break
+            return                  # the primary carries the retry
+        if not any(ep.cancel(req) for ep in srv.endpoints):
+            return                  # already cancelled earlier this sweep
+        self._retry_or_fail(req)
+
+    def _retry_or_fail(self, req: Request):
+        """Retry with exponential backoff while budget remains, else mark
+        the request permanently failed."""
+        srv = self.server
+        req.retries += 1
+        req.endpoint = -1
+        req.hedged = False
+        req.done = False
+        req.output = None
+        if req.retries <= srv.retry_budget and self.requeue is not None:
+            srv.retries += 1
+            back = srv.backoff_steps * (2.0 ** (req.retries - 1))
+            self.requeue(req, float(self.steps) + back)
+        else:
+            req.done = True
+            req.failed = True
+            req.output = []
+            req.finished = time.perf_counter()
+            srv.failures += 1
+            srv.completed.append(req)
+
     def tick(self):
-        """The loop's post-event hook: the engine does not hedge."""
+        """The loop's post-event hook: fire the hedge policy.  It runs
+        between chunks, after ``advance`` has synced every endpoint, so
+        cancelling or duplicating a slot races nothing."""
+        self._maybe_hedge()
+
+    # -- hedging (the simulator's semantics on the engine clock) ---------------
+    def _pick_alt(self, primary: int, req: Request) -> Optional[int]:
+        """Least-loaded endpoint other than the primary that has a free slot
+        and fits the request's shapes."""
+        best, best_free = None, 0
+        h = self.server.health
+        for j, ep in enumerate(self.server.endpoints):
+            free = ep.L - ep.active_count()
+            if (j != primary and free > best_free and ep.has_capacity()
+                    and (h is None or h.admissible(j))
+                    and _can_serve(ep, req)):
+                best, best_free = j, free
+        return best
+
+    def _hedge_candidates(self):
+        return [(i, req) for i, ep in enumerate(self.server.endpoints)
+                for req in ep.active_requests()]
+
+    def _maybe_hedge(self):
+        """Duplicate un-hedged slow decodes: a request still in flight
+        ``hedge_after`` chunks past admission gets a sibling copy admitted
+        on the least-loaded other endpoint.  First finisher wins; the
+        straggler is cancelled at resolution (``_resolve_hedges``)."""
+        srv = self.server
+        if srv.hedge_after <= 0:
+            return
+        for i, req in self._hedge_candidates():
+            if (req.hedged or req.done or req.rid in srv._spec
+                    or self.steps - req.admit_step < srv.hedge_after):
+                continue
+            alt = self._pick_alt(i, req)
+            if alt is None:
+                continue
+            shadow = dataclasses.replace(
+                req, output=None, done=False, endpoint=alt, hedged=True,
+                admit_step=float(self.steps))
+            req.hedged = True
+            srv._shadow_ids.add(id(shadow))
+            srv._hedges[req.rid] = (req, i, shadow, alt)
+            srv.endpoints[alt].admit(shadow)
+            if srv.health is not None:
+                srv.health.note_admit(alt)
+            srv.hedged += 1
+
+    def _resolve_hedges(self, done: List[Request]) -> List[Request]:
+        """First finisher wins: report the PRIMARY request (with the
+        winner's output and endpoint) exactly once and cancel the
+        straggler sibling, freeing its slot at once."""
+        srv = self.server
+        if not srv._hedges and not srv._shadow_ids:
+            return done
+        out: List[Request] = []
+        for req in done:
+            pair = srv._hedges.get(req.rid)
+            if pair is None or (req is not pair[0] and req is not pair[2]):
+                if id(req) in srv._shadow_ids:
+                    srv._shadow_ids.discard(id(req))
+                    continue            # sibling already resolved: drop copy
+                out.append(req)
+                continue
+            primary, pi, shadow, si = pair
+            del srv._hedges[req.rid]
+            if req is shadow:
+                srv._shadow_ids.discard(id(shadow))
+                if primary.done:        # tie (same chunk): primary's own
+                    continue            # completion stands, drop the copy
+                srv.endpoints[pi].cancel(primary)
+                primary.output = shadow.output
+                primary.endpoint = shadow.endpoint
+                primary.done = True
+                primary.finished = shadow.finished
+                out.append(primary)
+            else:                       # primary won: kill the shadow
+                if not shadow.done:
+                    srv.endpoints[si].cancel(shadow)
+                    srv._shadow_ids.discard(id(shadow))
+                out.append(req)
+        return out
 
 
 class MultiLLMServer:
@@ -720,56 +976,80 @@ class MultiLLMServer:
     length a stateful policy spreads its budget over; 0 = the queue at the
     first ``run``), and with ``spec_pairs`` the speculative cascade plane
     (they must match the policy's ``RouterConfig.spec_pairs`` when the
-    policy is an ``OmniRouter``)."""
+    policy is an ``OmniRouter``).
+
+    The failure plane (see the module docstring): ``hedge_after_steps``,
+    ``fault_plan``, ``health`` (``True`` builds a ``HealthTracker`` over
+    the endpoints), ``retry_budget``, ``backoff_steps`` and
+    ``stall_after_chunks``; ``fold_online`` folds completions into the
+    policy's store every ``fold_chunk`` requests (0 = ``batch_size``).
+    ``failures``, ``retries``, ``hedged`` and ``folded`` count what the
+    plane did."""
+
+    # executor factory, overridable per instance (a schedule race checker
+    # swaps in an executor that permutes its ordering seams)
+    _executor_cls = _EngineExecutor
 
     def __init__(self, endpoints: List[Endpoint], policy, *,
                  batch_size: int = 0, hedge_after_steps: int = 0,
-                 fold_online: bool = False, stream: bool = False,
-                 horizon: int = 0, window_steps: float = 0.0,
-                 fault_plan=None, health=None, stall_after_chunks: int = 0,
-                 spec_pairs=(), adapt_window=None):
-        self.spec_pairs = tuple(spec_pairs)
-        if self.spec_pairs and health:
-            raise NotImplementedError(
-                "speculative pair columns extend loads/counts past the "
-                "health plane's model axis; run spec pools without health")
-        deferred = {"hedge_after_steps": hedge_after_steps > 0,
-                    "fold_online": fold_online,
-                    "fault_plan": fault_plan is not None,
-                    "health": bool(health),
-                    "stall_after_chunks": stall_after_chunks > 0}
-        on = [name for name, used in deferred.items() if used]
-        if on:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(on) + " (ROADMAP Queue A)")
-        for p in self.spec_pairs:
-            for j in (p.draft, p.verify):
-                ep = endpoints[j]
-                if getattr(ep, "_has_recurrent", True) \
-                        or not getattr(ep, "_has_kv", False):
-                    raise NotImplementedError(
-                        f"pair endpoint {j} ({ep.cfg.name}) is not a "
-                        f"pure-attention paged endpoint; speculative decode "
-                        f"needs rollback-able paged KV")
-        self._spec: dict = {}       # rid -> _SpecSeq
-        self.spec_rounds = 0        # per-sequence verify rounds run
-        self.spec_emitted = 0       # tokens emitted by the spec plane
-        self.horizon = horizon
+                 fold_online: bool = False, fold_chunk: int = 0,
+                 stream: bool = False, horizon: int = 0,
+                 window_steps: float = 0.0, fault_plan=None, health=None,
+                 retry_budget: int = 2, backoff_steps: float = 4.0,
+                 stall_after_chunks: int = 0, spec_pairs=(),
+                 adapt_window=None):
         self.endpoints = endpoints
         self.policy = policy
         cap = sum(e.L for e in endpoints)
         self.rule = AdmissionRule(batch_size).resolve(cap)
         self.batch_size = self.rule.batch_size
         self.max_inflight = self.rule.max_inflight
+        self.hedge_after = hedge_after_steps
+        self.fold_online = fold_online
+        self.fold_chunk = fold_chunk or self.batch_size
         self.stream = stream
+        self.horizon = horizon
         self.window_steps = window_steps
+        self.fault_plan = fault_plan         # serving.faults.FaultPlan
+        if health is True:
+            health = HealthTracker(len(endpoints))
+        self.health = health                 # core.health.HealthTracker
+        self.retry_budget = retry_budget
+        self.backoff_steps = backoff_steps   # retry k waits 2^(k-1) x this
+        self.stall_after_chunks = stall_after_chunks
         self.adapt_window = adapt_window     # core.control.AdaptiveWindow
+        self.spec_pairs = tuple(spec_pairs)
+        self._spec: dict = {}       # rid -> _SpecSeq
+        self.spec_rounds = 0        # per-sequence verify rounds run
+        self.spec_emitted = 0       # tokens emitted by the spec plane
+        if self.spec_pairs:
+            if self.health is not None:
+                raise NotImplementedError(
+                    "speculative pair columns extend loads/counts past the "
+                    "health plane's model axis; run spec pools without "
+                    "health")
+            for p in self.spec_pairs:
+                for j in (p.draft, p.verify):
+                    ep = endpoints[j]
+                    if getattr(ep, "_has_recurrent", True) \
+                            or not getattr(ep, "_has_kv", False):
+                        raise NotImplementedError(
+                            f"pair endpoint {j} ({ep.cfg.name}) is not a "
+                            f"pure-attention paged endpoint; speculative "
+                            f"decode needs rollback-able paged KV")
+        self.failures = 0                    # requests failed past the budget
+        self.retries = 0                     # attempts re-entered the queue
         self.queue: deque = deque()     # (arrival_step, Request)
         self.completed: List[Request] = []
+        self._fold_buf: List[Request] = []   # direct fold-back entry point
+        self.folded = 0
         self.route_calls = 0
         self.route_seconds = 0.0
         self.windows = 0
         self.dual_iters = 0
+        self.hedged = 0                      # hedge duplicates fired
+        self._hedges: dict = {}              # rid -> (primary, i, shadow, j)
+        self._shadow_ids: set = set()        # id() of live shadow copies
         self._controller: Optional[StreamController] = None
 
     def submit(self, req: Request, at_step: float = 0.0):
@@ -863,26 +1143,41 @@ class MultiLLMServer:
                     finished.append(req)
         return finished
 
+    def _fold(self, route_features, *, force: bool = False):
+        """Fold ``_fold_buf`` into the policy's store — the manual entry
+        point for completions that did not flow through :meth:`run` (the
+        loop folds its own through a :class:`FoldBuffer`)."""
+        if not self.fold_online or not self._fold_buf:
+            return
+        if not force and len(self._fold_buf) < self.fold_chunk:
+            return
+        if fold_completions(self.policy, route_features(self._fold_buf),
+                            np.arange(len(self._fold_buf))):
+            self.folded += len(self._fold_buf)
+        self._fold_buf.clear()
+
     def run(self, route_features, *, max_steps: int = 10_000):
         # ONE controller for the server's lifetime: a stream's dual state
         # must survive across run() calls
         if self._controller is None:
             self._controller = StreamController(
                 self.policy, horizon=self.horizon or len(self.queue),
-                stream=self.stream, adapt_window=self.adapt_window)
+                stream=self.stream, health=self.health,
+                adapt_window=self.adapt_window)
         controller = self._controller
         windows0 = controller.windows
         iters0 = controller.dual_iters
+        fold = FoldBuffer(self.policy, route_features,
+                          enabled=self.fold_online, chunk=self.fold_chunk)
         items = [req for _, req in self.queue]
         times = np.array([t for t, _ in self.queue])
         self.queue.clear()
-        executor = _EngineExecutor(self, max_steps)
+        executor = self._executor_cls(self, max_steps)
         loop = ControlLoop(
             executor=executor, controller=controller, rule=self.rule,
-            items=items, features=route_features,
-            fold=FoldBuffer(self.policy, route_features),
+            items=items, features=route_features, fold=fold,
             arrival_times=times, window=self.window_steps,
-            drain_admissions=False, requeue_front=True)
+            drain_admissions=False, requeue_front=True, health=self.health)
         loop.run()
         # an early exit (max_steps) leaves un-served requests in the loop's
         # queues — put them back, REBASED to the fresh clock a later run()
@@ -895,6 +1190,7 @@ class MultiLLMServer:
         self.route_seconds += controller.route_seconds
         controller.route_seconds = 0.0
         self.route_calls += controller.windows - windows0
+        self.folded += fold.folded
         self.windows += controller.windows - windows0
         self.dual_iters += controller.dual_iters - iters0
         return self.completed

@@ -1,0 +1,136 @@
+"""AdamW with fp32, bf16 or int8 moments (one float32 scale per row).
+
+The port of ``repro.training.optim``.  Trees are nested dicts and lists of
+tensors, flattened as the reference flattens them (dict keys in sorted
+order).  ``AdamW.update`` runs under ``torch.no_grad()``, writes the new
+parameters and moments into the tensors it is given, and returns the
+gradients' global norm as a tensor on their device, so a training loop
+reads the host only when it wants a number.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+
+
+@dataclasses.dataclass
+class QTensor:
+    """Row-quantized tensor: ``q`` int8 in the parameter's own shape, one
+    float32 ``scale`` per last-dim row (shape ``param.shape[:-1]``)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def quantize(x: torch.Tensor) -> QTensor:
+    xf = x.float()
+    if xf.ndim == 0:
+        scale = torch.clamp(xf.abs() / 127.0, min=1e-12)
+        scaled = xf / scale
+    else:
+        scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-12)
+        scaled = xf / scale[..., None]
+    # torch.round rounds half to even, as jnp.round does
+    q = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+    return QTensor(q=q, scale=scale)
+
+
+def dequantize(t: QTensor) -> torch.Tensor:
+    if t.q.ndim == 0:
+        return t.q.float() * t.scale
+    return t.q.float() * t.scale[..., None]
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a dict/list tree (a ``QTensor`` is a leaf), in the
+    reference's order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _zeros_like_state(p: torch.Tensor, dtype: str):
+    if dtype == "int8":
+        return QTensor(q=torch.zeros(p.shape, dtype=torch.int8,
+                                     device=p.device),
+                       scale=torch.zeros(p.shape[:-1] if p.ndim else (),
+                                         dtype=torch.float32,
+                                         device=p.device))
+    return torch.zeros(p.shape, device=p.device,
+                       dtype=torch.bfloat16 if dtype == "bf16"
+                       else torch.float32)
+
+
+def _read_state(s, dtype: str) -> torch.Tensor:
+    if dtype == "int8":
+        return dequantize(s)
+    return s.float()
+
+
+def _write_state(s, x: torch.Tensor, dtype: str):
+    """Store the float32 moment ``x`` into the state leaf ``s``."""
+    if dtype == "int8":
+        t = quantize(x)
+        s.q.copy_(t.q)
+        s.scale.copy_(t.scale)
+    else:
+        s.copy_(x)          # rounds to bf16 for bf16 moments
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    cfg: TrainConfig
+
+    def init(self, params) -> dict:
+        dt = self.cfg.moment_dtype
+        return {"step": 0,
+                "m": tree_map(lambda p: _zeros_like_state(p, dt), params),
+                "v": tree_map(lambda p: _zeros_like_state(p, dt), params)}
+
+    @torch.no_grad()
+    def update(self, grads, state: dict, params) -> torch.Tensor:
+        """One step: the parameters and ``state`` change in place; returns
+        the global gradient norm (before the clip)."""
+        c = self.cfg
+        dt = c.moment_dtype
+        state["step"] += 1
+        step = np.float32(state["step"])
+        # bias corrections in float32, as the reference computes them
+        b1c = float(np.float32(1.0) - np.float32(c.beta1) ** step)
+        b2c = float(np.float32(1.0) - np.float32(c.beta2) ** step)
+        flat_g = tree_leaves(grads)
+        # global-norm clip; the leaves' squares summed in leaf order
+        gsq = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
+        for g in flat_g:
+            gsq = gsq + torch.sum(torch.square(g.float()))
+        gnorm = torch.sqrt(gsq)
+        clip = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
+                           max=1.0)
+        for g, m_s, v_s, p in zip(flat_g, tree_leaves(state["m"]),
+                                  tree_leaves(state["v"]),
+                                  tree_leaves(params)):
+            g = g.float() * clip
+            m = c.beta1 * _read_state(m_s, dt) + (1 - c.beta1) * g
+            v = c.beta2 * _read_state(v_s, dt) + (1 - c.beta2) * g * g
+            mh = m / b1c
+            vh = v / b2c
+            delta = mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p.float()
+            p.copy_(p.float() - c.learning_rate * delta)
+            _write_state(m_s, m, dt)
+            _write_state(v_s, v, dt)
+        return gnorm

@@ -4,13 +4,14 @@ The port imports neither ``jax`` nor anything of the JAX package ``repro``:
 a subprocess imports every module of the port and checks ``sys.modules``,
 and a source scan finds no such import in the port or in ``chip_smoke.py``.
 The plain-Python and NumPy leaves the port copies (tokenizer, SynthQAServe,
-baselines, the featurizer projection, the arch configs, the layer plan,
-``route_via_batch``, the admission rule, the arrival processes, the health
-tracker and the fault plans) must equal their originals exactly — same
-token ids, same dataset, same projection bits, same config values, same
-plans, same routes, same arrival times, same breaker states, same fault
-answers.  A scan of the CUDA sources finds no
-library kernel (cuBLAS, cuDNN, CUTLASS's device- or kernel-level GEMMs).
+baselines (S3 over one predictor tree in both), the featurizer
+projection, the arch configs, the layer plan, ``route_via_batch``, the
+admission rule, the arrival processes, the health tracker and the fault
+plans) must equal their originals exactly — same token ids, same
+dataset, same projection bits, same config values, same plans, same
+routes, same arrival times, same breaker states, same fault answers.  A
+scan of the CUDA sources finds no library kernel (cuBLAS, cuDNN,
+CUTLASS's device- or kernel-level GEMMs).
 """
 import os
 import re
@@ -44,6 +45,7 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.core.scheduler', 'repro_torch.core.health',\n"
         "        'repro_torch.data.arrivals', 'repro_torch.serving.faults',\n"
         "        'repro_torch.serving.engine',\n"
+        "        'repro_torch.training.optim',\n"
         "        'repro_torch.kernels.decode_attention.ops',\n"
         "        'repro_torch.kernels.flash_attention.ops',\n"
         "        'repro_torch.kernels.flash_attention.kernel',\n"
@@ -163,7 +165,29 @@ def test_projection_copy_is_bit_identical():
                           want.astype(np.float32))
 
 
-@pytest.mark.parametrize("policy", ["BalanceAware", "RandomPolicy", "Oracle"])
+def _s3_pair(m):
+    """S3 in both packages over one predictor tree: the JAX initial
+    parameters at narrow widths (predictions within ~1e-6, no near-tie
+    between a query's two cheapest models in this batch)."""
+    import jax
+    from repro.common import init_params
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+    from repro_torch import convert
+    kw = dict(n_models=m, max_len=16, d_model=32, d_ff=64)
+    ref_pred = ref_core.TrainedPredictor(ref_core.PredictorConfig(**kw))
+    ref_pred.params = init_params(ref_core.predictor.predictor_decls(
+        ref_pred.cfg), jax.random.PRNGKey(1))
+    ref, port = ref_core.S3Cost(), port_core.S3Cost(device="cpu")
+    ref.pred = ref_pred
+    port.pred = port_core.TrainedPredictor(
+        port_core.PredictorConfig(**kw), convert.predictor_params_from_numpy(
+            jax.tree.map(np.asarray, ref_pred.params), "cpu"), device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("policy", ["BalanceAware", "RandomPolicy", "Oracle",
+                                    "S3Cost"])
 def test_baseline_copies_route_the_same(policy):
     import repro.core.baselines as ref_b
     from repro.data.qaserve import generate
@@ -174,8 +198,12 @@ def test_baseline_copies_route_the_same(policy):
     pb = port_b.RouteBatch(rb.queries, rb.input_len, rb.price_in,
                            rb.price_out, rb.loads, rb.counts, rb.cost_true,
                            rb.correct_true)
-    got = getattr(port_b, policy)().route(pb, rng=np.random.RandomState(0))
-    want = getattr(ref_b, policy)().route(rb, rng=np.random.RandomState(0))
+    if policy == "S3Cost":
+        ref, port = _s3_pair(ds.m)
+    else:
+        ref, port = getattr(ref_b, policy)(), getattr(port_b, policy)()
+    got = port.route(pb, rng=np.random.RandomState(0))
+    want = ref.route(rb, rng=np.random.RandomState(0))
     assert np.array_equal(got, want)
     assert np.allclose(pb.available, rb.available)
 

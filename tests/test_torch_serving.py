@@ -22,7 +22,7 @@
   masked by ``n_valid``: the same (endpoint, output, admission step) per
   request, the same window count and dual iterations — with and without a
   speculative pair column, and in budget mode with a stream ``horizon``.
-  The deferred server options raise ``NotImplementedError``.
+  (The failure plane: ``tests/test_torch_serving_faults.py``.)
 - ``RestartEndpoint`` (the restart-batching baseline over the dense-cache
   ``decode_step``) under churn with ragged prompts (left pads), in lockstep
   with the JAX ``RestartEndpoint`` on the same float32 parameters: the same
@@ -367,14 +367,6 @@ def test_stream_over_omnirouter_matches_jax(case):
         assert ps.spec_rounds > 0
         assert np.array_equal(ppol.acceptance.rounds, jpol.acceptance.rounds)
     assert all(_drained(e) for e in peps)
-
-
-@pytest.mark.parametrize("option", [
-    dict(hedge_after_steps=2), dict(fold_online=True), dict(fault_plan=1),
-    dict(health=True), dict(stall_after_chunks=3)])
-def test_deferred_server_options_raise(option):
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        MultiLLMServer([], BalanceAware(), **option)
 
 
 def test_restart_endpoint_matches_jax_under_churn():
