@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (routing plane, paged serving plane, the
 routed speculative stream, the dense-cache generation path, neighbour-only
 top-k retrieval, the seed's per-iteration solve, the serving simulator,
-predictor training and the serving engine's failure plane) on one NVIDIA
-GPU.
+predictor training, the serving engine's failure plane, the sanitizer
+plane and runtime guards, and int8 KV pools) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -131,6 +131,29 @@ down mid-run: every request resolves once, the store grows by the folded
 count, every allocator drains, and the vote, dual solve, paged decode and
 flash kernels launch on the card.
 
+The sanitizer plane and the runtime guards (phase G).  G1 (inside E2):
+E2 again with every sanitizer member on (``repro_torch.analysis.
+sanitize``): PageSan audits each endpoint between chunks and every
+allocator passes ``assert_drained``; every count and token equals the
+sanitizer-off run.  G2: phase S's S2 healthy stream and V4's routed spec
+stream again with LedgerSan and SolveCert on: every window certified and
+its ledger checked, the ``ServeResult`` (and the stream's outputs) equal
+to the sanitizer-off card runs.  G3 (after E1): the schedule race
+checker on the card, the engine explorer over E1's smoke pool and the
+simulator explorer over a tie storm routed by ECCOS-R, three seeds each,
+one end state.  G4 (after V2): ``no_host_sync`` fires on a deliberate
+``.item()`` and not on ``device_get``; ``DualSolver.solve`` and
+``route_arrays`` at the route batch's shape and one masked window at V2's
+pass under it (a "warn" pass first lists any implicit sync's call site),
+with their explicit reads printed and no compile event.
+
+int8 KV pools (phase I1, inside the serving plane): h2o-danube-3-4b at
+full width and depth with ``kv_cache_dtype="int8"``: paged int8 decode
+against the dense int8 path and one verify round against decode at lens
++ s, in float32 and bf16 (unit-std scores, the full-width check's
+limits); S4's endpoint with int8 pools beside bf16 pools (token
+agreement, peak memory, ms a step, tokens/s: printed).
+
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
@@ -192,10 +215,12 @@ def captured_call(torch, fn):
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
+    from repro_torch.common import record_compile
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         outs = fn()
     torch.cuda.current_stream().wait_stream(side)
+    record_compile()        # a capture: a one-time compile event
     return graph, outs
 
 
@@ -700,8 +725,12 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
     check(bool((per_ep > 0).all()), "routed server: an endpoint served none")
     check(routed_launches > 0, "routed server: the kernel never ran")
     del eps, srv
-    e2 = failure_plane_full_width(torch, np, dev, say, check, cfg, params,
-                                  heads)
+    e2, g1 = failure_plane_full_width(torch, np, dev, say, check, cfg,
+                                      params, heads)
+    # I1. int8 KV pools at full width, against the dense int8 path and
+    # beside bf16 pools
+    i1 = int8_phase(torch, np, dev, say, check, cfg, params,
+                    [r.tokens for r in reqs])
     del params
 
     # S6. the all-smoke float32 pool behind BalanceAware, card vs CPU
@@ -731,28 +760,26 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
           "card vs CPU: a request was lost")
     check(same_ep >= 0.95 and same_out >= 0.95,
           "card vs CPU: outputs differ on more than 5% of requests")
-    row["launches"] = ep_launches + routed_launches + e2["paged"]
+    row["launches"] = (ep_launches + routed_launches + e2["paged"]
+                       + g1["paged"] + i1["paged"])
     say(f"paged decode launches on the main path: endpoint {ep_launches}, "
-        f"routed server {routed_launches}, E2 {e2['paged']}")
+        f"routed server {routed_launches}, E2 {e2['paged']}, G1 "
+        f"{g1['paged']}, I1 {i1['paged']} (its bf16-pool endpoint)")
 
     # R2. the float32 smoke pool, paged vs restart, card vs CPU
     restart_smoke_pool(torch, np, dev, say, check)
-    return row, {"flash": s4_flash + r1["flash"] + e2["flash"],
-                 "dense": r1["dense"], "vote": e2["vote"],
-                 "dual_solve": e2["dual_solve"]}
+    return row, {"flash": s4_flash + r1["flash"] + e2["flash"]
+                 + g1["flash"] + i1["flash"],
+                 "dense": r1["dense"] + i1["dense"],
+                 "i1": i1,
+                 "vote": e2["vote"] + g1["vote"],
+                 "dual_solve": e2["dual_solve"] + g1["dual_solve"]}
 
 
-def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
-                             heads):
-    """E2, engine-faults-danube: h2o-danube-3-4b at full width and depth
-    (bf16) beside five smoke endpoints, one per model of Table 2's pool,
-    behind ``OmniRouter`` over phase T's fitted ECCOS-H heads and the
-    Table 2 store, serving the first 48 test queries with online
-    fold-back, health, hedging, the stall watchdog and smoke endpoint 3
-    hard down from chunk 3.  Every request resolves exactly once, the
-    store grows by the folded count, every allocator drains, and the
-    vote, dual solve, paged decode and flash kernels launch on the card.
-    Returns those launches."""
+def e2_run(torch, np, dev, cfg, params, heads):
+    """One E2 run (see :func:`failure_plane_full_width`) from fresh
+    endpoints and a fresh store.  Returns its server, endpoints, completed
+    requests, launches, store sizes before and after, and wall seconds."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import (HybridPredictor, OmniRouter,
                                   PredictorConfig, RouterConfig)
@@ -794,10 +821,47 @@ def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
     wall = time.perf_counter() - t0
     n = dict(vote=tr_ops.launches, dual_solve=la_ops.launches,
              paged=pd_ops.launches, flash=fa_ops.launches)
+    return dict(srv=srv, eps=eps, done=done, launches=n, size0=size0,
+                size1=hp.retrieval.vstore.size, wall=wall, hp=hp,
+                smoke=smoke)
+
+
+def e2_summary(res):
+    """Everything an E2 run counted, and every request's outcome."""
+    srv = res["srv"]
+    return dict(
+        trace=sorted((r.rid, r.endpoint, r.failed, tuple(r.output))
+                     for r in res["done"]),
+        counters=(srv.failures, srv.retries, srv.hedged, srv.folded,
+                  srv.windows),
+        health=(srv.health.trips, srv.health.breaker_state.tolist()),
+        store=(res["size0"], res["size1"]), launches=res["launches"])
+
+
+def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
+                             heads):
+    """E2, engine-faults-danube: h2o-danube-3-4b at full width and depth
+    (bf16) beside five smoke endpoints, one per model of Table 2's pool,
+    behind ``OmniRouter`` over phase T's fitted ECCOS-H heads and the
+    Table 2 store, serving the first 48 test queries with online
+    fold-back, health, hedging, the stall watchdog and smoke endpoint 3
+    hard down from chunk 3.  Every request resolves exactly once, the
+    store grows by the folded count, every allocator drains, and the
+    vote, dual solve, paged decode and flash kernels launch on the card.
+
+    G1: the same run again with every sanitizer member on: PageSan audits
+    each endpoint between chunks (``Endpoint._san_check``) and
+    ``assert_drained`` holds on every endpoint at the end; its counts,
+    launches and every request's tokens equal the sanitizer-off run's.
+    Returns E2's launches and G1's."""
+    from repro_torch.analysis import sanitize
+    res = e2_run(torch, np, dev, cfg, params, heads)
+    srv, eps, done, n = res["srv"], res["eps"], res["done"], res["launches"]
+    smoke, size0, size1 = res["smoke"], res["size0"], res["size1"]
+    down, at = E2_DOWN
     rids = [r.rid for r in done]
     per_ep = np.bincount([r.endpoint for r in done if not r.failed],
                          minlength=len(eps))
-    size1 = hp.retrieval.vstore.size
     say(f"E2 engine-faults-danube (danube full width + "
         f"{', '.join(c.name for c in smoke)}; OmniRouter over phase T's "
         f"ECCOS-H, endpoint {down} hard down from chunk {at:g}): "
@@ -806,7 +870,7 @@ def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
         f"{srv.failures}, retries {srv.retries}, hedged {srv.hedged}, trips "
         f"{srv.health.trips}, breakers {srv.health.breaker_state.tolist()},"
         f" folded {srv.folded} (store {size0} -> {size1}), {srv.windows} "
-        f"windows, wall {wall:.2f} s, launches {n}")
+        f"windows, wall {res['wall']:.2f} s, launches {n}")
     check(sorted(rids) == list(range(E2_REQS)),
           "E2: a request was lost or resolved twice")
     check(all(r.failed or (r.done and len(r.output) == E2_NEW)
@@ -819,10 +883,42 @@ def failure_plane_full_width(torch, np, dev, say, check, cfg, params,
           and srv.health.breaker_state[down] != 0,
           "E2: no retry or hedge, or the dead endpoint's breaker is closed")
     check(all(e.device.type == "cuda" for e in eps)
-          and hp.device.type == "cuda", "E2: a part ran off the card")
+          and res["hp"].device.type == "cuda", "E2: a part ran off the card")
     check(all(v > 0 for v in n.values()), f"E2: a kernel was not launched "
           f"({n})")
-    return n
+    off = e2_summary(res)
+    del res, srv, eps, done
+
+    # G1. the same run with every member on
+    audits = [0]
+    check_endpoint = sanitize.PageSan.check_endpoint
+
+    def counted(self, ep=None):
+        audits[0] += 1
+        return check_endpoint(self, ep)
+
+    sanitize.PageSan.check_endpoint = counted
+    try:
+        with sanitize.enabled():
+            ev0 = dict(sanitize.counters)
+            res = e2_run(torch, np, dev, cfg, params, heads)
+            for ep in res["eps"]:
+                check(ep.alloc.san is not None,
+                      "G1: an endpoint has no PageSan attached")
+                ep.alloc.san.assert_drained(ep)
+            moved = {k: sanitize.counters[k] - ev0[k] for k in ev0}
+    finally:
+        sanitize.PageSan.check_endpoint = check_endpoint
+    on = e2_summary(res)
+    same = {k: on[k] == off[k] for k in off}
+    say(f"G1 PageSan on E2 (all three members on): counters moved {moved}, "
+        f"{audits[0]} endpoint audits, assert_drained on all "
+        f"{len(res['eps'])} endpoints; wall {res['wall']:.2f} s (off: see "
+        f"E2); equal to the sanitizer-off run: {same}")
+    check(moved["events"] > 0 and audits[0] > 0,
+          "G1: PageSan saw no event")
+    check(all(same.values()), f"G1: the sanitized E2 run differs: {same}")
+    return n, res["launches"]
 
 
 def restart_phase(torch, np, dev, say, check, cfg, params, prompts):
@@ -1482,6 +1578,7 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     launches of the routed stream and their largest |kernel - plain|."""
     import dataclasses
     import torch.nn.functional as F
+    from repro_torch.analysis import sanitize
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (BalanceAware, HybridPredictor, OmniRouter,
                                   PredictorConfig, RouterConfig)
@@ -1610,38 +1707,49 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
             torch.as_tensor(ds.price_out, dtype=torch.float32, device=dev))
     budget = 1.6 * float(pcost.min(dim=1).values.sum())
     pairs = (SpecPair(0, 1, k=SPEC_K),)
-    router = OmniRouter(hp, RouterConfig(budget=budget, spec_pairs=pairs))
-    seen_nv = []
-    route_window = router.route_window
-
-    def logged(batch, state, **kw):
-        seen_nv.append((kw.get("n_valid"), batch.n))
-        return route_window(batch, state, **kw)
-
-    router.route_window = logged
-    srv = MultiLLMServer([d_ep, v_ep], router, stream=True, window_steps=4,
-                         spec_pairs=pairs)
     arrive = np.cumsum(np.random.RandomState(0).exponential(
         1.0, ROUTED_SPEC_QUERIES))
-    for rid, text in enumerate(ds.queries):
-        srv.submit(Request(rid, encode_for_config(cfg, text),
-                           max_new=ROUTED_SPEC_TOKENS), at_step=arrive[rid])
-    # every solve's blocked ascent is kept, to hold it to its plain version
-    kept = KeptCalls(la_ops, "blocked_dual_ascent")
-    kept.on = True
-    pd_ops.launches = pd_ops.verify_launches = 0
-    la_ops.launches = la_ops.blocked_launches = 0
-    reads0 = opt.solve_host_reads
-    tr_ops.launches = 0
-    t0 = time.perf_counter()
-    served = srv.run(lambda b: ds.subset(np.array([r.rid for r in b])))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    v4 = dict(decode=pd_ops.launches, verify=pd_ops.verify_launches,
-              blocked=la_ops.blocked_launches,
-              solve_host_reads=opt.solve_host_reads - reads0,
-              vote=tr_ops.launches, dual_solve=la_ops.launches)
-    kept.restore()
+
+    def v4_run():
+        """One routed spec stream over d_ep and v_ep (drained between
+        runs) with a fresh router; every solve's blocked ascent kept."""
+        router = OmniRouter(hp, RouterConfig(budget=budget,
+                                             spec_pairs=pairs))
+        seen_nv = []
+        route_window = router.route_window
+
+        def logged(batch, state, **kw):
+            seen_nv.append((kw.get("n_valid"), batch.n))
+            return route_window(batch, state, **kw)
+
+        router.route_window = logged
+        srv = MultiLLMServer([d_ep, v_ep], router, stream=True,
+                             window_steps=4, spec_pairs=pairs)
+        for rid, text in enumerate(ds.queries):
+            srv.submit(Request(rid, encode_for_config(cfg, text),
+                               max_new=ROUTED_SPEC_TOKENS),
+                       at_step=arrive[rid])
+        kept = KeptCalls(la_ops, "blocked_dual_ascent")
+        kept.on = True
+        pd_ops.launches = pd_ops.verify_launches = 0
+        la_ops.launches = la_ops.blocked_launches = 0
+        reads0 = opt.solve_host_reads
+        tr_ops.launches = 0
+        t0 = time.perf_counter()
+        try:
+            served = srv.run(lambda b: ds.subset(np.array([r.rid
+                                                           for r in b])))
+            torch.cuda.synchronize()
+        finally:
+            kept.restore()
+        wall = time.perf_counter() - t0
+        v4 = dict(decode=pd_ops.launches, verify=pd_ops.verify_launches,
+                  blocked=la_ops.blocked_launches,
+                  solve_host_reads=opt.solve_host_reads - reads0,
+                  vote=tr_ops.launches, dual_solve=la_ops.launches)
+        return served, srv, router, seen_nv, v4, kept, wall
+
+    served, srv, router, seen_nv, v4, kept, wall = v4_run()
     per_col = np.bincount([r.endpoint for r in served], minlength=3)
     state = srv._controller.state
     spent = float(state.budget_spent)
@@ -1676,10 +1784,39 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
           and v4["vote"] > 0, "routed spec stream: a kernel never ran")
     check(_drained(d_ep) and _drained(v_ep),
           "routed spec stream: allocator leak")
-    row["launches"] = v3_verify + v4["verify"]
+
+    # G2 (spec stream). the same stream with LedgerSan and SolveCert on:
+    # every window certified, the ledger checked, the same outputs
+    def outcome(served_, srv_):
+        return (sorted((r.rid, r.endpoint, tuple(r.output))
+                       for r in served_),
+                srv_.windows, srv_.dual_iters, srv_.spec_rounds,
+                float(srv_._controller.state.budget_spent))
+
+    with sanitize.enabled("ledgersan", "solvecert"):
+        c0 = dict(sanitize.counters)
+        g_served, g_srv, _, g_nv, g_v4, _, g_wall = v4_run()
+        moved = {k: sanitize.counters[k] - c0[k] for k in c0}
+    same = outcome(g_served, g_srv) == outcome(served, srv)
+    g2_spec = dict(windows=g_srv.windows, certs=moved["certs"],
+                   checks=moved["checks"], same=same, wall=g_wall,
+                   launches=g_v4)
+    say(f"G2 routed spec stream with LedgerSan + SolveCert: "
+        f"{g_srv.windows} windows, {moved['certs']} certificates, "
+        f"{moved['checks']} ledger checks, no violation; outputs, windows, "
+        f"dual iters, spec rounds and ledger equal to the sanitizer-off "
+        f"run: {same}; wall {g_wall:.2f} s (off {wall:.2f} s); launches "
+        f"{g_v4}")
+    check(moved["certs"] == g_srv.windows
+          and moved["checks"] >= g_srv.windows,
+          "G2 spec stream: a window went uncertified or unchecked")
+    check(same, "G2 spec stream: the sanitized run differs")
+    check(_drained(d_ep) and _drained(v_ep),
+          "G2 spec stream: allocator leak")
+    row["launches"] = v3_verify + v4["verify"] + g_v4["verify"]
     say(f"paged verify launches on the main path: spec pair {v3_verify}, "
-        f"routed stream {v4['verify']}")
-    del d_ep, v_ep, srv, hp, router
+        f"routed stream {v4['verify']}, G2 {g_v4['verify']}")
+    del d_ep, v_ep, srv, g_srv, hp, router
 
     # V3b. graft: the verify model = the draft's 2 blocks + 22 zero-residual
     # blocks, so nearly every draft is accepted
@@ -1754,7 +1891,8 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     check(len(card) == len(host_run) == SPEC_CPU_REQS and n_pair > 0,
           "spec pool card vs CPU: a request lost or no pair request")
     check(same == 1.0, "spec pool card vs CPU: outputs differ")
-    return row, v4["blocked"], blocked_err
+    return row, v4["blocked"] + g2_spec["launches"]["blocked"], blocked_err, \
+        g2_spec
 
 
 def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem):
@@ -1912,12 +2050,17 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
     """D1: the dense decode kernel against ``decode_attention_ref`` (the
     bounds of S2) and against the paged decode kernel on the same rows laid
     out as 16-position pages with an identity block table: the same split
-    boundaries, so exactly 0.  Returns the kernels-line row at the main
-    path's shape."""
+    boundaries, so exactly 0.  Then the same entry point at SPEC_K
+    positions (the dense verify) against ``verify_attention_ref`` (S2's
+    bounds), the paged verify kernel over the same pages and, row s, the
+    dense decode at lens + s (both exactly 0).  Returns the kernels-line
+    row at the main path's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, paged_decode_attention_cuda)
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+        decode_attention_cuda, paged_decode_attention_cuda,
+        paged_verify_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, verify_attention_ref)
     err_max, row = 0.0, None
     for i, (tag, b, t, kh, g, d, window, lens, dt) in enumerate(
             DENSE_CASES):
@@ -1959,7 +2102,34 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
             f"(identity pages)|={diff:.3g} (expected 0)")
         check(ok, f"dense decode {tag}: kernel disagrees with plain version")
         check(same, f"dense decode {tag}: differs from the paged kernel")
-        del kp, vp
+        # the dense verify: query s attends to positions < lv + s <= T
+        qv = torch.randn(b, SPEC_K, kh * g, d, generator=gen,
+                         device=dev).to(dtype)
+        lv = torch.clamp(ln - (SPEC_K - 1), min=1)
+        gv = decode_attention_cuda(qv, kc, vc, lv, window=window)
+        pv = paged_verify_attention_cuda(qv, kp, vp, bt, lv, window=window)
+        rows = torch.cat([decode_attention_cuda(
+            qv[:, j:j + 1].contiguous(), kc, vc, lv + j, window=window)
+            for j in range(SPEC_K)], dim=1)
+        torch.cuda.synchronize()
+        wv = verify_attention_ref(qv, kc, vc, lv, window=window)
+        errv = float((gv.float() - wv.float()).abs().max())
+        if dt == "float32":
+            okv = errv <= 2e-5
+        else:
+            okv = torch.allclose(gv.float(), wv.float(), atol=1e-5,
+                                 rtol=2 ** -7)
+        err_max = max(err_max, errv)
+        say(f"dense verify {tag}: S={SPEC_K}, lens {int(lv.min())}.."
+            f"{int(lv.max())} | max|kernel-plain|={errv:.3g}; equal to the "
+            f"paged verify kernel (identity pages): "
+            f"{bool(torch.equal(gv, pv))}, row s to the dense decode at "
+            f"lens + s: {bool(torch.equal(gv, rows))} (expected both)")
+        check(okv, f"dense verify {tag}: kernel disagrees with plain version")
+        check(bool(torch.equal(gv, pv)) and bool(torch.equal(gv, rows)),
+              f"dense verify {tag}: differs from the paged verify or from "
+              "the dense decode at lens + s")
+        del kp, vp, qv, gv, pv, rows
         if i == DENSE_MAIN:
             k_ms = time_ms(torch, lambda: decode_attention_cuda(
                 q, kc, vc, ln, window=window), 50)
@@ -3518,6 +3688,14 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds,
           "S2: robust did not beat naive")
     check(robust.breaker_trips >= 1, "S2: no breaker tripped")
 
+    # G2 (simulator). S2's healthy stream again with LedgerSan and
+    # SolveCert on
+    summary["G2 S2 healthy"] = g2_sim_stream(
+        torch, say, check, ret2, card["S2 healthy"],
+        summary["S2 healthy"]["wall_s"])
+    for key in ("vote", "blocked"):
+        total[key] += summary["G2 S2 healthy"]["launches"][key]
+
     # S3. a 16,384-query stream on the routing plane's 131,072-row store
     rate = route_ds.n / S3_SECONDS
     budget3 = 2.5 * float(route_ds.cost_matrix().min(1).sum())
@@ -3584,6 +3762,516 @@ def serving_sim_phase(torch, np, dev, say, check, big_retrieval, route_ds,
         f"{total}")
     return dict(launches=total, errs=errs, runs=summary, seconds=seconds,
                 cpu_fits=cpu_fits)
+
+
+# -- phase G: the sanitizer plane and the runtime guards on the card ----------
+
+G3_SEEDS = (0, 1, 2)
+G3_STORM = 64           # tie-storm queries (equal service times)
+G4_WINDOW = (3000, 4096)   # V2's first window: (valid rows, padded rows)
+
+
+def race_phase(torch, np, dev, say, check):
+    """G3: the schedule race checker on the card.  The engine explorer over
+    E1's float32 smoke pool (hedging after 2 chunks, PageSan on, the
+    engine's chunk, completion, hedge and fault orders permuted per seed),
+    and the simulator explorer over a tie storm (every service time equal,
+    loads ample) routed by ECCOS-R on the card; G3_SEEDS seeds each.  The
+    routed outputs must not depend on the seed and every per-run invariant
+    holds (the explorers raise otherwise).  The engine pass runs under
+    ``CompileGuard()``: E1 has built and loaded every kernel it launches,
+    so it must count no compile event.  Returns the card's launches."""
+    import dataclasses
+    from repro_torch.analysis import sanitize
+    from repro_torch.analysis.sanitize import racecheck
+    from repro_torch.common import CompileGuard
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import BalanceAware, SchedulerConfig
+    from repro_torch.data.qaserve import generate
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
+                                            null_route_features)
+    t0 = time.perf_counter()
+    cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
+            for a in E1_POOL]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 500, (9,)).astype(np.int32)
+               for _ in range(E1_REQS)]
+    pd_ops.launches = fa_ops.launches = 0
+    with sanitize.enabled("pagesan"), CompileGuard(
+            label="G3 engine exploration") as guard:
+        ev0 = sanitize.counters["events"]
+        eps = [Endpoint(c, device=dev, params=_tree_to(
+            build_model(c).init(i, "cpu"), dev), **E1_EP)
+            for i, c in enumerate(cfgs)]
+
+        def make_server():
+            srv = MultiLLMServer(eps, BalanceAware(), batch_size=2,
+                                 hedge_after_steps=2)
+            for rid, p in enumerate(prompts):
+                srv.submit(Request(rid, p, max_new=E1_HEDGE_NEW))
+            return srv, null_route_features
+
+        report = racecheck.explore_engine_schedules(make_server,
+                                                    seeds=G3_SEEDS)
+        events = sanitize.counters["events"] - ev0
+    engine = dict(paged=pd_ops.launches, flash=fa_ops.launches)
+    finished = sum(1 for fp in report.fingerprint
+                   if fp[1] and len(fp[3]) == E1_HEDGE_NEW)
+    say(f"G3 engine race check (E1's float32 smoke pool on the card, hedge "
+        f"after 2 chunks, PageSan on): {report.runs} seeds {report.seeds}, "
+        f"one end state: {len(report.fingerprint)} requests, "
+        f"{sum(len(fp[3]) for fp in report.fingerprint)} tokens; PageSan "
+        f"events {events}; compile events {guard.retraces()}; launches "
+        f"{engine}")
+    check(report.runs == len(G3_SEEDS)
+          and len(report.fingerprint) == E1_REQS and finished == E1_REQS,
+          "G3 engine: a request was lost or unfinished")
+    check(guard.retraces() == 0, "G3 engine: a compile event in a pass of "
+          "E1's warmed kernels")
+    check(events > 0 and engine["paged"] > 0,
+          "G3 engine: no PageSan event or no kernel launch")
+
+    train, _, test = generate(n=S1_N, seed=0).split()
+
+    def make_args():
+        ds = test.subset(np.arange(G3_STORM))
+        ds.out_len[:, :] = 40                  # maximal finish-time ties
+        pred, _ = table2_predictor("ECCOS-R", train, dev)
+        return ds, table2_policy("ECCOS-R", pred, dict(alpha=S1_ALPHA)), \
+            SchedulerConfig(loads=G3_STORM, seed=3)
+
+    tr_ops.launches = la_ops.launches = 0
+    sim = racecheck.explore_sim_schedules(make_args, seeds=G3_SEEDS)
+    sim_n = dict(vote=tr_ops.launches, dual_solve=la_ops.launches)
+    say(f"G3 simulator race check (tie storm: {G3_STORM} queries, every "
+        f"service time 40 tokens, loads {G3_STORM}, ECCOS-R on the card): "
+        f"{sim.runs} seeds {sim.seeds}, one end state: $ {sim.fingerprint[2]}"
+        f", assignment counts {np.bincount(sim.fingerprint[0]).tolist()}; "
+        f"launches {sim_n}; G3 {time.perf_counter() - t0:.1f} s")
+    check(sim.runs == len(G3_SEEDS) and sim_n["vote"] > 0
+          and sim_n["dual_solve"] > 0,
+          "G3 simulator: the card's kernels did not route the storm")
+    return dict(paged=engine["paged"], flash=engine["flash"], **sim_n)
+
+
+def sync_sites(torch, fn):
+    """Runs ``fn`` with the CUDA sync debug mode at "warn" and returns the
+    call sites (innermost repository frames) of every synchronizing
+    operation it made, each with its count."""
+    import traceback
+    import warnings
+    sites = {}
+    show = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return show(message, category, filename, lineno, file, line)
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "repro_torch" in f.filename]
+        key = (f"{Path(frames[-1].filename).name}:{frames[-1].lineno} "
+               f"({frames[-1].name})" if frames else f"{filename}:{lineno}")
+        sites[key] = sites.get(key, 0) + 1
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    return sites
+
+
+def guards_phase(torch, np, dev, say, check, cost, cap):
+    """G4: the runtime guards on the card.  ``no_host_sync`` is live (a
+    deliberate ``.item()`` raises inside it, ``device_get`` does not);
+    ``DualSolver.solve`` and ``route_arrays`` at route-quality-16k's shape
+    (the route batch's predictions, N 16,384, M 6) and one masked blocked
+    window at V2's shape (3,000 valid rows padded to 4,096) pass under it,
+    each first run with the sync debug mode at "warn" to list any implicit
+    sync's call site; the explicit reads each makes are printed.  The
+    checked passes run under ``CompileGuard()`` (the kernels are built and
+    loaded by then).  Returns the launches of the dual solve (row 1) and
+    the blocked ascent (row 4)."""
+    from repro_torch.common import (CompileGuard, device_get, guards,
+                                    no_host_sync)
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    x = torch.arange(4.0, device=dev)
+    fired = None
+    with no_host_sync():
+        try:
+            x.sum().item()
+        except RuntimeError as err:
+            fired = str(err).splitlines()[0]
+        got = device_get(x.sum())
+    say(f"G4 no_host_sync: a deliberate .item() raised: {fired!r}; "
+        f"device_get inside it read {float(got)}")
+    check(fired is not None and "synchroniz" in fired,
+          "G4: no_host_sync did not fire on .item()")
+    check(float(got) == 6.0, "G4: device_get read a wrong value")
+
+    m = cost.shape[1]
+    loads = np.full(m, float(int(0.3 * N_ROUTE)))
+    solver = opt.DualSolver(mode="quality", iters=150)
+    nv, n_pad = G4_WINDOW
+    c_w = torch.zeros(n_pad, m, device=dev)
+    q_w = torch.zeros(n_pad, m, device=dev)
+    c_w[:nv], q_w[:nv] = cost[:nv], cap[:nv]
+    c_w[nv:], q_w[nv:] = 7.0, 0.5           # garbage in the padding
+    w_solver = opt.DualSolver(mode="quality", iters=150, lr_constraint=3.0,
+                              stall_tol=1e-2, norm_grad=True)
+    w_loads = torch.full((m,), float(nv // 4), device=dev)
+    runs = {
+        "solve 16k": lambda: solver.solve(cost, cap, 0.75, loads),
+        "route_arrays 16k": lambda: solver.route_arrays(
+            cost, cap, 0.75, loads, polish_threshold=0.78),
+        f"masked window {nv}/{n_pad}": lambda: w_solver.route_window(
+            c_w, q_w, 0.75, w_loads, opt.init_dual_state(m, dev),
+            share=0.25, polish_margin=0.03, n_valid=nv),
+    }
+    out = {}
+    la_ops.launches = la_ops.blocked_launches = 0
+    for tag, fn in runs.items():
+        sites = sync_sites(torch, fn)
+        fetch0 = guards.host_reads
+        raised = None
+        with CompileGuard(max_retraces=None, label=f"G4 {tag}") as cg:
+            try:
+                with no_host_sync():
+                    res = fn()
+            except RuntimeError as err:
+                raised = str(err).splitlines()[0]
+            torch.cuda.synchronize()
+        out[tag] = dict(implicit_sync_sites=sites,
+                        explicit_reads=guards.host_reads - fetch0,
+                        compile_events=cg.retraces())
+        say(f"G4 {tag} under no_host_sync: implicit syncs (warn pass) "
+            f"{sites or 'none'}; raised {raised!r}; explicit reads "
+            f"(device_get) {out[tag]['explicit_reads']}; compile events "
+            f"{cg.retraces()}")
+        check(raised is None and not sites,
+              f"G4 {tag}: an implicit host sync under no_host_sync")
+        check(cg.retraces() == 0, f"G4 {tag}: a compile event in a warmed "
+              "pass")
+        want = n_pad if "masked" in tag else cost.shape[0]
+        check(raised is not None or (tuple(res[0].shape) == (want,) and int(
+            res[0].min()) >= 0 and int(res[0].max()) < m),
+              f"G4 {tag}: the assignment's shape or range")
+    n = dict(dual_solve=la_ops.launches, blocked=la_ops.blocked_launches)
+    say(f"G4 launches {n}")
+    check(n["dual_solve"] > 0 and n["blocked"] > 0,
+          "G4: the solves did not launch the kernels")
+    return n, out
+
+
+# -- phase I: int8 KV pools ----------------------------------------------------
+
+def int8_check(torch, np, model, params, dev, say, check, tag, limits):
+    """I1's checked comparison on ``model`` (int8 KV, full width and depth):
+    four ragged prompts prefilled alone into int8 pools, CHECK_STEPS
+    teacher-forced ``decode_step_paged`` steps (the dense-cache kernel on
+    the pools' dequantized view) against each sequence's dense int8 path
+    (``decode_step`` over ``pad_cache``); then one ``verify_step_paged``
+    round of SPEC_K positions (the dense-cache kernel at SPEC_K positions
+    over the same view) against SPEC_K sequential paged decode steps at
+    lens + s on a copy of the pools.  Both held to ``limits`` ((max
+    relative difference, least argmax agreement)).  Then the two wrappers
+    on layer 0's view against their plain versions (``hold_dense_view``).
+    Returns the figures and the launches."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.transformer import _dense_view
+    from repro_torch.models.zoo import pad_cache, prefill_into_pages
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    rng = np.random.RandomState(0)
+    plens = [100, 237, 480, 511]
+    ps, nb = 16, len(plens)
+    extra = CHECK_STEPS + SPEC_K
+    p_max = -(-(max(plens) + extra) // ps)
+    seqs = [rng.randint(1, vocab, (n + extra,)) for n in plens]
+    state = model.empty_paged_state(nb, 1 + nb * p_max, ps, device=dev)
+    check(state["segs"][0][0]["k"].dtype == torch.int8
+          and "k_scale" in state["segs"][0][0], f"I1 {tag}: pools not int8")
+    bt = torch.arange(1, 1 + nb * p_max, dtype=torch.int32,
+                      device=dev).reshape(nb, p_max)
+    fa_ops.launches = pd_ops.dense_launches = pd_ops.verify_launches = 0
+    pd_ops.launches = 0
+    caches = []
+    for i, n in enumerate(plens):
+        cache, _ = model.prefill(params, torch.as_tensor(seqs[i][None, :n],
+                                                         device=dev))
+        prefill_into_pages(state, cache, bt[i, :-(-n // ps)].long(), i, ps)
+        caches.append(pad_cache(cache, n + CHECK_STEPS))
+    lens = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+
+    def tokens(t, width=1):
+        return torch.as_tensor(np.array([s[n + t:n + t + width] for s, n in
+                                         zip(seqs, plens)]),
+                               dtype=torch.int32, device=dev)
+
+    dec = []
+    for t in range(CHECK_STEPS):
+        _, lg = model.decode_step_paged(params, state, tokens(t), bt, lens)
+        dec.append(lg[:, :vocab])
+        lens = lens + 1
+    ref = []
+    for i, n in enumerate(plens):
+        c, out = caches[i], []
+        for t in range(CHECK_STEPS):
+            c, lg = model.decode_step(params, c, torch.as_tensor(
+                [[seqs[i][n + t]]], dtype=torch.int32, device=dev))
+            out.append(lg[0, :vocab])
+        ref.append(torch.stack(out))
+    del caches
+    dec, ref = torch.stack(dec, dim=1), torch.stack(ref)
+    torch.cuda.synchronize()
+    n_dense = pd_ops.dense_launches
+    check(n_dense == cfg.n_layers * CHECK_STEPS * (nb + 1),
+          f"I1 {tag}: dense kernel launches != layers x steps x (1 paged + "
+          f"{nb} dense)")
+    check(pd_ops.launches == 0, f"I1 {tag}: int8 pools ran the bf16 paged "
+          "kernel")
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(ref).all()),
+          f"I1 {tag}: non-finite logits")
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    # one verify round against sequential decode at lens + s
+    copy = {"segs": [[{k: v.clone() for k, v in layer.items()}
+                      for layer in seg] for seg in state["segs"]]}
+    vt = tokens(CHECK_STEPS, SPEC_K)
+    n_dense = pd_ops.dense_launches
+    _, vlg = model.verify_step_paged(params, state, vt, bt, lens)
+    seq = []
+    for j in range(SPEC_K):
+        _, lg = model.decode_step_paged(params, copy, vt[:, j:j + 1], bt,
+                                        lens + j)
+        seq.append(lg[:, :vocab])
+    seq = torch.stack(seq, dim=1)
+    vlg = vlg[:, :, :vocab]
+    torch.cuda.synchronize()
+    n_verify = pd_ops.dense_launches - n_dense
+    check(n_verify == cfg.n_layers * (1 + SPEC_K),
+          f"I1 {tag}: dense-cache launches of the verify round and its "
+          f"{SPEC_K} decode steps != layers x {1 + SPEC_K}")
+    check(pd_ops.verify_launches == 0, f"I1 {tag}: int8 pools ran the paged "
+          "verify kernel")
+    n_dense = pd_ops.dense_launches
+    kernel_err = hold_dense_view(torch, say, check, cfg, *_dense_view(
+        cfg, state["segs"][0][0], 0, bt), lens, f"I1 {tag}")
+    vrel = float((vlg - seq).abs().max() / seq.abs().max())
+    vagree = float((vlg.argmax(-1) == seq.argmax(-1)).float().mean())
+    say(f"I1 {tag}: danube full width, int8 pools, {nb} sequences (prompts "
+        f"{plens}) x {CHECK_STEPS} teacher-forced paged decode steps vs the "
+        f"dense int8 path (decode_step over pad_cache, one sequence at a "
+        f"time): max|diff|/max|logit| = {rel:.4g}, argmax agreement "
+        f"{agree:.4f}; one verify round of {SPEC_K} positions vs sequential "
+        f"paged decode at lens + s: {vrel:.4g}, {vagree:.4f} (limits: <= "
+        f"{limits[0]}, >= {limits[1]}); dense-cache launches {n_dense} "
+        f"(of them the verify round and its decode steps {n_verify}), flash "
+        f"{fa_ops.launches}")
+    check(rel <= limits[0] and agree >= limits[1],
+          f"I1 {tag}: paged int8 decode disagrees with the dense int8 path")
+    check(vrel <= limits[0] and vagree >= limits[1],
+          f"I1 {tag}: int8 verify disagrees with int8 decode at lens + s")
+    return dict(rel=rel, agree=agree, verify_rel=vrel, verify_agree=vagree,
+                dense=n_dense, flash=fa_ops.launches, kernel_err=kernel_err)
+
+
+def hold_dense_view(torch, say, check, cfg, kd, vd, lens, tag):
+    """The dense-cache kernel's two wrappers, ``ops.decode_attention`` and
+    ``ops.verify_attention`` (SPEC_K positions), on one layer's dequantized
+    int8 view ``kd``/``vd`` (B, T, K, D) at ``lens``, the tensors the int8
+    path gives them, with seeded queries: each against its plain version
+    (``decode_attention_ref`` / ``verify_attention_ref``) on the same
+    tensors, max|diff| / max|plain| within FULL_LIMITS of the view's dtype.
+    These launches are not the path's: the count is put back.  Returns
+    the largest |kernel - plain|."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, verify_attention_ref)
+    b, t = kd.shape[:2]
+    limit = FULL_LIMITS["float32" if kd.dtype == torch.float32 else "bf16"][0]
+    gen = torch.Generator(device=kd.device).manual_seed(b)
+    window = cfg.sliding_window or 0
+    n0, out = pd_ops.dense_launches, {}
+    for name, s, fn, ref in (
+            ("decode", 1, pd_ops.decode_attention, decode_attention_ref),
+            ("verify", SPEC_K, pd_ops.verify_attention, verify_attention_ref)):
+        q = torch.randn(b, s, cfg.n_heads, cfg.hd, generator=gen,
+                        device=kd.device).to(kd.dtype)
+        got = fn(q, kd, vd, lens, window=window)
+        want = ref(q, kd, vd, lens, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        out[name] = err
+        say(f"{tag}: ops.{fn.__name__} on layer 0's dequantized int8 view "
+            f"(B={b}, T={t}, S={s}, lens {int(lens.min())}..{int(lens.max())}"
+            f", {kd.dtype}) vs {ref.__name__}: max|kernel-plain| = {err:.3g},"
+            f" relative {rel:.3g} (limit {limit})")
+        check(rel <= limit, f"{tag}: ops.{fn.__name__} disagrees with its "
+              "plain version on the int8 view")
+    check(pd_ops.dense_launches == n0 + 2, f"{tag}: the wrappers did not "
+          "launch the dense-cache kernel")
+    pd_ops.dense_launches = n0
+    return max(out.values())
+
+
+def int8_serve(torch, np, dev, say, check, cfg, params, prompts):
+    """S4's endpoint (L 16, t_max 2048, PS 16, sync_every 8) over
+    ``prompts`` x MAX_NEW tokens in ``cfg``'s KV dtype: the outputs, the
+    median ms a decode step and tokens/s, the prefill median and the peak
+    device memory from construction on.  Int8 pools: after admission, the
+    dense-cache wrappers on layer 0's dequantized view at this shape
+    (``hold_dense_view``; outside the timed chunks)."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.transformer import _dense_view
+    from repro_torch.serving.engine import Endpoint, Request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ep = Endpoint(cfg, max_concurrency=ENDPOINT_REQS, t_max=2048,
+                  page_size=16, sync_every=8, params=params, device=dev)
+    reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    pd_ops.launches = pd_ops.dense_launches = fa_ops.launches = 0
+    pre_ms = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        ep.admit(r)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    kernel_err = None
+    if cfg.kv_cache_dtype == "int8":
+        kernel_err = hold_dense_view(
+            torch, say, check, cfg, *_dense_view(
+                cfg, ep._state["segs"][0][0], 0,
+                torch.as_tensor(ep.block_table, device=dev)),
+            torch.as_tensor(ep.lens + 1, device=dev), "I1 S4 shape")
+    chunk_ms, done = [], []
+    while ep.active_count():
+        t0 = time.perf_counter()
+        done += ep.step()
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    chunk = float(np.median(chunk_ms[1:] or chunk_ms))
+    out = dict(outputs={r.rid: list(r.output) for r in done},
+               step_ms=chunk / ep.sync_every,
+               tokens_s=ep.L * ep.sync_every / chunk * 1e3,
+               prefill_ms=float(np.median(pre_ms)),
+               peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               pool_gib=sum(t.numel() * t.element_size()
+                            for t in _leaves(ep._state)) / 2 ** 30,
+               paged=pd_ops.launches, dense=pd_ops.dense_launches,
+               flash=fa_ops.launches, drained=_drained(ep),
+               n=len(done), kernel_err=kernel_err)
+    del ep
+    return out
+
+
+def int8_phase(torch, np, dev, say, check, cfg, params, prompts):
+    """I1: h2o-danube-3-4b at full width and depth with
+    ``kv_cache_dtype="int8"``.  Checked (``int8_check``, wq/wk rescaled by
+    ``_unit_scores``, FULL_LIMITS): float32 and bf16, paged against the
+    dense int8 path and one verify round against decode at lens + s.
+    Printed only (quantization changes the function): S4's endpoint over
+    S4's prompts with int8 pools beside bf16 pools on the same unit-score
+    bf16 weights: argmax (token) agreement, peak memory, ms a decode step
+    and tokens/s.  Returns the launches by kernel."""
+    import dataclasses
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    cfg8_32 = dataclasses.replace(cfg8, dtype=torch.float32)
+    p32 = _unit_scores(_tree_to(params, torch.float32))
+    f32 = int8_check(torch, np, build_model(cfg8_32), p32, dev, say, check,
+                     "float32, unit-std scores", FULL_LIMITS["float32"])
+    del p32
+    unit = _unit_scores(params)
+    b16 = int8_check(torch, np, build_model(cfg8), unit, dev, say, check,
+                     "bf16, unit-std scores", FULL_LIMITS["bf16"])
+    runs = {"int8": int8_serve(torch, np, dev, say, check, cfg8, unit,
+                               prompts),
+            "bf16": int8_serve(torch, np, dev, say, check, cfg, unit,
+                               prompts)}
+    del unit
+    for tag, r in runs.items():
+        check(r["n"] == ENDPOINT_REQS and r["drained"] and all(
+            len(o) == MAX_NEW for o in r["outputs"].values()),
+            f"I1 {tag} pools: not every request got {MAX_NEW} tokens, or a "
+            "leak")
+    i8, bf = runs["int8"], runs["bf16"]
+    check(i8["dense"] > 0 and i8["paged"] == 0 and bf["paged"] > 0
+          and bf["dense"] == 0, "I1: a pool kind took the other's kernel")
+    same = np.mean([a == b for rid in i8["outputs"] for a, b in
+                    zip(i8["outputs"][rid], bf["outputs"][rid])])
+    first = np.mean([i8["outputs"][rid][0] == bf["outputs"][rid][0]
+                     for rid in i8["outputs"]])
+    say(f"I1 serving (S4's endpoint: L {ENDPOINT_REQS}, t_max 2048, PS 16, "
+        f"prompts {min(map(len, prompts))}..{max(map(len, prompts))} x "
+        f"{MAX_NEW} tokens, unit-std-score bf16 weights; {gpu_line()}): "
+        f"int8 pools {i8['pool_gib']:.3f} GiB, peak {i8['peak_gib']:.2f} "
+        f"GiB above the weights, {i8['step_ms']:.2f} ms a decode step, "
+        f"{i8['tokens_s']:.1f} tokens/s, prefill {i8['prefill_ms']:.1f} ms "
+        f"(median) | bf16 pools {bf['pool_gib']:.3f} GiB, peak "
+        f"{bf['peak_gib']:.2f} GiB, {bf['step_ms']:.2f} ms a step, "
+        f"{bf['tokens_s']:.1f} tokens/s, prefill {bf['prefill_ms']:.1f} ms "
+        f"| greedy tokens equal to the bf16 run's: {same:.4f} of "
+        f"{ENDPOINT_REQS * MAX_NEW}, first tokens {first:.4f} (printed, not "
+        f"checked); I1 {time.perf_counter() - t0:.1f} s")
+    return dict(dense=f32["dense"] + b16["dense"] + i8["dense"],
+                kernel_err=max(f32["kernel_err"], b16["kernel_err"],
+                               i8["kernel_err"]), paged=bf["paged"],
+                flash=f32["flash"] + b16["flash"] + i8["flash"]
+                + bf["flash"], float32=f32, bf16=b16,
+                serve={k: {f: v for f, v in r.items() if f != "outputs"}
+                       for k, r in runs.items()}, token_agreement=same)
+
+
+def g2_sim_stream(torch, say, check, ret2, healthy, healthy_wall):
+    """G2 (simulator): phase S's S2 healthy stream (ECCOS-R over ``ret2``,
+    budget mode, Poisson arrivals, padded windows) again with LedgerSan
+    and SolveCert on: every window certified and its ledger checked, no
+    violation raised, and the ServeResult equal to the sanitizer-off card
+    run's (``healthy``) in every field but the wall time."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.core import (OmniRouter, RouterConfig, SchedulerConfig,
+                                  run_serving)
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    _, test, rkw, skw, _ = sim_case("S2 healthy")
+    router = OmniRouter(ret2, RouterConfig(**rkw), name="ECCOS-R")
+    with sanitize.enabled("ledgersan", "solvecert"):
+        c0 = dict(sanitize.counters)
+        tr_ops.launches = la_ops.blocked_launches = 0
+        t0 = time.perf_counter()
+        res = run_serving(test, router, SchedulerConfig(**skw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = {k: sanitize.counters[k] - c0[k] for k in c0}
+    n = dict(vote=tr_ops.launches, blocked=la_ops.blocked_launches)
+    diff = result_diff(res, healthy)
+    say(f"G2 S2 healthy with LedgerSan + SolveCert (card): "
+        f"{result_line(res)}; {moved['certs']} certificates and "
+        f"{moved['checks']} ledger checks over {res.windows} windows, no "
+        f"violation; simulation wall {wall:.2f} s (off: "
+        f"{healthy_wall:.2f} s); launches {n}; differing from the "
+        f"sanitizer-off run in {diff}")
+    check(moved["certs"] == res.windows and moved["checks"] >= res.windows,
+          "G2 S2 healthy: a window went uncertified or unchecked")
+    check(not diff, f"G2 S2 healthy: the sanitized ServeResult differs in "
+          f"{diff}")
+    return dict(windows=res.windows, certs=moved["certs"],
+                checks=moved["checks"], wall_s=wall, launches=n)
 
 
 def _leaves(tree):
@@ -3801,6 +4489,10 @@ def main() -> int:
     rows["shard_stats"] = masked_solve_phase(torch, np, dev, say, check,
                                              time_ms, hp)
     mark("V2")
+    # G4. the runtime guards on the card: no_host_sync live, the solver
+    # clean under it, no compile event in a warmed pass
+    g4, g4_sites = guards_phase(torch, np, dev, say, check, cost, cap)
+    mark("G4")
 
     # T. ECCOS-T, ECCOS-H and S3 fit on the card
     fits = predictor_fit_phase(torch, np, dev, say, check)
@@ -3829,21 +4521,30 @@ def main() -> int:
     # E1. the failure plane on the float32 smoke pool, card vs CPU
     e1_paged, e1_flash = failure_plane_smoke(torch, np, dev, say, check)
     mark("E1")
-    rows["paged_decode_attention"]["launches"] += e1_paged
-    rows["flash_attention"]["launches"] = main["flash"] + e1_flash
+    # G3. the schedule race checker on the card (after E1 warmed its
+    # kernels)
+    g3 = race_phase(torch, np, dev, say, check)
+    mark("G3")
+    rows["paged_decode_attention"]["launches"] += e1_paged + g3["paged"]
+    rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
+                                           + g3["flash"])
     rows["decode_attention"]["launches"] = main["dense"]
-    rows["retrieval_vote"]["launches"] += main["vote"]
-    rows["dual_solve"]["launches"] += main["dual_solve"]
+    rows["decode_attention"]["max_abs_err"] = max(
+        rows["decode_attention"]["max_abs_err"], main["i1"]["kernel_err"])
+    rows["retrieval_vote"]["launches"] += main["vote"] + g3["vote"]
+    rows["dual_solve"]["launches"] += (main["dual_solve"] + g3["dual_solve"]
+                                       + g4["dual_solve"])
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
     mark("V1")
     # V3, V4 and the smoke spec pool card vs CPU
     (rows["paged_verify_attention"], blocked_launches,
-     blocked_err) = speculative_plane(torch, np, dev, say, check, time_ms)
-    mark("V3, V4 and the smoke spec pool")
+     blocked_err, g2_spec) = speculative_plane(torch, np, dev, say, check,
+                                               time_ms)
+    mark("V3, V4, G2 (spec stream) and the smoke spec pool")
     rows["paged_verify_attention"]["max_abs_err"] = verify_err
-    rows["shard_stats"]["launches"] = blocked_launches
+    rows["shard_stats"]["launches"] = blocked_launches + g4["blocked"]
     rows["shard_stats"]["max_abs_err"] = max(
         rows["shard_stats"]["max_abs_err"], blocked_err)
 
@@ -3857,6 +4558,9 @@ def main() -> int:
     rows["shard_stats"]["max_abs_err"] = max(
         rows["shard_stats"]["max_abs_err"], sim["errs"]["blocked"])
     say("phase S runs: " + json.dumps(sim["runs"]))
+    say("phase I: " + json.dumps(main["i1"], default=str))
+    say("phase G: " + json.dumps(dict(g2_spec=g2_spec, g3=g3, g4=g4,
+                                      g4_runs=g4_sites), default=str))
     say("phase T: " + json.dumps(fit_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -25,8 +25,9 @@ The port of ``repro.core.control``:
 A policy that declares ``pads_windows`` (the port's ``OmniRouter``) gets
 its streaming windows padded to power-of-two buckets (multiples of its
 ``window_multiple()``) with the padding masked by ``n_valid`` and sliced
-off the returned assignment, as in the reference.  The reference's
-sanitizer hooks are not ported.
+off the returned assignment, as in the reference.  With ``ledgersan`` on
+(``repro_torch.analysis.sanitize``), each streaming window's ledger is
+checked for monotonicity on the host.
 
 The executor duck-type:
 
@@ -55,6 +56,8 @@ from collections import deque
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from repro_torch.analysis import sanitize as _sanitize
 
 from .baselines import Policy, pad_batch, pad_bucket
 from .optimizer import DualState
@@ -188,6 +191,7 @@ class StreamController:
                             batch.price_out.dtype))
             n_true = batch.n
             n_rem = max(self.horizon - self.routed, n_true)
+            state_in = self.state
             if getattr(self.policy, "pads_windows", False):
                 mult = getattr(self.policy, "window_multiple", lambda: 1)()
                 batch = pad_batch(batch, pad_bucket(n_true, mult))
@@ -198,6 +202,10 @@ class StreamController:
             else:
                 x, self.state = self.policy.route_window(
                     batch, self.state, share=n_true / n_rem, rng=self.rng)
+            if (_sanitize.active("ledgersan") and state_in is not None
+                    and self.state is not None):
+                _sanitize.check_state_monotone(state_in, self.state,
+                                               where="StreamController")
             n_routed = n_true
         else:
             from .scheduler import route_via_batch

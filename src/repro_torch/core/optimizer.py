@@ -41,16 +41,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common import default_device
+from repro_torch.analysis import sanitize as _sanitize
+from repro_torch.common import default_device, device_get
 from repro_torch.kernels.lagrangian_assign.ref import (in_shard_order,
                                                        ordered_sum, sqrt32)
 
 SYNC_EVERY = 32      # repair/polish moves between host reads of `done`
 
-# host reads of a device flag made by the repair/polish loops and the
-# blocked solve's loop (a sync each on the card); solve_host_reads counts
-# the blocked solve's alone (none on the card: its loop is one launch)
-host_reads = 0
+# host reads of a device flag made by the blocked solve's loop (none on the
+# card: its loop is one launch); the repair/polish loops' reads are counted
+# by ``repro_torch.common.guards.host_reads``, as every ``device_get``
 solve_host_reads = 0
 
 
@@ -78,7 +78,20 @@ class DualState(NamedTuple):
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    """``v`` as a float32 tensor on ``device``, with no host sync on the
+    card: a tensor converts in place, a Python or NumPy scalar is filled on
+    the device, an array is copied (never aliased: the caller's array may
+    be read-only) and goes to the card by a pinned, non-blocking copy (a
+    copy from pageable memory would wait for the stream)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    device = torch.device(device)
+    if np.ndim(v) == 0:
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+    a = torch.from_numpy(np.array(v, dtype=np.float32))
+    if device.type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a
 
 
 def init_dual_state(m: int, device=None) -> DualState:
@@ -138,6 +151,17 @@ def _normalize_problem(a_mat, b_mat, t_eff, lr_con, lr_load, lam0, lam20,
     lam0 = lam0 * b_bar / a_bar
     lam20 = lam20 / a_bar
     return a_mat, b_mat, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar, b_bar
+
+
+def _histogram(x, m: int, weights=None) -> torch.Tensor:
+    """``torch.bincount(x, weights, minlength=m)`` as float32, made on the
+    device with no host read (``bincount`` reads ``max(x)`` on the host to
+    size its output).  The counts are integers, so the sum order of
+    ``index_add_`` does not change them."""
+    w = (torch.ones(x.shape, dtype=torch.float32, device=x.device)
+         if weights is None else weights.float())
+    return torch.zeros(m, dtype=torch.float32,
+                       device=x.device).index_add_(0, x, w)
 
 
 def _chosen_sum(mat, x):
@@ -226,15 +250,13 @@ def _run_moves(step, carry, cap: int, chunk: int):
     """Apply the masked move ``step`` up to ``cap`` times (the reference's
     iteration cap), reading the carry's ``done`` flag (second to last, before
     the move count) on the host once every ``chunk`` steps.  Steps after
-    ``done`` change nothing."""
-    global host_reads
+    ``done`` change nothing.  The read is explicit (``device_get``)."""
     k = 0
     while k < cap:
         for _ in range(min(chunk, cap - k)):
             carry = step(carry)
             k += 1
-        host_reads += 1
-        if bool(carry[-2]):
+        if bool(device_get(carry[-2])):
             break
     return carry
 
@@ -257,14 +279,15 @@ def _moved(x, counts, i, j, do):
     """(x, counts) after moving query i to model j, where ``do``."""
     i1, j1 = i.reshape(1), j.reshape(1).to(x.dtype)
     x_new = x.scatter(0, i1, j1)
-    step = torch.tensor([-1.0, 1.0], device=counts.device)
+    # [-1.0, 1.0] made on the device (a host tensor would be a copy a move)
+    step = torch.arange(-1.0, 2.0, 2.0, device=counts.device)
     counts_new = counts.index_add(0, torch.cat([x.gather(0, i1), j1]), step)
     return torch.where(do, x_new, x), torch.where(do, counts_new, counts)
 
 
 def _record(stats, key, carry):
     if stats is not None:
-        stats[key] = stats.get(key, 0) + int(carry[-1])
+        stats[key] = stats.get(key, 0) + int(device_get(carry[-1]))
 
 
 def repair_workload(x, cost, quality, loads, lam1=0.0, n_valid=None, *,
@@ -284,7 +307,7 @@ def repair_workload(x, cost, quality, loads, lam1=0.0, n_valid=None, *,
     reduced = cost - _f32(lam1, dev) * quality / _f32(n, dev)
     inf = _f32(float("inf"), dev)
     validr, vf = _valid_rows(n, n_valid, dev)
-    counts0 = torch.bincount(x, weights=vf, minlength=m).float()
+    counts0 = _histogram(x, m, vf)
 
     def step(carry):
         x, counts, done, moves = carry
@@ -363,7 +386,7 @@ def _polish(x, cost, quality, loads, chunk, stats, tracked, init_sum,
         return apply(carry, torch.where(ok, score, ninf), torch.argmax,
                      lambda s: s > ninf)
 
-    counts0 = torch.bincount(x, weights=vf, minlength=m).float()
+    counts0 = _histogram(x, m, vf)
     carry = _run_moves(step0, (x, counts0, init_sum, zero_b, zero_i),
                        4 * n, chunk)
     _record(stats, "polish_phase0_moves", carry)
@@ -550,7 +573,7 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
     on the CPU (a host read every ``ref.SYNC_EVERY`` iterations); both keep
     the reference's semantics (stall early exit, ``iters_run`` exact) and
     give the same bits."""
-    global host_reads, solve_host_reads
+    global solve_host_reads
     from repro_torch.kernels.lagrangian_assign.ops import blocked_dual_ascent
     dev = a_mat.device
     nloc, m = a_mat.shape
@@ -580,7 +603,6 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
     out, reads = blocked_dual_ascent(
         a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
         stall_tol, step0, loads, iters=iters, patience=patience)
-    host_reads += reads
     solve_host_reads += reads
     lam, lam_b, best_a = out[0], out[1], out[2]
     found = out[3] > 0.0
@@ -912,6 +934,15 @@ class DualSolver:
             budget_spent=state.budget_spent + csum,
             sr_deficit=state.sr_deficit + deficit,
             steps=state.steps + info.iters_run)
+        if _sanitize.ENABLED:
+            # opt-in sanitizer plane (repro_torch.analysis.sanitize): ledger
+            # conservation and an independent NumPy feasibility certificate.
+            # Every call is eager here, so every window is checked.
+            _sanitize.check_route_window(
+                mode=self.mode, x=x, cost=cost, quality=quality,
+                threshold=threshold, t_eff=t_eff, loads=loads,
+                state_in=state, state_out=new_state, csum=csum, qsum=qsum,
+                n_valid=nv, info=info)
         return x, info, new_state
 
 

@@ -19,8 +19,9 @@ live acceptance EWMA), so the solve and the warm state span M + P columns.
 
 With ``robust=True`` the streaming solve runs against the quality
 lower-confidence bound ``q - kappa*sigma`` (``DualSolver.robust``), taken
-after the pair columns are spliced in.  The reference's sanitizer hooks
-are not ported.
+after the pair columns are spliced in.  With ``ledgersan`` on
+(``repro_torch.analysis.sanitize``), every window's state transition is
+checked for a monotone ledger on the host.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.data import tokenizer
 
 from .baselines import Policy, RouteBatch
@@ -179,6 +181,7 @@ class OmniRouter(Policy):
             # state spans all M + P columns of the streaming solve
             state = init_dual_state(batch.m + len(self.pairs),
                                     self.predictor.device)
+        state_in = state
         threshold = (self.cfg.budget if self.cfg.budget is not None
                      else self.cfg.alpha)
         cap, cost, avail, t1 = self._predict(batch)
@@ -193,6 +196,9 @@ class OmniRouter(Policy):
             cost, cap, threshold, avail, state, share=share,
             polish_margin=self.cfg.alpha_margin, n_valid=n_valid,
             stats=stats)
+        if _sanitize.active("ledgersan"):
+            _sanitize.check_state_monotone(state_in, state,
+                                           where="OmniRouter.route_window")
         # iters_run stays on the device; dual_iters sums lazily on read
         self._iters_pending.append(info.iters_run)
         self.windows += 1

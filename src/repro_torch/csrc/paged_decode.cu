@@ -10,7 +10,9 @@
 // _paged_verify_kernel, which folds the S positions into the q block's rows)
 // — entry point paged_verify_launch — and the dense-cache
 // decode_attention_kernel (body _kernel over a (B, T, K, D) cache, ragged T
-// masked) — entry point decode_launch.  All three run the same split kernel.
+// masked) — entry point decode_launch, which also runs the multi-position
+// verify over a dense cache (the int8 pools' dequantized view; the reference
+// runs that one as plain jnp).  All three run the same split kernel.
 // The dense one reads the contiguous cache as pages of one position whose
 // ids are b*T + t (no block table), so at the same split boundaries
 // (SPLIT_POS positions) it equals the paged decode bit for bit.  Verify and
@@ -536,19 +538,23 @@ extern "C" int paged_verify_launch(int dtype, const void* q, const void* kp,
                   H, KH, D, PS, P, window, scale, pps, n_splits, S, 0, stream);
 }
 
-// The dense-cache decode entry point: q and out (B, 1, H, D), caches k and
-// v (B, T, KH, D) contiguous, lens (B,) valid lengths (clamped to [0, T]).
-// Splits of SPLIT_POS positions; partials o (B, KH, n_splits, G, D), m and
-// l (B, KH, n_splits, G), n_splits = ceil(T / SPLIT_POS).
+// The dense-cache entry point, decode (S = 1) and verify (S > 1): q and out
+// (B, S, H, D), caches k and v (B, T, KH, D) contiguous, lens (B,) valid
+// lengths of query 0: query s is masked to positions < lens[b] + s (clamped
+// to [0, T]; with window > 0, >= lens[b] + s - window).  Splits of SPLIT_POS
+// positions; partials o (B, KH, n_splits, S*G, D), m and l (B, KH, n_splits,
+// S*G), n_splits = ceil(T / SPLIT_POS).  G at most GMAX for decode, S*G at
+// most RMAX_VERIFY for verify.
 extern "C" int decode_launch(int dtype, const void* q, const void* k,
                              const void* v, const int* lens, float* o_part,
                              float* m_part, float* l_part, void* out, int B,
-                             int H, int KH, int D, int T, int window,
+                             int S, int H, int KH, int D, int T, int window,
                              float scale, int n_splits, void* stream) {
-  if (T <= 0 || H % KH != 0 || H / KH > GMAX
+  if (T <= 0 || S <= 0 || H % KH != 0
+      || (long long)S * (H / KH) > (S == 1 ? GMAX : RMAX_VERIFY)
       || (long long)n_splits * SPLIT_POS < T)
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, q, k, v, nullptr, lens, o_part, m_part, l_part, out,
-                  B, H, KH, D, 1, T, window, scale, SPLIT_POS, n_splits, 1, T,
+                  B, H, KH, D, 1, T, window, scale, SPLIT_POS, n_splits, S, T,
                   stream);
 }

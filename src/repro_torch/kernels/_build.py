@@ -6,7 +6,9 @@ hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
 so an edited source never loads a stale library).  Nothing is built at
 import: the first launch builds, or :func:`build_all` builds every source
 at once, one ``nvcc`` per source, all started together.  A failed build
-raises; there is no fallback.
+raises; there is no fallback.  Every ``nvcc`` started and every library
+loaded is one compile event of ``repro_torch.common.guards``
+(``CompileGuard`` counts them).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+from repro_torch.common import guards
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -76,6 +80,7 @@ def build_all(names=None) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(
             _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
+        guards.record_compile()
     logs = {}
     failed = []
     for name, (proc, tmp, out) in procs.items():
@@ -97,6 +102,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+            guards.record_compile()
         return lib
 
 

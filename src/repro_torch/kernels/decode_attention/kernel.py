@@ -1,8 +1,9 @@
 """Python wrappers of the hand-written CUDA split-KV attention
 (``csrc/paged_decode.cu``): paged decode (one query position per sequence),
 speculative verify (S positions per sequence) and the dense-cache decode
-(one query position against a contiguous ``(B, T, K, D)`` cache), each the
-split pass and the log-sum-exp merge, two launches on the current stream.
+and verify (S >= 1 query positions against a contiguous ``(B, T, K, D)``
+cache), each the split pass and the log-sum-exp merge, two launches on the
+current stream.
 They take CUDA tensors only; the library builds from the repository's
 sources at first use."""
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _verify_launcher():
 def _dense_launcher():
     fn = _build.load("paged_decode").decode_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -169,25 +170,29 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_table, lens, *,
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lens, *, window: int = 0):
-    """q (B,1,H,D); caches (B,T,K,D) of q's dtype (bfloat16 or float32),
-    contiguous, any T; lens (B,) int32 valid lengths (clamped to [0, T]):
-    position t of sequence b is attended when t < lens[b] (and t >= lens[b]
-    - window with a window).  Returns (B,1,H,D) in q's dtype, the contract
-    of ``ref.decode_attention_ref`` on every sequence with at least one
+    """q (B,S,H,D); caches (B,T,K,D) of q's dtype (bfloat16 or float32),
+    contiguous, any T; lens (B,) int32 valid lengths of query 0: query s of
+    sequence b attends to position t when t < lens[b] + s (clamped to
+    [0, T]; and t >= lens[b] + s - window with a window).  S = 1 is the
+    decode (H/K at most 8), S > 1 the verify (S·H/K at most 64).  Returns
+    (B,S,H,D) in q's dtype, the contract of ``ref.decode_attention_ref``
+    (S = 1) and ``ref.verify_attention_ref`` on every row with at least one
     valid position; equal bit for bit to ``paged_decode_attention_cuda``
-    over the same rows laid out as pages."""
+    over the same rows laid out as pages, and row s to the decode at
+    lens + s."""
+    one = q.dim() != 4 or q.shape[1] == 1
     b, s, h, d, kh = _check_inputs(q, k_cache, v_cache, (("lens", lens),),
-                                   GMAX)
+                                   GMAX if one else RMAX_VERIFY)
     t = k_cache.shape[1]
-    if s != 1 or k_cache.shape[0] != b or t < 1 or tuple(lens.shape) != (b,):
-        raise ValueError("q must be (B,1,H,D), the caches (B,T,K,D) with T "
-                         ">= 1 and lens (B,)")
+    if k_cache.shape[0] != b or t < 1 or tuple(lens.shape) != (b,):
+        raise ValueError("the caches must be (B,T,K,D) with T >= 1 and lens "
+                         "(B,)")
     dev = q.device
     n_splits = -(-t // SPLIT_POS)
-    g = h // kh
-    o_part = torch.empty((b, kh, n_splits, g, d), dtype=torch.float32,
+    rows = s * (h // kh)
+    o_part = torch.empty((b, kh, n_splits, rows, d), dtype=torch.float32,
                          device=dev)
-    m_part = torch.empty((b, kh, n_splits, g), dtype=torch.float32,
+    m_part = torch.empty((b, kh, n_splits, rows), dtype=torch.float32,
                          device=dev)
     l_part = torch.empty_like(m_part)
     out = torch.empty_like(q)
@@ -196,6 +201,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lens, *, window: int = 0):
         _build.check(_dense_launcher()(
             _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lens.data_ptr(), o_part.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, h, kh, d,
-            t, int(window), d ** -0.5, n_splits, stream), "decode_launch")
+            m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, s, h,
+            kh, d, t, int(window), d ** -0.5, n_splits, stream),
+            "decode_launch")
     return out

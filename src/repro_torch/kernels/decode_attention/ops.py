@@ -1,13 +1,13 @@
 """Entry points of the paged decode, paged verify and dense-cache decode
-attention, dispatched by device.
+and verify attention, dispatched by device.
 
 A CUDA tensor launches the hand-written kernel (``kernel.py``) or raises;
 a CPU tensor runs the plain PyTorch version (``ref.py``).  ``launches``
 counts the decode kernel calls made through ``paged_decode_attention``,
 ``verify_launches`` the verify kernel calls made through
-``paged_verify_attention`` and ``dense_launches`` the dense decode kernel
-calls made through ``decode_attention`` (one per call: the split pass and
-its merge).
+``paged_verify_attention`` and ``dense_launches`` the dense-cache kernel
+calls made through ``decode_attention`` and ``verify_attention`` (one per
+call: the split pass and its merge).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 from .kernel import (decode_attention_cuda, paged_decode_attention_cuda,
                      paged_verify_attention_cuda)
 from .ref import (decode_attention_ref, paged_decode_attention_ref,
-                  paged_verify_attention_ref)
+                  paged_verify_attention_ref, verify_attention_ref)
 
 launches = 0
 verify_launches = 0
@@ -62,13 +62,9 @@ def decode_attention(q, k_cache, v_cache, lens, *, window: int = 0):
     (B,1,H,D) in q's dtype."""
     global dense_launches
     if q.is_cuda:
-        b = q.shape[0]
-        if isinstance(lens, torch.Tensor):
-            lens = lens.to(q.device, torch.int32).expand(b).contiguous()
-        else:   # a host int: filled on the device, no host-to-device copy
-            lens = torch.full((b,), int(lens), dtype=torch.int32,
-                              device=q.device)
-        out = decode_attention_cuda(q, k_cache, v_cache, lens, window=window)
+        out = decode_attention_cuda(q, k_cache, v_cache,
+                                    _batch_lens(lens, q.shape[0], q.device),
+                                    window=window)
         dense_launches += 1
         return out
     if q.device.type != "cpu":
@@ -76,3 +72,32 @@ def decode_attention(q, k_cache, v_cache, lens, *, window: int = 0):
     return decode_attention_ref(q, k_cache, v_cache,
                                 torch.as_tensor(lens, dtype=torch.int32),
                                 window=window)
+
+
+def _batch_lens(lens, b: int, device) -> torch.Tensor:
+    """Valid lengths as the kernels take them: (B,) int32 on the device.
+    A host int is filled on the device (no host-to-device copy)."""
+    if isinstance(lens, torch.Tensor):
+        return lens.to(device, torch.int32).expand(b).contiguous()
+    return torch.full((b,), int(lens), dtype=torch.int32, device=device)
+
+
+def verify_attention(q, k_cache, v_cache, lens, *, window: int = 0):
+    """The dense-cache verify: q (B,S,H,D), query s of sequence b attends
+    to positions < lens[b] + s of the caches (B,T,K,D); lens an int or a
+    0-d tensor shared by the batch, or (B,) per sequence.  On the card the
+    dense-cache kernel at S positions (one call, counted in
+    ``dense_launches``); on the CPU ``ref.verify_attention_ref``.  Returns
+    (B,S,H,D) in q's dtype."""
+    global dense_launches
+    if q.is_cuda:
+        out = decode_attention_cuda(q, k_cache, v_cache,
+                                    _batch_lens(lens, q.shape[0], q.device),
+                                    window=window)
+        dense_launches += 1
+        return out
+    if q.device.type != "cpu":
+        raise ValueError(f"no verify attention for device {q.device}")
+    return verify_attention_ref(q, k_cache, v_cache,
+                                torch.as_tensor(lens, dtype=torch.int32)
+                                .expand(q.shape[0]), window=window)

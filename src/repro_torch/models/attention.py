@@ -9,10 +9,11 @@ prewritten paged decode branch (``kernels.decode_attention.ops.
 paged_decode_attention``) and its multi-position twin, the speculative
 verify (``kernels.decode_attention.ops.paged_verify_attention``), and the
 prewritten dense-cache decode of one position (``kernels.decode_attention.
-ops.decode_attention``): the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU tensor.  Cross-attention, the dense-cache decode of
-several positions and the decode that writes its own K/V column raise
-``NotImplementedError``.
+ops.decode_attention``) and of several (``ops.verify_attention``, the
+same dense-cache kernel at S positions: the verify of an int8 pool's
+dense view): the CUDA kernels on a CUDA tensor, their plain
+versions on a CPU tensor.  Cross-attention and the decode that writes its
+own K/V column raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -80,10 +81,9 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     new_kv is this call's (k, v) on the full-sequence branch (the prefill
     cache) and None on the decode branches, whose caller has already written
     the K/V of every query position into the page pools (``k_pages``) or
-    the dense cache (``k``, with a scalar ``pos``).  On the paged branch x
-    may carry S > 1 positions per sequence (the speculative verify):
-    position s sits at ``pos[b] + s`` and attends to positions <= ``pos[b]
-    + s``."""
+    the dense cache (``k``).  On both x may carry S > 1 positions per
+    sequence (the speculative verify): position s sits at ``pos[b] + s``
+    and attends to positions <= ``pos[b] + s``."""
     if kv_x is not None or cross_cached:
         raise NotImplementedError("cross-attention is not ported yet")
     q = _proj(x, params["wq"])
@@ -92,16 +92,17 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     if cache is not None:
         sq = x.shape[1]
         paged = "k_pages" in cache
-        if not prewritten or not (paged or ("k" in cache and sq == 1)):
+        if not prewritten:
             raise NotImplementedError(
-                "only the prewritten decode is ported (paged, or one "
-                "position over a dense cache)")
+                "only the prewritten decode is ported (the caller writes "
+                "the K/V of every query position first)")
         pos = cache["pos"]
         if use_rope:
             q = rope(q, _pos2d(pos, sq, x.device), cfg.rope_theta)
         if not paged:
-            out = decode_ops.decode_attention(q, cache["k"], cache["v"],
-                                              pos + 1, window=window)
+            attend = (decode_ops.verify_attention if sq > 1
+                      else decode_ops.decode_attention)
+            out = attend(q, cache["k"], cache["v"], pos + 1, window=window)
         else:
             # speculative verify: S prewritten positions per sequence, one
             # pass

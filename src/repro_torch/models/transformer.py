@@ -6,15 +6,20 @@ planes run: the full-sequence forward (``hidden``/``logits``), ``prefill``
 (``empty_cache``, ``decode_step``: the restart-batching baseline), the
 paged single-token decode (``decode_step_paged``) and the paged
 multi-position verify of the speculative plane (``verify_step_paged``).
+With ``kv_cache_dtype="int8"`` the caches and page pools hold int8 K/V
+with a float32 scale per (position, kv head) (``_quant_kv``, round half to
+even as ``jnp.round``); each decode or verify step dequantizes a dense view
+of the layer's cache (for the pools, the block table's pages gathered) and
+attends over it with the dense-cache kernels, as the reference does: its
+fused paged kernel path is bf16-only.
 The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
 the layers takes the place of ``lax.scan``.
 
-Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention, the
-int8 KV caches and pools, and the training loss; their configs raise
-``NotImplementedError``.
+Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention and
+the training loss; their configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.common import ParamDecl, default_device, init_params
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ref import gather_pages
 from .attention import attention_block, attn_decls, project_kv_token
 from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
                      norm_decl, rms_norm)
@@ -71,20 +77,82 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
     return _ffn_residual(cfg, params, x + a), {"k": k, "v": v}
 
 
+def _quant_kv(x: torch.Tensor):
+    """(..., D) -> int8 values and a float32 scale per (...): the scale is
+    max|x| over D (in float32, floored at 1e-8) over 127, and the values
+    round half to even (``torch.round``, as ``jnp.round``), clipped to
+    +-127."""
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(-1), min=1e-8)
+    # a 0-d tensor on the device: on the card a Python divisor becomes a
+    # multiply by its reciprocal, one ulp off the reference's division
+    scale = amax / torch.full((), 127.0, device=xf.device)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quant_leaves(cfg: ModelConfig, kv: dict) -> dict:
+    """A layer's prefill ``{"k", "v"}`` as the cache stores them: as they
+    are, or int8 with ``k_scale``/``v_scale``."""
+    if cfg.kv_cache_dtype != "int8":
+        return kv
+    out = {}
+    for key in ("k", "v"):
+        out[key], out[f"{key}_scale"] = _quant_kv(kv[key])
+    return out
+
+
+def _write_kv(stacked: dict, i: int, index, k_new, v_new):
+    """Write K/V at ``stacked[key][i][index]`` in place: as the cache's
+    dtype, or quantized with their scales when the cache is int8."""
+    if "k_scale" in stacked:
+        (k_new, ks), (v_new, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        stacked["k_scale"][(i,) + index] = ks
+        stacked["v_scale"][(i,) + index] = vs
+    stacked["k"][(i,) + index] = k_new.to(stacked["k"].dtype)
+    stacked["v"][(i,) + index] = v_new.to(stacked["v"].dtype)
+
+
+def _dequant(cfg: ModelConfig, q: torch.Tensor, scale: torch.Tensor
+             ) -> torch.Tensor:
+    """int8 values times their scales, both in the config's dtype (the
+    reference's rounding)."""
+    return q.to(cfg.dtype) * scale.to(cfg.dtype)[..., None]
+
+
+def _dense_view(cfg: ModelConfig, pools: dict, i: int,
+                block_table: torch.Tensor) -> tuple:
+    """Layer i's int8 pools gathered through the block table into a dense
+    ``(B, P·PS, K, D)`` K and V, dequantized."""
+    b, p = block_table.shape
+    idx = block_table.long()
+    out = []
+    for key in ("k", "v"):
+        vals = gather_pages(pools[key][i], block_table)
+        scale = pools[f"{key}_scale"][i][idx].reshape(b, vals.shape[1], -1)
+        out.append(_dequant(cfg, vals, scale))
+    return tuple(out)
+
+
 def _decode_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
                   x: torch.Tensor, stacked: dict, i: int, pos: int
                   ) -> torch.Tensor:
     """One decode layer against the dense cache: write this token's K/V
     column at (layer i, :, pos) of the stacked ``(count, B, T, K, D)``
-    buffers, then attend over positions <= pos of every sequence."""
+    buffers, then attend over positions <= pos of every sequence (an int8
+    cache: over the layer's buffers dequantized)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     k_new, v_new = project_kv_token(cfg, params["attn"], h, pos)
     # in place, as the paged step writes its pages: the reference's
     # ``dynamic_update_slice`` on the scan carry writes one column too
-    stacked["k"][i, :, pos] = k_new[:, 0].to(stacked["k"].dtype)
-    stacked["v"][i, :, pos] = v_new[:, 0].to(stacked["v"].dtype)
-    # stacked[i] is contiguous (the layer axis leads): the kernel takes it
-    lc = {"k": stacked["k"][i], "v": stacked["v"][i], "pos": pos}
+    _write_kv(stacked, i, (slice(None), pos), k_new[:, 0], v_new[:, 0])
+    if "k_scale" in stacked:
+        lc = {"k": _dequant(cfg, stacked["k"][i], stacked["k_scale"][i]),
+              "v": _dequant(cfg, stacked["v"][i], stacked["v_scale"][i]),
+              "pos": pos}
+    else:
+        # stacked[i] is contiguous (the layer axis leads): the kernel takes it
+        lc = {"k": stacked["k"][i], "v": stacked["v"][i], "pos": pos}
     a, _ = attention_block(cfg, params["attn"], h, causal=True,
                            window=kind.window, cache=lc, prewritten=True)
     return _ffn_residual(cfg, params, x + a)
@@ -96,7 +164,8 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
                         ) -> torch.Tensor:
     """One decode layer over the paged state: write this token's K/V into
     its page slot (block_table[b, lens[b] // PS], lens[b] % PS) of layer i's
-    pools, then attend through the block table."""
+    pools, then attend through the block table (int8 pools: over their
+    dequantized dense view, with the dense-cache kernel)."""
     k_pool, v_pool = pools["k"], pools["v"]          # (L, n_pages, PS, K, D)
     page_size = k_pool.shape[2]
     p_max = block_table.shape[1]
@@ -113,11 +182,14 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
     # off].set`` is cheap only because XLA donates the buffer; an
     # out-of-place scatter here would copy the whole stacked pool, ~3 GB
     # per layer per token at the serving shapes
-    k_pool[i, pidx.long(), off] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[i, pidx.long(), off] = v_new[:, 0].to(v_pool.dtype)
-    # pool[i] is contiguous (the layer axis leads): the kernel takes it as is
-    lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
-          "block_table": block_table, "pos": lens}
+    _write_kv(pools, i, (pidx.long(), off), k_new[:, 0], v_new[:, 0])
+    if "k_scale" in pools:
+        kd, vd = _dense_view(cfg, pools, i, block_table)
+        lc = {"k": kd, "v": vd, "pos": lens}
+    else:
+        # pool[i] is contiguous (the layer axis leads): the kernel takes it
+        lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
+              "block_table": block_table, "pos": lens}
     a, _ = attention_block(cfg, params["attn"], h, causal=True,
                            window=kind.window, cache=lc, prewritten=True)
     return _ffn_residual(cfg, params, x + a)
@@ -152,10 +224,13 @@ def _verify_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
     k_new, v_new = project_kv_token(cfg, params["attn"], h, lens)
     # in place, as the decode step; masked rows (block table 0) all write
     # the dump page, duplicates included: nothing valid ever reads it
-    k_pool[i, pidx.long(), off] = k_new.to(k_pool.dtype)
-    v_pool[i, pidx.long(), off] = v_new.to(v_pool.dtype)
-    lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
-          "block_table": block_table, "pos": lens}
+    _write_kv(pools, i, (pidx.long(), off), k_new, v_new)
+    if "k_scale" in pools:
+        kd, vd = _dense_view(cfg, pools, i, block_table)
+        lc = {"k": kd, "v": vd, "pos": lens}
+    else:
+        lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
+              "block_table": block_table, "pos": lens}
     a, _ = attention_block(cfg, params["attn"], h, causal=True,
                            window=kind.window, cache=lc, prewritten=True)
     return _ffn_residual(cfg, params, x + a)
@@ -181,8 +256,6 @@ class DecoderLM:
     attention patterns included)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.kv_cache_dtype == "int8":
-            raise NotImplementedError("int8 KV pools are not ported yet")
         self.cfg = cfg
         self.plan = layer_plan(cfg)
         for _, pattern in self.plan:
@@ -237,30 +310,42 @@ class DecoderLM:
         return logits_for(self._out_table(params), h).float()
 
     # -- caches -------------------------------------------------------------
+    def _kv_buffers(self, count: int, lead: tuple, device) -> dict:
+        """One pattern position's zeroed K/V buffers ``(count, *lead, K,
+        D)``: in the config's dtype, or int8 with float32 ``k_scale`` /
+        ``v_scale`` ``(count, *lead, K)``."""
+        cfg = self.cfg
+        shape = (count,) + lead + (cfg.n_kv_heads,)
+        int8 = cfg.kv_cache_dtype == "int8"
+        out = {key: torch.zeros(shape + (cfg.hd,),
+                                dtype=torch.int8 if int8 else cfg.dtype,
+                                device=device) for key in ("k", "v")}
+        if int8:
+            for key in ("k_scale", "v_scale"):
+                out[key] = torch.zeros(shape, dtype=torch.float32,
+                                       device=device)
+        return out
+
     def empty_cache(self, batch: int, t_max: int, device=None) -> dict:
         """Dense decode cache: per pattern position, K and V buffers
-        ``(count, batch, t_max, K, D)`` and the shared position ``pos``."""
-        cfg = self.cfg
+        ``(count, batch, t_max, K, D)`` (int8: with their scales) and the
+        shared position ``pos``."""
         device = default_device(device)
-        shape = (batch, t_max, cfg.n_kv_heads, cfg.hd)
         return {"pos": 0, "segs": [
-            [{key: torch.zeros((count,) + shape, dtype=cfg.dtype,
-                               device=device) for key in ("k", "v")}
+            [self._kv_buffers(count, (batch, t_max), device)
              for _ in pattern]
             for count, pattern in self.plan]}
 
     def empty_paged_state(self, n_slots: int, n_pages: int, page_size: int,
                           device=None) -> dict:
         """Fixed-shape serving state: per pattern position, K and V page
-        pools ``(count, n_pages, page_size, K, D)`` shared by every slot
-        (``n_slots`` is part of the reference's signature; attention-only
-        models keep no per-slot state)."""
-        cfg = self.cfg
+        pools ``(count, n_pages, page_size, K, D)`` (int8: with their
+        scales) shared by every slot (``n_slots`` is part of the
+        reference's signature; attention-only models keep no per-slot
+        state)."""
         device = default_device(device)
-        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
         return {"segs": [
-            [{key: torch.zeros((count,) + shape, dtype=cfg.dtype,
-                               device=device) for key in ("k", "v")}
+            [self._kv_buffers(count, (n_pages, page_size), device)
              for _ in pattern]
             for count, pattern in self.plan]}
 
@@ -268,15 +353,17 @@ class DecoderLM:
     def prefill(self, params, tokens: torch.Tensor):
         """tokens (B, S).  Returns (cache, float32 logits of the last
         position): cache ``{"pos": S, "segs": [[{"k", "v"} of shape
-        (count, B, S, K, D)]]}``."""
+        (count, B, S, K, D)]]}`` (int8: with ``k_scale``/``v_scale`` of
+        shape (count, B, S, K))."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens)
         per_layer: dict = {}
         for kind, lp, si, j, _ in self._layers(params):
             x, kv = _apply_layer(cfg, kind, lp, x)
-            per_layer.setdefault((si, j), []).append(kv)
+            per_layer.setdefault((si, j), []).append(_quant_leaves(cfg, kv))
         segs = [[{key: torch.stack([kv[key] for kv in per_layer[(si, j)]])
-                  for key in ("k", "v")} for j in range(len(pattern))]
+                  for key in per_layer[(si, j)][0]}
+                 for j in range(len(pattern))]
                 for si, (_, pattern) in enumerate(self.plan)]
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_for(self._out_table(params), h[:, -1]).float()

@@ -28,17 +28,21 @@ def build_model(cfg: ModelConfig) -> DecoderLM:
 
 
 def pad_cache(cache: dict, t_max: int) -> dict:
-    """Grow the KV buffers (dim 2 of the ``(layers, B, T, K, D)`` leaves)
-    to ``t_max`` positions with zeros; a new cache, ``pos`` kept.  Needed
-    after ``prefill`` before ``decode_step`` can append new tokens."""
-    def grow(leaf):
-        if leaf.dim() != 5 or leaf.shape[2] >= t_max:
+    """Grow the KV buffers (dim 2 of the ``(layers, B, T, K, D)`` leaves,
+    and of an int8 cache's ``(layers, B, T, K)`` scales) to ``t_max``
+    positions with zeros; a new cache, ``pos`` kept.  Needed after
+    ``prefill`` before ``decode_step`` can append new tokens."""
+    def grow(key, leaf):
+        rank = 5 if key in _PAGED_KV_KEYS else 4
+        if (key not in PAGED_POOL_KEYS or leaf.dim() != rank
+                or leaf.shape[2] >= t_max):
             return leaf
-        return F.pad(leaf, (0, 0, 0, 0, 0, t_max - leaf.shape[2]))
+        pad = [0, 0] * (rank - 3) + [0, t_max - leaf.shape[2]]
+        return F.pad(leaf, pad)
 
     return {"pos": cache["pos"],
-            "segs": [[{key: grow(leaf) if key in ("k", "v") else leaf
-                       for key, leaf in layer.items()} for layer in seg]
+            "segs": [[{key: grow(key, leaf) for key, leaf in layer.items()}
+                      for layer in seg]
                      for seg in cache["segs"]]}
 
 
@@ -57,22 +61,26 @@ def prefill_into_pages(state: dict, cache: dict, page_ids, slot,
     ``page_ids``: (ceil(t / page_size),) physical pages owned by the request
     (its block-table prefix).  KV positions past t (the bucket pad tail)
     scatter zeros — masked by ``lens`` at attention time and overwritten as
-    decode advances.  The reference's functional ``pool.at[:, ids].set`` is
-    an indexed assignment into the pool here, so no pool is copied."""
+    decode advances.  An int8 cache's scales ``(L, 1, t, K)`` scatter into
+    their ``(L, n_pages, PS, K)`` pools the same way.  The reference's
+    functional ``pool.at[:, ids].set`` is an indexed assignment into the
+    pool here, so no pool is copied.  Attention-only models keep no
+    per-slot state, so ``slot`` is not read."""
     page_ids = torch.as_tensor(page_ids, dtype=torch.long)
     n_chunk = page_ids.shape[0]
     for seg_s, seg_c in zip(state["segs"], cache["segs"]):
         for layer_state, layer_cache in zip(seg_s, seg_c):
             for key, leaf in layer_cache.items():
-                if key not in _PAGED_KV_KEYS:
+                if key not in PAGED_POOL_KEYS:
                     raise NotImplementedError(
-                        f"cache leaf {key!r}: only bf16/f32 KV pools are "
-                        "ported")
-                pool = layer_state[key]                  # (L, n_pages, PS, K, D)
-                l, _, t, kh, hd = leaf.shape             # (L, 1, t, K, D)
-                kv = F.pad(leaf[:, 0], (0, 0, 0, 0, 0, n_chunk * page_size - t))
+                        f"cache leaf {key!r}: per-slot recurrent state is "
+                        "not ported")
+                pool = layer_state[key]          # (L, n_pages, PS, K[, D])
+                l, _, t = leaf.shape[:3]         # (L, 1, t, K[, D])
+                pad = [0, 0] * (leaf.dim() - 3) + [0, n_chunk * page_size - t]
+                kv = F.pad(leaf[:, 0], pad)
                 pool[:, page_ids.to(pool.device)] = kv.reshape(
-                    l, n_chunk, page_size, kh, hd).to(pool.dtype)
+                    l, n_chunk, page_size, *leaf.shape[3:]).to(pool.dtype)
     return state
 
 

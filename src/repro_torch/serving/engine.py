@@ -52,7 +52,11 @@ chunks.  A failed request re-enters the queue after ``backoff_steps`` ·
 completes as ``failed``.  ``fold_online`` folds completions into the
 policy's store every ``fold_chunk`` requests.
 
-Not ported yet: the sanitizer hooks.
+The sanitizer plane (``repro_torch.analysis.sanitize``): with ``pagesan``
+on, every new :class:`Endpoint` attaches a shadow allocator that hears
+each alloc and release and audits the endpoint's host page/slot state
+after every admit, cancel, chunk, speculative release, page growth and
+rollback.  Off, the cost is one ``is None`` check on each of those paths.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.common import default_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control import (AdmissionRule, ControlLoop,
@@ -139,6 +144,9 @@ class PageAllocator:
         self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
         self.free_slots: List[int] = list(range(n_slots - 1, -1, -1))
         self._free_page_set = set(self.free_pages)
+        # PageSan shadow allocator (repro_torch.analysis.sanitize); None =
+        # off, and the only cost on this path is the None check below
+        self.san = None
 
     def alloc_pages(self, n: int) -> List[int]:
         if n > len(self.free_pages):
@@ -149,6 +157,8 @@ class PageAllocator:
         pages = self.free_pages[:-n - 1:-1]
         del self.free_pages[len(self.free_pages) - n:]
         self._free_page_set.difference_update(pages)
+        if self.san is not None:
+            self.san.on_alloc_pages(pages)
         return pages
 
     def release_pages(self, pages: List[int]):
@@ -158,17 +168,24 @@ class PageAllocator:
                                    "of range, or already free")
             self.free_pages.append(p)
             self._free_page_set.add(p)
+        if self.san is not None:
+            self.san.on_release_pages(pages)
 
     def alloc_slot(self) -> int:
         if not self.free_slots:
             raise RuntimeError(f"slot pool exhausted: all {self.n_slots} "
                                f"slots in use")
-        return self.free_slots.pop()
+        slot = self.free_slots.pop()
+        if self.san is not None:
+            self.san.on_alloc_slot(slot)
+        return slot
 
     def release_slot(self, slot: int):
         if slot in self.free_slots:
             raise RuntimeError(f"slot {slot} released twice")
         self.free_slots.append(slot)
+        if self.san is not None:
+            self.san.on_release_slot(slot)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -228,6 +245,15 @@ class Endpoint:
         self.prefill_calls = 0       # one per admitted request
         self.batch_reprefills = 0    # ALWAYS 0 here — the restart metric
 
+        if _sanitize.active("pagesan"):
+            _sanitize.PageSan.attach(self)
+
+    def _san_check(self):
+        """Full PageSan audit between chunks; one None check when off."""
+        san = self.alloc.san
+        if san is not None:
+            san.check_endpoint(self)
+
     def active_count(self) -> int:
         return self.L - len(self.alloc.free_slots)
 
@@ -256,6 +282,7 @@ class Endpoint:
                 self.lens[slot] = 0
                 self.remaining[slot] = 0
                 self.last_tokens[slot, 0] = 0
+                self._san_check()
                 return True
         return False
 
@@ -311,6 +338,7 @@ class Endpoint:
         self.remaining[slot] = req.max_new
         self.last_tokens[slot, 0] = toks[-1]
         self.slot_req[slot] = req
+        self._san_check()
         return slot
 
     # -- fused decode chunk --------------------------------------------------
@@ -376,6 +404,7 @@ class Endpoint:
         self.last_tokens = last
         self.lens = lens
         self.remaining = remaining
+        self._san_check()
         return finished
 
     def step(self) -> List[Request]:
@@ -417,6 +446,7 @@ class Endpoint:
         self._free_slot(slot)
         self.lens[slot] = 0
         self.last_tokens[slot, 0] = 0
+        self._san_check()
 
     def ensure_pages(self, slot: int, n_tokens: int):
         """Grow a spec slot's coverage to ``n_tokens`` positions before a
@@ -427,6 +457,7 @@ class Endpoint:
             pages = self.alloc.alloc_pages(need - have)
             self._slot_pages[slot].extend(pages)
             self.block_table[slot, have:need] = pages
+            self._san_check()
 
     def rollback_pages(self, slot: int, n_tokens: int):
         """Release the pages that hold ONLY rejected draft positions (past
@@ -437,6 +468,7 @@ class Endpoint:
             self.alloc.release_pages(pages[keep:])
             self.block_table[slot, keep:len(pages)] = 0
             del pages[keep:]
+            self._san_check()
 
     def draft_round(self, slot_tokens: dict, k: int) -> np.ndarray:
         """Draft ``k`` tokens for every slot in ``slot_tokens`` (slot ->

@@ -9,7 +9,9 @@ projection, the arch configs, the layer plan, ``route_via_batch``, the
 admission rule, the arrival processes, the health tracker and the fault
 plans) must equal their originals exactly — same token ids, same
 dataset, same projection bits, same config values, same plans, same
-routes, same arrival times, same breaker states, same fault answers.  A
+routes, same arrival times, same breaker states, same fault answers —
+and the sanitizer plane's NumPy members (PageSan, LedgerSan, SolveCert)
+are byte-for-byte copies of theirs.  A
 scan of the CUDA sources finds no library kernel (cuBLAS, cuDNN,
 CUTLASS's device- or kernel-level GEMMs).
 """
@@ -51,6 +53,9 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.kernels.flash_attention.kernel',\n"
         "        'repro_torch.kernels.flash_attention.ref',\n"
         "        'repro_torch.models.zoo',\n"
+        "        'repro_torch.common.guards',\n"
+        "        'repro_torch.analysis.sanitize',\n"
+        "        'repro_torch.analysis.sanitize.racecheck',\n"
         "        'repro_torch.kernels.lagrangian_assign.ops'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -122,6 +127,17 @@ def test_library_tag_covers_the_shared_headers(tmp_path, monkeypatch):
     assert _build._target("k") != before
     (tmp_path / "h.cuh").write_text("// one\n")
     assert _build._target("k") == before
+
+
+@pytest.mark.parametrize("member", ["pagesan", "ledgersan", "solvecert"])
+def test_sanitizer_copies_are_byte_identical(member):
+    """The sanitizer plane's NumPy members are the reference's files as
+    they are: their relative ``from . import counters`` resolves to the
+    port's own plane."""
+    rel = Path("analysis") / "sanitize" / f"{member}.py"
+    port = (ROOT / "src" / "repro_torch" / rel).read_bytes()
+    assert port == (ROOT / "src" / "repro" / rel).read_bytes()
+    assert not _FORBIDDEN.search(port.decode())
 
 
 @pytest.mark.parametrize("max_len", [48, 64])

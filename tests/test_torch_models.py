@@ -289,35 +289,11 @@ def test_paged_decode_matches_dense(arch):
         lens = lens + 1
 
 
-def test_dense_decode_of_several_positions_raises():
-    """The dense-cache branch takes one position per sequence; the
-    reference's multi-position dense verify is not ported."""
-    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
-                              dtype=torch.float32)
-    m = build_model(cfg)
-    p = {k: v[0] for k, v in m.init(0, "cpu")["segs"][0][0]["attn"].items()}
-    kv = torch.zeros(1, 8, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": kv, "v": kv.clone(), "pos": 3}
-    with pytest.raises(NotImplementedError):
-        attention_block(cfg, p, torch.zeros(1, 2, cfg.d_model), cache=cache,
-                        prewritten=True)
-    out, new_kv = attention_block(cfg, p, torch.zeros(1, 1, cfg.d_model),
-                                  cache=cache, prewritten=True)
-    assert out.shape == (1, 1, cfg.d_model) and new_kv is None
-
-
 @pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m",
                                   "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         build_model(get_smoke_config(arch))
-
-
-def test_int8_kv_pools_raise():
-    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
-                              kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_model(cfg)
 
 
 def test_init_draws_the_config_dtype_and_the_reference_scales():
