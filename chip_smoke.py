@@ -3,7 +3,8 @@
 routed speculative stream, the dense-cache generation path, neighbour-only
 top-k retrieval, the seed's per-iteration solve, the serving simulator,
 predictor training, the serving engine's failure plane, the sanitizer
-plane and runtime guards, and int8 KV pools) on one NVIDIA GPU.
+plane and runtime guards, int8 KV pools, and the recurrent model
+families) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -154,6 +155,32 @@ against the dense int8 path and one verify round against decode at lens
 limits); S4's endpoint with int8 pools beside bf16 pools (token
 agreement, peak memory, ms a step, tokens/s: printed).
 
+The recurrent families (phase H, after G3).  H1: hymba-1.5b at full
+width and depth (32 layers, attention in parallel with SSD heads, head
+dim 64, 5 query heads a kv head, window 1,024 but layers 10 and 21),
+prompts of 700, 1,100, 1,537 and 2,000 prefilled alone into pages (each
+prefill's ms printed: at 1,537 ``chunked_gla`` runs one position a
+chunk) and 16 teacher-forced paged decode steps against the
+full-sequence logits, with attention at unit-std scores and the
+recurrent projections at unit fan-in (at full width the stock xLSTM's
+float32 decode departs from its full sequence in the JAX package too,
+tests/test_torch_recurrent.py::test_stock_xlstm_float32_decode_departs_in_jax):
+in float32 held to ``FULL_LIMITS``, in bf16 held to that
+float32 full sequence no worse than the bf16 full sequence is
+(``TRUTH_FACTOR``; ``FULL_LIMITS`` reported), and each prompt's paged
+decode alone to the dense ``decode_step`` from the same prefill, bit for
+bit; one paged or dense decode launch per attention layer per step, one
+flash launch per layer per prefill and logits call.  H3: hymba behind a
+paged ``Endpoint`` at S4's shape (16 ragged prompts, 128 tokens; 0
+re-prefills; tokens/s, a step's ms and an admission's prefill ms), then
+the prompts cut to equal length served in float32 for 32 tokens by
+``Endpoint`` and ``RestartEndpoint``: the same greedy tokens.  H2:
+xlstm-350m (20 mLSTM, 4 sLSTM layers) as H1, with no attention launch.
+H4: the reference's six-model serving pool at smoke size, float32,
+behind ``OmniRouter(RetrievalPredictor(k=8))``, card against CPU per
+request, and a recurrent endpoint refused as a speculative pair column.
+F1 holds the flash kernel's head dim 64 at hymba's shapes.
+
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
@@ -268,6 +295,12 @@ KV_CASES = [
     ("gemma3-4b heads, window 1024", 16, 4, 2, 256, 16, 128, 1024, 2048,
      "bfloat16"),
     ("small float32", 3, 2, 4, 64, 16, 8, 24, 128, "float32"),
+    # phase H: hymba-1.5b's heads (G 5 through the GMAX-8 instance) at H3's
+    # batch in bf16 and at H1's prompts in float32
+    ("hymba heads, window 1024", 16, 5, 5, 64, 16, 96, 1024, 1501,
+     "bfloat16"),
+    ("hymba heads, window 1024, float32", 4, 5, 5, 64, 16, 128, 1024, 2016,
+     "float32"),
 ]
 CHECK_STEPS = 32        # teacher-forced decode steps of the full-width check
 ENDPOINT_REQS = 16      # full-width endpoint: requests, prompt range, output
@@ -315,8 +348,14 @@ FLASH_CASES = [
      "bfloat16"),
     ("danube heads, float32", 1, 700, 8, 4, 120, 0, 0, "float32"),
     ("danube heads, q_offset 448", 2, 300, 8, 4, 120, 0, 448, "bfloat16"),
+    ("hymba heads, window 1024", 1, 1537, 5, 5, 64, 1024, 0, "bfloat16"),
+    ("hymba heads, B 16, window 1024", 16, 1500, 5, 5, 64, 1024, 0,
+     "bfloat16"),
+    ("hymba heads, window 1024, float32", 1, 1537, 5, 5, 64, 1024, 0,
+     "float32"),
 ]
 FLASH_MAIN = 1
+FLASH_D64 = 6           # hymba-1.5b's head dim 64 (G 5) at H3's batch
 # bf16: the least share of output elements within one bf16 ulp of the
 # chunked version at the kernel's step is 1 - FLASH_ULP_SHARE.  The
 # tensor cores accumulate Q.K^T in float32 with another rounding than IEEE
@@ -333,6 +372,10 @@ DENSE_CASES = [
     ("gemma3-4b heads, window 1024", 16, 2048, 4, 2, 256, 1024, 1800,
      "bfloat16"),
     ("small float32, ragged lens", 3, 700, 2, 4, 64, 0, 0, "float32"),
+    # H3's restart decode: hymba-1.5b's heads, float32, prompts of about
+    # 431 grown by up to RESTART_T_MAX positions
+    ("hymba heads, restart decode, float32, ragged lens", 16, 559, 5, 5, 64,
+     1024, 0, "float32"),
 ]
 DENSE_MAIN = 0
 RESTART_T_MAX = 128     # R1: the restart endpoint's cache growth per rebuild
@@ -340,7 +383,8 @@ R2_POOL = ("h2o-danube-3-4b", "gemma3-4b")
 R2_REQS, R2_LEN, R2_NEW = 9, 9, 6
 # -- phase E: the serving engine's failure plane ------------------------------
 # E1: the float32 smoke pool of the reference's engine fault tests (with
-# gemma3-4b in hymba's place), on the card and the CPU
+# gemma3-4b in hymba's place; phase H serves hymba), on the card and the
+# CPU
 E1_POOL = R2_POOL
 E1_EP = dict(max_concurrency=2, t_max=32, page_size=8, sync_every=2)
 E1_REQS, E1_NEW = 5, 8
@@ -355,6 +399,42 @@ E2_HEDGE, E2_STALL = 2, 2   # chunks; a request takes E2_NEW / 8 = 4
 # prefill on the card (NVIDIA H100 80GB HBM3, 700 W), printed beside the
 # kernel's
 PLAIN_PREFILL_MS = 355.5
+# -- phase H: the recurrent families ------------------------------------------
+# H1, H2: prompts that cross hymba's 1,024 window.  chunked_gla's chunk is
+# gcd(s, 128) on a length that is not a multiple of 128, as the
+# reference's: 1 at 1,537 (one position a chunk), 4 at 700 and 1,100, 16 at
+# 2,000.  H_CHECK_STEPS teacher-forced steps (CHECK_STEPS cut to bound the
+# chunk-1 prefills' time; the prompts stay)
+H_PROMPTS = (700, 1100, 1537, 2000)
+H_CHECK_STEPS = 16
+# bf16 in the recurrent families: the chunked form (prefill, the full
+# sequence) rounds the intra-chunk scores and the state update's operand to
+# bf16 and the one-token step does not, so the two part by more than
+# FULL_LIMITS["bf16"] in the JAX package too (tests/test_torch_recurrent.py
+# ::test_bf16_xlstm_decode_departs_from_its_full_sequence_in_jax and
+# ::test_bf16_hymba_decode_departs_from_its_full_sequence_in_jax, and
+# ::test_bf16_decode_held_to_float32_as_chip_smoke_holds_it for the rule
+# below at smoke size).  Both are held to the float32 full sequence of the
+# same weights instead: the decode's max and rms differences from it no
+# more than TRUTH_FACTOR times the bf16 full sequence's (FULL_LIMITS["bf16"]
+# reported beside it).  Where bf16 departs from float32 by the order of the
+# logits (xLSTM) that shows little, so each prompt's bf16 paged decode is
+# also held to the dense decode_step, the same one-token form, from the
+# same prefill: the same matmuls and attention kernels that agree bit for
+# bit (D1), so bit for bit.  The batched paged decode, whose matmuls take
+# another batch, is reported against them.  H_DENSE_STEPS of the
+# H_CHECK_STEPS positions
+H_DENSE_STEPS = 8
+TRUTH_FACTOR = 2.0
+# H3: S4's shape on hymba-1.5b: ENDPOINT_REQS requests, MAX_NEW tokens; the
+# prompts cut to equal length served by Endpoint and RestartEndpoint in
+# float32 for H_EQUAL_NEW tokens
+H_PROMPT_LO, H_PROMPT_HI = 345, 1501
+H_EQUAL_NEW = 32
+# H4: the reference's serving pool (src/repro/launch/serve.py), smoke size
+H4_POOL = ("h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b",
+           "hymba-1.5b", "xlstm-350m")
+H4_REQS, H4_NEW = 24, 8
 
 
 def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
@@ -393,93 +473,221 @@ def attention_bytes_ops(q, bt, lens, kh, d, window, elem):
 
 
 def full_width_check(torch, np, model, params, dev, say, check, tag,
-                     limits=None, plain=False):
-    """Prefill four ragged prompts alone into pages, teacher-force
-    CHECK_STEPS paged decode steps (one kernel launch per layer per step;
-    with ``plain`` the plain version in the kernel's place), and hold each
-    step's logits against the full-sequence logits at the same position
-    (to ``limits``, (max relative difference, least argmax agreement), when
-    given).  Returns (max|diff| / max|logit|, argmax agreement)."""
+                     limits=None, plain=False, plens=(100, 237, 480, 511),
+                     steps=CHECK_STEPS, truth=None, dense=False):
+    """Prefill ragged prompts (``plens``) alone into pages, teacher-force
+    ``steps`` paged decode steps (one kernel launch per attention layer per
+    step; with ``plain`` the plain version in the kernel's place), and hold
+    each step's logits against the full-sequence logits at the same
+    position (to ``limits``, (max relative difference, least argmax
+    agreement), when given).  With ``truth`` (float32 full-sequence logits
+    of the same weights at the same positions) both the decode and the
+    full-sequence logits are measured against it, and the decode's max and
+    rms differences must be within TRUTH_FACTOR times the full
+    sequence's (argmax agreements reported: at 64 positions a few
+    near-ties flip either way).  With ``dense`` each prompt's paged decode
+    is also held to the dense ``decode_step`` from the same prefill, bit for
+    bit (``dense_against_paged``).
+    Returns the relative difference, the argmax agreement, each prompt's
+    prefill ms, the ms of a decode step, the flash, paged and dense decode
+    launches and the full-sequence logits at the decode positions."""
     from repro_torch.kernels.decode_attention import ops as pd_ops
     from repro_torch.kernels.decode_attention.ref import (
         paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.zoo import prefill_into_pages
     cfg = model.cfg
+    # layers with attention: every layer of the dense family and of hymba,
+    # none of xLSTM's
+    n_attn = sum(count * sum(k.block in ("attn", "hymba") for k in pattern)
+                 for count, pattern in model.plan)
     fa_ops.launches = 0
     rng = np.random.RandomState(0)
-    plens = [100, 237, 480, 511]
+    plens = list(plens)
     ps, nb = 16, len(plens)
-    p_max = -(-(max(plens) + CHECK_STEPS) // ps)
-    seqs = [rng.randint(1, cfg.vocab_size, (n + CHECK_STEPS,)) for n in plens]
+    p_max = -(-(max(plens) + steps) // ps)
+    seqs = [rng.randint(1, cfg.vocab_size, (n + steps,)) for n in plens]
     state = model.empty_paged_state(nb, 1 + nb * p_max, ps, device=dev)
     bt = torch.arange(1, 1 + nb * p_max, dtype=torch.int32,
                       device=dev).reshape(nb, p_max)
+    pre_ms, caches = [], []
     for i, n in enumerate(plens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         cache, _ = model.prefill(params, torch.as_tensor(seqs[i][None, :n],
                                                          device=dev))
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
         prefill_into_pages(state, cache, bt[i, :-(-n // ps)].long(), i, ps)
+        if dense:
+            caches.append(cache)
+        del cache
     lens = torch.as_tensor(plens, dtype=torch.int32, device=dev)
     dec = []
     kernel_fn = pd_ops.paged_decode_attention
     if plain:
         pd_ops.paged_decode_attention = paged_decode_attention_ref
     pd_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     try:
-        for t in range(CHECK_STEPS):
+        for t in range(steps):
             tok = torch.as_tensor(np.array([[s[n + t]] for s, n in
                                             zip(seqs, plens)]),
                                   dtype=torch.int32, device=dev)
             _, lg = model.decode_step_paged(params, state, tok, bt, lens)
             dec.append(lg[:, :cfg.vocab_size])
             lens = lens + 1
+        torch.cuda.synchronize()
     finally:
         pd_ops.paged_decode_attention = kernel_fn
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    paged = pd_ops.launches
     full = [model.logits(params, torch.as_tensor(s[None], device=dev))[
         0, :, :cfg.vocab_size] for s in seqs]
     torch.cuda.synchronize()
-    check(pd_ops.launches == (0 if plain else cfg.n_layers * CHECK_STEPS),
-          f"full-width check ({tag}): one kernel launch per layer per step")
+    check(paged == (0 if plain else n_attn * steps),
+          f"{cfg.name} full-width check ({tag}): one kernel launch per "
+          "attention layer per step")
     # every full-sequence attention (the prefills and the logits) went
     # through the flash kernel
-    check(fa_ops.launches == cfg.n_layers * 2 * nb,
-          f"full-width check ({tag}): one flash launch per layer per prefill"
-          " and per full-sequence logits call")
+    check(fa_ops.launches == n_attn * 2 * nb,
+          f"{cfg.name} full-width check ({tag}): one flash launch per "
+          "attention layer per prefill and per full-sequence logits call")
     dec = torch.stack(dec, dim=1)                        # (B, steps, V)
-    ref = torch.stack([f[n:n + CHECK_STEPS] for f, n in zip(full, plens)])
+    ref = torch.stack([f[n:n + steps] for f, n in zip(full, plens)])
     check(bool(torch.isfinite(dec).all() and torch.isfinite(ref).all()),
-          f"full-width check ({tag}): non-finite logits")
+          f"{cfg.name} full-width check ({tag}): non-finite logits")
     rel = float((dec - ref).abs().max() / ref.abs().max())
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
-    say(f"danube full width {tag}, {nb} sequences (prompts {plens}) x "
-        f"{CHECK_STEPS} teacher-forced paged decode steps "
+    say(f"{cfg.name} full width {tag}, {nb} sequences (prompts {plens}) x "
+        f"{steps} teacher-forced paged decode steps "
         f"({'plain version' if plain else 'kernel'}) vs full-sequence "
         f"logits: max|diff|/max|logit| = {rel:.4g}, argmax agreement "
         f"{agree:.4f}" + (f" (limits: <= {limits[0]}, >= {limits[1]})"
-                          if limits else " (reported)"))
+                          if limits else " (reported)")
+        + f" | prefill ms " + ", ".join(
+            f"{n}: {t:.1f}" for n, t in zip(plens, pre_ms))
+        + f" | decode step {step_ms:.2f} ms (B={nb}) | launches: flash "
+        f"{fa_ops.launches}, paged decode {paged}")
     if limits:
         check(rel <= limits[0] and agree >= limits[1],
-              f"full-width check ({tag}): decode disagrees with the full "
-              "sequence")
-    return rel, agree
+              f"{cfg.name} full-width check ({tag}): decode disagrees with "
+              "the full sequence")
+    out = dict(rel=rel, agree=agree, prefill_ms=dict(zip(plens, pre_ms)),
+               step_ms=step_ms, flash=fa_ops.launches, paged=paged, dense=0,
+               ref=ref)
+    if dense:
+        got = dense_against_paged(torch, model, params, caches, seqs,
+                                  plens, dec, n_attn, say, check, tag)
+        out["paged"] += got["paged"]
+        out["dense"] = got["dense"]
+        del caches
+    if truth is not None:
+        scale = float(truth.abs().max())
+        rms = float(truth.pow(2).mean().sqrt())
+        for name, x in (("decode", dec), ("full", ref)):
+            diff = x.float() - truth
+            out[f"{name}_vs_f32"] = (
+                float(diff.abs().max()) / scale,
+                float(diff.pow(2).mean().sqrt()) / rms,
+                float((x.argmax(-1) == truth.argmax(-1)).float().mean()))
+        d, f = out["decode_vs_f32"], out["full_vs_f32"]
+        say(f"  {cfg.name} {tag} against the float32 full sequence (max, "
+            f"rms relative; argmax agreement): decode {d[0]:.4g}, "
+            f"{d[1]:.4g}; {d[2]:.4f}, full sequence {f[0]:.4g}, {f[1]:.4g}; "
+            f"{f[2]:.4f} (the decode's two within {TRUTH_FACTOR} x the full "
+            f"sequence's)")
+        check(d[0] <= TRUTH_FACTOR * f[0] and d[1] <= TRUTH_FACTOR * f[1],
+              f"{cfg.name} full-width check ({tag}): decode farther from the "
+              "float32 logits than the full sequence")
+    return out
 
 
-def _unit_scores(tree):
-    """The tree with wq and wk rescaled from the init's fan-in (shape[-2],
-    the head count) to fan-in d_model: q and k of unit std, so attention
-    scores of unit std.  New wq/wk tensors; every other leaf is shared."""
+def dense_against_paged(torch, model, params, caches, seqs, plens, dec,
+                        n_attn, say, check, tag):
+    """Each prompt alone from its prefill cache: the first H_DENSE_STEPS
+    teacher-forced positions of the batched paged decode ``dec`` (B, steps,
+    V) decoded again by paged decode steps (a one-slot paged state) and by
+    dense ``decode_step``s.  The two take the same matmuls and attention
+    kernels that agree bit for bit (D1), so they must agree bit for bit.
+    ``dec`` is measured against them too (reported: the matmuls' batch
+    differs, which moves bf16 logits by their rounding).  Returns the
+    paged and dense decode launches."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.models.zoo import pad_cache, prefill_into_pages
+    cfg = model.cfg
+    dev = dec.device
+    steps, ps = min(H_DENSE_STEPS, dec.shape[1]), 16
+    dec = dec[:, :steps]
+    pd_ops.launches = pd_ops.dense_launches = 0
+    alone = {"paged": torch.empty_like(dec), "dense": torch.empty_like(dec)}
+    for i, (cache, n) in enumerate(zip(caches, plens)):
+        n_pg = -(-(n + steps) // ps)
+        state = model.empty_paged_state(1, 1 + n_pg, ps, device=dev)
+        bt = torch.arange(1, 1 + n_pg, dtype=torch.int32,
+                          device=dev)[None]
+        prefill_into_pages(state, cache, bt[0, :-(-n // ps)].long(), 0, ps)
+        dense = pad_cache(cache, n + steps)
+        lens = torch.full((1,), n, dtype=torch.int32, device=dev)
+        for t in range(steps):
+            tok = torch.as_tensor([[seqs[i][n + t]]], dtype=torch.int32,
+                                  device=dev)
+            _, lg = model.decode_step_paged(params, state, tok, bt, lens)
+            alone["paged"][i, t] = lg[0, :cfg.vocab_size]
+            dense, lg = model.decode_step(params, dense, tok)
+            alone["dense"][i, t] = lg[0, :cfg.vocab_size]
+            lens = lens + 1
+        del state, dense
+    torch.cuda.synchronize()
+    got = dict(paged=pd_ops.launches, dense=pd_ops.dense_launches)
+    same = bool(torch.equal(alone["paged"], alone["dense"]))
+    diff = float((alone["paged"] - alone["dense"]).abs().max())
+    batch = (float((alone["dense"] - dec).abs().max() / dec.abs().max()),
+             float((alone["dense"].argmax(-1) == dec.argmax(-1)).float()
+                   .mean()))
+    say(f"  {cfg.name} {tag}: each prompt alone, paged decode against the "
+        f"dense decode_step: max|diff| = {diff:.4g} (expected 0); the "
+        f"batched paged decode against them (reported): {batch[0]:.4g} "
+        f"relative, argmax agreement {batch[1]:.4f}; launches {got}")
+    check(got["paged"] == got["dense"] == n_attn * steps * len(plens),
+          f"{cfg.name} ({tag}): paged or dense decode launches != one per "
+          "attention layer per step per prompt")
+    check(same, f"{cfg.name} ({tag}): the dense decode differs from the "
+          "paged decode of the same prompt")
+    return got
+
+
+# the leaves whose "scaled" init takes its fan-in from shape[-2] (the head
+# count; 2 for w_gates) and not from the width it contracts (d_model or
+# the mLSTM's d_inner), by the key of the block that holds them: every
+# attention's wq and wk (a dense or hymba layer's ``attn``) and the
+# recurrent blocks' 3-D projections
+FAN_IN_LEAVES = {"attn": ("wq", "wk"), "ssd": ("w_x", "w_z", "w_b", "w_c"),
+                 "mlstm": ("wq", "wk", "wv", "w_gates"), "slstm": ("w_in",)}
+
+
+def _unit_fan_in(tree):
+    """The tree with the FAN_IN_LEAVES rescaled from the init's fan-in to
+    the contracted width (shape[1] of the stacked (count, width, ...)
+    leaf): q and k of unit std, so attention scores of unit std, and the
+    SSD heads' x, z, B and C, the mLSTM's q, k, v and gates and the
+    sLSTM's gate pre-activations of unit std, not 6-32 times that.  New
+    tensors for those leaves; every other leaf is shared."""
     import math
-    segs = []
-    for seg in tree["segs"]:
-        layers = []
-        for layer in seg:
-            attn = dict(layer["attn"])
-            for key in ("wq", "wk"):
-                w = attn[key]                        # (count, d, heads, hd)
-                attn[key] = w * math.sqrt(w.shape[-2] / w.shape[1])
-            layers.append(dict(layer, attn=attn))
-        segs.append(layers)
-    return dict(tree, segs=segs)
+
+    def walk(node, key=None):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        out = {k: walk(v, k) for k, v in node.items()}
+        for name in FAN_IN_LEAVES.get(key, ()):
+            w = node[name]
+            out[name] = w * math.sqrt(w.shape[-2] / w.shape[1])
+        return out
+
+    return walk(tree)
 
 
 def serving_plane(torch, np, dev, say, check, time_ms, heads):
@@ -548,11 +756,11 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
     for plain in (False, True):
         full_width_check(torch, np, model32, params32, dev, say, check,
                          "float32, stock weights", plain=plain)
-    full_width_check(torch, np, model32, _unit_scores(params32), dev, say,
+    full_width_check(torch, np, model32, _unit_fan_in(params32), dev, say,
                      check, "float32, unit-std scores",
                      limits=FULL_LIMITS["float32"])
     del params32
-    full_width_check(torch, np, model, _unit_scores(params), dev, say, check,
+    full_width_check(torch, np, model, _unit_fan_in(params), dev, say, check,
                      "bf16, unit-std scores", limits=FULL_LIMITS["bf16"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"peak device memory up to here {peak:.2f} GiB (the float32 checks "
@@ -1843,8 +2051,8 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     # scores (the full-width check's weights), junk draft (other seed)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
-    v32 = _unit_scores(build_model(cfg32).init(0, dev))
-    d32 = _unit_scores(build_model(dcfg32).init(7, dev))
+    v32 = _unit_fan_in(build_model(cfg32).init(0, dev))
+    d32 = _unit_fan_in(build_model(dcfg32).init(7, dev))
     d_ep = Endpoint(dcfg32, params=d32, **ep_kw)
     v_ep = Endpoint(cfg32, params=v32, **ep_kw)
     i_outs, i_srv, _, _, _ = spec_run(torch, np, d_ep, v_ep, prompts,
@@ -2041,8 +2249,12 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
                        replaces="src/repro/kernels/flash_attention/kernel.py:77",
                        ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=lib)
+        if i == FLASH_D64:
+            d64 = dict(shape=tag, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib)
         del q, k, v, got, plain, tiled
     row["max_abs_err"] = err_max
+    row["d64"] = d64
     return row
 
 
@@ -4181,7 +4393,7 @@ def int8_serve(torch, np, dev, say, check, cfg, params, prompts):
 def int8_phase(torch, np, dev, say, check, cfg, params, prompts):
     """I1: h2o-danube-3-4b at full width and depth with
     ``kv_cache_dtype="int8"``.  Checked (``int8_check``, wq/wk rescaled by
-    ``_unit_scores``, FULL_LIMITS): float32 and bf16, paged against the
+    ``_unit_fan_in``, FULL_LIMITS): float32 and bf16, paged against the
     dense int8 path and one verify round against decode at lens + s.
     Printed only (quantization changes the function): S4's endpoint over
     S4's prompts with int8 pools beside bf16 pools on the same unit-score
@@ -4192,11 +4404,11 @@ def int8_phase(torch, np, dev, say, check, cfg, params, prompts):
     t0 = time.perf_counter()
     cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     cfg8_32 = dataclasses.replace(cfg8, dtype=torch.float32)
-    p32 = _unit_scores(_tree_to(params, torch.float32))
+    p32 = _unit_fan_in(_tree_to(params, torch.float32))
     f32 = int8_check(torch, np, build_model(cfg8_32), p32, dev, say, check,
                      "float32, unit-std scores", FULL_LIMITS["float32"])
     del p32
-    unit = _unit_scores(params)
+    unit = _unit_fan_in(params)
     b16 = int8_check(torch, np, build_model(cfg8), unit, dev, say, check,
                      "bf16, unit-std scores", FULL_LIMITS["bf16"])
     runs = {"int8": int8_serve(torch, np, dev, say, check, cfg8, unit,
@@ -4272,6 +4484,309 @@ def g2_sim_stream(torch, say, check, ret2, healthy, healthy_wall):
           f"{diff}")
     return dict(windows=res.windows, certs=moved["certs"],
                 checks=moved["checks"], wall_s=wall, launches=n)
+
+
+def slot_state_bytes(model):
+    """Bytes of one slot's recurrent state (every leaf but the page
+    pools' K/V), from a state on the meta device."""
+    state = model.empty_paged_state(1, 1, 1, device="meta")
+    return sum(t.numel() * t.element_size()
+               for seg in state["segs"] for layer in seg
+               for key, t in layer.items() if key not in ("k", "v"))
+
+
+def full_width_recurrent(torch, np, dev, say, check, arch, seed):
+    """H1 / H2: one recurrent family at full width and depth (random
+    weights from ``seed``, attention and the recurrent projections at unit
+    fan-in, ``_unit_fan_in``), teacher-forced paged decode against the
+    full-sequence logits: in float32 held to ``FULL_LIMITS``; in bf16 held
+    to that float32 full sequence (``TRUTH_FACTOR``; ``FULL_LIMITS``
+    reported) and to the dense decode from the same prefills.  Returns
+    (bf16 model, its rescaled params, the checks' results)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = _unit_fan_in(model.init(seed, dev))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    kinds = [k.block for c, p in model.plan for _ in range(c) for k in p]
+    say(f"{arch} full width: {cfg.n_layers} layers "
+        f"({', '.join(f'{kinds.count(b)} {b}' for b in sorted(set(kinds)))})"
+        f" d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"ssm_state={cfg.ssm_state} window={cfg.sliding_window} "
+        f"V={cfg.vocab_size}; {n_par / 1e9:.3f} B params drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s; per-slot recurrent state "
+        f"{slot_state_bytes(model) / 1e6:.3f} MB")
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    res = {}
+    res["float32"] = full_width_check(
+        torch, np, model32, _tree_to(params, torch.float32), dev, say, check,
+        "float32, unit-std scores and fan-in", limits=FULL_LIMITS["float32"],
+        plens=H_PROMPTS, steps=H_CHECK_STEPS)
+    res["bf16"] = full_width_check(
+        torch, np, model, params, dev, say, check,
+        "bf16, unit-std scores and fan-in", plens=H_PROMPTS,
+        steps=H_CHECK_STEPS, truth=res["float32"]["ref"], dense=True)
+    lim = FULL_LIMITS["bf16"]
+    within = res["bf16"]["rel"] <= lim[0] and res["bf16"]["agree"] >= lim[1]
+    say(f"  {arch} bf16 against FULL_LIMITS {lim} (reported): "
+        + ("within" if within else "outside"))
+    for r in res.values():
+        del r["ref"]
+    return model, params, res
+
+
+def hymba_endpoint_phase(torch, np, dev, say, check, model, params):
+    """H3: hymba-1.5b at full width behind the serving engine at S4's
+    shape: one paged ``Endpoint`` in bf16 admitting ENDPOINT_REQS ragged
+    prompts (H_PROMPT_LO..H_PROMPT_HI, each prefilled at its exact length:
+    per-slot recurrent state) and decoding MAX_NEW tokens each; then the
+    same prompts cut to the shortest one's length, served in float32 for
+    H_EQUAL_NEW tokens by a paged ``Endpoint`` and by a ``RestartEndpoint``
+    (dense decode kernel), both holding all of them at once: the same
+    greedy tokens (equal
+    lengths: the restart batch has no left pads, ROADMAP C7).  float32, as
+    R2 and the reference's own test: in bf16 the two engines' prefills
+    (one request against the batch of 16) round apart and random-weight
+    greedy decoding follows the roundings (0 of 16 equal, first
+    differences at tokens 2-41, on an NVIDIA H100 80GB HBM3 at 700 W).
+    Returns the launches."""
+    import dataclasses
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving.engine import Endpoint, Request, RestartEndpoint
+    cfg = model.cfg
+    n = ENDPOINT_REQS
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(rng.randint(
+        H_PROMPT_LO, H_PROMPT_HI + 1)),)).astype(np.int32) for _ in range(n)]
+    launches = dict(flash=0, paged=0, dense=0)
+
+    def drive(ep, todo, max_new):
+        """Admit every prompt, then step until all are done.  Returns the
+        outputs by request id, admission ms and chunk ms."""
+        reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(todo)]
+        fa_ops.launches = pd_ops.launches = pd_ops.dense_launches = 0
+        pre_ms, chunk_ms, done = [], [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            ep.admit(r)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        while ep.active_count():
+            t0 = time.perf_counter()
+            done += ep.step()
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        got = dict(flash=fa_ops.launches, paged=pd_ops.launches,
+                   dense=pd_ops.dense_launches)
+        for key in launches:
+            launches[key] += got[key]
+        check(len(done) == len(todo) and all(
+            r.done and len(r.output) == max_new for r in done),
+              f"H3 {type(ep).__name__}: not every request got {max_new} "
+              "tokens")
+        return ({r.rid: list(r.output) for r in done}, pre_ms, chunk_ms,
+                got)
+
+    torch.cuda.reset_peak_memory_stats()
+    ep = Endpoint(cfg, max_concurrency=n, t_max=2048, page_size=16,
+                  sync_every=8, params=params, device=dev)
+    _, pre_ms, chunk_ms, got = drive(ep, prompts, MAX_NEW)
+    steps = ep.busy_steps * ep.sync_every
+    lay = cfg.n_layers
+    check(ep.batch_reprefills == 0, "H3 endpoint: batch re-prefill")
+    check(len(ep.alloc.free_pages) == ep.alloc.n_pages - 1
+          and len(ep.alloc.free_slots) == ep.L, "H3 endpoint: allocator leak")
+    check(got["flash"] == lay * n and got["paged"] == lay * steps
+          and got["dense"] == 0,
+          "H3 endpoint: launches != one flash per layer per admission and "
+          "one paged decode per layer per step")
+    steady = chunk_ms[1:] or chunk_ms
+    chunk_med = float(np.median(steady))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"H3 endpoint (hymba-1.5b full width, bf16, H1's weights, "
+        f"L={ep.L}, t_max={ep.t_max}, PS=16, sync_every=8, "
+        f"{ep.alloc.n_pages} pages): {n} requests, prompts "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))}, {MAX_NEW} "
+        f"tokens each | admission prefill {np.median(pre_ms):.1f} ms median "
+        f"({min(pre_ms):.1f}..{max(pre_ms):.1f}) | decode chunk "
+        f"{chunk_med:.1f} ms median = {chunk_med / ep.sync_every:.2f} ms a "
+        f"step, {ep.L * ep.sync_every / chunk_med * 1e3:.1f} tokens/s "
+        f"({len(chunk_ms)} chunks, first {chunk_ms[0]:.1f} ms) | batch "
+        f"re-prefills {ep.batch_reprefills} | launches flash {got['flash']},"
+        f" paged decode {got['paged']} = {lay} x {steps} steps | peak "
+        f"{peak:.2f} GiB")
+    del ep
+
+    n_eq = min(map(len, prompts))
+    equal = [p[:n_eq] for p in prompts]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = _tree_to(params, torch.float32)
+    outs = {}
+    for cls in (Endpoint, RestartEndpoint):
+        if cls is Endpoint:
+            ep = Endpoint(cfg32, max_concurrency=n, t_max=2048, page_size=16,
+                          sync_every=8, params=params32, device=dev)
+        else:
+            ep = RestartEndpoint(cfg32, max_concurrency=n,
+                                 t_max=RESTART_T_MAX, params=params32,
+                                 device=dev)
+        t0 = time.perf_counter()
+        outs[cls.__name__], _, _, got = drive(ep, equal, H_EQUAL_NEW)
+        wall = time.perf_counter() - t0
+        say(f"H3 {cls.__name__} at equal prompt lengths ({n} x {n_eq}, "
+            f"float32, {H_EQUAL_NEW} tokens): "
+            f"{n * H_EQUAL_NEW / wall:.1f} tokens/s, batch re-prefills "
+            f"{ep.batch_reprefills}, launches {got}")
+        if cls is Endpoint:
+            check(ep.batch_reprefills == 0 and got["dense"] == 0,
+                  "H3 equal lengths: paged re-prefill or dense launch")
+        else:
+            check(got["dense"] == lay * H_EQUAL_NEW and got["paged"] == 0,
+                  "H3 equal lengths: restart launches != one dense decode "
+                  "per layer per step")
+        del ep
+    pg, rs = outs["Endpoint"], outs["RestartEndpoint"]
+    same = [pg[i] == rs[i] for i in range(n)]
+    first = [next((t for t, (a, b) in enumerate(zip(pg[i], rs[i]))
+                   if a != b), None) for i in range(n)]
+    del params32
+    say(f"H3 paged == restart at equal prompt lengths: {sum(same)}/{n} "
+        f"requests equal; first differing token per request {first}")
+    check(all(same), "H3: paged and restart greedy tokens differ")
+    return launches
+
+
+def six_pool_phase(torch, np, dev, say, check):
+    """H4: the reference's serving pool (``launch/serve.py``: H4_POOL at
+    smoke size, float32, four slots each) behind ``MultiLLMServer`` with
+    ``OmniRouter(RetrievalPredictor(k=8))`` over ``generate(n=600,
+    seed=0)``'s training split, H4_REQS test queries of H4_NEW tokens, on
+    the card and on the CPU: the same (endpoint, output) per request, no
+    batch re-prefill; a recurrent endpoint refused as a speculative pair
+    column on the card.  Returns the card's launches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (BalanceAware, OmniRouter,
+                                  RetrievalPredictor, RouterConfig)
+    from repro_torch.core.speculative import SpecPair
+    from repro_torch.data.qaserve import generate
+    from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Endpoint, MultiLLMServer, Request
+    train, _, test = generate(n=600, seed=0).split()
+    test = test.subset(np.arange(H4_REQS))
+    cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
+            for a in H4_POOL]
+    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    vocab_cfg = min(cfgs, key=lambda c: c.vocab_size)
+    runs, card_eps = {}, None
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        eps = [Endpoint(c, max_concurrency=4, device=where,
+                        params=_tree_to(host[i], where))
+               for i, c in enumerate(cfgs)]
+        router = OmniRouter(RetrievalPredictor(k=8, device=where).fit(train),
+                            RouterConfig(alpha=0.75))
+        srv = MultiLLMServer(eps, router)
+        for i in range(test.n):
+            srv.submit(Request(i, encode_for_config(vocab_cfg,
+                                                    test.queries[i], 32),
+                               max_new=H4_NEW))
+        tr_ops.launches = la_ops.launches = pd_ops.launches = 0
+        fa_ops.launches = 0
+        done = srv.run(lambda b: test.subset(np.array([r.rid for r in b])))
+        if tag == "card":
+            torch.cuda.synchronize()
+            card_eps = eps
+        runs[tag] = dict(
+            out={r.rid: (r.endpoint, list(r.output)) for r in done},
+            reprefills=sum(e.batch_reprefills for e in eps),
+            per_ep=np.bincount([r.endpoint for r in done],
+                               minlength=len(eps)).tolist(),
+            launches=dict(vote=tr_ops.launches, dual_solve=la_ops.launches,
+                          paged=pd_ops.launches, flash=fa_ops.launches))
+        check(len(done) == test.n and all(
+            r.done and len(r.output) == H4_NEW for r in done),
+              f"H4 {tag}: not every request served")
+    card, cpu = runs["card"], runs["cpu"]
+    same = sum(card["out"][i] == cpu["out"][i] for i in range(test.n))
+    empty = [H4_POOL[j] for j, c in enumerate(card["per_ep"]) if c == 0]
+    fenced = []
+    for j in (4, 5):
+        try:
+            MultiLLMServer(card_eps, BalanceAware(),
+                           spec_pairs=(SpecPair(0, j, k=3),))
+        except NotImplementedError:
+            fenced.append(H4_POOL[j])
+    say(f"H4 six-model pool ({', '.join(H4_POOL)} smoke, float32, "
+        f"OmniRouter(RetrievalPredictor(k=8)), {test.n} requests x "
+        f"{H4_NEW} tokens): card == CPU on {same}/{test.n} requests "
+        f"(endpoint, output); per-endpoint requests card {card['per_ep']}, "
+        f"CPU {cpu['per_ep']}"
+        + (f"; the router left {', '.join(empty)} empty" if empty else "")
+        + f"; batch re-prefills card {card['reprefills']}, CPU "
+        f"{cpu['reprefills']}; card launches {card['launches']}, CPU "
+        f"{cpu['launches']}; refused as a speculative pair column: "
+        f"{fenced}")
+    check(same == test.n, "H4: the card's (endpoint, output) differs from "
+          "the CPU's")
+    check(card["reprefills"] == 0 and cpu["reprefills"] == 0,
+          "H4: batch re-prefill")
+    check(all(card["launches"][k] > 0 for k in card["launches"])
+          and not any(cpu["launches"].values()),
+          "H4: a kernel did not launch on the card, or launched on the CPU")
+    check(fenced == ["hymba-1.5b", "xlstm-350m"],
+          "H4: a recurrent endpoint was accepted as a speculative column")
+    return card["launches"]
+
+
+def recurrent_phase(torch, np, dev, say, check):
+    """Phase H: H1 (hymba-1.5b), H3 (its endpoint), H2 (xlstm-350m) and H4
+    (the six-model pool).  Returns the kernels' launches and a summary."""
+    launches = dict(flash=0, paged=0, dense=0, vote=0, dual_solve=0)
+
+    def add(got):
+        for key, val in got.items():
+            if key in launches:
+                launches[key] += val
+
+    t0 = time.perf_counter()
+    model, params, h1 = full_width_recurrent(torch, np, dev, say, check,
+                                             "hymba-1.5b", 0)
+    for res in h1.values():
+        add(res)
+    t_h1 = time.perf_counter() - t0
+    add(hymba_endpoint_phase(torch, np, dev, say, check, model, params))
+    del model, params
+    t_h3 = time.perf_counter() - t0 - t_h1
+    _, _, h2 = full_width_recurrent(torch, np, dev, say, check,
+                                    "xlstm-350m", 0)
+    for res in h2.values():
+        check(res["flash"] == 0 and res["paged"] == 0,
+              "H2: xlstm-350m launched an attention kernel")
+    t_h2 = time.perf_counter() - t0 - t_h1 - t_h3
+    add(six_pool_phase(torch, np, dev, say, check))
+    t_h4 = time.perf_counter() - t0 - t_h1 - t_h2 - t_h3
+    summary = dict(
+        seconds=dict(H1=t_h1, H3=t_h3, H2=t_h2, H4=t_h4),
+        prefill_ms={f"{a} {dt}": res["prefill_ms"] for a, h in (
+            ("hymba-1.5b", h1), ("xlstm-350m", h2)) for dt, res in h.items()},
+        decode_step_ms={f"{a} {dt}": res["step_ms"] for a, h in (
+            ("hymba-1.5b", h1), ("xlstm-350m", h2)) for dt, res in h.items()},
+        rel={f"{a} {dt}": (res["rel"], res["agree"]) for a, h in (
+            ("hymba-1.5b", h1), ("xlstm-350m", h2)) for dt, res in h.items()},
+        launches=launches)
+    say(f"phase H seconds: H1 {t_h1:.1f}, H3 {t_h3:.1f}, H2 {t_h2:.1f}, "
+        f"H4 {t_h4:.1f}")
+    return launches, summary
 
 
 def _leaves(tree):
@@ -4525,15 +5040,22 @@ def main() -> int:
     # kernels)
     g3 = race_phase(torch, np, dev, say, check)
     mark("G3")
-    rows["paged_decode_attention"]["launches"] += e1_paged + g3["paged"]
+    # H. the recurrent families: hymba-1.5b (H1) and its endpoint (H3),
+    # xlstm-350m (H2) at full width, the reference's six-model pool (H4)
+    h_runs, h_summary = recurrent_phase(torch, np, dev, say, check)
+    mark("H")
+    rows["paged_decode_attention"]["launches"] += (e1_paged + g3["paged"]
+                                                   + h_runs["paged"])
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
-                                           + g3["flash"])
-    rows["decode_attention"]["launches"] = main["dense"]
+                                           + g3["flash"] + h_runs["flash"])
+    rows["decode_attention"]["launches"] = main["dense"] + h_runs["dense"]
     rows["decode_attention"]["max_abs_err"] = max(
         rows["decode_attention"]["max_abs_err"], main["i1"]["kernel_err"])
-    rows["retrieval_vote"]["launches"] += main["vote"] + g3["vote"]
+    rows["retrieval_vote"]["launches"] += (main["vote"] + g3["vote"]
+                                           + h_runs["vote"])
     rows["dual_solve"]["launches"] += (main["dual_solve"] + g3["dual_solve"]
-                                       + g4["dual_solve"])
+                                       + g4["dual_solve"]
+                                       + h_runs["dual_solve"])
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
@@ -4562,6 +5084,7 @@ def main() -> int:
     say("phase G: " + json.dumps(dict(g2_spec=g2_spec, g3=g3, g4=g4,
                                       g4_runs=g4_sites), default=str))
     say("phase T: " + json.dumps(fit_summary))
+    say("phase H: " + json.dumps(h_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

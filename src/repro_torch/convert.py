@@ -52,16 +52,21 @@ def vector_store_from_numpy(emb, labels, size: int, device=None
 def model_params_from_numpy(cfg, tree, device=None):
     """A ``DecoderLM`` parameter tree of NumPy arrays (the JAX layout:
     ``segs[si][j]`` dicts of stacked ``(count, ...)`` leaves) -> the same
-    tree of ``cfg.dtype`` tensors on ``device``.  Leaves pass through
-    float32, which holds bf16 values exactly."""
+    tree of tensors on ``device``, each in the dtype the port's own
+    declaration gives it (``DecoderLM.decls()``): ``cfg.dtype``, or float32
+    for the leaves the reference declares float32 (hymba's ``w_dt``,
+    ``dt_bias``, ``a_log``, ``d_skip`` and ``beta``, the mLSTM's
+    ``w_gates``).  The arrays may arrive as float32 either way, which holds
+    bf16 values exactly."""
+    from repro_torch.models import build_model
     device = default_device(device)
 
-    def walk(node):
+    def walk(node, decl):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, decl[k]) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
+            return [walk(v, d) for v, d in zip(node, decl)]
         return torch.from_numpy(np.array(node, np.float32)).to(
-            device=device, dtype=cfg.dtype)
+            device=device, dtype=decl.dtype)
 
-    return walk(tree)
+    return walk(tree, build_model(cfg).decls())

@@ -30,7 +30,8 @@
 //
 // bfloat16: the tensor cores (flash_tc_kernel).  8 warps, 16 rows each
 // (128 rows, BQ = 128 / G query positions: 32 at h2o-danube-3-4b's G 4, 64
-// at gemma3-4b's G 2).  Both products are mma.sync m16n8k16 bf16 x bf16 ->
+// at gemma3-4b's G 2, 25 at hymba-1.5b's G 5, whose last 3 rows are
+// padding).  Both products are mma.sync m16n8k16 bf16 x bf16 ->
 // float32 with operands from shared memory by ldmatrix: S = Q.K^T, then p
 // rounded to bf16 in registers, the S accumulator fragment reused as the A
 // operand of P.V (.trans ldmatrix of V), as in FlashAttention-2.  The
@@ -631,6 +632,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
                        q_offset, scale_q, stream)
     switch (D) {
       case 16: TC(16);
+      case 64: TC(64);
       case 96: TC(96);
       case 120: TC(120);
       case 128: TC(128);
@@ -645,6 +647,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
                              window, q_offset, scale_q, stream)
   switch (D) {
     case 16: INST(16, 1);
+    case 64: INST(16, 2);
     case 96: INST(16, 3);
     case 120:
     case 128: INST(16, 4);
@@ -658,7 +661,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v
 // and out share it.  q and out (B, Sq, H, D), k and v (B, Skv, KH, D),
-// contiguous, 16-byte aligned; D in {16, 96, 120, 128, 256}.  scale_q is
+// contiguous, 16-byte aligned; D in {16, 64, 96, 120, 128, 256}.  scale_q is
 // d**-0.5 rounded to q's type.  Launches on ``stream``; allocates nothing.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,

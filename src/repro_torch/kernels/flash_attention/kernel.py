@@ -22,8 +22,8 @@ TC_BK = 64
 THREADS = 512
 BK = 64
 HALF = 32
-INSTANCES = {16: (16, 1), 96: (16, 3), 120: (16, 4), 128: (16, 4),
-             256: (8, 8)}
+INSTANCES = {16: (16, 1), 64: (16, 2), 96: (16, 3), 120: (16, 4),
+             128: (16, 4), 256: (8, 8)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,7 +78,7 @@ def query_block(h: int, kh: int, d: int, dtype) -> int:
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
                          q_offset: int = 0):
     """q (B,Sq,H,D); k/v (B,Skv,K,D) of q's dtype (bfloat16 or float32),
-    contiguous, any Sq and Skv; D in {16, 96, 120, 128, 256}.  Query row i
+    contiguous, any Sq and Skv; D in {16, 64, 96, 120, 128, 256}.  Query row i
     sits at position ``q_offset + i``.  Returns (B,Sq,H,D) in q's dtype, the
     contract of ``ref.flash_attention_chunked`` on every row with at least
     one visible position."""

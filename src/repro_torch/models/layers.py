@@ -1,11 +1,13 @@
 """Shared neural-net building blocks (functions over ParamDecl trees).
 
-The port of ``repro.models.layers`` for the dense decoder: RMSNorm (float32
-inside), RoPE, the gated MLP, the embedding lookup and the LM head.  Every
-declaration takes the config's dtype.  ``chunked_softmax_xent`` waits for
-the training slice.
+The port of ``repro.models.layers``: RMSNorm (float32 inside), RoPE, the
+gated MLP, the embedding lookup, the LM head and the depthwise causal
+convolution of the recurrent blocks.  Every declaration takes the config's
+dtype.  ``chunked_softmax_xent`` waits for the training slice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,3 +79,25 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def logits_for(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """h: (..., d) -> logits (..., V_padded), in the model dtype."""
     return h @ table.t()
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the recurrent blocks' short convolution)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """x (B, S, C); w (K, C) depthwise kernel; state the trailing (B, K-1,
+    C) window of the previous call (None: zeros).  Returns (y, new state),
+    pad + K shifted adds in x's dtype, as the reference (K is tiny)."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + xp[:, i:i + x.shape[1], :] * w[i]
+    new_state = (xp[:, -(k - 1):, :] if k > 1
+                 else x.new_zeros((x.shape[0], 0, x.shape[2])))
+    return y, new_state

@@ -1,25 +1,33 @@
-"""Decoder LM for the dense family (attention + gated MLP layers).
+"""Decoder LM of the dense, hybrid-SSM (hymba) and xLSTM families.
 
 The port of ``repro.models.transformer.DecoderLM`` on the paths the serving
 planes run: the full-sequence forward (``hidden``/``logits``), ``prefill``
-(which returns the KV cache), the dense-cache single-token decode
-(``empty_cache``, ``decode_step``: the restart-batching baseline), the
-paged single-token decode (``decode_step_paged``) and the paged
-multi-position verify of the speculative plane (``verify_step_paged``).
-With ``kv_cache_dtype="int8"`` the caches and page pools hold int8 K/V
-with a float32 scale per (position, kv head) (``_quant_kv``, round half to
-even as ``jnp.round``); each decode or verify step dequantizes a dense view
-of the layer's cache (for the pools, the block table's pages gathered) and
-attends over it with the dense-cache kernels, as the reference does: its
-fused paged kernel path is bf16-only.
+(which returns the KV cache and the recurrent state), the dense-cache
+single-token decode (``empty_cache``, ``decode_step``: the restart-batching
+baseline), the paged single-token decode (``decode_step_paged``) and the
+paged multi-position verify of the speculative plane
+(``verify_step_paged``, attention layers only: a recurrent layer raises, as
+in the reference).  A layer is an attention block with a gated MLP, a
+hymba block (attention in parallel with SSD heads, then the MLP), an mLSTM
+or an sLSTM block (``plan.layer_plan``).  The page pools hold the attention
+K/V; the recurrent state (hymba's SSD state and convolution tail, the
+mLSTM's matrix memory, the sLSTM's cell) is kept per slot, ``(count,
+n_slots, ...)``, beside them.
+With ``kv_cache_dtype="int8"`` the caches and page pools of the attention
+layers (``kind.block == "attn"``; hymba's K/V stay in the model dtype, as
+in the reference) hold int8 K/V with a float32 scale per (position, kv
+head) (``_quant_kv``, round half to even as ``jnp.round``); each decode or
+verify step dequantizes a dense view of the layer's cache (for the pools,
+the block table's pages gathered) and attends over it with the dense-cache
+kernels, as the reference does: its fused paged kernel path is bf16-only.
 The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
 the layers takes the place of ``lax.scan``.
 
-Not ported yet: the MoE, hybrid-SSM and xLSTM blocks, cross-attention and
-the training loss; their configs raise ``NotImplementedError``.
+Not ported yet: the MoE block, cross-attention and the training loss;
+their configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,9 +39,14 @@ from repro_torch.common import ParamDecl, default_device, init_params
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ref import gather_pages
 from .attention import attention_block, attn_decls, project_kv_token
+from .hymba_block import hymba_decls, hymba_layer
 from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
                      norm_decl, rms_norm)
 from .plan import LayerKind, layer_plan
+from .xlstm_blocks import _dims as xlstm_dims
+from .xlstm_blocks import mlstm_block, mlstm_decls, slstm_block, slstm_decls
+
+_PORTED_BLOCKS = ("attn", "hymba", "mlstm", "slstm")
 
 
 def _stack(decls, count: int):
@@ -52,6 +65,16 @@ def _layer(stacked, i: int):
 
 def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
     dt = cfg.dtype
+    if kind.block == "mlstm":
+        return {"mlstm": mlstm_decls(cfg)}
+    if kind.block == "slstm":
+        return {"slstm": slstm_decls(cfg)}
+    if kind.block == "hymba":
+        return {
+            "hymba": hymba_decls(cfg),
+            "ln2": norm_decl(cfg.d_model, dt),
+            "ffn": mlp_decls(cfg.d_model, cfg.d_ff, dt),
+        }
     return {
         "ln1": norm_decl(cfg.d_model, dt),
         "attn": attn_decls(cfg),
@@ -62,15 +85,29 @@ def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
 
 def _ffn_residual(cfg: ModelConfig, params: dict, x: torch.Tensor
                   ) -> torch.Tensor:
-    """Post-attention tail shared by the full-sequence and paged decode
-    paths: ln2 + dense FFN residual."""
+    """Post-attention tail shared by the full-sequence and decode paths:
+    ln2 + dense FFN residual."""
     f = rms_norm(x, params["ln2"], cfg.norm_eps)
     return x + mlp(params["ffn"], f)
 
 
 def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
                  x: torch.Tensor, *, q_offset: int = 0):
-    """Full-sequence layer.  Returns (x, {"k", "v"} of this layer)."""
+    """Full-sequence layer.  Returns (x, this layer's cache: {"k", "v"} of
+    an attention layer, with hymba's {"s", "conv"}; the recurrent blocks'
+    final state)."""
+    if kind.block == "mlstm":
+        out, st = mlstm_block(cfg, params["mlstm"], x)
+        return x + out, st
+    if kind.block == "slstm":
+        out, st = slstm_block(cfg, params["slstm"], x)
+        return x + out, st
+    if kind.block == "hymba":
+        out, ((k, v), ssm) = hymba_layer(cfg, params["hymba"], x,
+                                         window=kind.window,
+                                         q_offset=q_offset)
+        return (_ffn_residual(cfg, params, x + out),
+                {"k": k, "v": v, **ssm})
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     a, (k, v) = attention_block(cfg, params["attn"], h, causal=True,
                                 window=kind.window, q_offset=q_offset)
@@ -91,14 +128,20 @@ def _quant_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def _quant_leaves(cfg: ModelConfig, kv: dict) -> dict:
-    """A layer's prefill ``{"k", "v"}`` as the cache stores them: as they
-    are, or int8 with ``k_scale``/``v_scale``."""
-    if cfg.kv_cache_dtype != "int8":
-        return kv
-    out = {}
+def _int8_kv(cfg: ModelConfig, kind: LayerKind) -> bool:
+    """Whether the layer's K/V are stored int8: attention layers of an
+    int8-KV config only (hymba's stay in the model dtype)."""
+    return cfg.kv_cache_dtype == "int8" and kind.block == "attn"
+
+
+def _quant_leaves(cfg: ModelConfig, kind: LayerKind, cache: dict) -> dict:
+    """A layer's prefill cache as the cache stores it: as it is, or with
+    int8 ``k``/``v`` and their ``k_scale``/``v_scale``."""
+    if not _int8_kv(cfg, kind):
+        return cache
+    out = dict(cache)
     for key in ("k", "v"):
-        out[key], out[f"{key}_scale"] = _quant_kv(kv[key])
+        out[key], out[f"{key}_scale"] = _quant_kv(cache[key])
     return out
 
 
@@ -134,15 +177,67 @@ def _dense_view(cfg: ModelConfig, pools: dict, i: int,
     return tuple(out)
 
 
+def _write_state(stacked: dict, i: int, new: dict):
+    """Write a recurrent layer's new state into layer i of its stacked
+    per-sequence buffers, in place."""
+    for key, val in new.items():
+        stacked[key][i] = val
+
+
+def _attn_params(kind: LayerKind, params: dict) -> tuple:
+    """(pre-attention norm weight, attention parameters) of an attention
+    or hymba layer."""
+    if kind.block == "hymba":
+        return params["hymba"]["norm"], params["hymba"]["attn"]
+    return params["ln1"], params["attn"]
+
+
+def _finish_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
+                  x: torch.Tensor, h: torch.Tensor, lc: dict, stacked: dict,
+                  i: int) -> torch.Tensor:
+    """The rest of a decode layer once its token's K/V are written:
+    attention over ``lc`` (hymba: in parallel with the SSD heads, whose
+    state is read from and written back to layer i of ``stacked``) and the
+    FFN residual."""
+    if kind.block == "hymba":
+        lc = dict(lc, s=stacked["s"][i], conv=stacked["conv"][i])
+        out, (_, ssm) = hymba_layer(cfg, params["hymba"], x,
+                                    window=kind.window, cache=lc,
+                                    prewritten=True)
+        _write_state(stacked, i, ssm)
+    else:
+        out, _ = attention_block(cfg, params["attn"], h, causal=True,
+                                 window=kind.window, cache=lc,
+                                 prewritten=True)
+    return _ffn_residual(cfg, params, x + out)
+
+
+def _decode_recurrent(cfg: ModelConfig, kind: LayerKind, params: dict,
+                      x: torch.Tensor, stacked: dict, i: int
+                      ) -> torch.Tensor:
+    """One mLSTM or sLSTM decode layer: its per-sequence state at layer i
+    of ``stacked`` advances one token, in place."""
+    keys = ("s", "conv") if kind.block == "mlstm" else ("c", "n", "h")
+    block = mlstm_block if kind.block == "mlstm" else slstm_block
+    out, new = block(cfg, params[kind.block], x,
+                     state={key: stacked[key][i] for key in keys})
+    _write_state(stacked, i, new)
+    return x + out
+
+
 def _decode_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
                   x: torch.Tensor, stacked: dict, i: int, pos: int
                   ) -> torch.Tensor:
     """One decode layer against the dense cache: write this token's K/V
     column at (layer i, :, pos) of the stacked ``(count, B, T, K, D)``
     buffers, then attend over positions <= pos of every sequence (an int8
-    cache: over the layer's buffers dequantized)."""
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    k_new, v_new = project_kv_token(cfg, params["attn"], h, pos)
+    cache: over the layer's buffers dequantized); a recurrent layer
+    advances its state in place."""
+    if kind.block in ("mlstm", "slstm"):
+        return _decode_recurrent(cfg, kind, params, x, stacked, i)
+    norm, attn = _attn_params(kind, params)
+    h = rms_norm(x, norm, cfg.norm_eps)
+    k_new, v_new = project_kv_token(cfg, attn, h, pos)
     # in place, as the paged step writes its pages: the reference's
     # ``dynamic_update_slice`` on the scan carry writes one column too
     _write_kv(stacked, i, (slice(None), pos), k_new[:, 0], v_new[:, 0])
@@ -153,9 +248,7 @@ def _decode_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
     else:
         # stacked[i] is contiguous (the layer axis leads): the kernel takes it
         lc = {"k": stacked["k"][i], "v": stacked["v"][i], "pos": pos}
-    a, _ = attention_block(cfg, params["attn"], h, causal=True,
-                           window=kind.window, cache=lc, prewritten=True)
-    return _ffn_residual(cfg, params, x + a)
+    return _finish_layer(cfg, kind, params, x, h, lc, stacked, i)
 
 
 def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
@@ -165,7 +258,10 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
     """One decode layer over the paged state: write this token's K/V into
     its page slot (block_table[b, lens[b] // PS], lens[b] % PS) of layer i's
     pools, then attend through the block table (int8 pools: over their
-    dequantized dense view, with the dense-cache kernel)."""
+    dequantized dense view, with the dense-cache kernel).  Recurrent state
+    is per slot and advances as on the dense path."""
+    if kind.block in ("mlstm", "slstm"):
+        return _decode_recurrent(cfg, kind, params, x, pools, i)
     k_pool, v_pool = pools["k"], pools["v"]          # (L, n_pages, PS, K, D)
     page_size = k_pool.shape[2]
     p_max = block_table.shape[1]
@@ -176,8 +272,9 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
         pg < p_max,
         block_table.gather(1, pg.clamp(max=p_max - 1)[:, None])[:, 0], 0)
     off = (lens % page_size).long()
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    k_new, v_new = project_kv_token(cfg, params["attn"], h, lens)
+    norm, attn = _attn_params(kind, params)
+    h = rms_norm(x, norm, cfg.norm_eps)
+    k_new, v_new = project_kv_token(cfg, attn, h, lens)
     # in place (index_put_): the reference's functional ``.at[i, pidx,
     # off].set`` is cheap only because XLA donates the buffer; an
     # out-of-place scatter here would copy the whole stacked pool, ~3 GB
@@ -190,9 +287,7 @@ def _decode_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
         # pool[i] is contiguous (the layer axis leads): the kernel takes it
         lc = {"k_pages": k_pool[i], "v_pages": v_pool[i],
               "block_table": block_table, "pos": lens}
-    a, _ = attention_block(cfg, params["attn"], h, causal=True,
-                           window=kind.window, cache=lc, prewritten=True)
-    return _ffn_residual(cfg, params, x + a)
+    return _finish_layer(cfg, kind, params, x, h, lc, pools, i)
 
 
 def _verify_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
@@ -252,15 +347,15 @@ def _logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 class DecoderLM:
-    """Dense decoder language model (sliding-window and local:global
-    attention patterns included)."""
+    """Decoder language model: dense (sliding-window and local:global
+    attention patterns included), hybrid-SSM and xLSTM."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.plan = layer_plan(cfg)
         for _, pattern in self.plan:
             for kind in pattern:
-                if kind.block != "attn" or kind.is_moe:
+                if kind.block not in _PORTED_BLOCKS or kind.is_moe:
                     raise NotImplementedError(
                         f"{cfg.name}: layer block {kind.block!r} (moe="
                         f"{kind.is_moe}) is not ported yet")
@@ -310,43 +405,66 @@ class DecoderLM:
         return logits_for(self._out_table(params), h).float()
 
     # -- caches -------------------------------------------------------------
-    def _kv_buffers(self, count: int, lead: tuple, device) -> dict:
-        """One pattern position's zeroed K/V buffers ``(count, *lead, K,
-        D)``: in the config's dtype, or int8 with float32 ``k_scale`` /
-        ``v_scale`` ``(count, *lead, K)``."""
+    def _buffers(self, kind: LayerKind, count: int, kv_lead: tuple,
+                 n_seq: int, device) -> dict:
+        """One pattern position's zeroed buffers: the K/V of an attention
+        or hymba layer ``(count, *kv_lead, K, D)`` (in the config's dtype,
+        or int8 with float32 ``k_scale``/``v_scale`` ``(count, *kv_lead,
+        K)`` on an int8-KV attention layer) and the recurrent state of
+        ``n_seq`` sequences ``(count, n_seq, ...)``: float32 except the
+        convolution tails, as the reference."""
         cfg = self.cfg
-        shape = (count,) + lead + (cfg.n_kv_heads,)
-        int8 = cfg.kv_cache_dtype == "int8"
-        out = {key: torch.zeros(shape + (cfg.hd,),
-                                dtype=torch.int8 if int8 else cfg.dtype,
-                                device=device) for key in ("k", "v")}
-        if int8:
-            for key in ("k_scale", "v_scale"):
-                out[key] = torch.zeros(shape, dtype=torch.float32,
-                                       device=device)
+        f32 = torch.float32
+
+        def zeros(shape, dtype):
+            return torch.zeros((count,) + shape, dtype=dtype, device=device)
+
+        out = {}
+        if kind.block in ("attn", "hymba"):
+            int8 = _int8_kv(cfg, kind)
+            shape = kv_lead + (cfg.n_kv_heads,)
+            for key in ("k", "v"):
+                out[key] = zeros(shape + (cfg.hd,),
+                                 torch.int8 if int8 else cfg.dtype)
+            if int8:
+                for key in ("k_scale", "v_scale"):
+                    out[key] = zeros(shape, f32)
+        if kind.block == "hymba":
+            h, p, n = cfg.n_heads, cfg.hd, cfg.ssm_state
+            out["s"] = zeros((n_seq, h, n, p), f32)
+            out["conv"] = zeros((n_seq, cfg.ssm_conv - 1, h * p), cfg.dtype)
+        if kind.block == "mlstm":
+            _, d_inner, h, dk, dv = xlstm_dims(cfg)
+            out["s"] = zeros((n_seq, h, dk, dv + 1), f32)
+            out["conv"] = zeros((n_seq, cfg.ssm_conv - 1, d_inner), cfg.dtype)
+        if kind.block == "slstm":
+            h = cfg.n_heads
+            for key in ("c", "n", "h"):
+                out[key] = zeros((n_seq, h, cfg.d_model // h), f32)
         return out
 
     def empty_cache(self, batch: int, t_max: int, device=None) -> dict:
         """Dense decode cache: per pattern position, K and V buffers
-        ``(count, batch, t_max, K, D)`` (int8: with their scales) and the
-        shared position ``pos``."""
+        ``(count, batch, t_max, K, D)`` (int8: with their scales), the
+        recurrent state ``(count, batch, ...)``, and the shared position
+        ``pos``."""
         device = default_device(device)
         return {"pos": 0, "segs": [
-            [self._kv_buffers(count, (batch, t_max), device)
-             for _ in pattern]
+            [self._buffers(kind, count, (batch, t_max), batch, device)
+             for kind in pattern]
             for count, pattern in self.plan]}
 
     def empty_paged_state(self, n_slots: int, n_pages: int, page_size: int,
                           device=None) -> dict:
         """Fixed-shape serving state: per pattern position, K and V page
         pools ``(count, n_pages, page_size, K, D)`` (int8: with their
-        scales) shared by every slot (``n_slots`` is part of the
-        reference's signature; attention-only models keep no per-slot
-        state)."""
+        scales) shared by every slot, and the per-slot recurrent state
+        ``(count, n_slots, ...)``."""
         device = default_device(device)
         return {"segs": [
-            [self._kv_buffers(count, (n_pages, page_size), device)
-             for _ in pattern]
+            [self._buffers(kind, count, (n_pages, page_size), n_slots,
+                           device)
+             for kind in pattern]
             for count, pattern in self.plan]}
 
     # -- prefill: build the cache over a prompt -----------------------------
@@ -354,14 +472,16 @@ class DecoderLM:
         """tokens (B, S).  Returns (cache, float32 logits of the last
         position): cache ``{"pos": S, "segs": [[{"k", "v"} of shape
         (count, B, S, K, D)]]}`` (int8: with ``k_scale``/``v_scale`` of
-        shape (count, B, S, K))."""
+        shape (count, B, S, K)); a recurrent layer's entry holds its final
+        state ``(count, B, ...)`` (hymba: beside its K/V)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens)
         per_layer: dict = {}
         for kind, lp, si, j, _ in self._layers(params):
-            x, kv = _apply_layer(cfg, kind, lp, x)
-            per_layer.setdefault((si, j), []).append(_quant_leaves(cfg, kv))
-        segs = [[{key: torch.stack([kv[key] for kv in per_layer[(si, j)]])
+            x, lc = _apply_layer(cfg, kind, lp, x)
+            per_layer.setdefault((si, j), []).append(
+                _quant_leaves(cfg, kind, lc))
+        segs = [[{key: torch.stack([lc[key] for lc in per_layer[(si, j)]])
                   for key in per_layer[(si, j)][0]}
                  for j in range(len(pattern))]
                 for si, (_, pattern) in enumerate(self.plan)]

@@ -6,8 +6,8 @@ grows a prefill cache so ``decode_step`` can append (the restart baseline);
 and the admission path's helpers — prefill ONE request and scatter its
 cache into the endpoint's fixed-shape paged state (``prefill_into_pages``),
 zero a slot's recurrent state (``reset_slot``), and size a request's pages
-(``pages_per_request``).  Families not ported yet (MoE, hybrid-SSM, xLSTM,
-encoder-decoder) raise.
+(``pages_per_request``).  Families not ported yet (MoE, encoder-decoder)
+raise.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from .transformer import DecoderLM
 
-_NOT_PORTED = ("moe", "hymba", "xlstm", "encdec")
+_NOT_PORTED = ("moe", "encdec")
 
 
 def build_model(cfg: ModelConfig) -> DecoderLM:
@@ -62,19 +62,18 @@ def prefill_into_pages(state: dict, cache: dict, page_ids, slot,
     (its block-table prefix).  KV positions past t (the bucket pad tail)
     scatter zeros — masked by ``lens`` at attention time and overwritten as
     decode advances.  An int8 cache's scales ``(L, 1, t, K)`` scatter into
-    their ``(L, n_pages, PS, K)`` pools the same way.  The reference's
-    functional ``pool.at[:, ids].set`` is an indexed assignment into the
-    pool here, so no pool is copied.  Attention-only models keep no
-    per-slot state, so ``slot`` is not read."""
+    their ``(L, n_pages, PS, K)`` pools the same way.  Recurrent state
+    ``(L, 1, ...)`` goes to the request's ``slot`` of its ``(L, n_slots,
+    ...)`` buffer.  The reference's functional ``pool.at[:, ids].set`` is
+    an indexed assignment into the pool here, so no pool is copied."""
     page_ids = torch.as_tensor(page_ids, dtype=torch.long)
     n_chunk = page_ids.shape[0]
     for seg_s, seg_c in zip(state["segs"], cache["segs"]):
         for layer_state, layer_cache in zip(seg_s, seg_c):
             for key, leaf in layer_cache.items():
-                if key not in PAGED_POOL_KEYS:
-                    raise NotImplementedError(
-                        f"cache leaf {key!r}: per-slot recurrent state is "
-                        "not ported")
+                if key not in PAGED_POOL_KEYS:   # per-slot recurrent state
+                    layer_state[key][:, slot] = leaf[:, 0]
+                    continue
                 pool = layer_state[key]          # (L, n_pages, PS, K[, D])
                 l, _, t = leaf.shape[:3]         # (L, 1, t, K[, D])
                 pad = [0, 0] * (leaf.dim() - 3) + [0, n_chunk * page_size - t]

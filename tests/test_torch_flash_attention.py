@@ -119,6 +119,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     (4, 2, 16, torch.bfloat16, 64, True, 64),
     (64, 8, 128, torch.bfloat16, 16, True, 64),     # qwen2-72b
     (32, 32, 96, torch.bfloat16, 128, True, 64),    # phi-3-vision-4.2b
+    (25, 5, 64, torch.bfloat16, 25, True, 64),      # hymba-1.5b (G 5)
+    (25, 5, 64, torch.float32, 51, True, 32),
 ])
 def test_kernel_geometry(h, kh, d, dtype, block, fits, step):
     """Query positions per CTA (bf16: 128 rows on the tensor cores; float32:
@@ -134,6 +136,7 @@ def test_kernel_geometry(h, kh, d, dtype, block, fits, step):
     (1, 150, 8, 2, 120, 4096, 0),       # h2o-danube-3-4b heads (G 4)
     (1, 1100, 2, 1, 256, 1024, 0),      # gemma3-4b heads (G 2), window
     (2, 70, 8, 2, 120, 0, 90),          # a block that continues a prefix
+    (1, 300, 10, 2, 64, 100, 0),        # hymba-1.5b heads (G 5), window
 ])
 def test_chunked_at_kernel_step_matches_flash_attention_jnp(
         b, sq, h, kh, d, window, q_offset):

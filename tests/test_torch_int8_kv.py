@@ -349,3 +349,37 @@ def test_dense_verify_row_is_decode_at_lens_plus_s(window):
                                     window=window)
         np.testing.assert_allclose(got[:, s:s + 1].numpy(), want.numpy(),
                                    rtol=0, atol=1e-6)
+
+
+def test_int8_config_keeps_hymba_kv_in_the_model_dtype():
+    """``kv_cache_dtype="int8"`` quantizes attention layers only, as the
+    reference: hymba's K/V stay in the model dtype in the prefill cache,
+    the dense cache and the page pools (no scales), and its prefill and
+    paged decode match JAX's."""
+    jm, jp, pm, pp = _pair("hymba-1.5b", seed=2)
+    toks = np.random.RandomState(2).randint(
+        1, jm.cfg.vocab_size, (1, 11)).astype(np.int32)
+    jcache, jlog = jm.prefill(jp, jnp.asarray(toks))
+    pcache, plog = pm.prefill(pp, torch.from_numpy(toks))
+    _close(plog.numpy(), jlog, rel=1e-4)
+    jstate = jm.empty_paged_state(1, 3, 8)
+    pstate = pm.empty_paged_state(1, 3, 8, device="cpu")
+    for trees in ((jcache, pcache), (jstate, pstate),
+                  (jm.empty_cache(1, 16), pm.empty_cache(1, 16, device="cpu"))):
+        for jseg, pseg in zip(trees[0]["segs"], trees[1]["segs"]):
+            for jl, pl in zip(jseg, pseg):
+                assert set(pl) == set(jl) == {"k", "v", "s", "conv"}
+                for key in pl:
+                    assert pl[key].dtype == torch.float32
+                    assert str(jl[key].dtype) == "float32"
+    ids = np.array([2, 1], np.int32)
+    jstate = jax_pip(jstate, jcache, jnp.asarray(ids), 0, 8)
+    prefill_into_pages(pstate, pcache, torch.from_numpy(ids), 0, 8)
+    bt, lens = np.array([[2, 1]], np.int32), np.array([11], np.int32)
+    last = np.array([[7]], np.int32)
+    _, jlog = jm.decode_step_paged(jp, jstate, jnp.asarray(last),
+                                   jnp.asarray(bt), jnp.asarray(lens))
+    _, plog = pm.decode_step_paged(pp, pstate, torch.from_numpy(last),
+                                   torch.from_numpy(bt),
+                                   torch.from_numpy(lens))
+    _close(plog.numpy(), jlog, rel=1e-4)

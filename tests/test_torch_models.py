@@ -1,12 +1,14 @@
-"""The port's dense decoder against the JAX package.
+"""The port's decoder against the JAX package.
 
 The smoke configs of h2o-danube-3-4b (sliding window), internlm2-20b,
-qwen2-72b (``qkv_bias``) and gemma3-4b (5:1 local:global, tied
-embeddings), run in float32 in both packages with the JAX parameters carried
-over by ``convert.model_params_from_numpy``:
+qwen2-72b (``qkv_bias``), gemma3-4b (5:1 local:global, tied embeddings),
+hymba-1.5b (attention in parallel with SSD heads in every layer, per-slot
+SSD state beside the page pools) and xlstm-350m (mLSTM and sLSTM blocks,
+per-slot state only), run in float32 in both packages with the JAX
+parameters carried over by ``convert.model_params_from_numpy``:
 
-- the full-sequence ``logits`` and ``prefill`` (last-position logits and
-  the K/V cache of every layer);
+- the full-sequence ``logits`` and ``prefill`` (last-position logits, the
+  K/V cache and the recurrent state of every layer);
 - six greedy steps of ``decode_step_paged`` over a shuffled block table
   with ragged lengths, after each request was prefilled alone and scattered
   into the pages by ``prefill_into_pages``: logits every step, and the
@@ -15,7 +17,8 @@ over by ``convert.model_params_from_numpy``:
   the (B, S, V) float32 logits against JAX's, and, within the port,
   against four sequential ``decode_step_paged`` calls on a copy of the
   state (logits to the same tolerance, greedy tokens and the written pages
-  equal);
+  equal); on a recurrent model both packages raise
+  ``NotImplementedError``;
 - the dense-cache path: ``prefill`` + ``zoo.pad_cache`` + four greedy
   ``decode_step`` calls against JAX's (logits every step, greedy tokens
   equal, the grown cache and ``empty_cache`` shaped as JAX's); within the
@@ -51,14 +54,29 @@ from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.zoo import (pad_cache,  # noqa: E402
                                     pages_per_request, prefill_into_pages)
 
-ARCHS = ["h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b"]
+ARCHS = ["h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b",
+         "hymba-1.5b", "xlstm-350m"]
+RECURRENT = ("hymba-1.5b", "xlstm-350m")
+TOL = {"xlstm-350m": 1e-3}
+# the recurrent state after decode steps: the xLSTM stack amplifies float32
+# noise (tests/test_torch_recurrent.py::test_xlstm_state_amplifies_float32
+# _noise: on this model and these tokens a 1e-6 relative perturbation of
+# the prefill state moves the sLSTM cell by more than 1e-4 of its largest
+# value in four decode steps while the logits stay within 1e-3 relative)
+STATE_TOL = {"xlstm-350m": 1e-2}
 
 
-def _close(got, want):
+def _close(got, want, arch=None, tols=TOL):
     want = np.asarray(want)
-    tol = 1e-4 * max(1.0, float(np.max(np.abs(want))))
+    tol = tols.get(arch, 1e-4) * max(1.0, float(np.max(np.abs(want))))
     err = float(np.max(np.abs(np.asarray(got) - want)))
     assert err <= tol, (err, tol)
+
+
+def _bucket(arch, plen, ps):
+    """The engine's prefill length: a page multiple (attention pads are
+    masked by lens), the exact length for a recurrent model."""
+    return plen if arch in RECURRENT else -(-plen // ps) * ps
 
 
 def _pair(arch, seed=0):
@@ -80,19 +98,21 @@ def test_logits_and_prefill_match_jax(arch):
     toks = np.random.RandomState(0).randint(
         1, jm.cfg.vocab_size, (2, 20)).astype(np.int32)
     _close(pm.logits(pp, torch.from_numpy(toks)).numpy(),
-           jm.logits(jp, jnp.asarray(toks)))
+           jm.logits(jp, jnp.asarray(toks)), arch)
     jcache, jlog = jm.prefill(jp, jnp.asarray(toks))
     pcache, plog = pm.prefill(pp, torch.from_numpy(toks))
-    _close(plog.numpy(), jlog)
+    _close(plog.numpy(), jlog, arch)
     assert pcache["pos"] == 20
     assert len(pcache["segs"]) == len(jcache["segs"])
     for jseg, pseg in zip(jcache["segs"], pcache["segs"]):
         assert len(jseg) == len(pseg)
         for jl, pl in zip(jseg, pseg):
-            assert set(pl) == set(jl) == {"k", "v"}
-            for key in ("k", "v"):
+            assert set(pl) == set(jl)
+            assert ("k" in pl) == (arch != "xlstm-350m")
+            for key in jl:
                 assert tuple(pl[key].shape) == jl[key].shape
-                _close(pl[key].numpy(), jl[key])
+                assert pl[key].dtype == torch.float32
+                _close(pl[key].numpy(), jl[key], arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -111,19 +131,20 @@ def test_paged_decode_matches_jax(arch):
         toks = rng.randint(1, jm.cfg.vocab_size, (plen + 1,)).astype(np.int32)
         n_used = pages_per_request(plen, 6, ps)
         bt[i, :n_used] = perm[i * p_max:i * p_max + n_used]
-        bucket = -(-plen // ps) * ps          # the engine's page bucket
+        bucket = _bucket(arch, plen, ps)
         pt = np.zeros((1, bucket), np.int32)
         pt[0, :plen] = toks[:-1]
         jcache, _ = jm.prefill(jp, jnp.asarray(pt))
         pcache, _ = pm.prefill(pp, torch.from_numpy(pt))
-        ids = bt[i, :bucket // ps]
+        ids = bt[i, :-(-bucket // ps)]
         jstate = jax_pip(jstate, jcache, jnp.asarray(ids), i, ps)
         prefill_into_pages(pstate, pcache, torch.from_numpy(ids), i, ps)
         last[i, 0] = toks[-1]
     for si, seg in enumerate(pstate["segs"]):    # the scatter, in place
         for j, layer in enumerate(seg):
-            for key in ("k", "v"):
-                _close(layer[key].numpy(), jstate["segs"][si][j][key])
+            assert set(layer) == set(jstate["segs"][si][j])
+            for key in layer:
+                _close(layer[key].numpy(), jstate["segs"][si][j][key], arch)
     lens = np.asarray(plens, np.int32)
     step = jax.jit(jm.decode_step_paged)
     vocab = jm.cfg.vocab_size
@@ -134,13 +155,13 @@ def test_paged_decode_matches_jax(arch):
                                        torch.from_numpy(bt),
                                        torch.from_numpy(lens))
         assert plog.dtype == torch.float32
-        _close(plog.numpy(), jlog)
+        _close(plog.numpy(), jlog, arch)
         nxt = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)
         assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), nxt)
         last, lens = nxt[:, None], lens + 1
 
 
-def _paged_setup(jm, jp, pm, pp, plens, s_extra, seed):
+def _paged_setup(arch, jm, jp, pm, pp, plens, s_extra, seed):
     """Prefill each prompt alone into shuffled pages of both packages.
     Returns (JAX state, port state, block table, lens, last tokens)."""
     rng = np.random.RandomState(seed)
@@ -155,12 +176,12 @@ def _paged_setup(jm, jp, pm, pp, plens, s_extra, seed):
         toks = rng.randint(1, jm.cfg.vocab_size, (plen + 1,)).astype(np.int32)
         n_used = pages_per_request(plen, s_extra, ps)
         bt[i, :n_used] = perm[i * p_max:i * p_max + n_used]
-        bucket = -(-plen // ps) * ps
+        bucket = _bucket(arch, plen, ps)
         pt = np.zeros((1, bucket), np.int32)
         pt[0, :plen] = toks[:-1]
         jcache, _ = jm.prefill(jp, jnp.asarray(pt))
         pcache, _ = pm.prefill(pp, torch.from_numpy(pt))
-        ids = bt[i, :bucket // ps]
+        ids = bt[i, :-(-bucket // ps)]
         jstate = jax_pip(jstate, jcache, jnp.asarray(ids), i, ps)
         prefill_into_pages(pstate, pcache, torch.from_numpy(ids), i, ps)
         last[i, 0] = toks[-1]
@@ -176,11 +197,21 @@ def _clone_state(state):
 def test_paged_verify_matches_jax_and_sequential_decode(arch):
     jm, jp, pm, pp = _pair(arch, seed=2)
     s_q = 4
-    jstate, pstate, bt, lens, last = _paged_setup(jm, jp, pm, pp,
+    jstate, pstate, bt, lens, last = _paged_setup(arch, jm, jp, pm, pp,
                                                   [5, 11, 16], s_q, seed=2)
     rng = np.random.RandomState(3)
     toks = np.concatenate([last, rng.randint(
         1, jm.cfg.vocab_size, (len(lens), s_q - 1)).astype(np.int32)], 1)
+    if arch in RECURRENT:
+        # recurrent state advances token by token: both packages refuse
+        args = (jnp.asarray(toks), jnp.asarray(bt), jnp.asarray(lens))
+        with pytest.raises(NotImplementedError):
+            jax.jit(jm.verify_step_paged)(jp, jstate, *args)
+        with pytest.raises(NotImplementedError):
+            pm.verify_step_paged(pp, pstate, torch.from_numpy(toks),
+                                 torch.from_numpy(bt),
+                                 torch.from_numpy(lens))
+        return
     seq_state = _clone_state(pstate)
     _, jlog = jax.jit(jm.verify_step_paged)(jp, jstate, jnp.asarray(toks),
                                             jnp.asarray(bt),
@@ -218,7 +249,8 @@ def test_dense_decode_step_matches_jax(arch):
     for jseg, pseg, eseg in zip(jcache["segs"], pcache["segs"],
                                 empty["segs"]):
         for jl, pl, el in zip(jseg, pseg, eseg):
-            for key in ("k", "v"):
+            assert set(pl) == set(jl) == set(el)
+            for key in jl:
                 assert tuple(pl[key].shape) == jl[key].shape \
                     == tuple(el[key].shape)
     last = toks[:, -1:]
@@ -228,15 +260,16 @@ def test_dense_decode_step_matches_jax(arch):
         jcache, jlog = step(jp, jcache, jnp.asarray(last))
         pcache, plog = pm.decode_step(pp, pcache, torch.from_numpy(last))
         assert plog.dtype == torch.float32
-        _close(plog.numpy(), jlog)
+        _close(plog.numpy(), jlog, arch)
         nxt = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)
         assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), nxt)
         last = nxt[:, None]
     assert pcache["pos"] == int(jcache["pos"]) == 18
     for jseg, pseg in zip(jcache["segs"], pcache["segs"]):
         for jl, pl in zip(jseg, pseg):
-            for key in ("k", "v"):
-                _close(pl[key].numpy(), jl[key])
+            for key in jl:
+                _close(pl[key].numpy(), jl[key], arch,
+                       TOL if key in ("k", "v") else STATE_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -252,10 +285,12 @@ def test_decode_matches_full_forward(arch):
     cache, _ = m.prefill(params, toks[:, :-1])
     _, lgd = m.decode_step(params, pad_cache(cache, 32), toks[:, -1:])
     scale = float(full.abs().max())
-    assert float((lgd - full[:, -1]).abs().max()) / scale < 1e-4
+    tol = TOL.get(arch, 1e-4)          # the recurrence accumulates
+    assert float((lgd - full[:, -1]).abs().max()) / scale < tol
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma3-4b",
+                                  "hymba-1.5b", "xlstm-350m"])
 def test_paged_decode_matches_dense(arch):
     """Per-request paged prefill + decode reproduces the packed dense batch
     token for token in the model dtype (equal prompt lengths, so the dense
@@ -289,8 +324,7 @@ def test_paged_decode_matches_dense(arch):
         lens = lens + 1
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "xlstm-350m",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         build_model(get_smoke_config(arch))
@@ -354,13 +388,112 @@ def test_unported_attention_branches_raise(kwargs):
         attention_block(cfg, {k: v[0] for k, v in p.items()}, x, **kwargs)
 
 
-def test_reset_slot_zeroes_only_per_slot_state():
+@pytest.mark.parametrize("arch", [None, "hymba-1.5b", "xlstm-350m"])
+def test_reset_slot_zeroes_only_per_slot_state(arch):
     """``reset_slot`` zeroes a slot's recurrent leaves in place and leaves
-    the page pools alone (``lens`` masking covers stale KV)."""
+    the page pools alone (``lens`` masking covers stale KV): on a
+    hand-made state, and on the paged state of a recurrent model."""
     from repro_torch.models.zoo import reset_slot
-    pool = torch.ones(2, 5, 4, 1, 2)
-    rec = torch.ones(2, 3, 6)
-    state = {"segs": [[{"k": pool, "v": pool.clone(), "s": rec}]]}
+    if arch is None:
+        pool = torch.ones(2, 5, 4, 1, 2)
+        rec = torch.ones(2, 3, 6)
+        state = {"segs": [[{"k": pool, "v": pool.clone(), "s": rec}]]}
+    else:
+        m = build_model(get_smoke_config(arch))
+        state = m.empty_paged_state(3, 5, 4, device="cpu")
+        for layer in _leaves(state):
+            layer.fill_(1)
     assert reset_slot(state, 1) is state
-    assert bool((rec[:, 1] == 0).all()) and bool((rec[:, [0, 2]] == 1).all())
-    assert bool((pool == 1).all())
+    n_rec = 0
+    for seg in state["segs"]:
+        for layer in seg:
+            for key, leaf in layer.items():
+                if key in ("k", "v"):
+                    assert bool((leaf == 1).all())
+                else:
+                    n_rec += 1
+                    assert bool((leaf[:, 1] == 0).all())
+                    assert bool((leaf[:, [0, 2]] == 1).all())
+    assert n_rec > 0
+
+
+def test_float32_declared_leaves_stay_float32_in_bf16():
+    """The reference declares hymba's w_dt, dt_bias, a_log, d_skip and
+    beta and the mLSTM's w_gates float32 in every model dtype: the port
+    declares, draws and converts them so; every other leaf is bf16."""
+    want = {"hymba-1.5b": {"w_dt", "dt_bias", "a_log", "d_skip", "beta"},
+            "xlstm-350m": {"w_gates"}}
+    for arch, f32_keys in want.items():
+        cfg = get_smoke_config(arch)
+        assert cfg.dtype == torch.bfloat16
+        jc = jax_smoke(arch)
+        jp = jax_build(jc).init(jax.random.PRNGKey(0))
+        pp = convert.model_params_from_numpy(
+            cfg, jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
+                              jp), "cpu")
+        drawn = build_model(cfg).init(0, "cpu")
+        seen = set()
+        for path, leaf in _paths(pp):
+            name = path[-1]
+            want = torch.float32 if name in f32_keys else torch.bfloat16
+            assert leaf.dtype == _at(drawn, path).dtype == want, (arch, path)
+            assert str(_at(jp, path).dtype) == str(want)[len("torch."):]
+            if name in f32_keys:
+                seen.add(name)
+        assert seen == f32_keys
+        # carried over exactly: bf16 values pass through float32
+        path = next(p for p, _ in _paths(pp) if p[-1] in ("w_up", "w_x"))
+        assert np.array_equal(_at(pp, path).float().numpy(),
+                              np.asarray(_at(jp, path).astype(jnp.float32)))
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _paths(v, prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+@pytest.mark.parametrize("arch,n_params,slot_bytes,plan", [
+    # 32 hymba layers: 10 windowed at 1024 then one global, twice, then 10
+    # windowed; 25 x 16 x 64 float32 SSD state and a 3 x 1600 bf16
+    # convolution tail a layer
+    ("hymba-1.5b", (1.35e9, 1.36e9), 32 * (25 * 16 * 64 * 4 + 3 * 1600 * 2),
+     [(2, 11), (1, 10)]),
+    # 20 mLSTM (4 x 256 x 513 float32 memory, a 3 x 2048 bf16 tail) and 4
+    # sLSTM (three 4 x 256 float32 vectors) layers
+    ("xlstm-350m", (3.9e8, 4.0e8),
+     20 * (4 * 256 * 513 * 4 + 3 * 2048 * 2) + 4 * 3 * 1024 * 4,
+     [(4, 6)]),
+])
+def test_full_width_recurrent_declares_their_published_shapes(
+        arch, n_params, slot_bytes, plan):
+    """hymba-1.5b and xlstm-350m at full width (declarations and a state on
+    the meta device): parameter counts, the per-slot recurrent state, the
+    layer plans (hymba's layers 10 and 21 global, one sLSTM per six)."""
+    cfg = get_config(arch)
+    m = build_model(cfg)
+    n = sum(int(np.prod(d.shape)) for d in _leaves(m.decls()))
+    assert n_params[0] < n < n_params[1]
+    state = m.empty_paged_state(1, 1, 1, device="meta")
+    per_slot = sum(t.numel() * t.element_size()
+                   for seg in state["segs"] for layer in seg
+                   for key, t in layer.items() if key not in ("k", "v"))
+    assert per_slot == slot_bytes
+    assert [(c, len(p)) for c, p in m.plan] == plan
+    kinds = [k for c, p in m.plan for _ in range(c) for k in p]
+    if arch == "hymba-1.5b":
+        assert [i for i, k in enumerate(kinds) if k.window == 0] == [10, 21]
+        assert {k.window for k in kinds} == {0, 1024}
+        assert cfg.hd == 64 and cfg.n_heads // cfg.n_kv_heads == 5
+    else:
+        assert [i for i, k in enumerate(kinds) if k.block == "slstm"] == [
+            5, 11, 17, 23]

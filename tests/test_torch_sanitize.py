@@ -613,8 +613,8 @@ def test_racecheck_flags_order_dependent_pool():
 
 
 def test_racecheck_engine_pool_is_interleaving_independent():
-    """Known-good, real engine: a hedged 2-endpoint float32 pool (the
-    reference's hymba member is not ported: gemma3-4b takes its place)
+    """Known-good, real engine: a hedged 2-endpoint float32 pool (gemma3-4b
+    in the place of the reference's hymba member)
     produces identical outputs under permuted chunk/completion/hedge
     orderings, every request completes exactly once, and both allocators
     drain (PageSan-audited)."""

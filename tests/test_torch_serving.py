@@ -30,9 +30,16 @@
   ``prefill_calls``.  Behind ``MultiLLMServer`` over two smoke configs, the
   paged and the restart endpoints give the same (endpoint, output) per
   request (equal prompt lengths, float32, so the left pads are inert),
-  with no batch re-prefill on the paged side and some on the restart side
-  (``tests/test_serving_paged.py``'s ``test_server_paged_matches_restart_
-  engine``, hymba replaced by gemma3-4b, the port having no hymba).
+  with no batch re-prefill on the paged side and some on the restart side,
+  over (h2o-danube-3-4b, gemma3-4b) and over the reference's own
+  (h2o-danube-3-4b, hymba-1.5b) pool (``tests/test_serving_paged.py``'s
+  ``test_server_paged_matches_restart_engine``).
+- The reference's six-model pool (``launch/serve.py``: h2o-danube-3-4b,
+  internlm2-20b, qwen2-72b, gemma3-4b, hymba-1.5b, xlstm-350m) at smoke
+  size in float32 behind ``BalanceAware``, in lockstep with the JAX server:
+  the same (endpoint, output) per request, every endpoint serving, no
+  batch re-prefill; a recurrent endpoint refused as a speculative column
+  by both servers.
 
 Greedy tokens are compared exactly: the logits agree to ~1e-5 (see
 ``tests/test_torch_models.py``), far inside these models' top-2 gaps.
@@ -403,7 +410,8 @@ def test_restart_endpoint_matches_jax_under_churn():
     assert pe.active_count() == 0 and pe._cache is None
 
 
-def test_server_paged_matches_restart_engine():
+@pytest.mark.parametrize("second", ["gemma3-4b", "hymba-1.5b"])
+def test_server_paged_matches_restart_engine(second):
     rng = np.random.RandomState(7)
     prompts = [rng.randint(1, 500, (9,)).astype(np.int32) for _ in range(9)]
     outs, stats = {}, {}
@@ -411,7 +419,7 @@ def test_server_paged_matches_restart_engine():
         eps = [cls(dataclasses.replace(get_smoke_config(a),
                                        dtype=torch.float32),
                    max_concurrency=3, seed=i, device="cpu")
-               for i, a in enumerate(["h2o-danube-3-4b", "gemma3-4b"])]
+               for i, a in enumerate(["h2o-danube-3-4b", second])]
         srv = MultiLLMServer(eps, BalanceAware(), batch_size=6)
         for i, p in enumerate(prompts):
             srv.submit(Request(rid=i, tokens=p, max_new=6))
@@ -430,3 +438,33 @@ def test_restart_endpoint_refuses_a_speculative_pair():
         for _ in range(2)]
     with pytest.raises(NotImplementedError, match="paged"):
         MultiLLMServer(eps, BalanceAware(), spec_pairs=(SpecPair(0, 1, k=3),))
+
+
+SIX_POOL = ("h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b",
+            "hymba-1.5b", "xlstm-350m")
+
+
+def test_six_model_pool_matches_jax():
+    """The reference's serving pool: two recurrent endpoints (exact-length
+    prefill, per-slot state) beside four attention ones."""
+    jeps, peps = _endpoints(seeds=range(6), arches=SIX_POOL)
+    assert [e._has_recurrent for e in peps] == [False] * 4 + [True] * 2
+    assert [e._has_kv for e in peps] == [True] * 5 + [False]
+    js = jax_engine.MultiLLMServer(jeps, JaxBA())
+    ps = MultiLLMServer(peps, BalanceAware())
+    for rid, (toks, m) in enumerate(_requests(14, seed=9)):
+        js.submit(jax_engine.Request(rid, toks, max_new=m))
+        ps.submit(Request(rid, toks, max_new=m))
+    want = {r.rid: (r.endpoint, list(r.output))
+            for r in js.run(jax_engine.null_route_features)}
+    got = {r.rid: (r.endpoint, list(r.output))
+           for r in ps.run(null_route_features)}
+    assert got == want and len(got) == 14
+    assert {ep for ep, _ in got.values()} == set(range(6))
+    assert all(_drained(e) and e.batch_reprefills == 0 for e in peps)
+    for j in (4, 5):                    # hymba, xLSTM as a pair column
+        for srv, pol, pair, eps in (
+                (jax_engine.MultiLLMServer, JaxBA, JaxPair, jeps),
+                (MultiLLMServer, BalanceAware, SpecPair, peps)):
+            with pytest.raises(NotImplementedError):
+                srv(eps, pol(), spec_pairs=(pair(0, j, k=3),))

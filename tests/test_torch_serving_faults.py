@@ -1,8 +1,9 @@
 """The serving engine's failure plane against the JAX package.
 
 Two float32 smoke endpoints (h2o-danube-3-4b and gemma3-4b; the JAX
-reference's own tests pair danube with hymba, which the port does not
-have) on the same parameters, behind ``MultiLLMServer``, in lockstep with
+reference's own tests pair danube with hymba, which the port has since
+its recurrent slice, but these pools kept gemma3-4b) on the same
+parameters, behind ``MultiLLMServer``, in lockstep with
 the JAX server:
 
 - hedging (``hedge_after_steps`` 2 against 0): duplicates fire, every
