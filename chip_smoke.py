@@ -3,8 +3,8 @@
 routed speculative stream, the dense-cache generation path, neighbour-only
 top-k retrieval, the seed's per-iteration solve, the serving simulator,
 predictor training, the serving engine's failure plane, the sanitizer
-plane and runtime guards, int8 KV pools, and the recurrent model
-families) on one NVIDIA GPU.
+plane and runtime guards, int8 KV pools, the recurrent model families,
+the MoE family and the encoder-decoder) on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -181,6 +181,35 @@ behind ``OmniRouter(RetrievalPredictor(k=8))``, card against CPU per
 request, and a recurrent endpoint refused as a speculative pair column.
 F1 holds the flash kernel's head dim 64 at hymba's shapes.
 
+The MoE family and the encoder-decoder (phases M and X, after H; each
+model freed before the next is built, peak memory printed per
+sub-phase).  M1: dbrx-132b at full width (d 6,144, 48/8 heads of 128, 16
+experts top-4 of d_ff 10,752, vocabulary 100,352), depth cut from 40 to 2,
+prompts of 1,000 and 1,537 prefilled alone, 16 teacher-forced steps
+through ``decode_step_paged`` and, each prompt alone, through both it and
+the dense ``decode_step``: float32 within ``FULL_LIMITS``, bf16 held to
+the float32 full sequence by H1's rule, bf16 paged = dense bit for bit;
+the share of (token, layer) whose top-4 expert set agrees between bf16
+and float32 is printed.  M2: dbrx at depth 4 in bf16 behind a paged
+``Endpoint`` (8 requests of 345-1,501 tokens, 64 new tokens each; 0
+re-prefills, tokens/s, a step's ms, admission ms).  M3:
+llama4-maverick-400b-a17b at full width, depth cut from 48 to one period
+of its pattern (a dense layer, a MoE layer of 128 experts top-1 with a
+shared expert), bf16: four prompts of 300-700, 8 paged steps within
+``FULL_LIMITS`` of the full sequence, paged = dense per prompt bit for
+bit, finite logits.  X1: seamless-m4t-large-v2
+at full width and depth (24 encoder and 24 decoder layers): seeded frame
+embeddings of 600 positions (the reference's stub frontend) and decoder
+prompts of 300 tokens through ``prefill(tokens, embeds)`` and 16 dense
+``decode_step``s against ``logits(tokens, embeds)``, in float32 and
+bf16, with 72 flash launches a call (24 non-causal encoder, 24 causal,
+24 cross-attention over the frames) and 48 dense decode launches a
+step.  F1 adds the flash kernel at these heads (G 6 and 5 at D 128, the
+non-causal encoder and the cross-attention at G 1, D 64), S2 the paged
+decode at dbrx's and maverick's, D1 the dense decode at dbrx's (bf16 and
+float32) and maverick's, at seamless's self-attention and over its whole
+encoder cache.
+
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
@@ -301,6 +330,12 @@ KV_CASES = [
      "bfloat16"),
     ("hymba heads, window 1024, float32", 4, 5, 5, 64, 16, 128, 1024, 2016,
      "float32"),
+    # phase M: dbrx-132b's heads (G 6 through the GMAX-8 instance, D 128) at
+    # M2's batch, lens up to its longest prompt grown by 64
+    ("dbrx heads", 8, 8, 6, 128, 16, 98, 0, 1565, "bfloat16"),
+    # llama4-maverick's heads (G 5, D 128) at M3's batch, lens up to its
+    # longest prompt grown by its steps
+    ("maverick heads", 4, 8, 5, 128, 16, 45, 0, 708, "bfloat16"),
 ]
 CHECK_STEPS = 32        # teacher-forced decode steps of the full-width check
 ENDPOINT_REQS = 16      # full-width endpoint: requests, prompt range, output
@@ -337,22 +372,37 @@ GRAPH_CALLS = 50        # calls per captured CUDA graph (graph_ms)
 HOST_CALLS = 1_000      # calls enqueued back to back (host_us)
 
 # -- the dense-cache generation path (F, D and R phases) ----------------------
-# F1: the flash kernel against its plain versions.  (tag, B, S, K, G, D,
-# window, q_offset, dtype): S causal query rows at positions q_offset.. over
-# q_offset + S keys.  FLASH_MAIN is the main path's shape (R1's rebuilds).
+# F1: the flash kernel against its plain versions.  (tag, B, S, Skv, K, G,
+# D, window, q_offset, causal, dtype): S query rows at positions q_offset..
+# over Skv keys (causal: Skv = q_offset + S).  FLASH_MAIN is the main
+# path's shape (R1's rebuilds).
 FLASH_CASES = [
-    ("danube heads, window 4096", 1, 1000, 8, 4, 120, 4096, 0, "bfloat16"),
-    ("restart rebuild, danube heads", 16, 1535, 8, 4, 120, 4096, 0,
+    ("danube heads, window 4096", 1, 1000, 1000, 8, 4, 120, 4096, 0, True,
      "bfloat16"),
-    ("gemma3-4b heads, window 1024", 1, 2048, 4, 2, 256, 1024, 0,
+    ("restart rebuild, danube heads", 16, 1535, 1535, 8, 4, 120, 4096, 0,
+     True, "bfloat16"),
+    ("gemma3-4b heads, window 1024", 1, 2048, 2048, 4, 2, 256, 1024, 0, True,
      "bfloat16"),
-    ("danube heads, float32", 1, 700, 8, 4, 120, 0, 0, "float32"),
-    ("danube heads, q_offset 448", 2, 300, 8, 4, 120, 0, 448, "bfloat16"),
-    ("hymba heads, window 1024", 1, 1537, 5, 5, 64, 1024, 0, "bfloat16"),
-    ("hymba heads, B 16, window 1024", 16, 1500, 5, 5, 64, 1024, 0,
+    ("danube heads, float32", 1, 700, 700, 8, 4, 120, 0, 0, True, "float32"),
+    ("danube heads, q_offset 448", 2, 300, 748, 8, 4, 120, 0, 448, True,
      "bfloat16"),
-    ("hymba heads, window 1024, float32", 1, 1537, 5, 5, 64, 1024, 0,
-     "float32"),
+    ("hymba heads, window 1024", 1, 1537, 1537, 5, 5, 64, 1024, 0, True,
+     "bfloat16"),
+    ("hymba heads, B 16, window 1024", 16, 1500, 1500, 5, 5, 64, 1024, 0,
+     True, "bfloat16"),
+    ("hymba heads, window 1024, float32", 1, 1537, 1537, 5, 5, 64, 1024, 0,
+     True, "float32"),
+    # phase M: dbrx-132b's heads (G 6: 21 query positions a CTA, 126 of its
+    # 128 rows live) at M1's longer prompt, llama4-maverick's (G 5) at M3's
+    ("dbrx heads", 1, 1537, 1537, 8, 6, 128, 0, 0, True, "bfloat16"),
+    ("maverick heads", 1, 700, 700, 8, 5, 128, 0, 0, True, "bfloat16"),
+    # phase X: seamless-m4t-large-v2's encoder (non-causal, G 1, D 64) and
+    # its cross-attention (300 decoder positions over 600 frames)
+    ("seamless encoder, non-causal", 4, 600, 600, 16, 1, 64, 0, 0, False,
+     "bfloat16"),
+    ("seamless encoder, non-causal, float32", 4, 600, 600, 16, 1, 64, 0, 0,
+     False, "float32"),
+    ("seamless cross", 4, 300, 600, 16, 1, 64, 0, 0, False, "bfloat16"),
 ]
 FLASH_MAIN = 1
 FLASH_D64 = 6           # hymba-1.5b's head dim 64 (G 5) at H3's batch
@@ -364,7 +414,8 @@ FLASH_D64 = 6           # hymba-1.5b's head dim 64 (G 5) at H3's batch
 # the elements on an H100); the bound against the reference stays 2e-2.
 FLASH_ULP_SHARE = 1e-3
 # D1: the dense decode kernel.  (tag, B, T, K, G, D, window, lens, dtype);
-# lens an int shared by the batch, or 0 for ragged lens including 1 and T.
+# lens an int shared by the batch, 0 for ragged lens including 1 and T, or
+# (lo, hi) for ragged lens including both.
 # DENSE_MAIN is R1's decode shape (T = 1,536 - 1 + 128, pos 1,535).
 DENSE_CASES = [
     ("danube heads, restart decode", 16, 1663, 8, 4, 120, 4096, 1536,
@@ -376,6 +427,17 @@ DENSE_CASES = [
     # 431 grown by up to RESTART_T_MAX positions
     ("hymba heads, restart decode, float32, ragged lens", 16, 559, 5, 5, 64,
      1024, 0, "float32"),
+    # X1: seamless-m4t-large-v2's decoder self-attention (G 1, D 64) over
+    # its grown cache, and its cross-attention over the whole 600-frame
+    # encoder cache
+    ("seamless self", 4, 316, 16, 1, 64, 0, (300, 315), "float32"),
+    ("seamless cross", 4, 600, 16, 1, 64, 0, 600, "bfloat16"),
+    # M1: dbrx-132b's heads (G 6, D 128) in both its types, lens over its
+    # two prompts grown by M_CHECK_STEPS; M3: llama4-maverick's (G 5, D 128)
+    # over its four prompts grown by M3_STEPS
+    ("dbrx heads", 2, 1553, 8, 6, 128, 0, (1001, 1553), "bfloat16"),
+    ("dbrx heads, float32", 2, 1553, 8, 6, 128, 0, (1001, 1553), "float32"),
+    ("maverick heads", 4, 708, 8, 5, 128, 0, (301, 708), "bfloat16"),
 ]
 DENSE_MAIN = 0
 RESTART_T_MAX = 128     # R1: the restart endpoint's cache growth per rebuild
@@ -472,9 +534,20 @@ def attention_bytes_ops(q, bt, lens, kh, d, window, elem):
     return nbytes, 4.0 * valid * h * d
 
 
+def logit_gaps(x, ref):
+    """(max |x - ref| / max |ref|, rms (x - ref) / rms ref, argmax
+    agreement)."""
+    diff = x.float() - ref.float()
+    return (float(diff.abs().max() / ref.abs().max()),
+            float(diff.pow(2).mean().sqrt() / ref.float().pow(2).mean()
+                  .sqrt()),
+            float((x.argmax(-1) == ref.argmax(-1)).float().mean()))
+
+
 def full_width_check(torch, np, model, params, dev, say, check, tag,
                      limits=None, plain=False, plens=(100, 237, 480, 511),
-                     steps=CHECK_STEPS, truth=None, dense=False):
+                     steps=CHECK_STEPS, truth=None, dense=False,
+                     dense_steps=H_DENSE_STEPS):
     """Prefill ragged prompts (``plens``) alone into pages, teacher-force
     ``steps`` paged decode steps (one kernel launch per attention layer per
     step; with ``plain`` the plain version in the kernel's place), and hold
@@ -487,10 +560,11 @@ def full_width_check(torch, np, model, params, dev, say, check, tag,
     sequence's (argmax agreements reported: at 64 positions a few
     near-ties flip either way).  With ``dense`` each prompt's paged decode
     is also held to the dense ``decode_step`` from the same prefill, bit for
-    bit (``dense_against_paged``).
+    bit, over the first ``dense_steps`` positions (``dense_against_paged``).
     Returns the relative difference, the argmax agreement, each prompt's
     prefill ms, the ms of a decode step, the flash, paged and dense decode
-    launches and the full-sequence logits at the decode positions."""
+    launches, the full-sequence logits at the decode positions and, with
+    ``dense``, each prompt's decode alone (``alone``)."""
     from repro_torch.kernels.decode_attention import ops as pd_ops
     from repro_torch.kernels.decode_attention.ref import (
         paged_decode_attention_ref)
@@ -579,19 +653,15 @@ def full_width_check(torch, np, model, params, dev, say, check, tag,
                ref=ref)
     if dense:
         got = dense_against_paged(torch, model, params, caches, seqs,
-                                  plens, dec, n_attn, say, check, tag)
+                                  plens, dec, n_attn, say, check, tag,
+                                  dense_steps)
         out["paged"] += got["paged"]
         out["dense"] = got["dense"]
+        out["alone"] = got["alone"]
         del caches
     if truth is not None:
-        scale = float(truth.abs().max())
-        rms = float(truth.pow(2).mean().sqrt())
-        for name, x in (("decode", dec), ("full", ref)):
-            diff = x.float() - truth
-            out[f"{name}_vs_f32"] = (
-                float(diff.abs().max()) / scale,
-                float(diff.pow(2).mean().sqrt()) / rms,
-                float((x.argmax(-1) == truth.argmax(-1)).float().mean()))
+        out["decode_vs_f32"] = logit_gaps(dec, truth)
+        out["full_vs_f32"] = logit_gaps(ref, truth)
         d, f = out["decode_vs_f32"], out["full_vs_f32"]
         say(f"  {cfg.name} {tag} against the float32 full sequence (max, "
             f"rms relative; argmax agreement): decode {d[0]:.4g}, "
@@ -605,20 +675,20 @@ def full_width_check(torch, np, model, params, dev, say, check, tag,
 
 
 def dense_against_paged(torch, model, params, caches, seqs, plens, dec,
-                        n_attn, say, check, tag):
-    """Each prompt alone from its prefill cache: the first H_DENSE_STEPS
+                        n_attn, say, check, tag, steps=H_DENSE_STEPS):
+    """Each prompt alone from its prefill cache: the first ``steps``
     teacher-forced positions of the batched paged decode ``dec`` (B, steps,
     V) decoded again by paged decode steps (a one-slot paged state) and by
     dense ``decode_step``s.  The two take the same matmuls and attention
     kernels that agree bit for bit (D1), so they must agree bit for bit.
     ``dec`` is measured against them too (reported: the matmuls' batch
     differs, which moves bf16 logits by their rounding).  Returns the
-    paged and dense decode launches."""
+    paged and dense decode launches and the logits of both (``alone``)."""
     from repro_torch.kernels.decode_attention import ops as pd_ops
     from repro_torch.models.zoo import pad_cache, prefill_into_pages
     cfg = model.cfg
     dev = dec.device
-    steps, ps = min(H_DENSE_STEPS, dec.shape[1]), 16
+    steps, ps = min(steps, dec.shape[1]), 16
     dec = dec[:, :steps]
     pd_ops.launches = pd_ops.dense_launches = 0
     alone = {"paged": torch.empty_like(dec), "dense": torch.empty_like(dec)}
@@ -655,6 +725,7 @@ def dense_against_paged(torch, model, params, caches, seqs, plens, dec,
           "attention layer per step per prompt")
     check(same, f"{cfg.name} ({tag}): the dense decode differs from the "
           "paged decode of the same prompt")
+    got["alone"] = alone
     return got
 
 
@@ -663,7 +734,8 @@ def dense_against_paged(torch, model, params, caches, seqs, plens, dec,
 # the mLSTM's d_inner), by the key of the block that holds them: every
 # attention's wq and wk (a dense or hymba layer's ``attn``) and the
 # recurrent blocks' 3-D projections
-FAN_IN_LEAVES = {"attn": ("wq", "wk"), "ssd": ("w_x", "w_z", "w_b", "w_c"),
+FAN_IN_LEAVES = {"attn": ("wq", "wk"), "cross": ("wq", "wk"),
+                 "ssd": ("w_x", "w_z", "w_b", "w_c"),
                  "mlstm": ("wq", "wk", "wv", "w_gates"), "slstm": ("w_in",)}
 
 
@@ -2103,12 +2175,13 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
         g2_spec
 
 
-def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem):
-    """What one causal flash attention must move and compute on this data:
-    q, k, v and the output once; 4·D operations per (query head, visible
+def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem,
+                    causal=True):
+    """What one flash attention must move and compute on this data: q, k,
+    v and the output once; 4·D operations per (query head, visible
     position) pair, both products counted at the operand type's rate."""
     pos = q_offset + np.arange(s)
-    hi = np.minimum(pos + 1, skv)
+    hi = np.minimum(pos + 1, skv) if causal else np.full(s, skv)
     lo = np.maximum(0, pos - window + 1) if window > 0 else 0
     pairs = float(np.maximum(hi - lo, 0).sum())
     nbytes = elem * (2 * b * s * h * d + 2 * b * skv * kh * d)
@@ -2161,8 +2234,8 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
     tensor cores, 32 in float32), the CPU path's default every 512 (or the
     gcd fallback's divisor).  bf16: all but a share FLASH_ULP_SHARE of
     the elements within one bf16 ulp of the chunked version run over the
-    kernel's chunks (keys zero-padded to a multiple of the step; causality
-    masks the pad), and 2e-2 from it, from the reference (which keeps p in
+    kernel's chunks (keys zero-padded to a multiple of the step and masked
+    past Skv), and 2e-2 from it, from the reference (which keeps p in
     float32) and from the default chunking; float32 (rounding p is exact):
     2e-5 from all three.  The built library's SASS must hold
     HMMA (tensor-core) instructions in the bf16 kernel and none in the
@@ -2178,25 +2251,31 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
           and all(n == 0 for f, n in hmma.items() if "flash_kernel" in f),
           "flash: the bf16 kernel has no HMMA or the float32 kernel has")
     err_max, row = 0.0, None
-    for i, (tag, b, s, kh, g, d, window, q_off, dt) in enumerate(
-            FLASH_CASES):
+    for i, (tag, b, s, skv, kh, g, d, window, q_off, causal, dt) in \
+            enumerate(FLASH_CASES):
         dtype = getattr(torch, dt)
-        skv, h = q_off + s, kh * g
+        h = kh * g
         gen = torch.Generator(device=dev).manual_seed(40 + i)
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
-        kw = dict(causal=True, window=window, q_offset=q_off)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
         got = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         step = softmax_step(d, dtype)
         pad = -skv % step
         kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k, v))
-        tiled = flash_attention_chunked(q, kp, vp, kv_chunk=step, **kw)
+        tiled = flash_attention_chunked(q, kp, vp, kv_chunk=step,
+                                        kv_valid=skv, **kw)
+        # the plain version's time: the median of two calls after this
+        # one, which warms them up (at S 1,535 its gcd fallback runs 1,535
+        # chunks, 2.5 s a call)
         plain = flash_attention_chunked(q, k, v, **kw)
+        p_ms = time_ms(torch, lambda: flash_attention_chunked(q, k, v, **kw),
+                       2, warm=0)
         # the reference has no q_offset: zero rows in front, sliced away
         qf = torch.cat([q.new_zeros(b, q_off, h, d), q], 1) if q_off else q
-        ref = flash_attention_ref(qf, k, v, causal=True,
+        ref = flash_attention_ref(qf, k, v, causal=causal,
                                   window=window)[:, q_off:]
         e_tiled = float((got.float() - tiled.float()).abs().max())
         e_plain = float((got.float() - plain.float()).abs().max())
@@ -2214,9 +2293,9 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
         err_max = max(err_max, e_tiled)
         k_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
                        10)
-        p_ms = time_ms(torch, lambda: flash_attention_chunked(q, k, v, **kw),
-                       2, warm=1)
-        masked = 0 < window < skv or q_off > 0
+        masked = causal and (0 < window < skv or q_off > 0)
+        sdpa_kind = ("boolean mask" if masked else
+                     "is_causal" if causal else "no mask")
         if masked:
             pos = torch.arange(skv, device=dev)
             qp = q_off + torch.arange(s, device=dev)
@@ -2225,13 +2304,14 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
                 mask &= pos[None, :] > qp[:, None] - window
             lib = sdpa_ms(torch, F, say, time_ms, q, k, v, mask=mask, reps=10)
         else:
-            lib = sdpa_ms(torch, F, say, time_ms, q, k, v, causal=True,
+            lib = sdpa_ms(torch, F, say, time_ms, q, k, v, causal=causal,
                           reps=10)
         elem = q.element_size()
         nbytes, nops, bound, bound_by = flash_bytes_ops(
-            np, b, s, skv, h, kh, d, window, q_off, elem)
+            np, b, s, skv, h, kh, d, window, q_off, elem, causal)
         say(f"flash {tag}: B={b} S={s} Skv={skv} K={kh} G={g} D={d} "
-            f"window={window} q_offset={q_off} {dt} | max|kernel-chunked at "
+            f"window={window} q_offset={q_off} causal={causal} {dt} | "
+            f"max|kernel-chunked at "
             f"{step}|={e_tiled:.3g} ({n_ulp} of {got.numel()} elements = "
             f"{share:.2e} beyond one bf16 ulp), at the default chunk="
             f"{e_plain:.3g}, "
@@ -2240,7 +2320,7 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
             f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.2f} GFLOP / "
             f"{'989 TFLOP/s bf16' if elem == 2 else '67 TFLOP/s fp32'}) -> "
             f"{bound / k_ms:.1%} of it; chunked plain {p_ms * 1e3:.1f} us; "
-            f"SDPA ({'boolean mask' if masked else 'is_causal'}, enable_gqa)"
+            f"SDPA ({sdpa_kind}, enable_gqa)"
             f" " + (f"{lib * 1e3:.1f} us" if lib is not None else "n/a"))
         check(ok, f"flash {tag}: kernel disagrees with its plain versions")
         if i == FLASH_MAIN:
@@ -2281,7 +2361,12 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
         q = torch.randn(b, 1, kh * g, d, generator=gen, device=dev).to(dtype)
         kc = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
         vc = torch.randn(b, t, kh, d, generator=gen, device=dev).to(dtype)
-        if lens:
+        if isinstance(lens, tuple):
+            cpu = torch.Generator().manual_seed(i)
+            ln = torch.randint(lens[0], lens[1] + 1, (b,), generator=cpu)
+            ln[0], ln[-1] = lens
+            ln = ln.to(torch.int32).to(dev)
+        elif lens:
             ln = torch.full((b,), lens, dtype=torch.int32, device=dev)
         else:
             cpu = torch.Generator().manual_seed(i)
@@ -4539,6 +4624,35 @@ def full_width_recurrent(torch, np, dev, say, check, arch, seed):
     return model, params, res
 
 
+def drive_endpoint(torch, ep, todo, max_new, check, tag):
+    """Admit every prompt, then step until all are done.  Returns the
+    outputs by request id, admission ms, chunk ms and the flash, paged and
+    dense decode launches."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving.engine import Request
+    reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(todo)]
+    fa_ops.launches = pd_ops.launches = pd_ops.dense_launches = 0
+    pre_ms, chunk_ms, done = [], [], []
+    for r in reqs:
+        t0 = time.perf_counter()
+        ep.admit(r)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    while ep.active_count():
+        t0 = time.perf_counter()
+        done += ep.step()
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    got = dict(flash=fa_ops.launches, paged=pd_ops.launches,
+               dense=pd_ops.dense_launches)
+    check(len(done) == len(todo) and all(
+        r.done and len(r.output) == max_new for r in done),
+          f"{tag} {type(ep).__name__}: not every request got {max_new} "
+          "tokens")
+    return {r.rid: list(r.output) for r in done}, pre_ms, chunk_ms, got
+
+
 def hymba_endpoint_phase(torch, np, dev, say, check, model, params):
     """H3: hymba-1.5b at full width behind the serving engine at S4's
     shape: one paged ``Endpoint`` in bf16 admitting ENDPOINT_REQS ragged
@@ -4555,9 +4669,7 @@ def hymba_endpoint_phase(torch, np, dev, say, check, model, params):
     differences at tokens 2-41, on an NVIDIA H100 80GB HBM3 at 700 W).
     Returns the launches."""
     import dataclasses
-    from repro_torch.kernels.decode_attention import ops as pd_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.serving.engine import Endpoint, Request, RestartEndpoint
+    from repro_torch.serving.engine import Endpoint, RestartEndpoint
     cfg = model.cfg
     n = ENDPOINT_REQS
     rng = np.random.RandomState(0)
@@ -4566,31 +4678,10 @@ def hymba_endpoint_phase(torch, np, dev, say, check, model, params):
     launches = dict(flash=0, paged=0, dense=0)
 
     def drive(ep, todo, max_new):
-        """Admit every prompt, then step until all are done.  Returns the
-        outputs by request id, admission ms and chunk ms."""
-        reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(todo)]
-        fa_ops.launches = pd_ops.launches = pd_ops.dense_launches = 0
-        pre_ms, chunk_ms, done = [], [], []
-        for r in reqs:
-            t0 = time.perf_counter()
-            ep.admit(r)
-            torch.cuda.synchronize()
-            pre_ms.append((time.perf_counter() - t0) * 1e3)
-        while ep.active_count():
-            t0 = time.perf_counter()
-            done += ep.step()
-            torch.cuda.synchronize()
-            chunk_ms.append((time.perf_counter() - t0) * 1e3)
-        got = dict(flash=fa_ops.launches, paged=pd_ops.launches,
-                   dense=pd_ops.dense_launches)
+        out = drive_endpoint(torch, ep, todo, max_new, check, "H3")
         for key in launches:
-            launches[key] += got[key]
-        check(len(done) == len(todo) and all(
-            r.done and len(r.output) == max_new for r in done),
-              f"H3 {type(ep).__name__}: not every request got {max_new} "
-              "tokens")
-        return ({r.rid: list(r.output) for r in done}, pre_ms, chunk_ms,
-                got)
+            launches[key] += out[3][key]
+        return out
 
     torch.cuda.reset_peak_memory_stats()
     ep = Endpoint(cfg, max_concurrency=n, t_max=2048, page_size=16,
@@ -4786,6 +4877,388 @@ def recurrent_phase(torch, np, dev, say, check):
         launches=launches)
     say(f"phase H seconds: H1 {t_h1:.1f}, H3 {t_h3:.1f}, H2 {t_h2:.1f}, "
         f"H4 {t_h4:.1f}")
+    return launches, summary
+
+
+# -- phase M: the MoE family; phase X: the encoder-decoder ---------------------
+# M1: dbrx-132b at full width, depth cut from 40 to M1_LAYERS (float32 and
+# bf16 side by side: 31.0 + 15.5 GB of weights); prompts of 1,000 and 1,537
+M1_LAYERS = 2
+M1_PROMPTS = (1000, 1537)
+M_CHECK_STEPS = 16
+# M2: the same width at depth M2_LAYERS in bf16 (28.5 GB) behind a paged
+# Endpoint: M2_REQS requests with prompts in S4's hymba range, M2_NEW tokens
+M2_LAYERS = 4
+M2_REQS, M2_NEW = 8, 64
+# M3: llama4-maverick-400b-a17b at full width, depth cut from 48 to one
+# period of its pattern (a dense layer, a MoE layer of 128 experts): 37.4 GB
+# in bf16; float32 at this depth would not fit beside its activations
+M3_LAYERS = 2
+M3_PROMPTS = (300, 433, 571, 700)
+M3_STEPS = 8
+# X1: seamless-m4t-large-v2 at full width and depth; frames and decoder
+# prompts of different lengths
+X1_BATCH, X1_FRAMES, X1_PROMPT, X1_STEPS = 4, 600, 300, 16
+
+
+def record_routes(torch):
+    """Wrap ``moe._router_topk`` so every call's top-k expert ids (sorted
+    per token) are kept.  Returns (the list of calls, a function that
+    restores the router)."""
+    from repro_torch.models import moe
+    inner = moe._router_topk
+    calls = []
+
+    def recording(x, w, k):
+        out = inner(x, w, k)
+        calls.append(out[1].sort(dim=-1).values)
+        return out
+
+    moe._router_topk = recording
+    return calls, lambda: setattr(moe, "_router_topk", inner)
+
+
+def route_agreement(a, b):
+    """The share of (token, layer) routings whose expert sets agree between
+    two runs that made the same router calls."""
+    same = total = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            raise ValueError("the two runs routed different tokens")
+        same += int((x == y).all(-1).sum())
+        total += x.shape[0]
+    return same / max(total, 1), total
+
+
+def cut_config(name, n_layers, say, tag):
+    """The published config at full width with its depth cut (printed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    say(f"{tag}: {name} depth cut from {cfg.n_layers} to {n_layers} layers "
+        "(the card's 80 GB); every width as published")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def dbrx_check(torch, np, dev, say, check):
+    """M1: dbrx-132b at full width, depth M1_LAYERS, attention at unit-std
+    scores (``_unit_fan_in``): prompts prefilled alone into pages, then
+    M_CHECK_STEPS teacher-forced steps through ``decode_step_paged`` (the
+    batch) and, each prompt alone, through both ``decode_step_paged`` and
+    the dense ``decode_step``.  float32: the batched paged and the dense
+    decode within FULL_LIMITS["float32"] of the full-sequence logits.
+    bf16: both held to that float32 full sequence by H1's rule
+    (TRUTH_FACTOR times the bf16 full sequence's own gaps), and each
+    prompt's paged decode equal to its dense decode bit for bit.  Prints
+    the share of (token, layer) whose top-k expert set in bf16 equals the
+    one in float32 over every router call of the two runs."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cfg = cut_config("dbrx-132b", M1_LAYERS, say, "M1 dbrx-check")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _unit_fan_in(model.init(0, dev))
+    params32 = _tree_to(params, torch.float32)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    say(f"M1 dbrx-132b: {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+        f"experts {cfg.n_experts} top-{cfg.top_k} V={cfg.vocab_size}; "
+        f"{n_par / 1e9:.3f} B params drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    res, routes = {}, {}
+
+    def run(tag, m, p, **kw):
+        calls, restore = record_routes(torch)
+        try:
+            res[tag] = full_width_check(
+                torch, np, m, p, dev, say, check, f"{tag}, unit-std scores",
+                plens=M1_PROMPTS, steps=M_CHECK_STEPS, dense=True,
+                dense_steps=M_CHECK_STEPS, **kw)
+        finally:
+            restore()
+        routes[tag] = calls
+
+    run("float32", model32, params32, limits=FULL_LIMITS["float32"])
+    del params32
+    run("bf16", model, params, truth=res["float32"]["ref"])
+    f32, b16 = res["float32"], res["bf16"]
+    lim = FULL_LIMITS["float32"]
+    dense32 = logit_gaps(f32["alone"]["dense"], f32["ref"])
+    say(f"  M1 float32 dense decode_step vs the full sequence: "
+        f"max|diff|/max|logit| = {dense32[0]:.4g}, argmax agreement "
+        f"{dense32[2]:.4f} (limits: <= {lim[0]}, >= {lim[1]})")
+    check(dense32[0] <= lim[0] and dense32[2] >= lim[1],
+          "M1 float32: the dense decode disagrees with the full sequence")
+    truth = f32["ref"]
+    dense16, full16 = (logit_gaps(b16["alone"]["dense"], truth),
+                       logit_gaps(b16["ref"], truth))
+    say(f"  M1 bf16 dense decode_step against the float32 full sequence "
+        f"(max, rms relative; argmax agreement): {dense16[0]:.4g}, "
+        f"{dense16[1]:.4g}; {dense16[2]:.4f}, bf16 full sequence "
+        f"{full16[0]:.4g}, {full16[1]:.4g}; {full16[2]:.4f}")
+    share, n_routed = route_agreement(routes["float32"], routes["bf16"])
+    say(f"  M1 top-{cfg.top_k} expert sets equal in bf16 and float32 on "
+        f"{share:.4f} of {n_routed} (token, layer) routings")
+    check(dense16[0] <= TRUTH_FACTOR * full16[0]
+          and dense16[1] <= TRUTH_FACTOR * full16[1],
+          "M1 bf16: the dense decode is farther from the float32 logits "
+          "than the full sequence")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"M1 peak device memory {peak:.2f} GiB")
+    del params, model, model32, routes
+    return dict(flash=f32["flash"] + b16["flash"],
+                paged=f32["paged"] + b16["paged"],
+                dense=f32["dense"] + b16["dense"],
+                rel=dict(float32=(f32["rel"], f32["agree"]),
+                         bf16_vs_f32=b16["decode_vs_f32"],
+                         bf16_full_vs_f32=b16["full_vs_f32"]),
+                expert_share=share, peak_gib=peak,
+                prefill_ms={t: r["prefill_ms"] for t, r in res.items()},
+                step_ms={t: r["step_ms"] for t, r in res.items()})
+
+
+def dbrx_endpoint(torch, np, dev, say, check):
+    """M2: dbrx-132b at full width, depth M2_LAYERS, bf16, behind a paged
+    ``Endpoint`` (L M2_REQS, t_max 2,048, page 16): M2_REQS prompts of
+    H_PROMPT_LO..H_PROMPT_HI tokens, M2_NEW tokens each.  0 batch
+    re-prefills, one flash launch per layer per admission and one paged
+    decode launch per layer per step."""
+    from repro_torch.serving.engine import Endpoint
+    cfg = cut_config("dbrx-132b", M2_LAYERS, say, "M2 endpoint-dbrx-8x64")
+    torch.cuda.reset_peak_memory_stats()
+    ep = Endpoint(cfg, max_concurrency=M2_REQS, t_max=2048, page_size=16,
+                  sync_every=8, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(rng.randint(
+        H_PROMPT_LO, H_PROMPT_HI + 1)),)).astype(np.int32)
+        for _ in range(M2_REQS)]
+    _, pre_ms, chunk_ms, got = drive_endpoint(torch, ep, prompts, M2_NEW,
+                                              check, "M2")
+    steps = ep.busy_steps * ep.sync_every
+    lay = cfg.n_layers
+    check(ep.batch_reprefills == 0, "M2: batch re-prefill")
+    check(len(ep.alloc.free_pages) == ep.alloc.n_pages - 1
+          and len(ep.alloc.free_slots) == ep.L, "M2: allocator leak")
+    check(got["paged"] > 0 and got["paged"] == lay * steps
+          and got["flash"] == lay * M2_REQS and got["dense"] == 0,
+          "M2: launches != one flash per layer per admission and one paged "
+          "decode per layer per step")
+    steady = chunk_ms[1:] or chunk_ms
+    chunk_med = float(np.median(steady))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tps = ep.L * ep.sync_every / chunk_med * 1e3
+    say(f"M2 endpoint (dbrx-132b full width, {lay} layers, bf16, "
+        f"L={ep.L}, t_max={ep.t_max}, PS=16, sync_every=8, "
+        f"{ep.alloc.n_pages} pages): {M2_REQS} requests, prompts "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))}, {M2_NEW} "
+        f"tokens each | admission prefill {np.median(pre_ms):.1f}"
+        f" ms median ({min(pre_ms):.1f}..{max(pre_ms):.1f}) | decode chunk "
+        f"{chunk_med:.1f} ms median = {chunk_med / ep.sync_every:.2f} ms a "
+        f"step, {tps:.1f} tokens/s ({len(chunk_ms)} chunks, first "
+        f"{chunk_ms[0]:.1f} ms) | batch re-prefills {ep.batch_reprefills} "
+        f"| launches flash {got['flash']}, paged decode {got['paged']} = "
+        f"{lay} x {steps} steps | peak {peak:.2f} GiB")
+    step_ms = chunk_med / ep.sync_every
+    del ep
+    return dict(got, tokens_per_s=tps, step_ms=step_ms,
+                admission_ms=float(np.median(pre_ms)), peak_gib=peak)
+
+
+def maverick_check(torch, np, dev, say, check):
+    """M3: llama4-maverick-400b-a17b at full width, depth M3_LAYERS (a
+    dense layer at dense_d_ff, a MoE layer of 128 experts top-1 with one
+    shared expert), bf16 only, attention at unit-std scores: M3_PROMPTS
+    prefilled alone (``moe_dense`` holds (E, T, ff) three times: one prompt
+    at a time), M3_STEPS paged decode steps within FULL_LIMITS["bf16"] of
+    the full sequence, each prompt alone paged = dense ``decode_step`` bit
+    for bit, every logit finite."""
+    from repro_torch.models import build_model
+    cfg = cut_config("llama4-maverick-400b-a17b", M3_LAYERS, say,
+                     "M3 maverick-check")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _unit_fan_in(model.init(0, dev))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    kinds = [("moe" if k.is_moe else "dense") for c, p in model.plan
+             for _ in range(c) for k in p]
+    say(f"M3 llama4-maverick-400b-a17b: {cfg.n_layers} layers ({kinds}) "
+        f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"expert ff={cfg.d_ff} dense ff={cfg.dense_d_ff} experts "
+        f"{cfg.n_experts} top-{cfg.top_k} + {cfg.n_shared_experts} shared "
+        f"V={cfg.vocab_size}; {n_par / 1e9:.3f} B params drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    res = full_width_check(torch, np, model, params, dev, say, check,
+                           "bf16, unit-std scores",
+                           limits=FULL_LIMITS["bf16"], plens=M3_PROMPTS,
+                           steps=M3_STEPS, dense=True, dense_steps=M3_STEPS)
+    check(all(bool(torch.isfinite(x).all())
+              for x in res["alone"].values()),
+          "M3: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"M3 peak device memory {peak:.2f} GiB")
+    del params, model
+    return dict(flash=res["flash"], paged=res["paged"], dense=res["dense"],
+                rel=(res["rel"], res["agree"]), peak_gib=peak,
+                prefill_ms=res["prefill_ms"], step_ms=res["step_ms"])
+
+
+def seamless_run(torch, model, params, toks, embeds, say, check, tag):
+    """``prefill(tokens, embeds)`` over the first X1_PROMPT tokens, then
+    X1_STEPS teacher-forced dense ``decode_step``s, and ``logits(tokens,
+    embeds)`` over all of them.  One flash launch per encoder, decoder and
+    cross-attention layer per call; one dense decode launch per decoder
+    self- and cross-attention per step.  Returns (decode logits (B, steps,
+    V), full-sequence logits at those positions, the prefill ms, the ms of
+    a step, the launches)."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.zoo import pad_cache
+    cfg = model.cfg
+    per_call = cfg.n_enc_layers + 2 * cfg.n_layers
+    # the calls by kind: encoder (non-causal, frames x frames), decoder
+    # self-attention (causal), cross-attention (prompt x frames)
+    kinds = []
+    inner = fa_ops.flash_attention
+
+    def tally(q, k, v, *, causal, **kw):
+        kinds.append("self" if causal else
+                     "enc" if q.shape[1] == k.shape[1] else "cross")
+        return inner(q, k, v, causal=causal, **kw)
+
+    want = dict(enc=cfg.n_enc_layers, self=cfg.n_layers, cross=cfg.n_layers)
+    fa_ops.launches = pd_ops.dense_launches = 0
+    fa_ops.flash_attention = tally
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, _ = model.prefill(params, toks[:, :X1_PROMPT], embeds)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fa_ops.flash_attention = inner
+    got = {key: kinds.count(key) for key in want}
+    check(fa_ops.launches == per_call and got == want,
+          f"X1 {tag}: prefill flash launches {fa_ops.launches} by kind "
+          f"{got} != {want}")
+    cache = pad_cache(cache, X1_PROMPT + X1_STEPS)
+    dec = []
+    t0 = time.perf_counter()
+    for t in range(X1_STEPS):
+        cache, lg = model.decode_step(
+            params, cache, toks[:, X1_PROMPT + t:X1_PROMPT + t + 1])
+        dec.append(lg[:, :cfg.vocab_size])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / X1_STEPS
+    dense = pd_ops.dense_launches
+    check(dense == 2 * cfg.n_layers * X1_STEPS,
+          f"X1 {tag}: dense decode launches {dense} != two per decoder "
+          "layer per step")
+    del cache
+    fa_ops.launches = 0
+    full = model.logits(params, toks, embeds)[
+        :, X1_PROMPT:X1_PROMPT + X1_STEPS, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    check(fa_ops.launches == per_call,
+          f"X1 {tag}: logits flash launches {fa_ops.launches} != "
+          f"{per_call}")
+    dec = torch.stack(dec, dim=1)
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
+          f"X1 {tag}: non-finite logits")
+    return dec, full, pre_ms, step_ms, dict(flash=2 * per_call,
+                                            dense=dense)
+
+
+def seamless_check(torch, np, dev, say, check):
+    """X1: seamless-m4t-large-v2 at full width and depth (attention and
+    cross-attention at unit-std scores), B X1_BATCH of seeded normal frame
+    embeddings of X1_FRAMES positions (the reference's stub frontend) and
+    decoder prompts of X1_PROMPT tokens: the decode against ``logits(tokens,
+    embeds)``, in float32 within FULL_LIMITS["float32"], in bf16 held to
+    that float32 full sequence by H1's rule."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("seamless-m4t-large-v2")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _unit_fan_in(model.init(0, dev))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    say(f"X1 seamless-check: seamless-m4t-large-v2 full width and depth "
+        f"({cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"ff={cfg.d_ff} V={cfg.vocab_size}); {n_par / 1e9:.3f} B params "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(0)
+    toks = torch.as_tensor(rng.randint(
+        1, cfg.vocab_size, (X1_BATCH, X1_PROMPT + X1_STEPS)),
+        dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    embeds = torch.randn(X1_BATCH, X1_FRAMES, cfg.d_model, generator=gen,
+                         device=dev)
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    out, launches = {}, dict(flash=0, dense=0)
+    for tag, m, p in (("float32", model32, _tree_to(params, torch.float32)),
+                      ("bf16", model, params)):
+        dec, full, pre_ms, step_ms, got = seamless_run(
+            torch, m, p, toks, embeds, say, check, tag)
+        for key in launches:
+            launches[key] += got[key]
+        out[tag] = dict(dec=dec, full=full, prefill_ms=pre_ms,
+                        step_ms=step_ms)
+        del p
+    lim = FULL_LIMITS["float32"]
+    truth = out["float32"]["full"]
+    g32 = logit_gaps(out["float32"]["dec"], truth)
+    d16 = logit_gaps(out["bf16"]["dec"], truth)
+    f16 = logit_gaps(out["bf16"]["full"], truth)
+    say(f"X1 decode vs logits(tokens, embeds) (B={X1_BATCH}, frames "
+        f"{X1_FRAMES}, prompt {X1_PROMPT}, {X1_STEPS} teacher-forced dense "
+        f"steps): float32 max|diff|/max|logit| = {g32[0]:.4g}, argmax "
+        f"agreement {g32[2]:.4f} (limits: <= {lim[0]}, >= {lim[1]}); bf16 "
+        f"against the float32 full sequence (max, rms relative; argmax): "
+        f"decode {d16[0]:.4g}, {d16[1]:.4g}; {d16[2]:.4f}, full sequence "
+        f"{f16[0]:.4g}, {f16[1]:.4g}; {f16[2]:.4f} | prefill ms "
+        + ", ".join(f"{t} {o['prefill_ms']:.1f}" for t, o in out.items())
+        + " | decode step ms "
+        + ", ".join(f"{t} {o['step_ms']:.2f}" for t, o in out.items())
+        + f" | launches {launches}")
+    check(g32[0] <= lim[0] and g32[2] >= lim[1],
+          "X1 float32: the decode disagrees with the full sequence")
+    check(d16[0] <= TRUTH_FACTOR * f16[0] and d16[1] <= TRUTH_FACTOR * f16[1],
+          "X1 bf16: the decode is farther from the float32 logits than "
+          "the full sequence")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"X1 peak device memory {peak:.2f} GiB")
+    del params, model, model32
+    return dict(launches, paged=0, rel=dict(float32=g32, bf16=d16,
+                                            bf16_full=f16),
+                peak_gib=peak, prefill_ms={t: o["prefill_ms"]
+                                           for t, o in out.items()},
+                step_ms={t: o["step_ms"] for t, o in out.items()})
+
+
+def moe_encdec_phase(torch, np, dev, say, check):
+    """Phases M (M1, M2, M3) and X (X1), each model freed before the next
+    is built.  Returns the kernels' launches and a summary."""
+    launches = dict(flash=0, paged=0, dense=0)
+    summary = {}
+    for tag, fn in (("M1", dbrx_check), ("M2", dbrx_endpoint),
+                    ("M3", maverick_check), ("X1", seamless_check)):
+        t0 = time.perf_counter()
+        res = fn(torch, np, dev, say, check)
+        torch.cuda.empty_cache()
+        for key in launches:
+            launches[key] += res[key]
+        res["seconds"] = time.perf_counter() - t0
+        say(f"time: {tag} {res['seconds']:.1f} s")
+        summary[tag] = res
     return launches, summary
 
 
@@ -5044,11 +5517,18 @@ def main() -> int:
     # xlstm-350m (H2) at full width, the reference's six-model pool (H4)
     h_runs, h_summary = recurrent_phase(torch, np, dev, say, check)
     mark("H")
+    # M and X. the MoE family (dbrx-132b, llama4-maverick-400b-a17b) and the
+    # encoder-decoder (seamless-m4t-large-v2) at full width
+    mx_runs, mx_summary = moe_encdec_phase(torch, np, dev, say, check)
+    mark("M and X")
     rows["paged_decode_attention"]["launches"] += (e1_paged + g3["paged"]
-                                                   + h_runs["paged"])
+                                                   + h_runs["paged"]
+                                                   + mx_runs["paged"])
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
-                                           + g3["flash"] + h_runs["flash"])
-    rows["decode_attention"]["launches"] = main["dense"] + h_runs["dense"]
+                                           + g3["flash"] + h_runs["flash"]
+                                           + mx_runs["flash"])
+    rows["decode_attention"]["launches"] = (main["dense"] + h_runs["dense"]
+                                            + mx_runs["dense"])
     rows["decode_attention"]["max_abs_err"] = max(
         rows["decode_attention"]["max_abs_err"], main["i1"]["kernel_err"])
     rows["retrieval_vote"]["launches"] += (main["vote"] + g3["vote"]
@@ -5085,6 +5565,7 @@ def main() -> int:
                                       g4_runs=g4_sites), default=str))
     say("phase T: " + json.dumps(fit_summary))
     say("phase H: " + json.dumps(h_summary))
+    say("phases M and X: " + json.dumps(mx_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

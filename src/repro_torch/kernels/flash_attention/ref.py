@@ -47,12 +47,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_chunked(q, k, v, *, causal: bool, window: int = 0,
-                            q_offset: int = 0, kv_chunk: int = 512
-                            ) -> torch.Tensor:
+                            q_offset: int = 0, kv_chunk: int = 512,
+                            kv_valid=None) -> torch.Tensor:
     """Online-softmax attention over KV chunks (O(S) memory).  q (B,Sq,H,D),
     k/v (B,Skv,K,D).  Operands in the model dtype, products accumulated in
     float32 (the operands widen exactly), ``p`` rounded to the operand dtype
-    before the P.V product: the numerics of ``flash_attention_jnp``."""
+    before the P.V product: the numerics of ``flash_attention_jnp``.  Key
+    positions >= ``kv_valid`` (when given) are masked: keys padded to a
+    multiple of ``kv_chunk``, as the CUDA kernel tiles them."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -77,6 +79,8 @@ def flash_attention_chunked(q, k, v, *, causal: bool, window: int = 0,
         kv_pos = c * kv_chunk + torch.arange(kv_chunk, device=q.device)
         s = torch.einsum("bqkgd,bckd->bqkgc", qf, kx)
         valid = _mask(q_pos, kv_pos, causal=causal, window=window)
+        if kv_valid is not None:
+            valid = valid & (kv_pos < kv_valid)[None, :]
         s = s.masked_fill(~valid[None, :, None, None, :], NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])

@@ -1,6 +1,6 @@
-"""Attention for the dense decoder: the full-sequence (prefill) path, the
-paged decode and verify paths and the dense-cache decode path, each through
-a hand-written kernel.
+"""Attention for the decoder and the encoder-decoder: the full-sequence
+(prefill) path, the paged decode and verify paths, the dense-cache decode
+path and cross-attention, each through a hand-written kernel.
 
 The port of ``repro.models.attention`` for the branches the serving planes
 run: the full-sequence branch (``kernels.flash_attention.ops.
@@ -12,8 +12,14 @@ prewritten dense-cache decode of one position (``kernels.decode_attention.
 ops.decode_attention``) and of several (``ops.verify_attention``, the
 same dense-cache kernel at S positions: the verify of an int8 pool's
 dense view): the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU tensor.  Cross-attention and the decode that writes its
-own K/V column raise ``NotImplementedError``.
+versions on a CPU tensor.  Cross-attention (the encoder-decoder's) has
+both of the reference's branches: over the full sequence, K/V projected
+from ``kv_x`` without RoPE and attended non-causally through the flash
+kernel (query and key lengths differ), and in decode, the unroped query
+over a layer's cached encoder K/V through the dense-cache decode kernel at
+the cache's whole length (``cross_cached``).  The decode that writes its
+own K/V column (no caller in the reference reaches it) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -83,13 +89,20 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     the K/V of every query position into the page pools (``k_pages``) or
     the dense cache (``k``).  On both x may carry S > 1 positions per
     sequence (the speculative verify): position s sits at ``pos[b] + s``
-    and attends to positions <= ``pos[b] + s``."""
-    if kv_x is not None or cross_cached:
-        raise NotImplementedError("cross-attention is not ported yet")
+    and attends to positions <= ``pos[b] + s``.  Cross-attention: ``kv_x``
+    (B, Skv, d) the source of K/V on the full sequence, or ``cross_cached``
+    with ``cache`` {"k", "v"} (B, Skv, K, D) the cached source K/V in
+    decode; new_kv is the projected (k, v) of ``kv_x``, None in decode."""
+    src = x if kv_x is None else kv_x
     q = _proj(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    if cache is not None:
+    if cache is not None and cross_cached:
+        # every cached source position is visible: lens = the cache length
+        out = decode_ops.decode_attention(q, cache["k"], cache["v"],
+                                          cache["k"].shape[1], window=0)
+        new_kv = None
+    elif cache is not None:
         sq = x.shape[1]
         paged = "k_pages" in cache
         if not prewritten:
@@ -112,13 +125,13 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                          cache["block_table"], pos + 1, window=window)
         new_kv = None
     else:
-        k = _proj(x, params["wk"])
-        v = _proj(x, params["wv"])
+        k = _proj(src, params["wk"])
+        v = _proj(src, params["wv"])
         if "bk" in params:
             k, v = k + params["bk"], v + params["bv"]
         if use_rope:
             q_pos = q_offset + torch.arange(x.shape[1], device=x.device)
-            kv_pos = torch.arange(x.shape[1], device=x.device)
+            kv_pos = torch.arange(src.shape[1], device=x.device)
             q = rope(q, q_pos[None, :], cfg.rope_theta)
             k = rope(k, kv_pos[None, :], cfg.rope_theta)
         out = flash_ops.flash_attention(q, k, v, causal=causal,

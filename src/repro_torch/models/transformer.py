@@ -1,4 +1,5 @@
-"""Decoder LM of the dense, hybrid-SSM (hymba) and xLSTM families.
+"""Decoder LM of the dense, MoE, hybrid-SSM (hymba) and xLSTM families,
+and the layer blocks the encoder-decoder (``encdec.EncDecLM``) shares.
 
 The port of ``repro.models.transformer.DecoderLM`` on the paths the serving
 planes run: the full-sequence forward (``hidden``/``logits``), ``prefill``
@@ -7,9 +8,17 @@ single-token decode (``empty_cache``, ``decode_step``: the restart-batching
 baseline), the paged single-token decode (``decode_step_paged``) and the
 paged multi-position verify of the speculative plane
 (``verify_step_paged``, attention layers only: a recurrent layer raises, as
-in the reference).  A layer is an attention block with a gated MLP, a
+in the reference).  A layer is an attention block with a gated MLP or a
+mixture-of-experts FFN (``moe.moe_block``, where ``kind.is_moe``), a
 hymba block (attention in parallel with SSD heads, then the MLP), an mLSTM
-or an sLSTM block (``plan.layer_plan``).  The page pools hold the attention
+or an sLSTM block (``plan.layer_plan``); the encoder-decoder adds the
+non-causal ``enc`` block and the ``xdec`` block (self-attention, then
+cross-attention into the encoder's memory, then the FFN), whose caches
+hold the encoder K/V ``ck``/``cv`` beside the self-attention K/V and have
+no paged form (as in the reference).  ``hidden``, ``logits`` and
+``prefill`` take frame or patch embeddings (``embeds``, cast to the
+config's dtype) put before the token embeddings, as the reference's
+``_embed_input``.  The page pools hold the attention
 K/V; the recurrent state (hymba's SSD state and convolution tail, the
 mLSTM's matrix memory, the sLSTM's cell) is kept per slot, ``(count,
 n_slots, ...)``, beside them.
@@ -24,10 +33,8 @@ The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
-the layers takes the place of ``lax.scan``.
-
-Not ported yet: the MoE block, cross-attention and the training loss;
-their configs raise ``NotImplementedError``.
+the layers takes the place of ``lax.scan``.  The training loss is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -42,11 +49,10 @@ from .attention import attention_block, attn_decls, project_kv_token
 from .hymba_block import hymba_decls, hymba_layer
 from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
                      norm_decl, rms_norm)
+from .moe import moe_block, moe_decls
 from .plan import LayerKind, layer_plan
 from .xlstm_blocks import _dims as xlstm_dims
 from .xlstm_blocks import mlstm_block, mlstm_decls, slstm_block, slstm_decls
-
-_PORTED_BLOCKS = ("attn", "hymba", "mlstm", "slstm")
 
 
 def _stack(decls, count: int):
@@ -75,27 +81,44 @@ def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
             "ln2": norm_decl(cfg.d_model, dt),
             "ffn": mlp_decls(cfg.d_model, cfg.d_ff, dt),
         }
-    return {
+    d = {
         "ln1": norm_decl(cfg.d_model, dt),
         "attn": attn_decls(cfg),
         "ln2": norm_decl(cfg.d_model, dt),
-        "ffn": mlp_decls(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, dt),
+        "ffn": (moe_decls(cfg) if kind.is_moe else
+                mlp_decls(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, dt)),
     }
+    if kind.block == "xdec":
+        d["ln_cross"] = norm_decl(cfg.d_model, dt)
+        d["cross"] = attn_decls(cfg)
+    return d
 
 
-def _ffn_residual(cfg: ModelConfig, params: dict, x: torch.Tensor
-                  ) -> torch.Tensor:
+def _ffn_residual(cfg: ModelConfig, kind: LayerKind, params: dict,
+                  x: torch.Tensor) -> torch.Tensor:
     """Post-attention tail shared by the full-sequence and decode paths:
-    ln2 + dense FFN residual."""
+    ln2 + (MoE or dense) FFN residual."""
     f = rms_norm(x, params["ln2"], cfg.norm_eps)
+    if kind.is_moe:
+        return x + moe_block(cfg, params["ffn"], f)
     return x + mlp(params["ffn"], f)
 
 
+def _cross(cfg: ModelConfig, params: dict, x: torch.Tensor, **kw):
+    """The xdec block's cross-attention branch: ln_cross, then non-causal
+    attention without RoPE into the encoder's memory (``kv_x``) or its
+    cached K/V (``cache``, ``cross_cached``).  Returns (out, new_kv)."""
+    h = rms_norm(x, params["ln_cross"], cfg.norm_eps)
+    return attention_block(cfg, params["cross"], h, causal=False,
+                           use_rope=False, **kw)
+
+
 def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
-                 x: torch.Tensor, *, q_offset: int = 0):
+                 x: torch.Tensor, *, q_offset: int = 0, enc_memory=None):
     """Full-sequence layer.  Returns (x, this layer's cache: {"k", "v"} of
-    an attention layer, with hymba's {"s", "conv"}; the recurrent blocks'
-    final state)."""
+    an attention layer, with hymba's {"s", "conv"} and an xdec layer's
+    encoder K/V {"ck", "cv"} (cross-attention into ``enc_memory``); the
+    recurrent blocks' final state)."""
     if kind.block == "mlstm":
         out, st = mlstm_block(cfg, params["mlstm"], x)
         return x + out, st
@@ -106,12 +129,19 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
         out, ((k, v), ssm) = hymba_layer(cfg, params["hymba"], x,
                                          window=kind.window,
                                          q_offset=q_offset)
-        return (_ffn_residual(cfg, params, x + out),
+        return (_ffn_residual(cfg, kind, params, x + out),
                 {"k": k, "v": v, **ssm})
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    a, (k, v) = attention_block(cfg, params["attn"], h, causal=True,
+    a, (k, v) = attention_block(cfg, params["attn"], h,
+                                causal=kind.block != "enc",
                                 window=kind.window, q_offset=q_offset)
-    return _ffn_residual(cfg, params, x + a), {"k": k, "v": v}
+    x = x + a
+    cache = {"k": k, "v": v}
+    if kind.block == "xdec":
+        ca, (cache["ck"], cache["cv"]) = _cross(cfg, params, x,
+                                                kv_x=enc_memory)
+        x = x + ca
+    return _ffn_residual(cfg, kind, params, x), cache
 
 
 def _quant_kv(x: torch.Tensor):
@@ -197,7 +227,8 @@ def _finish_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
                   i: int) -> torch.Tensor:
     """The rest of a decode layer once its token's K/V are written:
     attention over ``lc`` (hymba: in parallel with the SSD heads, whose
-    state is read from and written back to layer i of ``stacked``) and the
+    state is read from and written back to layer i of ``stacked``; xdec:
+    then cross-attention over layer i's encoder K/V ``ck``/``cv``) and the
     FFN residual."""
     if kind.block == "hymba":
         lc = dict(lc, s=stacked["s"][i], conv=stacked["conv"][i])
@@ -209,7 +240,11 @@ def _finish_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
         out, _ = attention_block(cfg, params["attn"], h, causal=True,
                                  window=kind.window, cache=lc,
                                  prewritten=True)
-    return _ffn_residual(cfg, params, x + out)
+        if kind.block == "xdec":
+            x = x + out
+            out, _ = _cross(cfg, params, x, cross_cached=True, cache={
+                "k": stacked["ck"][i], "v": stacked["cv"][i]})
+    return _ffn_residual(cfg, kind, params, x + out)
 
 
 def _decode_recurrent(cfg: ModelConfig, kind: LayerKind, params: dict,
@@ -328,7 +363,7 @@ def _verify_layer_paged(cfg: ModelConfig, kind: LayerKind, params: dict,
               "block_table": block_table, "pos": lens}
     a, _ = attention_block(cfg, params["attn"], h, causal=True,
                            window=kind.window, cache=lc, prewritten=True)
-    return _ffn_residual(cfg, params, x + a)
+    return _ffn_residual(cfg, kind, params, x + a)
 
 
 def _logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -348,17 +383,11 @@ def _logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 class DecoderLM:
     """Decoder language model: dense (sliding-window and local:global
-    attention patterns included), hybrid-SSM and xLSTM."""
+    attention patterns included), MoE, hybrid-SSM and xLSTM."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.plan = layer_plan(cfg)
-        for _, pattern in self.plan:
-            for kind in pattern:
-                if kind.block not in _PORTED_BLOCKS or kind.is_moe:
-                    raise NotImplementedError(
-                        f"{cfg.name}: layer block {kind.block!r} (moe="
-                        f"{kind.is_moe}) is not ported yet")
 
     # -- declarations --------------------------------------------------
     def decls(self) -> dict:
@@ -392,16 +421,27 @@ class DecoderLM:
                 for j, kind in enumerate(pattern):
                     yield kind, _layer(params["segs"][si][j], i), si, j, i
 
+    # -- embedding -------------------------------------------------------
+    def _embed_input(self, params, tokens, embeds):
+        """Frame or patch embeddings (B, F, d), cast to the config's dtype,
+        before the token embeddings (B, S, d); either may be None."""
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(self.cfg.dtype))
+        if tokens is not None:
+            parts.append(embed_lookup(params["embed"], tokens))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
     # -- full-sequence forward ------------------------------------------
-    def hidden(self, params, tokens: torch.Tensor, q_offset: int = 0):
+    def hidden(self, params, tokens=None, embeds=None, q_offset: int = 0):
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
+        x = self._embed_input(params, tokens, embeds)
         for kind, lp, *_ in self._layers(params):
             x, _ = _apply_layer(cfg, kind, lp, x, q_offset=q_offset)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
-    def logits(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        h = self.hidden(params, tokens)
+    def logits(self, params, tokens=None, embeds=None) -> torch.Tensor:
+        h = self.hidden(params, tokens, embeds)
         return logits_for(self._out_table(params), h).float()
 
     # -- caches -------------------------------------------------------------
@@ -461,6 +501,8 @@ class DecoderLM:
         scales) shared by every slot, and the per-slot recurrent state
         ``(count, n_slots, ...)``."""
         device = default_device(device)
+        if any(k.block == "xdec" for _, p in self.plan for k in p):
+            raise NotImplementedError("paged decode does not cover enc-dec")
         return {"segs": [
             [self._buffers(kind, count, (n_pages, page_size), n_slots,
                            device)
@@ -468,17 +510,14 @@ class DecoderLM:
             for count, pattern in self.plan]}
 
     # -- prefill: build the cache over a prompt -----------------------------
-    def prefill(self, params, tokens: torch.Tensor):
-        """tokens (B, S).  Returns (cache, float32 logits of the last
-        position): cache ``{"pos": S, "segs": [[{"k", "v"} of shape
-        (count, B, S, K, D)]]}`` (int8: with ``k_scale``/``v_scale`` of
-        shape (count, B, S, K)); a recurrent layer's entry holds its final
-        state ``(count, B, ...)`` (hymba: beside its K/V)."""
+    def _prefill_layers(self, params, x, **kw):
+        """Run ``x`` through the stack.  Returns (cache, float32 logits of
+        the last position): the layers' caches stacked per pattern
+        position, ``pos`` the sequence length."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
         per_layer: dict = {}
         for kind, lp, si, j, _ in self._layers(params):
-            x, lc = _apply_layer(cfg, kind, lp, x)
+            x, lc = _apply_layer(cfg, kind, lp, x, **kw)
             per_layer.setdefault((si, j), []).append(
                 _quant_leaves(cfg, kind, lc))
         segs = [[{key: torch.stack([lc[key] for lc in per_layer[(si, j)]])
@@ -487,7 +526,17 @@ class DecoderLM:
                 for si, (_, pattern) in enumerate(self.plan)]
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_for(self._out_table(params), h[:, -1]).float()
-        return {"pos": tokens.shape[1], "segs": segs}, logits
+        return {"pos": x.shape[1], "segs": segs}, logits
+
+    def prefill(self, params, tokens=None, embeds=None):
+        """tokens (B, S), after ``embeds`` (B, F, d) when given.  Returns
+        (cache, float32 logits of the last position): cache ``{"pos": F +
+        S, "segs": [[{"k", "v"} of shape (count, B, F + S, K, D)]]}``
+        (int8: with ``k_scale``/``v_scale`` of shape (count, B, F + S,
+        K)); a recurrent layer's entry holds its final state ``(count, B,
+        ...)`` (hymba: beside its K/V)."""
+        return self._prefill_layers(
+            params, self._embed_input(params, tokens, embeds))
 
     # -- dense-cache single-token decode -------------------------------------
     def decode_step(self, params, cache: dict, token: torch.Tensor):

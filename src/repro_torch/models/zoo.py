@@ -6,8 +6,8 @@ grows a prefill cache so ``decode_step`` can append (the restart baseline);
 and the admission path's helpers — prefill ONE request and scatter its
 cache into the endpoint's fixed-shape paged state (``prefill_into_pages``),
 zero a slot's recurrent state (``reset_slot``), and size a request's pages
-(``pages_per_request``).  Families not ported yet (MoE, encoder-decoder)
-raise.
+(``pages_per_request``).  Every family of the reference builds: the
+encoder-decoder as ``EncDecLM``, every other family as ``DecoderLM``.
 """
 from __future__ import annotations
 
@@ -15,21 +15,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from .encdec import EncDecLM
 from .transformer import DecoderLM
-
-_NOT_PORTED = ("moe", "encdec")
 
 
 def build_model(cfg: ModelConfig) -> DecoderLM:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet")
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     return DecoderLM(cfg)
 
 
 def pad_cache(cache: dict, t_max: int) -> dict:
     """Grow the KV buffers (dim 2 of the ``(layers, B, T, K, D)`` leaves,
-    and of an int8 cache's ``(layers, B, T, K)`` scales) to ``t_max``
+    and of an int8 cache's ``(layers, B, T, K)`` scales; an encoder-decoder
+    cache's encoder K/V ``ck``/``cv`` stay as they are) to ``t_max``
     positions with zeros; a new cache, ``pos`` kept.  Needed after
     ``prefill`` before ``decode_step`` can append new tokens."""
     def grow(key, leaf):

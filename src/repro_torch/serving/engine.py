@@ -209,6 +209,11 @@ class Endpoint:
     def __init__(self, cfg: ModelConfig, *, max_concurrency: int = 4,
                  t_max: int = 128, seed: int = 0, page_size: int = 16,
                  sync_every: int = 8, params=None, device=None):
+        if cfg.family == "encdec":
+            # the reference's error; the port's RestartEndpoint refuses the
+            # family too
+            raise NotImplementedError("paged serving covers decoder LMs; "
+                                      "serve enc-dec via RestartEndpoint")
         self.cfg = cfg
         self.device = default_device(device)
         self.L = max_concurrency
@@ -544,6 +549,12 @@ class RestartEndpoint:
 
     def __init__(self, cfg: ModelConfig, *, max_concurrency: int = 4,
                  t_max: int = 128, seed: int = 0, params=None, device=None):
+        if cfg.family == "encdec":
+            # the reference's admission re-prefills without the encoder's
+            # frames and fails there; refused here before any state is made
+            raise NotImplementedError(
+                "restart batching re-prefills token prompts; the enc-dec "
+                "family needs frame embeddings that no request carries")
         self.cfg = cfg
         self.device = default_device(device)
         self.L = max_concurrency

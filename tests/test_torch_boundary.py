@@ -52,7 +52,8 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.kernels.flash_attention.ops',\n"
         "        'repro_torch.kernels.flash_attention.kernel',\n"
         "        'repro_torch.kernels.flash_attention.ref',\n"
-        "        'repro_torch.models.zoo',\n"
+        "        'repro_torch.models.zoo', 'repro_torch.models.moe',\n"
+        "        'repro_torch.models.encdec',\n"
         "        'repro_torch.common.guards',\n"
         "        'repro_torch.analysis.sanitize',\n"
         "        'repro_torch.analysis.sanitize.racecheck',\n"
@@ -76,6 +77,17 @@ def test_source_scan_finds_no_jax_or_reference_import():
                  for p in files
                  for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("rel", ["src/repro_torch/models/moe.py",
+                                 "src/repro_torch/models/encdec.py",
+                                 "chip_smoke.py"])
+def test_source_scan_covers_the_model_families(rel):
+    """The MoE FFN, the encoder-decoder and ``chip_smoke.py`` are among
+    the scanned sources, and none imports ``jax`` or ``repro``."""
+    path = ROOT / rel
+    assert path in _port_sources()
+    assert not _FORBIDDEN.search(path.read_text())
 
 
 def test_source_scan_pattern_catches_imports():

@@ -10,7 +10,11 @@ does not).  Inputs are made with numpy from a seed and rounded to bf16 the
 same way in both packages.  A ragged Sq (not a multiple of the kernel's
 64-position query blocks nor of the JAX kernel's blocks) is held to both
 references, and a ``q_offset`` case (a query block that continues a prefix)
-to ``flash_attention_jnp``, which the JAX model runs.
+to ``flash_attention_jnp``, which the JAX model runs.  The chunked
+version at the kernel's step over keys padded to a multiple of it, with
+the pad masked (``kv_valid``), is held to ``flash_attention_jnp``
+without causality, at equal and at unequal query and key lengths (the
+encoder-decoder's encoder and cross-attention).
 
 The CUDA kernel has no CPU mode: its wrapper refuses CPU tensors here and
 ``chip_smoke.py`` holds it against the chunked version on the card.
@@ -121,6 +125,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     (32, 32, 96, torch.bfloat16, 128, True, 64),    # phi-3-vision-4.2b
     (25, 5, 64, torch.bfloat16, 25, True, 64),      # hymba-1.5b (G 5)
     (25, 5, 64, torch.float32, 51, True, 32),
+    (48, 8, 128, torch.bfloat16, 21, True, 64),     # dbrx-132b (G 6)
+    (40, 8, 128, torch.bfloat16, 25, True, 64),     # llama4-maverick (G 5)
+    (16, 16, 64, torch.bfloat16, 128, True, 64),    # seamless-m4t (G 1)
+    (16, 16, 64, torch.float32, 256, True, 32),
 ])
 def test_kernel_geometry(h, kh, d, dtype, block, fits, step):
     """Query positions per CTA (bf16: 128 rows on the tensor cores; float32:
@@ -157,3 +165,23 @@ def test_chunked_at_kernel_step_matches_flash_attention_jnp(
                                q_offset=q_offset)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert _err(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("sq,skv", [(150, 150), (70, 150)])
+def test_chunked_at_kernel_step_masks_the_pad_without_causality(sq, skv):
+    """Non-causal attention (an encoder, and cross-attention with Sq !=
+    Skv) at the kernel's softmax step: the zero-padded keys are masked by
+    ``kv_valid`` and the result is ``flash_attention_jnp``'s at the bf16
+    bound; unmasked, the pad takes a share of every row's softmax."""
+    (q, k, v), (jq, jk, jv) = _inputs(2, sq, skv, 4, 4, 64, "bfloat16",
+                                      seed=4)
+    step = softmax_step(64, torch.bfloat16)
+    pad = -skv % step
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (k, v))
+    want = flash_attention_jnp(jq, jk, jv, causal=False)
+    got = flash_attention_chunked(q, kp, vp, causal=False, kv_chunk=step,
+                                  kv_valid=skv)
+    assert got.shape == q.shape and _err(got, want) < 2e-2
+    leaky = flash_attention_chunked(q, kp, vp, causal=False, kv_chunk=step)
+    assert _err(leaky, want) > 0.1

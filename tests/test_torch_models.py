@@ -3,9 +3,11 @@
 The smoke configs of h2o-danube-3-4b (sliding window), internlm2-20b,
 qwen2-72b (``qkv_bias``), gemma3-4b (5:1 local:global, tied embeddings),
 hymba-1.5b (attention in parallel with SSD heads in every layer, per-slot
-SSD state beside the page pools) and xlstm-350m (mLSTM and sLSTM blocks,
-per-slot state only), run in float32 in both packages with the JAX
-parameters carried over by ``convert.model_params_from_numpy``:
+SSD state beside the page pools), xlstm-350m (mLSTM and sLSTM blocks,
+per-slot state only), dbrx-132b (a mixture-of-experts FFN in every layer)
+and llama4-maverick-400b-a17b (a dense layer, then a MoE layer with a
+shared expert), run in float32 in both packages with the JAX parameters
+carried over by ``convert.model_params_from_numpy``:
 
 - the full-sequence ``logits`` and ``prefill`` (last-position logits, the
   K/V cache and the recurrent state of every layer);
@@ -27,7 +29,11 @@ parameters carried over by ``convert.model_params_from_numpy``:
   ``test_decode_matches_full_forward``, same tolerance), and the dense
   decode and the paged decode give the same greedy tokens in the model
   dtype (``tests/test_serving_paged.py``'s
-  ``test_paged_decode_matches_dense``);
+  ``test_paged_decode_matches_dense``, dbrx-132b among its cases);
+- phi-3-vision-4.2b's patch-embedding prefix (``embeds`` before the
+  tokens) through ``logits``, ``prefill`` and dense decode steps;
+- the full-width declarations (parameter counts, plans) of every family,
+  on no device.
 
 Tolerance: max |port - JAX| <= 1e-4 * max(1, max |JAX|).  Both sum float32
 products in another order; with random weights the activations reach ~20
@@ -55,7 +61,8 @@ from repro_torch.models.zoo import (pad_cache,  # noqa: E402
                                     pages_per_request, prefill_into_pages)
 
 ARCHS = ["h2o-danube-3-4b", "internlm2-20b", "qwen2-72b", "gemma3-4b",
-         "hymba-1.5b", "xlstm-350m"]
+         "hymba-1.5b", "xlstm-350m", "dbrx-132b",
+         "llama4-maverick-400b-a17b"]
 RECURRENT = ("hymba-1.5b", "xlstm-350m")
 TOL = {"xlstm-350m": 1e-3}
 # the recurrent state after decode steps: the xLSTM stack amplifies float32
@@ -290,7 +297,7 @@ def test_decode_matches_full_forward(arch):
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma3-4b",
-                                  "hymba-1.5b", "xlstm-350m"])
+                                  "hymba-1.5b", "xlstm-350m", "dbrx-132b"])
 def test_paged_decode_matches_dense(arch):
     """Per-request paged prefill + decode reproduces the packed dense batch
     token for token in the model dtype (equal prompt lengths, so the dense
@@ -324,10 +331,70 @@ def test_paged_decode_matches_dense(arch):
         lens = lens + 1
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        build_model(get_smoke_config(arch))
+def test_prefix_embeds_match_jax():
+    """phi-3-vision-4.2b's frontend: patch embeddings (float32, cast to the
+    model dtype) before the tokens, through ``logits``, ``prefill`` (the
+    cache covers both, ``pos`` counts both) and four dense decode steps."""
+    arch = "phi-3-vision-4.2b"
+    jm, jp, pm, pp = _pair(arch, seed=5)
+    rng = np.random.RandomState(5)
+    toks = rng.randint(1, jm.cfg.vocab_size, (2, 13)).astype(np.int32)
+    emb = rng.randn(2, 6, jm.cfg.d_model).astype(np.float32)
+    je, pe = jnp.asarray(emb), torch.from_numpy(emb)
+    full = pm.logits(pp, torch.from_numpy(toks), pe)
+    assert tuple(full.shape) == (2, 19, pm.cfg.padded_vocab)
+    _close(full.numpy(), jm.logits(jp, jnp.asarray(toks), je), arch)
+    jcache, jlog = jm.prefill(jp, jnp.asarray(toks[:, :-1]), je)
+    pcache, plog = pm.prefill(pp, torch.from_numpy(toks[:, :-1]), pe)
+    _close(plog.numpy(), jlog, arch)
+    assert pcache["pos"] == int(jcache["pos"]) == 18
+    jcache, pcache = jax_pad(jcache, 24), pad_cache(pcache, 24)
+    for jl, pl in zip(jcache["segs"][0], pcache["segs"][0]):
+        for key in jl:
+            _close(pl[key].numpy(), jl[key], arch)
+    last = toks[:, -1:]
+    vocab = jm.cfg.vocab_size
+    for _ in range(4):
+        jcache, jlog = jm.decode_step(jp, jcache, jnp.asarray(last))
+        pcache, plog = pm.decode_step(pp, pcache, torch.from_numpy(last))
+        _close(plog.numpy(), jlog, arch)
+        if _ == 0:     # the step after the prompt: the full forward's last
+            _close(plog.numpy(), full[:, -1].numpy(), arch)
+        last = np.asarray(jlog)[:, :vocab].argmax(-1).astype(np.int32)[:, None]
+        assert np.array_equal(plog.numpy()[:, :vocab].argmax(-1), last[:, 0])
+
+
+@pytest.mark.parametrize("arch,n_params,plan", [
+    # 40 MoE layers of 16 experts (d 6,144, ff 10,752)
+    ("dbrx-132b", 131_596_523_520, [(40, (("attn", True),))]),
+    # 24 periods of (dense layer at dense_d_ff 16,384, MoE layer of 128
+    # experts + one shared)
+    ("llama4-maverick-400b-a17b", 400_713_815_040,
+     [(24, (("attn", False), ("attn", True)))]),
+    # 24 encoder and 24 decoder layers, d 1,024, no separate LM head
+    ("seamless-m4t-large-v2", 1_772_480_512, [(24, (("xdec", False),))]),
+])
+def test_full_width_moe_and_encdec_declare_their_published_shapes(
+        arch, n_params, plan):
+    """dbrx-132b, llama4-maverick-400b-a17b and seamless-m4t-large-v2 at
+    full width (declarations only, nothing allocated): the parameter
+    counts of the reference's declarations and the layer plans."""
+    cfg = get_config(arch)
+    m = build_model(cfg)
+    decls = m.decls()
+    assert sum(int(np.prod(d.shape)) for d in _leaves(decls)) == n_params
+    assert [(c, tuple((k.block, k.is_moe) for k in p))
+            for c, p in m.plan] == plan
+    if arch == "seamless-m4t-large-v2":
+        assert [(c, [k.block for k in p]) for c, p in m.enc_plan] == [
+            (24, ["enc"])]
+        assert "out_embed" not in decls
+        with pytest.raises(NotImplementedError):
+            m.empty_paged_state(1, 1, 1, device="meta")
+    else:
+        state = m.empty_paged_state(1, 1, 1, device="meta")
+        per_token = sum(t.numel() * t.element_size() for t in _leaves(state))
+        assert per_token == 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
 
 
 def test_init_draws_the_config_dtype_and_the_reference_scales():
@@ -375,15 +442,16 @@ def _leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("kwargs", [dict(kv_x=True), dict(cache={})])
+# the decode branch that writes its own K/V column: no caller of the
+# reference reaches it (every decode path writes first, ``prewritten``)
+@pytest.mark.parametrize("kwargs", [pytest.param(dict(cache={}),
+                                                 id="kwargs1")])
 def test_unported_attention_branches_raise(kwargs):
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
                               dtype=torch.float32)
     m = build_model(cfg)
     p = m.init(0, "cpu")["segs"][0][0]["attn"]
     x = torch.zeros(1, 2, cfg.d_model)
-    if kwargs.get("kv_x") is True:
-        kwargs = dict(kv_x=x)
     with pytest.raises(NotImplementedError):
         attention_block(cfg, {k: v[0] for k, v in p.items()}, x, **kwargs)
 

@@ -15,7 +15,9 @@
   float32 sums of XLA and PyTorch differ in order, and the exit lands one
   iteration apart (the JAX solver itself ends that window after 118
   iterations at one shard and after 5 at four, from the sum order alone).
-- The speculative server on the float32 smoke h2o-danube-3-4b (the JAX
+- The speculative server on the float32 smoke h2o-danube-3-4b, and on
+  dbrx-132b's (the MoE family; the reference's
+  ``test_speculative_matches_strong_only_moe``) (the JAX
   test's prompts of 5, 11 and 3 tokens, k = 3, ``max_new`` 9 + i, a draft
   with other weights): output equal to the port's strong-only decode AND to
   the JAX speculative server on the same parameters, and the same number of
@@ -195,11 +197,11 @@ def test_route_window_pair_columns_match_jax(shards):
 
 # -- the engine's speculative plane ---------------------------------------------
 
-def _endpoint_pair(seeds=(7, 0), params_from=None):
+def _endpoint_pair(seeds=(7, 0), params_from=None, arch=ARCH):
     """(JAX endpoints, port endpoints) on the same float32 parameters, one
-    per seed, for the float32 smoke h2o-danube-3-4b."""
-    jc = dataclasses.replace(jax_smoke(ARCH), dtype=jnp.float32)
-    pc = dataclasses.replace(get_smoke_config(ARCH), dtype=torch.float32)
+    per seed, for the float32 smoke config of ``arch``."""
+    jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
+    pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     jeps, peps = [], []
     for seed in seeds:
         je = jax_engine.Endpoint(jc, seed=seed, **EP)
@@ -244,7 +246,21 @@ def _drained(ep):
 
 
 def test_spec_server_matches_strong_only_and_jax():
-    jeps, peps = _endpoint_pair()
+    _spec_against_strong_only_and_jax(ARCH)
+
+
+def test_spec_server_matches_strong_only_and_jax_moe():
+    """The same on the MoE family (dbrx-132b's smoke config), in lockstep
+    with the reference's ``test_speculative_matches_strong_only_moe``."""
+    _spec_against_strong_only_and_jax("dbrx-132b")
+
+
+def _spec_against_strong_only_and_jax(arch):
+    """A (draft seed 7, verify seed 0) pair at k = 3 over three prompts:
+    every output equals the verify model's strong-only decode and the JAX
+    speculative server's, with as many rounds as JAX; both allocators
+    drain."""
+    jeps, peps = _endpoint_pair(arch=arch)
     prompts = _prompts(peps[0].cfg.vocab_size)
     max_new = [9 + i for i in range(3)]
     psrv = MultiLLMServer(peps, None, spec_pairs=(SpecPair(0, 1, k=3),))
