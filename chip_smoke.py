@@ -4,18 +4,20 @@ routed speculative stream, the dense-cache generation path, neighbour-only
 top-k retrieval, the seed's per-iteration solve, the serving simulator,
 predictor training, the serving engine's failure plane, the sanitizer
 plane and runtime guards, int8 KV pools, the recurrent model families,
-the MoE family and the encoder-decoder) on one NVIDIA GPU.
+the MoE family, the encoder-decoder and language-model training) on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the nine hand-written CUDA kernels from ``src/repro_torch/csrc``
+It builds the ten hand-written CUDA kernels from ``src/repro_torch/csrc``
 (one ``nvcc`` per source, all started together; the paged decode, paged
 verify and dense decode kernels share ``paged_decode.cu``, the vote and
 top-k kernels ``retrieval_vote.cu``, the shard statistics and the assign
-step ``shard_stats.cu``) and holds each against its plain PyTorch version
-at the main path's shapes.
+step ``shard_stats.cu``; the flash backward is ``flash_attention_bwd.cu``)
+and holds each against its plain PyTorch version at the main path's
+shapes.
 
 Routing plane: it routes a 16,384-query batch (quality and budget mode) and
 four 4,096-query streaming windows through ``repro_torch.core.OmniRouter``
@@ -209,6 +211,19 @@ non-causal encoder and the cross-attention at G 1, D 64), S2 the paged
 decode at dbrx's and maverick's, D1 the dense decode at dbrx's (bf16 and
 float32) and maverick's, at seamless's self-attention and over its whole
 encoder cache.
+
+Language-model training (phase L, after M and X): the flash backward
+kernel (dq with Delta, then dk and dv; no atomics) against its plain
+version at h2o-danube-3-4b's, hymba-1.5b's, dbrx-132b's and
+seamless-m4t's heads, two launches bit-identical, timed beside its bound,
+the plain version and SDPA's backward (L1); h2o-danube-3-4b at full width
+and depth in bf16 through ``Trainer.train_step`` under the launcher's full
+TrainConfig (8 microbatches, int8 moments, bf16 accumulation, remat full)
+on 8 sequences of 4,096, after a float32 check of the kernels' loss and
+gradients against the plain versions at 2 layers (L2); the launcher
+``repro_torch.launch.train.main`` at smoke size, checkpointed and resumed
+bit for bit (L3); one float32 train step per family on the card against
+the CPU (L4).
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -5262,6 +5277,503 @@ def moe_encdec_phase(torch, np, dev, say, check):
     return launches, summary
 
 
+# -- phase L: language-model training ------------------------------------------
+# L1: the flash backward kernel against its plain version.  (tag, B, Sq,
+# Skv, K, G, D, window, q_offset, causal, dtype); BWD_MAIN is L2's shape
+# (h2o-danube-3-4b's heads over train_4k's 4,096 positions).
+BWD_CASES = [
+    ("danube heads, window 4096", 1, 4096, 4096, 8, 4, 120, 4096, 0, True,
+     "bfloat16"),
+    ("danube heads, float32", 1, 1024, 1024, 8, 4, 120, 4096, 0, True,
+     "float32"),
+    ("hymba heads, window 1024", 1, 1537, 1537, 5, 5, 64, 1024, 0, True,
+     "bfloat16"),
+    ("dbrx heads", 1, 1537, 1537, 8, 6, 128, 0, 0, True, "bfloat16"),
+    ("seamless encoder, non-causal", 4, 600, 600, 16, 1, 64, 0, 0, False,
+     "bfloat16"),
+    ("seamless cross", 4, 300, 600, 16, 1, 64, 0, 0, False, "bfloat16"),
+    # gemma3-4b's head dim 256: bf16 on the CUDA cores (the tensor-core
+    # instances stop at 128)
+    ("gemma3-4b heads, window 1024", 1, 1024, 1024, 4, 2, 256, 1024, 0, True,
+     "bfloat16"),
+]
+BWD_MAIN = 0
+# max |kernel - plain| over max |plain| of each of dq, dk, dv.  float32:
+# both sum float32 products in another order.  bf16: P and dS are rounded
+# to bf16 before their products, and a float32 sum in another order moves
+# a rounding now and then: all but BWD_ULP_SHARE of the elements within
+# one bf16 ulp of the plain version, and 1e-2 of the largest at most.
+BWD_LIMITS = {"float32": 2e-5, "bfloat16": 1e-2}
+BWD_ULP_SHARE = 1e-3
+# head dims of the tensor-core backward instances (bf16)
+BWD_TC_DIMS = (16, 64, 96, 120, 128)
+# L2: h2o-danube-3-4b at full width and depth in bf16 under the
+# launcher's full TrainConfig (8 microbatches, int8 moments, bf16
+# accumulation, remat full): train_4k's sequence of 4,096 at a global
+# batch of L2_BATCH (train_4k's 256 cut to one sequence a microbatch), the
+# same batch for L2_STEPS steps; its card-against-plain check in float32 at
+# L2_CHECK_LAYERS layers over one sequence of L2_CHECK_SEQ.
+L2_ARCH = "h2o-danube-3-4b"
+L2_BATCH, L2_SEQ, L2_STEPS = 8, 4096, 3
+L2_CHECK_LAYERS, L2_CHECK_SEQ = 2, 1024
+L2_CHECK_REL = 1e-4
+# L3: the launcher's smoke run, checkpointed at L3_EVERY, resumed from there
+L3_STEPS, L3_EVERY = 10, 5
+# L4: one float32 train step card against CPU per family at smoke size
+L4_ARCHS = ("h2o-danube-3-4b", "gemma3-4b", "phi-3-vision-4.2b",
+            "hymba-1.5b", "xlstm-350m", "dbrx-132b", "seamless-m4t-large-v2")
+L4_BATCH, L4_SEQ = 4, 64
+# float32 card against CPU: 1e-5 relative; the recurrent families' stacks
+# amplify float32 noise (tests/test_torch_models.py holds xlstm-350m's
+# logits to 1e-3): hymba-1.5b 1e-4, xlstm-350m 1e-3
+L4_REL = 1e-5
+L4_TOL = {"hymba-1.5b": 1e-4, "xlstm-350m": 1e-3}
+
+
+def bwd_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem,
+                  causal=True):
+    """What one flash backward must move and compute on this data: q, k,
+    v, o, dO and lse read once, dq, dk, dv written once; five products of
+    2·D operations per (query head, visible position) pair at the operand
+    type's rate."""
+    pos = q_offset + np.arange(s)
+    hi = np.minimum(pos + 1, skv) if causal else np.full(s, skv)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+    pairs = float(np.maximum(hi - lo, 0).sum())
+    nbytes = elem * (4 * b * s * h * d + 4 * b * skv * kh * d) + 4 * b * h * s
+    nops = 10.0 * d * h * b * pairs
+    t_bytes = nbytes / H100_HBM
+    t_ops = nops / (H100_BF16 if elem == 2 else H100_FP32)
+    return (nbytes, nops, max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_bwd_ms(torch, F, say, time_ms, q, k, v, do, causal):
+    """The backward of one ``scaled_dot_product_attention`` call on the
+    (B, H, S, D) layout (``enable_gqa``, ``is_causal``), its forward kept
+    outside the clock; None without ``enable_gqa``."""
+    qd, kd, vd = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dd = do.transpose(1, 2).contiguous()
+    try:
+        out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal,
+                                             enable_gqa=True)
+    except TypeError as exc:          # a PyTorch without enable_gqa
+        say(f"  SDPA with enable_gqa unavailable: {exc}")
+        return None
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (qd, kd, vd), dd, retain_graph=True), 5, warm=1)
+
+
+def bwd_kernel_phase(torch, np, say, check, dev, time_ms):
+    """L1: the backward kernel (dq with Delta, then dk and dv) against
+    ``flash_attention_bwd_ref`` on the forward kernel's own output and
+    log-sum-exp, within BWD_LIMITS (bf16: and BWD_ULP_SHARE); two launches
+    on the same inputs bit-identical (no atomics).  Times the main case
+    beside its bound, the plain version and SDPA's backward.  Returns the
+    kernels-line row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    hmma = sass_hmma("flash_attention_bwd")
+    say(f"L1 flash backward SASS: HMMA instructions per kernel {hmma}")
+    check(sum(1 for f, n in hmma.items() if "_tc_kernel" in f and n > 0)
+          == 2 * len(BWD_TC_DIMS),
+          "L1: a tensor-core backward kernel instance has no HMMA")
+    row, err_max = None, 0.0
+    for i, (tag, b, s, skv, kh, g, d, window, q_off, causal, dt) in \
+            enumerate(BWD_CASES):
+        dtype = getattr(torch, dt)
+        h = kh * g
+        gen = torch.Generator(device=dev).manual_seed(60 + i)
+        q, do = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, skv, kh, d, generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        want = flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+        rels, shares = [], []
+        for x, w in zip(got, want):
+            x, w = x.float(), w.float()
+            rels.append(float((x - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+            shares.append(float((~torch.isclose(x, w, atol=1e-6,
+                                                rtol=2 ** -7)).float().mean()))
+        del again, want
+        ok = same and max(rels) <= BWD_LIMITS[dt] and (
+            dt == "float32" or max(shares) <= BWD_ULP_SHARE)
+        err_max = max(err_max, max(rels))
+        nbytes, nops, bound, bound_by = bwd_bytes_ops(
+            np, b, s, skv, h, kh, d, window, q_off, q.element_size(), causal)
+        line = (f"L1 flash backward {tag}: B={b} S={s} Skv={skv} K={kh} "
+                f"G={g} D={d} window={window} q_offset={q_off} "
+                f"causal={causal} {dt} | max|kernel-plain|/max|plain| dq "
+                f"{rels[0]:.3g}, dk {rels[1]:.3g}, dv {rels[2]:.3g} "
+                f"(limit {BWD_LIMITS[dt]}); beyond one bf16 ulp "
+                f"{max(shares):.2e} of the elements; two launches "
+                f"bit-identical {same}")
+        if i == BWD_MAIN:
+            k_ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, out, do, lse, **kw), 5, warm=1)
+            p_ms = time_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, out, do, lse, **kw), 2, warm=1)
+            lib = sdpa_bwd_ms(torch, F, say, time_ms, q, k, v, do, causal)
+            line += (f" | kernel {k_ms:.3f} ms, bound {bound:.4f} ms = max("
+                     f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.2f} "
+                     f"GFLOP / 989 TFLOP/s bf16) -> {bound / k_ms:.2%} of "
+                     f"it; plain {p_ms:.3f} ms; SDPA backward (is_causal, "
+                     f"enable_gqa) "
+                     + (f"{lib:.3f} ms" if lib is not None else "n/a"))
+            row = dict(name="flash_attention_bwd", route="cuda",
+                       source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                       replaces="src/repro/models/attention.py:62",
+                       ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib)
+        say(line)
+        check(ok, f"L1 {tag}: the backward kernel disagrees with its plain "
+                  "version or two launches differ")
+        del q, k, v, do, out, lse, got
+    row["max_abs_err"] = err_max
+    return row
+
+
+def _grads(torch, model, params, batch):
+    """(loss, the gradient leaves) of ``model.loss`` at ``params``."""
+    from repro_torch.training import tree_leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = model.loss(live, batch)
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+
+
+def plain_flash(torch):
+    """Point ``ops.flash_attention``'s two CUDA wrappers at the plain
+    versions (the chunked forward with its log-sum-exp, the plain
+    backward).  Returns a function that puts the kernels back."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_chunked)
+    saved = ops.flash_attention_cuda, ops.flash_attention_bwd_cuda
+    ops.flash_attention_cuda = flash_attention_chunked
+    ops.flash_attention_bwd_cuda = flash_attention_bwd_ref
+
+    def restore():
+        ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = saved
+    return restore
+
+
+def l2_check(torch, np, dev, say, check):
+    """L2's float32 check: h2o-danube-3-4b at full width, depth
+    L2_CHECK_LAYERS (attention at unit-std scores), one sequence of
+    L2_CHECK_SEQ: the loss and every gradient leaf through the kernels
+    against the same with ``ops.flash_attention``'s wrappers pointed at the
+    plain versions, within L2_CHECK_REL of each leaf's largest value."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(L2_ARCH), dtype=torch.float32,
+                              n_layers=L2_CHECK_LAYERS)
+    model = build_model(cfg)
+    params = _unit_fan_in(model.init(0, dev))
+    raw = next(synthetic_batches(cfg, ShapeConfig("t", L2_CHECK_SEQ, 1,
+                                                  "train")))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    loss_k, g_k = _grads(torch, model, params, batch)
+    restore = plain_flash(torch)
+    try:
+        loss_p, g_p = _grads(torch, model, params, batch)
+    finally:
+        restore()
+    l_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g_k, g_p))
+    say(f"L2 check: {L2_ARCH} full width, {L2_CHECK_LAYERS} layers, float32, "
+        f"B 1 x S {L2_CHECK_SEQ}, remat {cfg.remat}: loss kernels "
+        f"{float(loss_k):.6f}, plain {float(loss_p):.6f} (relative "
+        f"{l_rel:.3g}); worst gradient leaf max|kernels-plain|/max|plain| "
+        f"{g_rel:.3g} over {len(g_k)} leaves (limit {L2_CHECK_REL})")
+    check(l_rel <= L2_CHECK_REL and g_rel <= L2_CHECK_REL,
+          "L2 check: the kernels' loss or gradients disagree with the "
+          "plain versions'")
+    del params, g_k, g_p
+    return dict(loss_rel=l_rel, grad_rel=g_rel)
+
+
+def device_ms_by_name(torch, fn, names, top=8):
+    """(device ms of the kernels whose names hold any of ``names``, device
+    ms of every kernel, the ``top`` kernels by device ms as (name, ms,
+    calls)) over one ``fn()`` under ``torch.profiler`` (device activity
+    only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hit = total = 0.0
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if getattr(ev, "device_type", None) is not None and \
+                "CUDA" not in str(ev.device_type):
+            continue
+        total += us
+        rows.append((ev.key[:70], us / 1e3, ev.count))
+        if any(n in ev.key for n in names):
+            hit += us
+    rows.sort(key=lambda r: -r[1])
+    return hit / 1e3, total / 1e3, rows[:top]
+
+
+def l2_run(torch, np, dev, say, check):
+    """L2: h2o-danube-3-4b at full width and depth in bf16 (attention at
+    unit-std scores, ``_unit_fan_in``: under the stock init the gradient
+    norm grows ~10x a layer, to ~1e19 at 24 layers, next to float32's
+    range), the launcher's full TrainConfig, L2_STEPS steps on one repeated
+    batch of L2_BATCH x L2_SEQ: step 0's loss near the random init's (ln V
+    plus half the logits' variance, 0.02² · d_model), the grad norm
+    finite, the loss falling at every step, the parameters and int8
+    moments moving.  Reports the step time, tokens/s, the dense floor, the
+    peak memory, the flash launches a step and the backward kernels' device
+    time in the last step (under ``torch.profiler``) as a share of an
+    unprofiled step."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer, tree_leaves
+    cfg = get_config(L2_ARCH)
+    tcfg = TrainConfig(microbatches=8, moment_dtype="int8")
+    trainer = Trainer(build_model(cfg), tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = _unit_fan_in(trainer.model.init(0, dev))
+    state = {"params": params, "opt": trainer.opt.init(params)}
+    del params
+    n_par = sum(t.numel() for t in tree_leaves(state["params"]))
+    raw = next(synthetic_batches(cfg, ShapeConfig("train_4k", L2_SEQ, L2_BATCH,
+                                                  "train")))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    probe = tree_leaves(state["params"])[-1]
+    p0 = probe.clone()
+    m_probe = tree_leaves(state["opt"]["m"])[-1]
+    say(f"L2 {L2_ARCH}: full width and depth ({cfg.n_layers} layers, "
+        f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+        f"ff={cfg.d_ff} V={cfg.vocab_size}), {n_par / 1e9:.3f} B params "
+        f"bf16, remat {cfg.remat}; microbatches {tcfg.microbatches}, "
+        f"moments {tcfg.moment_dtype}, accumulation {tcfg.accum_dtype}; "
+        f"batch {L2_BATCH} x {L2_SEQ} (train_4k's global batch 256 cut to "
+        f"{L2_BATCH})")
+    ops.launches = ops.bwd_launches = 0
+    losses, norms, times = [], [], []
+    for step in range(L2_STEPS):
+        f0, b0 = ops.launches, ops.bwd_launches
+        t0 = time.perf_counter()
+        out = {}
+
+        def run():
+            out["metrics"] = trainer.train_step(state, batch)[1]
+
+        if step == L2_STEPS - 1:
+            bwd_ms, dev_ms, top = device_ms_by_name(
+                torch, run, ("bwd_dq", "bwd_dkv"))
+        else:
+            run()
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics = out["metrics"]
+        launches_step = (ops.launches - f0, ops.bwd_launches - b0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        say(f"L2 step {step}: loss {losses[-1]:.4f} grad_norm "
+            f"{norms[-1]:.4f} {times[-1]:.2f} s; flash launches forward "
+            f"{launches_step[0]}, backward {launches_step[1]}")
+    fwd, bwd = ops.launches, ops.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = L2_BATCH * L2_SEQ
+    step_s = times[1] if L2_STEPS > 2 else times[-1]
+    floor_s = 8.0 * n_par * tokens / H100_BF16
+    expect = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+    say(f"L2 step time {step_s:.3f} s (step 1), {tokens / step_s:.1f} "
+        f"tokens/s; dense floor (6 + 2 for the remat forward) x "
+        f"{n_par / 1e9:.3f} B x {tokens} = {8.0 * n_par * tokens:.4g} "
+        f"operations at 989 TFLOP/s = {floor_s:.3f} s -> {floor_s / step_s:.1%}"
+        f" of it; peak device memory {peak:.2f} GiB; flash launches "
+        f"forward {fwd}, backward {bwd} over {L2_STEPS} steps; backward "
+        f"kernels {bwd_ms:.1f} ms of the profiled step's device kernels' "
+        f"{dev_ms:.1f} ms, {bwd_ms / (step_s * 1e3):.1%} of an unprofiled "
+        f"step (the profiled one took {times[-1]:.2f} s); step 0 loss "
+        f"{losses[0]:.4f} against the init's "
+        f"{expect:.4f} (ln V {math.log(cfg.vocab_size):.4f})")
+    say("L2 the profiled step's kernels by device time: " + "; ".join(
+        f"{name} {ms:.1f} ms x {n}" for name, ms, n in top))
+    check(fwd > 0 and bwd > 0, "L2: a flash kernel was not launched")
+    check(abs(losses[0] - expect) <= 0.5, "L2: step 0's loss is not the "
+          "random init's")
+    check(all(math.isfinite(x) for x in norms), "L2: grad_norm")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          "L2: the loss did not fall at every step")
+    check(not torch.equal(probe, p0), "L2: the parameters did not move")
+    check(bool((m_probe.q != 0).any()), "L2: the int8 moments did not move")
+    del state, batch, trainer
+    return dict(flash=fwd, bwd=bwd, losses=losses, grad_norms=norms,
+                step_s=step_s, tokens_per_s=tokens / step_s,
+                floor_share=floor_s / step_s, peak_gib=peak,
+                bwd_ms=bwd_ms, profiled_step_ms=times[-1] * 1e3,
+                device_ms=dev_ms, params_b=n_par / 1e9,
+                top_kernels=[[name, ms, n] for name, ms, n in top])
+
+
+def l3_resume(torch, np, dev, say, check):
+    """L3: ``repro_torch.launch.train.main`` on the card, h2o-danube-3-4b's
+    smoke config for L3_STEPS steps checkpointed every L3_EVERY into a
+    temporary directory, then a second directory holding only the
+    L3_EVERY checkpoint resumed to L3_STEPS: the final parameters and
+    optimizer state (the last checkpoints) equal bit for bit, and the
+    last metrics equal.  The directories are deleted."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train as launcher
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_l3_"))
+    ops.launches = ops.bwd_launches = 0
+    try:
+        common = ["--arch", L2_ARCH, "--smoke", "--steps", str(L3_STEPS),
+                  "--ckpt-every", str(L3_EVERY)]
+        full = launcher.main(common + ["--ckpt-dir", str(root / "full")])
+        (root / "part").mkdir()
+        for ext in (".npz", ".json"):
+            shutil.copy(root / "full" / f"ckpt_{L3_EVERY:08d}{ext}",
+                        root / "part")
+        part = launcher.main(common + ["--ckpt-dir", str(root / "part"),
+                                       "--resume"])
+        last = f"ckpt_{L3_STEPS:08d}.npz"
+        with np.load(root / "full" / last) as a, \
+                np.load(root / "part" / last) as b:
+            keys = sorted(a.files)
+            same = keys == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in keys)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fwd, bwd = ops.launches, ops.bwd_launches
+    say(f"L3 launcher: {L2_ARCH} --smoke {L3_STEPS} steps, checkpoint every "
+        f"{L3_EVERY}, resumed from step {L3_EVERY}: final state "
+        f"({len(keys)} leaves) equal bit for bit {same}; last metrics "
+        f"{full} vs {part}; flash launches forward {fwd}, backward {bwd}")
+    check(same and full == part, "L3: the resumed run differs from the "
+          "uninterrupted one")
+    check(fwd > 0 and bwd > 0, "L3: a flash kernel was not launched")
+    return dict(flash=fwd, bwd=bwd, same=same, last=full)
+
+
+def l4_card_vs_cpu(torch, np, dev, say, check):
+    """L4: one float32 ``Trainer.train_step`` (two microbatches, fp32
+    moments and accumulation) per family at smoke size, from the same
+    weights (drawn on the CPU, attention at unit-std scores) and batch, on
+    the card and on the CPU: the loss, grad norm and every gradient leaf
+    (of the first microbatch) within L4_REL (relative to the leaf's
+    largest value; L4_TOL for the recurrent families), and the parameters
+    after the step.  AdamW's first step
+    moves an element by lr · g / (|g| + eps): where |g| sits at float32
+    noise the two devices may move it in opposite directions by up to
+    2 lr, so the parameters are held by the share of elements within
+    L4_REL of their leaf's largest value (>= 0.999)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer, tree_leaves, tree_map
+    cpu = torch.device("cpu")
+    ops.launches = ops.bwd_launches = 0
+    out = {}
+    for arch in L4_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        tcfg = TrainConfig(microbatches=2, moment_dtype="fp32",
+                           accum_dtype="fp32")
+        model = build_model(cfg)
+        base = _unit_fan_in(model.init(0, cpu))
+        raw = next(synthetic_batches(cfg, ShapeConfig("t", L4_SEQ, L4_BATCH,
+                                                      "train")))
+        res = []
+        for where in (dev, cpu):
+            trainer = Trainer(model, tcfg)
+            params = tree_map(lambda t: t.to(where, copy=True), base)
+            state = {"params": params, "opt": trainer.opt.init(params)}
+            batch = {k: torch.from_numpy(v).to(where) for k, v in raw.items()}
+            micro = {k: v[:L4_BATCH // 2] for k, v in batch.items()}
+            _, grads = _grads(torch, model, state["params"], micro)
+            _, metrics = trainer.train_step(state, batch)
+            res.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                        [g.cpu() for g in grads],
+                        [p.cpu() for p in tree_leaves(state["params"])]))
+        (lc, nc, gc, pc), (lh, nh, gh, ph) = res
+        l_rel = abs(lc - lh) / abs(lh)
+        n_rel = abs(nc - nh) / abs(nh)
+        g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                    for a, b in zip(gc, gh))
+        within = sum(int(((a - b).abs() <= L4_REL * b.abs().max()).sum())
+                     for a, b in zip(pc, ph)) / sum(b.numel() for b in ph)
+        p_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                    for a, b in zip(pc, ph))
+        say(f"L4 {arch}: loss card {lc:.6f} CPU {lh:.6f} ({l_rel:.2g}), "
+            f"grad_norm {nc:.6f} / {nh:.6f} ({n_rel:.2g}), worst gradient "
+            f"leaf {g_rel:.2g}; parameters after the step: worst leaf "
+            f"{p_rel:.2g}, share within {L4_REL} {within:.6f}")
+        tol = L4_TOL.get(arch, L4_REL)
+        check(l_rel <= tol and n_rel <= tol and g_rel <= tol
+              and within >= 0.999,
+              f"L4 {arch}: the card's train step disagrees with the CPU's")
+        out[arch] = dict(loss_rel=l_rel, norm_rel=n_rel, grad_rel=g_rel,
+                         param_rel=p_rel, param_share=within)
+    fwd, bwd = ops.launches, ops.bwd_launches
+    say(f"L4 flash launches forward {fwd}, backward {bwd}")
+    check(fwd > 0 and bwd > 0, "L4: a flash kernel was not launched")
+    return dict(flash=fwd, bwd=bwd, archs=out)
+
+
+def training_phase(torch, np, dev, say, check, time_ms):
+    """Phase L: L1 (the backward kernel), L2 (the float32 check, then the
+    full-width run), L3 (the launcher and resume), L4 (card against CPU).
+    Returns the backward's kernels-line row, the flash launches of the
+    phase's main paths (L2's run, L3, L4) and a summary."""
+    summary = {}
+    t0 = time.perf_counter()
+    row = bwd_kernel_phase(torch, np, say, check, dev, time_ms)
+    summary["L1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["L2_check"] = l2_check(torch, np, dev, say, check)
+    torch.cuda.empty_cache()
+    l2 = l2_run(torch, np, dev, say, check)
+    torch.cuda.empty_cache()
+    summary["L2"] = l2
+    summary["L2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l3 = l3_resume(torch, np, dev, say, check)
+    summary["L3"] = l3
+    summary["L3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l4 = l4_card_vs_cpu(torch, np, dev, say, check)
+    summary["L4"] = l4
+    summary["L4_s"] = time.perf_counter() - t0
+    launches = dict(flash=l2["flash"] + l3["flash"] + l4["flash"],
+                    bwd=l2["bwd"] + l3["bwd"] + l4["bwd"])
+    row["launches"] = launches["bwd"]
+    return row, launches, summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5521,12 +6033,19 @@ def main() -> int:
     # encoder-decoder (seamless-m4t-large-v2) at full width
     mx_runs, mx_summary = moe_encdec_phase(torch, np, dev, say, check)
     mark("M and X")
+    # L. language-model training: the flash backward kernel (L1),
+    # h2o-danube-3-4b at full width (L2), the launcher and resume (L3),
+    # card against CPU per family (L4)
+    rows["flash_attention_bwd"], l_runs, l_summary = training_phase(
+        torch, np, dev, say, check, time_ms)
+    mark("L")
     rows["paged_decode_attention"]["launches"] += (e1_paged + g3["paged"]
                                                    + h_runs["paged"]
                                                    + mx_runs["paged"])
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
                                            + g3["flash"] + h_runs["flash"]
-                                           + mx_runs["flash"])
+                                           + mx_runs["flash"]
+                                           + l_runs["flash"])
     rows["decode_attention"]["launches"] = (main["dense"] + h_runs["dense"]
                                             + mx_runs["dense"])
     rows["decode_attention"]["max_abs_err"] = max(
@@ -5566,6 +6085,7 @@ def main() -> int:
     say("phase T: " + json.dumps(fit_summary))
     say("phase H: " + json.dumps(h_summary))
     say("phases M and X: " + json.dumps(mx_summary))
+    say("phase L: " + json.dumps(l_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "
@@ -5574,7 +6094,7 @@ def main() -> int:
                                  "paged_decode_attention", "shard_stats",
                                  "paged_verify_attention", "flash_attention",
                                  "decode_attention", "topk_retrieval",
-                                 "assign_step")]
+                                 "assign_step", "flash_attention_bwd")]
     for r in kernels:
         check(set(r) >= {"name", "route", "source", "replaces", "launches",
                          "max_abs_err", "ms", "plain_ms", "bound_ms",

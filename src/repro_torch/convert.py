@@ -1,8 +1,9 @@
 """Carry state from the JAX package into the port.
 
-The JAX package's parameters reach this module as NumPy (``jax.tree.map(
-np.asarray, params)``), so the port never imports JAX.  The tests use these
-functions to make both packages compute the same function.
+The JAX package's parameters and training states reach this module as
+NumPy (``jax.tree.map(np.asarray, params)``), so the port never imports
+JAX.  The tests use these functions to make both packages compute the same
+function.
 """
 from __future__ import annotations
 
@@ -70,3 +71,55 @@ def model_params_from_numpy(cfg, tree, device=None):
             device=device, dtype=decl.dtype)
 
     return walk(tree, build_model(cfg).decls())
+
+
+def train_state_from_numpy(cfg, tcfg, state, device=None):
+    """A JAX ``Trainer`` state as NumPy (``{"params", "opt": {"step", "m",
+    "v"}}``; int8 moments as objects with ``q`` and ``scale``, the JAX
+    ``QTensor``) -> the port's state: the parameters as
+    :func:`model_params_from_numpy` gives them, ``step`` a Python int, fp32
+    and bf16 moments in ``tcfg.moment_dtype``'s dtype, int8 moments as the
+    port's ``QTensor`` (int8 values, float32 scales)."""
+    from repro_torch.training.optim import QTensor
+    device = default_device(device)
+    m_dt = torch.bfloat16 if tcfg.moment_dtype == "bf16" else torch.float32
+
+    def moments(node):
+        if isinstance(node, dict):
+            return {k: moments(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [moments(v) for v in node]
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QTensor(
+                q=torch.from_numpy(np.array(node.q, np.int8)).to(device),
+                scale=torch.from_numpy(np.array(node.scale, np.float32)).to(
+                    device))
+        return torch.from_numpy(np.array(node, np.float32)).to(
+            device=device, dtype=m_dt)
+
+    opt = state["opt"]
+    return {"params": model_params_from_numpy(cfg, state["params"], device),
+            "opt": {"step": int(np.asarray(opt["step"])),
+                    "m": moments(opt["m"]), "v": moments(opt["v"])}}
+
+
+def train_state_to_numpy(state):
+    """The inverse of :func:`train_state_from_numpy`: floating leaves as
+    float32 NumPy (which holds bf16 exactly), int8 moments as ``QTensor``s
+    of NumPy arrays, ``step`` an int32 scalar."""
+    from repro_torch.training.optim import QTensor
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if isinstance(node, QTensor):
+            return QTensor(q=node.q.detach().cpu().numpy(),
+                           scale=node.scale.detach().to("cpu",
+                                                        torch.float32).numpy())
+        if isinstance(node, int):
+            return np.asarray(node, np.int32)
+        return node.detach().to("cpu", torch.float32).numpy()
+
+    return walk(state)

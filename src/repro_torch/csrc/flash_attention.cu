@@ -14,7 +14,11 @@
 // position q_offset + i; key position t is valid when t <= q_offset + i
 // (causal) and t > q_offset + i - window (window > 0).  A row with no valid
 // position gets 0 (the chunked plain version gives the mean of V there);
-// causal rows always see at least their own position.
+// causal rows always see at least their own position.  When the caller
+// passes an lse buffer (the training path), each row's log-sum-exp
+// m + log(l) of the running max and denominator is written beside the
+// output for the backward (flash_attention_bwd.cu); O is the same either
+// way.
 //
 // What bounds it on the H100: operations at long sequences.  A tile pair
 // costs 4*D operations per (query row, visible position) against 2*D
@@ -119,9 +123,9 @@ __host__ __device__ inline size_t smem_bytes(int D) {
 template <typename T, int RW, int DL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int KH, int D, int BQ, int causal, int window,
-             int q_offset, float scale_q) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Skv, int H, int KH, int D,
+             int BQ, int causal, int window, int q_offset, float scale_q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = WARPS * RW;
   constexpr int V = vec<T>();
@@ -266,10 +270,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     const float l = __shfl_sync(FULL, l_reg, r);
+    const float m = __shfl_sync(FULL, m_reg, r);
     const int row = row0 + r;
     const int qi = row / G, g = row - qi * G;
     if (qi >= BQ || q0 + qi >= Sq) continue;
     T* dst = out + (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D;
+    // the log-sum-exp of the row for the backward (-inf where no position
+    // is visible), only when asked for
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * H + kh * G + g) * Sq + q0 + qi] = m + logf(l);
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DL; ++i) {
@@ -349,9 +358,9 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 128 ? 2 : 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                int KH, int BQ, int causal, int window, int q_offset,
-                float scale_q) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Skv, int H, int KH, int BQ, int causal,
+                int window, int q_offset, float scale_q) {
   constexpr int DP = tc_dp(D), ST = tc_stride(D);
   constexpr int KSTEPS = DP / 16;       // k-steps of Q.K^T
   constexpr int NT = TC_BK / 8;         // n-tiles of S
@@ -565,6 +574,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = r / G, g = r - qi * G;
     __nv_bfloat16* dst =
         out + (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D + 2 * tig;
+    // the row's log-sum-exp for the backward (the quad holds one m and l)
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * H + kh * G + g) * Sq + q0 + qi] = m[h] + logf(l[h]);
     const float den = fmaxf(l[h], 1e-30f);
 #pragma unroll
     for (int d = 0; d < DT; ++d)
@@ -574,9 +586,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Skv, int H, int KH, int causal, int window,
-              int q_offset, float scale_q, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Skv, int H, int KH, int causal,
+              int window, int q_offset, float scale_q, cudaStream_t stream) {
   const int BQ = TC_ROWS / (H / KH);
   constexpr size_t smem = tc_smem(D);
   static_assert(smem <= MAX_SMEM, "shared memory of one CTA");
@@ -589,16 +601,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   flash_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, KH, BQ, causal, window, q_offset, scale_q);
+      lse, Sq, Skv, H, KH, BQ, causal, window, q_offset, scale_q);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 
 template <int RW, int DL>
-int launch_inst(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Skv, int H, int KH, int D, int causal, int window,
-                int q_offset, float scale_q, cudaStream_t stream) {
+int launch_inst(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+                int causal, int window, int q_offset, float scale_q,
+                cudaStream_t stream) {
   using T = float;
   const int G = H / KH;
   const int BQ = WARPS * RW / G;
@@ -616,19 +629,20 @@ int launch_inst(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, KH, B);
   flash_kernel<T, RW, DL><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, KH, D, BQ,
-      causal, window, q_offset, scale_q);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, KH, D,
+      BQ, causal, window, q_offset, scale_q);
   return (int)cudaGetLastError();
 }
 
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int Sq, int Skv, int H, int KH, int D, int causal,
-           int window, int q_offset, float scale_q, cudaStream_t stream) {
+           float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+           int causal, int window, int q_offset, float scale_q,
+           cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
 #define TC(DD)                                                                \
-  return launch_tc<DD>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,       \
+  return launch_tc<DD>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal, window,  \
                        q_offset, scale_q, stream)
     switch (D) {
       case 16: TC(16);
@@ -643,7 +657,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
 #define INST(RW, DL)                                                          \
-  return launch_inst<RW, DL>(q, k, v, out, B, Sq, Skv, H, KH, D, causal,      \
+  return launch_inst<RW, DL>(q, k, v, out, lse, B, Sq, Skv, H, KH, D, causal, \
                              window, q_offset, scale_q, stream)
   switch (D) {
     case 16: INST(16, 1);
@@ -662,12 +676,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v
 // and out share it.  q and out (B, Sq, H, D), k and v (B, Skv, KH, D),
 // contiguous, 16-byte aligned; D in {16, 64, 96, 120, 128, 256}.  scale_q is
-// d**-0.5 rounded to q's type.  Launches on ``stream``; allocates nothing.
+// d**-0.5 rounded to q's type.  lse: null, or float32 (B, H, Sq) that
+// receives each row's m + log(l) for the backward.  Launches on ``stream``;
+// allocates nothing.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Skv, int H, int KH, int D,
-                                      int causal, int window, int q_offset,
-                                      float scale_q, void* stream) {
-  return launch(dtype, q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                q_offset, scale_q, (cudaStream_t)stream);
+                                      const void* v, void* out, float* lse,
+                                      int B, int Sq, int Skv, int H, int KH,
+                                      int D, int causal, int window,
+                                      int q_offset, float scale_q,
+                                      void* stream) {
+  return launch(dtype, q, k, v, out, lse, B, Sq, Skv, H, KH, D, causal,
+                window, q_offset, scale_q, (cudaStream_t)stream);
 }

@@ -1,2 +1,3 @@
 """NumPy data leaves copied from ``repro.data`` (tokenizer, SynthQAServe,
-arrival processes)."""
+arrival processes, the synthetic training batches) and the training
+pipeline's device placement (``pipeline.Prefetcher``)."""

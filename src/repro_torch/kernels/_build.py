@@ -34,6 +34,7 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FLAGS: Dict[str, List[str]] = {
     "dual_solve": _COMMON + ["--fmad=false"],
     "flash_attention": _COMMON,
+    "flash_attention_bwd": _COMMON,
     "paged_decode": _COMMON,
     "retrieval_vote": _COMMON,
     "shard_stats": _COMMON + ["--fmad=false"],

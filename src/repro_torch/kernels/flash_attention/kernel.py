@@ -1,7 +1,9 @@
-"""Python wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``): one launch on the current stream, bfloat16
-on the tensor cores and float32 on the CUDA cores.  It takes CUDA tensors
-only; the library builds from the repository's sources at first use."""
+"""Python wrappers of the hand-written CUDA flash attention: the forward
+(``csrc/flash_attention.cu``, one launch on the current stream, bfloat16 on
+the tensor cores and float32 on the CUDA cores, optionally writing each
+row's log-sum-exp) and its backward (``csrc/flash_attention_bwd.cu``, two
+launches: dQ with Delta, then dK and dV).  They take CUDA tensors only;
+the libraries build from the repository's sources at first use."""
 from __future__ import annotations
 
 import ctypes
@@ -27,10 +29,28 @@ INSTANCES = {16: (16, 1), 64: (16, 2), 96: (16, 3), 120: (16, 4),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the backward on the CUDA cores: 8 warps of 8 rows (dQ) or key positions
+# (dK, dV), 64 a CTA; key tiles of 32 positions (dQ), query-row tiles of 32
+# (dK, dV).  The tensor-core kernels (bf16, d <= 128) have 64 rows a CTA too
+BWD_ROWS = 64
+BWD_BK = 32
+BWD_QT = 32
+
+
 @lru_cache(maxsize=1)
 def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _bwd_launcher():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 9 + [ctypes.c_float]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -70,27 +90,51 @@ def smem_bytes(d: int, dtype) -> int:
     return 4 * rows * HALF + 4 * rows * d + 2 * BK * units * 16
 
 
+def bwd_smem_bytes(d: int, dtype) -> int:
+    """Dynamic shared memory of the larger of the backward's two CUDA-core
+    CTAs at head dim ``d`` (the tensor-core ones of bf16 at d <= 128 take
+    less): dQ holds 64 scaled Q and dO rows, a K and a V tile of 32
+    positions and a float32 dS buffer (64 x 32); dK/dV holds 64 K and V
+    rows, a tile of 32 scaled Q and dO rows, float32 P and dS buffers (64 x
+    32) and the tile's lse and Delta.  Rows padded to an odd number of
+    16-byte units."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    units = d * elem // 16
+    units += 1 - units % 2
+    row = units * 16
+    dq = 4 * BWD_ROWS * BWD_BK + row * (2 * BWD_ROWS + 2 * BWD_BK)
+    dkv = row * (2 * BWD_ROWS + 2 * BWD_QT) + 4 * (2 * BWD_ROWS * BWD_QT
+                                                    + 2 * BWD_QT)
+    return max(dq, dkv)
+
+
 def query_block(h: int, kh: int, d: int, dtype) -> int:
     """Query positions per CTA: the rows over the group size."""
     return _rows(d, dtype) // (h // kh)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
-                         q_offset: int = 0):
-    """q (B,Sq,H,D); k/v (B,Skv,K,D) of q's dtype (bfloat16 or float32),
-    contiguous, any Sq and Skv; D in {16, 64, 96, 120, 128, 256}.  Query row i
-    sits at position ``q_offset + i``.  Returns (B,Sq,H,D) in q's dtype, the
-    contract of ``ref.flash_attention_chunked`` on every row with at least
-    one visible position."""
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_tensors(dev, named):
+    for name, t in named:
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} on {t.device}: q, k and v must lie on "
-                             "one CUDA device")
+            raise ValueError(f"{name} on {t.device}: the tensors must lie "
+                             "on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
+                         q_offset: int = 0, with_lse: bool = False):
+    """q (B,Sq,H,D); k/v (B,Skv,K,D) of q's dtype (bfloat16 or float32),
+    contiguous, any Sq and Skv; D in {16, 64, 96, 120, 128, 256}.  Query row i
+    sits at position ``q_offset + i``.  Returns (B,Sq,H,D) in q's dtype, the
+    contract of ``ref.flash_attention_chunked`` on every row with at least
+    one visible position; with ``with_lse``, (out, lse) with lse float32
+    (B,H,Sq) each row's log-sum-exp (-inf where no position is visible),
+    from the same launch."""
+    dev = q.device
+    _check_tensors(dev, (("q", q), ("k", k), ("v", v)))
     if q.dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32 only")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -115,11 +159,73 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
         raise ValueError("q_offset must be >= 0")
     scale_q = float(torch.tensor(d ** -0.5, dtype=q.dtype))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(_launcher()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, skv, h, kh, d, int(bool(causal)),
-            int(window), int(q_offset), scale_q, stream),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq,
+            skv, h, kh, d, int(bool(causal)), int(window), int(q_offset),
+            scale_q, stream),
             "flash_attention_launch")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool,
+                             window: int = 0, q_offset: int = 0):
+    """The gradient of :func:`flash_attention_cuda`'s function: q, out and
+    dout (B,Sq,H,D), k/v (B,Skv,K,D), all of one dtype (bfloat16 or
+    float32), contiguous; lse float32 (B,H,Sq) from the forward launch
+    (``with_lse``).  Returns (dq, dk, dv) in the inputs' dtype, the
+    contract of ``ref.flash_attention_bwd_ref``.  Deterministic: no
+    atomics, every sum in one fixed order."""
+    dev = q.device
+    _check_tensors(dev, (("q", q), ("k", k), ("v", v), ("out", out),
+                         ("dout", dout), ("lse", lse)))
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q dtype {q.dtype}: bfloat16 or float32 only")
+    for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} must have q's dtype")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be (B,Sq,H,D) and k, v (B,Skv,K,D)")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("out and dout must have q's shape")
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or sq < 1 or skv < 1:
+        raise ValueError("q/k/v shapes disagree")
+    if lse.dtype != torch.float32 or lse.shape != (b, h, sq):
+        raise ValueError("lse must be float32 (B,H,Sq)")
+    if h % kh:
+        raise ValueError(f"H={h} must be a multiple of K={kh}")
+    if d not in INSTANCES:
+        raise ValueError(f"head dim {d}: the kernel takes {sorted(INSTANCES)}")
+    if h // kh > BWD_ROWS:
+        raise ValueError(f"{h // kh} query heads per kv head exceed one CTA")
+    smem = bwd_smem_bytes(d, q.dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(f"head dim {d} in {q.dtype} needs {smem} bytes of "
+                         f"shared memory, above {MAX_SMEM}")
+    if q_offset < 0:
+        raise ValueError("q_offset must be >= 0")
+    scale_q = float(torch.tensor(d ** -0.5, dtype=q.dtype))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    # the scaled q rows, formed by the dQ kernel for the dK/dV kernel (the
+    # tensor-core path: bf16 at d <= 128)
+    qs = (torch.empty_like(q) if q.dtype == torch.bfloat16 and d <= 128
+          else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_bwd_launcher()(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if qs is None else qs.data_ptr(), b, sq, skv, h, kh, d,
+            int(bool(causal)), int(window), int(q_offset), scale_q, stream),
+            "flash_attention_bwd_launch")
+    return dq, dk, dv

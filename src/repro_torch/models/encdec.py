@@ -6,9 +6,9 @@ precomputed) through non-causal self-attention layers (RoPE on, as in the
 reference) and a final norm; the decoder is causal, with cross-attention
 into the encoder's output in every layer.  Both reuse the layer blocks of
 :mod:`transformer` (``enc`` and ``xdec``).  The entry points are the
-reference's: ``encode``, ``hidden``, ``logits``, ``prefill`` (whose cache
-holds each decoder layer's encoder K/V ``ck``/``cv`` beside the
-self-attention K/V) and the inherited dense-cache ``decode_step``.  No
+reference's: ``encode``, ``hidden``, ``logits``, ``loss``, ``prefill``
+(whose cache holds each decoder layer's encoder K/V ``ck``/``cv`` beside
+the self-attention K/V) and the inherited dense-cache ``decode_step``.  No
 engine serves the family (neither the reference's ``Endpoint`` nor its
 ``RestartEndpoint`` can), and it has no paged state.
 """
@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.common import default_device
 from repro_torch.configs.base import ModelConfig
-from .layers import embed_decls, embed_lookup, norm_decl, rms_norm
+from .layers import (chunked_softmax_xent, embed_decls, embed_lookup,
+                     norm_decl, rms_norm)
 from .plan import LayerKind
-from .transformer import DecoderLM, _apply_layer, _layer, _layer_decls, _stack
+from .transformer import DecoderLM, _layer_decls, _run_stack, _stack
 
 
 class EncDecLM(DecoderLM):
@@ -51,24 +52,35 @@ class EncDecLM(DecoderLM):
     def encode(self, params, embeds: torch.Tensor) -> torch.Tensor:
         """embeds (B, S_enc, d) -> the encoder's memory (B, S_enc, d)."""
         cfg = self.cfg
-        x = embeds.to(cfg.dtype)
-        for si, (count, pattern) in enumerate(self.enc_plan):
-            for i in range(count):
-                for j, kind in enumerate(pattern):
-                    x, _ = _apply_layer(
-                        cfg, kind, _layer(params["enc_segs"][si][j], i), x)
+        layers = self._layers(params, "enc_segs", self.enc_plan)
+        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in layers),
+                       embeds.to(cfg.dtype))
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     # -- decoder over the encoder's memory ------------------------------------
     def _dec_hidden(self, params, tokens, memory):
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens)
-        for kind, lp, *_ in self._layers(params):
-            x, _ = _apply_layer(cfg, kind, lp, x, enc_memory=memory)
+        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in
+                             self._layers(params)),
+                       embed_lookup(params["embed"], tokens),
+                       enc_memory=memory)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def hidden(self, params, tokens=None, embeds=None, q_offset: int = 0):
         return self._dec_hidden(params, tokens, self.encode(params, embeds))
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of the decoder tokens (B, S) over the
+        encoder's frames ``batch["embeds"]``: labels by roll, positions 0 ..
+        S - 2."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        h = self.hidden(params, tokens, batch["embeds"])
+        b, s, _ = h.shape
+        labels = torch.roll(tokens, -1, dims=1)
+        mask = (torch.arange(s, device=h.device) < s - 1)[None, :].expand(b, s)
+        return chunked_softmax_xent(self._out_table(params), h, labels, mask,
+                                    cfg.vocab_size, cfg.logit_chunk)
 
     # -- prefill / decode ------------------------------------------------------
     def prefill(self, params, tokens=None, embeds=None):

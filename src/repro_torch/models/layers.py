@@ -1,9 +1,9 @@
 """Shared neural-net building blocks (functions over ParamDecl trees).
 
 The port of ``repro.models.layers``: RMSNorm (float32 inside), RoPE, the
-gated MLP, the embedding lookup, the LM head and the depthwise causal
-convolution of the recurrent blocks.  Every declaration takes the config's
-dtype.  ``chunked_softmax_xent`` waits for the training slice.
+gated MLP, the embedding lookup, the LM head, the chunked-vocabulary
+cross-entropy of the training loss and the depthwise causal convolution of
+the recurrent blocks.  Every declaration takes the config's dtype.
 """
 from __future__ import annotations
 
@@ -79,6 +79,48 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def logits_for(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """h: (..., d) -> logits (..., V_padded), in the model dtype."""
     return h @ table.t()
+
+
+def chunked_softmax_xent(table: torch.Tensor, hidden: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         vocab_size: int, chunk: int) -> torch.Tensor:
+    """Cross-entropy without materializing the (tokens, V) logits at once.
+
+    hidden (B, S, d); labels/mask (B, S); table (V_padded, d).  A loop over
+    token chunks of ``chunk``: each computes its float32 logits (one
+    product of the chunk's hidden rows and the table, both widened to
+    float32: exact products, float32 sums, as the reference's
+    ``preferred_element_type``), masks the vocabulary padding with -1e30,
+    and adds its masked NLL (logsumexp minus the gold score) and mask
+    count.  Returns the NLL sum over max(mask sum, 1).  No chunk is
+    rematerialized: under autograd each keeps its logits for the backward,
+    as the reference's ``lax.scan`` keeps its residuals."""
+    b, s, d = hidden.shape
+    t = b * s
+    h = hidden.reshape(t, d)
+    y = labels.reshape(t).long()
+    m = mask.reshape(t).to(torch.float32)
+
+    chunk = min(chunk, t)
+    n = t // chunk
+    rem = t - n * chunk
+    assert rem == 0, f"token count {t} not divisible by logit_chunk {chunk}"
+
+    tab = table.float()
+    pad = (torch.arange(table.shape[0], device=table.device) >= vocab_size
+           if table.shape[0] > vocab_size else None)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = h[sl].float() @ tab.t()              # (chunk, V_padded)
+        if pad is not None:
+            logits = logits.masked_fill(pad[None, :], -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(1, y[sl, None])[:, 0]
+        tot = tot + ((lse - gold) * m[sl]).sum()
+        cnt = cnt + m[sl].sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

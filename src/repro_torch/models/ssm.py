@@ -86,11 +86,22 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = (torch.zeros(b * h, dk, dv, dtype=f32, device=q.device)
              if initial_state is None
              else initial_state.to(f32).reshape(b * h, dk, dv).clone())
-    inter = torch.empty(n, b * h, chunk, dv, dtype=f32, device=q.device)
-    for c in range(n):
-        torch.bmm(q_dec[c], state, out=inter[c])
-        state.mul_(growth[c])
-        state.baddbmm_(kw_t[c], v_c[c])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, log_a, initial_state)
+            if t is not None):
+        # the training path: the same products out of place, so autograd
+        # keeps every chunk's state
+        parts = []
+        for c in range(n):
+            parts.append(torch.bmm(q_dec[c], state))
+            state = torch.baddbmm(state * growth[c], kw_t[c], v_c[c])
+        inter = torch.stack(parts)
+    else:
+        inter = torch.empty(n, b * h, chunk, dv, dtype=f32, device=q.device)
+        for c in range(n):
+            torch.bmm(q_dec[c], state, out=inter[c])
+            state.mul_(growth[c])
+            state.baddbmm_(kw_t[c], v_c[c])
     inter = inter.reshape(n, b, h, chunk, dv).permute(1, 0, 3, 2, 4)
     out = (inter + intra).reshape(b, s, h, dv)
     return out.to(v.dtype), state.reshape(b, h, dk, dv)

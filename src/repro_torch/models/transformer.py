@@ -33,22 +33,28 @@ The parameter layout is the reference's:
 ``params["segs"][si][j]`` holds the stacked ``(count, ...)`` leaves of
 pattern position j of segment si (``plan.layer_plan``), so a JAX parameter
 tree carries across unchanged (``repro_torch.convert``).  A Python loop over
-the layers takes the place of ``lax.scan``.  The training loss is not
-ported yet.
+the layers takes the place of ``lax.scan``; each stacked leaf is unbound
+into its layers once per pass, so a gradient stacks the layers' gradients
+once.  The training loss (``loss``: labels by roll, the chunked-vocabulary
+cross-entropy) runs ``hidden`` under autograd; with ``cfg.remat != "none"``
+each layer body runs under ``torch.utils.checkpoint`` there (the
+reference's ``jax.checkpoint`` of the scan body), and not where no
+gradient is taken.
 """
 from __future__ import annotations
 
 from typing import List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import ParamDecl, default_device, init_params
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ref import gather_pages
 from .attention import attention_block, attn_decls, project_kv_token
 from .hymba_block import hymba_decls, hymba_layer
-from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
-                     norm_decl, rms_norm)
+from .layers import (chunked_softmax_xent, embed_decls, embed_lookup,
+                     logits_for, mlp, mlp_decls, norm_decl, rms_norm)
 from .moe import moe_block, moe_decls
 from .plan import LayerKind, layer_plan
 from .xlstm_blocks import _dims as xlstm_dims
@@ -62,11 +68,45 @@ def _stack(decls, count: int):
     return {k: _stack(v, count) for k, v in decls.items()}
 
 
-def _layer(stacked, i: int):
-    """Layer ``i`` of a tree of stacked ``(count, ...)`` leaves (views)."""
+def _unbind(stacked, count: int) -> list:
+    """The ``count`` layers of a tree of stacked ``(count, ...)`` leaves,
+    each a tree of views (``unbind``: under autograd the layers' gradients
+    are stacked once, not scattered into a zeroed stack per layer)."""
     if isinstance(stacked, dict):
-        return {k: _layer(v, i) for k, v in stacked.items()}
-    return stacked[i]
+        per = {k: _unbind(v, count) for k, v in stacked.items()}
+        return [{k: per[k][i] for k in per} for i in range(count)]
+    return list(stacked.unbind(0))
+
+
+def _layer_out(cfg: ModelConfig, kind: LayerKind, params: dict,
+               x: torch.Tensor, q_offset: int = 0, enc_memory=None
+               ) -> torch.Tensor:
+    """A full-sequence layer's output alone (the cache dropped)."""
+    return _apply_layer(cfg, kind, params, x, q_offset=q_offset,
+                        enc_memory=enc_memory)[0]
+
+
+def _leaf_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaf_tensors(v)]
+    return [tree]
+
+
+def _run_stack(cfg: ModelConfig, layers, x: torch.Tensor, **kw
+               ) -> torch.Tensor:
+    """x through ``layers`` ((kind, layer params) in stack order).  Under
+    autograd with ``cfg.remat != "none"`` each layer body that takes a
+    gradient runs under ``checkpoint`` (its activations recomputed in the
+    backward)."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for kind, lp in layers:
+        if remat and (x.requires_grad or any(
+                t.requires_grad for t in _leaf_tensors(lp))):
+            x = checkpoint(_layer_out, cfg, kind, lp, x, use_reentrant=False,
+                           **kw)
+        else:
+            x = _layer_out(cfg, kind, lp, x, **kw)
+    return x
 
 
 def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
@@ -413,13 +453,15 @@ class DecoderLM:
     def _out_table(self, params):
         return params.get("out_embed", params["embed"])
 
-    def _layers(self, params):
-        """(kind, layer params, pattern index j, segment index si, layer i)
+    def _layers(self, params, key: str = "segs", plan=None):
+        """(kind, layer params, segment index si, pattern index j, layer i)
         in stack order."""
-        for si, (count, pattern) in enumerate(self.plan):
+        for si, (count, pattern) in enumerate(plan or self.plan):
+            seg = [_unbind(params[key][si][j], count)
+                   for j in range(len(pattern))]
             for i in range(count):
                 for j, kind in enumerate(pattern):
-                    yield kind, _layer(params["segs"][si][j], i), si, j, i
+                    yield kind, seg[j][i], si, j, i
 
     # -- embedding -------------------------------------------------------
     def _embed_input(self, params, tokens, embeds):
@@ -436,9 +478,32 @@ class DecoderLM:
     def hidden(self, params, tokens=None, embeds=None, q_offset: int = 0):
         cfg = self.cfg
         x = self._embed_input(params, tokens, embeds)
-        for kind, lp, *_ in self._layers(params):
-            x, _ = _apply_layer(cfg, kind, lp, x, q_offset=q_offset)
+        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in
+                             self._layers(params)), x, q_offset=q_offset)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    # -- training loss ----------------------------------------------------
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of ``batch`` {"tokens" (B, S) [, "embeds"
+        (B, F, d)] [, "mask" (B, F + S)]}: labels are the tokens rolled by
+        one (the frontend's F positions padded with 0 in front), scored at
+        positions max(F - 1, 0) .. F + S - 2 where ``mask`` > 0."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        embeds = batch.get("embeds")
+        h = self.hidden(params, tokens, embeds)
+        b, s, _ = h.shape
+        flen = 0 if embeds is None else embeds.shape[1]
+        padded = tokens if flen == 0 else torch.cat(
+            [tokens.new_zeros((b, flen)), tokens], dim=1)
+        labels = torch.roll(padded, -1, dims=1)
+        posn = torch.arange(s, device=h.device)
+        mask = (posn >= max(flen - 1, 0)) & (posn < s - 1)
+        mask = mask[None, :].expand(b, s)
+        if batch.get("mask") is not None:
+            mask = mask & (batch["mask"] > 0)
+        return chunked_softmax_xent(self._out_table(params), h, labels, mask,
+                                    cfg.vocab_size, cfg.logit_chunk)
 
     def logits(self, params, tokens=None, embeds=None) -> torch.Tensor:
         h = self.hidden(params, tokens, embeds)

@@ -5,7 +5,11 @@ tensors, flattened as the reference flattens them (dict keys in sorted
 order).  ``AdamW.update`` runs under ``torch.no_grad()``, writes the new
 parameters and moments into the tensors it is given, and returns the
 gradients' global norm as a tensor on their device, so a training loop
-reads the host only when it wants a number.
+reads the host only when it wants a number.  A leaf of more than
+``SLICE_ELEMS`` elements (and at least two axes) is updated in slices
+along its leading axis, so its float32 temporaries stay small: every
+operation of the update is elementwise and an int8 moment's scale is per
+last-axis row, so the slices give the whole leaf's result bit for bit.
 """
 from __future__ import annotations
 
@@ -92,6 +96,29 @@ def _write_state(s, x: torch.Tensor, dtype: str):
         s.copy_(x)          # rounds to bf16 for bf16 moments
 
 
+# the largest leaf updated whole: 64 Mi elements, 256 MiB a float32
+# temporary (h2o-danube-3-4b's stacked MLP leaf, 24 x 3,840 x 10,240, goes
+# one layer at a time)
+SLICE_ELEMS = 1 << 26
+
+
+def _slices(p: torch.Tensor, limit: int):
+    """Slices along p's leading axis of at most ``limit`` elements each
+    (at least one row), or the whole leaf (``...``)."""
+    if p.ndim < 2 or p.numel() <= limit:
+        return [...]
+    rows = max(1, limit // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
+def _part(s, sl):
+    """Rows ``sl`` of a moment leaf (views: a QTensor's values and
+    scales)."""
+    if isinstance(s, QTensor):
+        return QTensor(q=s.q[sl], scale=s.scale[sl])
+    return s[sl]
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     cfg: TrainConfig
@@ -105,7 +132,9 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: dict, params) -> torch.Tensor:
         """One step: the parameters and ``state`` change in place; returns
-        the global gradient norm (before the clip)."""
+        the global gradient norm (before the clip).  ``grads`` is a tree
+        like ``params`` or the list of its leaves in ``tree_leaves`` order;
+        leaves above ``SLICE_ELEMS`` elements go in slices."""
         c = self.cfg
         dt = c.moment_dtype
         state["step"] += 1
@@ -121,16 +150,20 @@ class AdamW:
         gnorm = torch.sqrt(gsq)
         clip = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
-        for g, m_s, v_s, p in zip(flat_g, tree_leaves(state["m"]),
-                                  tree_leaves(state["v"]),
-                                  tree_leaves(params)):
-            g = g.float() * clip
-            m = c.beta1 * _read_state(m_s, dt) + (1 - c.beta1) * g
-            v = c.beta2 * _read_state(v_s, dt) + (1 - c.beta2) * g * g
-            mh = m / b1c
-            vh = v / b2c
-            delta = mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p.float()
-            p.copy_(p.float() - c.learning_rate * delta)
-            _write_state(m_s, m, dt)
-            _write_state(v_s, v, dt)
+        for g_l, m_l, v_l, p_l in zip(flat_g, tree_leaves(state["m"]),
+                                      tree_leaves(state["v"]),
+                                      tree_leaves(params)):
+            for sl in _slices(p_l, SLICE_ELEMS):
+                g = g_l[sl].float() * clip
+                m_s, v_s, p = _part(m_l, sl), _part(v_l, sl), p_l[sl]
+                m = c.beta1 * _read_state(m_s, dt) + (1 - c.beta1) * g
+                v = c.beta2 * _read_state(v_s, dt) + (1 - c.beta2) * g * g
+                mh = m / b1c
+                vh = v / b2c
+                delta = (mh / (torch.sqrt(vh) + c.eps)
+                         + c.weight_decay * p.float())
+                p.copy_(p.float() - c.learning_rate * delta)
+                _write_state(m_s, m, dt)
+                _write_state(v_s, v, dt)
+                del g, m, v, mh, vh, delta
         return gnorm

@@ -6,11 +6,12 @@ and a source scan finds no such import in the port or in ``chip_smoke.py``.
 The plain-Python and NumPy leaves the port copies (tokenizer, SynthQAServe,
 baselines (S3 over one predictor tree in both), the featurizer
 projection, the arch configs, the layer plan, ``route_via_batch``, the
-admission rule, the arrival processes, the health tracker and the fault
-plans) must equal their originals exactly — same token ids, same
-dataset, same projection bits, same config values, same plans, same
-routes, same arrival times, same breaker states, same fault answers —
-and the sanitizer plane's NumPy members (PageSan, LedgerSan, SolveCert)
+admission rule, the arrival processes, the health tracker, the fault
+plans and the synthetic training batches) must equal their originals
+exactly — same token ids, same dataset, same projection bits, same config
+values, same plans, same routes, same arrival times, same breaker states,
+same fault answers, the same generator — and the sanitizer plane's NumPy
+members (PageSan, LedgerSan, SolveCert) and the training health monitor
 are byte-for-byte copies of theirs.  A
 scan of the CUDA sources finds no library kernel (cuBLAS, cuDNN,
 CUTLASS's device- or kernel-level GEMMs).
@@ -57,7 +58,10 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.common.guards',\n"
         "        'repro_torch.analysis.sanitize',\n"
         "        'repro_torch.analysis.sanitize.racecheck',\n"
-        "        'repro_torch.kernels.lagrangian_assign.ops'}\n"
+        "        'repro_torch.kernels.lagrangian_assign.ops',\n"
+        "        'repro_torch.training.train_step',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.ft.checkpoint',\n"
+        "        'repro_torch.ft.health', 'repro_torch.launch.train'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -85,6 +89,20 @@ def test_source_scan_finds_no_jax_or_reference_import():
 def test_source_scan_covers_the_model_families(rel):
     """The MoE FFN, the encoder-decoder and ``chip_smoke.py`` are among
     the scanned sources, and none imports ``jax`` or ``repro``."""
+    path = ROOT / rel
+    assert path in _port_sources()
+    assert not _FORBIDDEN.search(path.read_text())
+
+
+@pytest.mark.parametrize("rel", ["src/repro_torch/training/train_step.py",
+                                 "src/repro_torch/data/pipeline.py",
+                                 "src/repro_torch/ft/checkpoint.py",
+                                 "src/repro_torch/ft/health.py",
+                                 "src/repro_torch/launch/train.py"])
+def test_source_scan_covers_the_training_path(rel):
+    """The trainer, the data pipeline, the checkpointer, the health
+    monitor and the launcher are among the scanned sources, and none
+    imports ``jax`` or ``repro``."""
     path = ROOT / rel
     assert path in _port_sources()
     assert not _FORBIDDEN.search(path.read_text())
@@ -150,6 +168,25 @@ def test_sanitizer_copies_are_byte_identical(member):
     port = (ROOT / "src" / "repro_torch" / rel).read_bytes()
     assert port == (ROOT / "src" / "repro" / rel).read_bytes()
     assert not _FORBIDDEN.search(port.decode())
+
+
+def test_health_monitor_copy_is_byte_identical():
+    """The training loop's heartbeat and straggler monitor is the
+    reference's file as it is (standard library only)."""
+    rel = Path("ft") / "health.py"
+    port = (ROOT / "src" / "repro_torch" / rel).read_bytes()
+    assert port == (ROOT / "src" / "repro" / rel).read_bytes()
+    assert not _FORBIDDEN.search(port.decode())
+
+
+def test_synthetic_batches_copy_is_identical():
+    """The training batches' generator is the reference's function as it
+    is: the same source, so the same batches from the same seed."""
+    import inspect
+    from repro.data import pipeline as ref_pipe
+    from repro_torch.data import pipeline as port_pipe
+    assert (inspect.getsource(port_pipe.synthetic_batches)
+            == inspect.getsource(ref_pipe.synthetic_batches))
 
 
 @pytest.mark.parametrize("max_len", [48, 64])
