@@ -4,8 +4,9 @@ routed speculative stream, the dense-cache generation path, neighbour-only
 top-k retrieval, the seed's per-iteration solve, the serving simulator,
 predictor training, the serving engine's failure plane, the sanitizer
 plane and runtime guards, int8 KV pools, the recurrent model families,
-the MoE family, the encoder-decoder and language-model training) on one
-NVIDIA GPU.
+the MoE family, the encoder-decoder, language-model training, the
+serving launcher at full width and the analysis plane) on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments:
 
@@ -225,6 +226,23 @@ gradients against the plain versions at 2 layers (L2); the launcher
 bit for bit (L3); one float32 train step per family on the card against
 the CPU (L4).
 
+The serving launcher and the analysis plane (phase N, after L).  N1:
+``repro_torch.launch.serve.main`` on the card, batching 24 requests of 8
+new tokens, with h2o-danube-3-4b, internlm2-20b, gemma3-4b, hymba-1.5b and
+xlstm-350m at full width and depth in bf16 (``--full``; qwen2-72b's bf16
+weights do not fit one card and it stays at smoke size) behind
+``OmniRouter(RetrievalPredictor(k=8))``: every request served once, no
+batch re-prefill, the vote, dual solve, paged decode and flash kernels
+launched, each request's endpoint equal to the same launcher's route on
+the CPU; then the same pool under Poisson arrivals with the streaming
+dual.  N2: L2's profiled step and one decode chunk of N1's danube
+endpoint read by ``repro_torch.analysis.profiler``: every hand kernel's
+launches by name equal its ``ops`` counter times the device kernels one
+launch makes; the busy share of each window, and
+``analysis.analytic.memory_term``'s bytes and floor beside the measured
+ms.  Every bound the script prints comes from
+``repro_torch.analysis.kernel_work`` and ``roofline``.
+
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a result when
@@ -247,10 +265,8 @@ N_WINDOW = 4_096        # streaming window
 N_WINDOWS = 4
 CMP_QUERIES = 1_024     # plain vote's (queries, N_db) block: 512 MiB
 REPS = 20               # timed kernel launches (median)
-H100_FP32 = 67e12       # FLOP/s outside the tensor cores (H100 SXM sheet)
-H100_BF16 = 989e12      # FLOP/s of bf16 on the tensor cores, dense
-H100_TF32 = 495e12      # FLOP/s of TF32 on the tensor cores, dense
-H100_HBM = 3.35e12      # bytes/s
+# every bound comes from repro_torch.analysis: kernel_work counts a call's
+# bytes and operations, roofline holds the H100's rates
 
 
 def gpu_line() -> str:
@@ -534,21 +550,6 @@ def paged_inputs(torch, b, kh, g, d, ps, p, lens_max, dtype, dev, seed):
     return q, kp, vp, bt.to(dev), lens.to(torch.int32).to(dev)
 
 
-def attention_bytes_ops(q, bt, lens, kh, d, window, elem):
-    """What one paged (or, with ``bt`` None, dense) decode must move and
-    compute on this data: q and the output once, each valid position's K
-    and V row once, the block table and lens once; 4·H·D operations per
-    valid position (QK and PV)."""
-    b, _, h, _ = q.shape
-    n = lens.clamp(min=0).cpu()
-    if window > 0:
-        n = n.clamp(max=window)
-    valid = int(n.sum())
-    nbytes = (2 * b * h * d * elem + 2 * valid * kh * d * elem
-              + (4 * bt.numel() if bt is not None else 0) + 4 * b)
-    return nbytes, 4.0 * valid * h * d
-
-
 def logit_gaps(x, ref):
     """(max |x - ref| / max |ref|, rms (x - ref) / rms ref, argmax
     agreement)."""
@@ -797,6 +798,7 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
                                             null_route_features)
     import dataclasses
     import torch.nn.functional as F
+    from repro_torch.analysis import kernel_work
 
     # S2. the paged decode kernel against its plain version.  bf16: both
     # compute in float32 and round the output to bf16 once, so they agree
@@ -957,9 +959,10 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
         say(f"  SDPA with enable_gqa unavailable: {exc}")
         lib_ms = None
     del kd, vd
-    nbytes, nops = attention_bytes_ops(q_e, bt_e, lens_e, cfg.n_kv_heads,
-                                       cfg.hd, window, 2)
-    bound, bound_by = attention_bound(nbytes, nops, 2)
+    nbytes, nops = kernel_work.decode_attention(
+        lens_e.cpu(), q_e.shape[2], cfg.n_kv_heads, cfg.hd, window, 2,
+        bt_e.numel())
+    bound, bound_by = kernel_work.attention_bound(nbytes, nops, 2)
     share = k_ms * cfg.n_layers / (chunk_med / ep.sync_every)
     say(f"paged decode kernel at the endpoint's lens (B={ENDPOINT_REQS}, "
         f"lens {int(lens_e.min())}..{int(lens_e.max())}, P="
@@ -1451,33 +1454,6 @@ def failure_plane_smoke(torch, np, dev, say, check):
 
 # -- the routed speculative stream ----------------------------------------------
 
-def attention_bound(nbytes, nops, elem):
-    """(bound ms, bound_by) of a paged attention moving ``nbytes`` and doing
-    ``nops``: half the operations are the Q.K dots, exact on the tensor
-    cores for bf16 inputs (elem 2), the P.V half stays in float32."""
-    t_bytes = nbytes / H100_HBM
-    t_ops = (nops / 2 / (H100_BF16 if elem == 2 else H100_FP32)
-             + nops / 2 / H100_FP32)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def verify_bytes_ops(torch, q, bt, lens, kh, d, window, elem):
-    """What one paged verify must move and compute on this data: q and the
-    output once, the K and V rows of the longest row of each sequence
-    (lens + S - 1 positions) once, the block table and lens; 4·H·D
-    operations per valid position of every query position."""
-    b, s_q, h, _ = q.shape
-    n = lens.clamp(min=0).cpu().long()
-    rows = n[:, None] + torch.arange(s_q)[None, :]
-    if window > 0:
-        rows = rows.clamp(max=window)
-    longest = int(rows[:, -1].sum())
-    nbytes = (2 * b * s_q * h * d * elem + 2 * longest * kh * d * elem
-              + 4 * bt.numel() + 4 * b)
-    return nbytes, 4.0 * float(rows.sum()) * h * d
-
-
 def verify_mask(torch, lens, s_q, t, window, dev):
     """(B, 1, S, T) boolean mask of the verify rows: query s of sequence b
     sees positions < lens[b] + s (and >= lens[b] + s - window)."""
@@ -1535,12 +1511,6 @@ def verify_kernel_phase(torch, say, check, dev):
         check(same, f"paged verify {tag}: verify row s differs from the "
               "decode kernel at lens + s")
     return err_max
-
-
-def stats_bytes_ops(n, m, lblocks):
-    """One shard-statistics call: A and B read once, λ2 and nv, the
-    (lblocks, 2+M) output; ~4·M operations per row (scores and argmin)."""
-    return 4 * (2 * n * m + m + 1 + lblocks + lblocks * (2 + m)), 4.0 * n * m
 
 
 class KeptCalls:
@@ -1615,6 +1585,7 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
         blocked_dual_ascent_cuda, shard_stats_cuda)
     from repro_torch.kernels.lagrangian_assign.ref import (
         blocked_dual_ascent_ref, shard_stats_ref)
+    from repro_torch.analysis import kernel_work, roofline
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err_max, exact = 0.0, True
@@ -1732,9 +1703,9 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
                    warm=1)
     out = blocked_dual_ascent_cuda(*args, **kw)
     it_run, nv_rows = int(out[6]), int(args[2].sum())
-    nbytes = 4 * (2 * nv_rows * mp + args[2].numel() + 8 + 4 * mp)
-    nops = float(it_run) * nv_rows * (4 * mp + 1)
-    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    nbytes, nops = kernel_work.blocked_ascent(nv_rows, args[2].numel(), mp,
+                                              it_run)
+    bound = roofline.bound_ms(nops, nbytes)
     say(f"blocked dual ascent kernel (window 1: {nv_rows} valid of "
         f"{args[0].shape[0]} rows, M={mp}, {it_run} iterations): "
         f"{k_ms:.4f} ms ({k_ms * 1e3 / max(it_run, 1):.3f} us/iteration) "
@@ -1753,8 +1724,8 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
                                                    lblocks=1), 50)
     g_ms = graph_ms(torch, lambda: shard_stats_cuda(a, b, lam, lam2, nvs,
                                                     lblocks=1))
-    s_bytes, s_ops = stats_bytes_ops(a.shape[0], mp, 1)
-    s_bound = max(s_bytes / H100_HBM, s_ops / H100_FP32) * 1e3
+    s_bytes, s_ops = kernel_work.shard_stats(a.shape[0], mp, 1)
+    s_bound = roofline.bound_ms(s_ops, s_bytes)
     say(f"shard stats kernel (N={a.shape[0]}, M={mp}, lblocks=1): "
         f"{s_ms * 1e3:.2f} us per call with its wrapper (two launches: "
         f"blocks, then the block sums in order), {g_ms * 1e3:.2f} us on the"
@@ -1766,8 +1737,8 @@ def masked_solve_phase(torch, np, dev, say, check, time_ms, hp):
                 entry="blocked_dual_ascent_launch",
                 replaces="src/repro/kernels/lagrangian_assign/kernel.py:368",
                 max_abs_err=b_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-                else "operations", library_ms=None, iterations=it_run,
+                bound_by=roofline.bound_by(nops, nbytes), library_ms=None,
+                iterations=it_run,
                 per_iteration_kernel=dict(
                     source="src/repro_torch/csrc/shard_stats.cu",
                     ms=s_ms, graph_ms=g_ms, bound_ms=s_bound,
@@ -1891,6 +1862,7 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     from repro_torch.models import build_model
     from repro_torch.serving.engine import (Endpoint, MultiLLMServer, Request,
                                             null_route_features)
+    from repro_torch.analysis import kernel_work
 
     cfg = get_config("h2o-danube-3-4b")
     dcfg = dataclasses.replace(cfg, n_layers=2)
@@ -1954,9 +1926,10 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
         say(f"  SDPA with enable_gqa unavailable: {exc}")
         lib_ms = None
     del kd, vd, so_ep
-    nbytes, nops = verify_bytes_ops(torch, q, bt, lens_v, cfg.n_kv_heads,
-                                    cfg.hd, window, 2)
-    vbound, vbound_by = attention_bound(nbytes, nops, 2)
+    nbytes, nops = kernel_work.verify_attention(
+        lens_v.cpu(), q.shape[1], q.shape[2], cfg.n_kv_heads, cfg.hd, window,
+        2, bt.numel())
+    vbound, vbound_by = kernel_work.attention_bound(nbytes, nops, 2)
     d_med = float(np.median(d_s)) * 1e3
     v_med = float(np.median(v_s)) * 1e3
     say(f"spec pair (danube full width: verify 24 layers seed 0, draft 2 "
@@ -2190,23 +2163,6 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
         g2_spec
 
 
-def flash_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem,
-                    causal=True):
-    """What one flash attention must move and compute on this data: q, k,
-    v and the output once; 4·D operations per (query head, visible
-    position) pair, both products counted at the operand type's rate."""
-    pos = q_offset + np.arange(s)
-    hi = np.minimum(pos + 1, skv) if causal else np.full(s, skv)
-    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
-    pairs = float(np.maximum(hi - lo, 0).sum())
-    nbytes = elem * (2 * b * s * h * d + 2 * b * skv * kh * d)
-    nops = 4.0 * d * h * b * pairs
-    t_bytes = nbytes / H100_HBM
-    t_ops = nops / (H100_BF16 if elem == 2 else H100_FP32)
-    return (nbytes, nops, max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def sdpa_ms(torch, F, say, time_ms, q, k, v, mask=None, causal=False,
             reps=20):
     """One ``scaled_dot_product_attention`` call on the (B, H, S, D)
@@ -2260,6 +2216,7 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
         flash_attention_cuda, softmax_step)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_chunked, flash_attention_ref)
+    from repro_torch.analysis import kernel_work, roofline
     hmma = sass_hmma("flash_attention")
     say(f"flash SASS: HMMA instructions per kernel {hmma}")
     check(any(n > 0 for f, n in hmma.items() if "flash_tc_kernel" in f)
@@ -2322,8 +2279,10 @@ def flash_kernel_phase(torch, np, say, check, dev, time_ms):
             lib = sdpa_ms(torch, F, say, time_ms, q, k, v, causal=causal,
                           reps=10)
         elem = q.element_size()
-        nbytes, nops, bound, bound_by = flash_bytes_ops(
-            np, b, s, skv, h, kh, d, window, q_off, elem, causal)
+        nbytes, nops = kernel_work.flash_forward(b, s, skv, h, kh, d, window,
+                                                 q_off, elem, causal)
+        bound = roofline.bound_ms(nops, nbytes, kernel_work.peak_for(elem))
+        bound_by = roofline.bound_by(nops, nbytes, kernel_work.peak_for(elem))
         say(f"flash {tag}: B={b} S={s} Skv={skv} K={kh} G={g} D={d} "
             f"window={window} q_offset={q_off} causal={causal} {dt} | "
             f"max|kernel-chunked at "
@@ -2368,6 +2327,7 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
         paged_verify_attention_cuda)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, verify_attention_ref)
+    from repro_torch.analysis import kernel_work
     err_max, row = 0.0, None
     for i, (tag, b, t, kh, g, d, window, lens, dt) in enumerate(
             DENSE_CASES):
@@ -2456,9 +2416,9 @@ def dense_decode_phase(torch, say, check, dev, time_ms):
             lib = sdpa_ms(torch, F, say, time_ms, q, kc, vc,
                           mask=mask[:, None, None, :], reps=50)
             elem = q.element_size()
-            nbytes, nops = attention_bytes_ops(q, None, ln, kh, d, window,
-                                               elem)
-            bound, bound_by = attention_bound(nbytes, nops, elem)
+            nbytes, nops = kernel_work.decode_attention(
+                ln.cpu(), q.shape[2], kh, d, window, elem)
+            bound, bound_by = kernel_work.attention_bound(nbytes, nops, elem)
             say(f"dense decode kernel at R1's decode shape: {k_ms * 1e3:.1f}"
                 f" us/launch with the wrapper, {k_dev * 1e3:.1f} us on the "
                 f"device (CUDA graph), bound {bound * 1e3:.1f} us = max("
@@ -2491,25 +2451,14 @@ SEED_ITERS = 150
 SEED_REPS = 5
 
 
-def retrieval_bounds(b, n_rows, d, k, n_lab=0):
-    """What one retrieval must move and compute: store rows, their labels,
-    queries, (vals, idx) and votes once each; 2·d operations per (query,
-    valid row).  Returns (bytes, operations, the float32 bound on the CUDA
-    cores, the 3xTF32 bound on the tensor cores: three TF32 products per
-    operation), both bounds in ms."""
-    nbytes = 4 * (n_rows * d + n_rows * n_lab + b * d + b * n_lab) + 8 * b * k
-    nops = 2.0 * b * n_rows * d
-    t_bytes = nbytes / H100_HBM
-    return (nbytes, nops, max(t_bytes, nops / H100_FP32) * 1e3,
-            max(t_bytes, 3 * nops / H100_TF32) * 1e3)
-
-
 def retrieval_row(name, replaces, launches, err, b, n_rows, d, k, n_lab,
                   ms, plain_ms, lib_ms, say, tag):
     """Print the timing line at the route batch and return the kernels-line
     row: its bound is the 3xTF32 one, the design that runs; the float32
     CUDA-core bound rides beside it."""
-    nbytes, nops, fp32_ms, tf32_ms = retrieval_bounds(b, n_rows, d, k, n_lab)
+    from repro_torch.analysis import kernel_work, roofline
+    nbytes, nops = kernel_work.retrieval(b, n_rows, d, k, n_lab)
+    fp32_ms, tf32_ms = kernel_work.retrieval_bounds(b, n_rows, d, k, n_lab)
     say(f"{tag} timing (B={b}, N_db={n_rows}, d={d}, k={k}): kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul of the same "
         f"fp32 product {lib_ms:.3f} ms; bounds: 3xTF32 on the tensor cores "
@@ -2521,19 +2470,22 @@ def retrieval_row(name, replaces, launches, err, b, n_rows, d, k, n_lab,
                 source="src/repro_torch/csrc/retrieval_vote.cu",
                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=tf32_ms,
-                bound_by="bytes" if nbytes / H100_HBM > 3 * nops / H100_TF32
-                else "operations", library_ms=lib_ms, bound_fp32_ms=fp32_ms)
+                bound_by=roofline.bound_by(3 * nops, nbytes,
+                                           roofline.PEAK_TF32),
+                library_ms=lib_ms, bound_fp32_ms=fp32_ms)
 
 
 def window_timing(torch, say, time_ms, fn, q_route, emb, n_valid, d, k,
                   n_lab, tag):
     """The kernel at the stream window's batch (N_WINDOW queries) beside
     its bounds and ``torch.matmul``; returns the row's window keys."""
+    from repro_torch.analysis import kernel_work
     q_win = q_route[:N_WINDOW].contiguous()
     ms = time_ms(torch, lambda: fn(q_win), REPS)
     store_t = emb[:n_valid].T
     lib = time_ms(torch, lambda: torch.matmul(q_win, store_t), REPS)
-    _, _, fp32_ms, tf32_ms = retrieval_bounds(N_WINDOW, n_valid, d, k, n_lab)
+    fp32_ms, tf32_ms = kernel_work.retrieval_bounds(N_WINDOW, n_valid, d, k,
+                                                    n_lab)
     say(f"{tag} timing at the stream window (B={N_WINDOW}): kernel "
         f"{ms:.3f} ms, torch.matmul {lib:.3f} ms; bounds 3xTF32 "
         f"{tf32_ms:.3f} ms, float32 {fp32_ms:.3f} ms | kernel at "
@@ -2743,24 +2695,14 @@ def topk_phase(torch, say, check, time_ms, emb, labels, q_route, k,
     return row
 
 
-def step_bytes_ops(n, m):
-    """One assign step: cost and quality read once, λ1, λ2, x and
-    [qsum, csum, counts] written once; 5 operations per (row, model)."""
-    return 4 * (2 * n * m + 1 + m + n + 2 + m), 5.0 * n * m
-
-
 def device_kernels(torch, fn):
     """The names of the device kernels one ``fn()`` enqueues, from
-    ``torch.profiler`` (after one warm-up call)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``analysis.profiler`` (after one warm-up call), a name once a launch."""
+    from repro_torch.analysis import profiler
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof = profiler.profile(fn)
+    return [name for name, (_, n) in prof.kernels.items() for _ in range(n)]
 
 
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
@@ -2809,6 +2751,7 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
     path)."""
     from repro_torch.kernels.lagrangian_assign import kernel as la_kernel
     from repro_torch.kernels.lagrangian_assign.ref import assign_step_ref
+    from repro_torch.analysis import kernel_work, roofline
     assign_step_cuda = la_kernel.assign_step_cuda
 
     def hold(got, c, a, l1, l2, tag, tie=None):
@@ -2902,8 +2845,8 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
     tm = step_timing(torch, assign_step_cuda, cost, cap, lam1, lam2)
     p_ms = time_ms(torch, lambda: assign_step_ref(cost, cap, lam1, lam2, n),
                    10)
-    nbytes, nops = step_bytes_ops(n, m)
-    bound = max(nbytes / H100_HBM, nops / H100_FP32) * 1e3
+    nbytes, nops = kernel_work.assign_step(n, m)
+    bound = roofline.bound_ms(nops, nbytes)
     share = max(bound, tm["floor_ms"]) / tm["graph_ms"]
     names = tm.pop("device_kernels")
     say(f"assign step: device kernels one step enqueues (torch.profiler): "
@@ -2924,8 +2867,8 @@ def assign_step_phase(torch, say, check, time_ms, dev, cost, cap, lam1,
                 source="src/repro_torch/csrc/shard_stats.cu",
                 replaces="src/repro/kernels/lagrangian_assign/kernel.py:428",
                 max_abs_err=err, plain_ms=p_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / H100_HBM > nops / H100_FP32
-                else "operations", library_ms=None, **tm)
+                bound_by=roofline.bound_by(nops, nbytes), library_ms=None,
+                **tm)
 
 
 def seed_loop(torch, step, c, a, alpha, loads, iters):
@@ -3123,6 +3066,7 @@ def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
         blocked_dual_ascent_cuda, dual_solve_cuda)
     from repro_torch.kernels.lagrangian_assign.ref import (
         blocked_dual_ascent_ref, fused_dual_solve_ref)
+    from repro_torch.analysis import kernel_work, roofline
 
     n, m = cost.shape
     loads = torch.full((m,), float(int(0.3 * n)), device=dev)
@@ -3327,9 +3271,8 @@ def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
     smem_rate = SMEM_BYTES_PER_CLOCK * sm_clock_hz()        # bytes/s, one SM
     ab_bytes = 4 * n * 2 * m
     d_design = it_run * (t_fixed + ab_bytes / (c_size * smem_rate)) * 1e3
-    d_bytes = 4 * (n * 2 * m + 6 + 2 * m + 8 + 3 * m)
-    d_ops = float(it_run) * n * (4 * m + 1)
-    d_bound = max(d_bytes / H100_HBM, d_ops / H100_FP32) * 1e3
+    d_bytes, d_ops = kernel_work.dual_solve(n, m, it_run)
+    d_bound = roofline.bound_ms(d_ops, d_bytes)
     say(f"dual solve timing (quality, cold, M={m}, {it_run} iterations; a "
         f"cluster of {c_size} CTAs, rows in shared memory {in_smem}): "
         f"N={n} kernel {d_ms:.4f} ms ({d_ms * 1e3 / max(it_run, 1):.3f} "
@@ -3350,8 +3293,8 @@ def dual_solve_phase(torch, say, check, time_ms, dev, cost, cap, budget):
         source="src/repro_torch/csrc/dual_solve.cu",
         replaces="src/repro/kernels/lagrangian_assign/kernel.py:251",
         max_abs_err=lam_err, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound,
-        bound_by="bytes" if d_bytes / H100_HBM > d_ops / H100_FP32
-        else "operations", library_ms=None, design_bound_ms=d_design,
+        bound_by=roofline.bound_by(d_ops, d_bytes), library_ms=None,
+        design_bound_ms=d_design,
         cluster=c_size, rows_in_shared_memory=in_smem, ms_n4096=d_4k,
         ms_one_row_per_cta=row_ms, ms_one_block=block_ms,
         fixed_us_per_iteration=t_fixed * 1e6)
@@ -5324,28 +5267,14 @@ L4_ARCHS = ("h2o-danube-3-4b", "gemma3-4b", "phi-3-vision-4.2b",
             "hymba-1.5b", "xlstm-350m", "dbrx-132b", "seamless-m4t-large-v2")
 L4_BATCH, L4_SEQ = 4, 64
 # float32 card against CPU: 1e-5 relative; the recurrent families' stacks
-# amplify float32 noise (tests/test_torch_models.py holds xlstm-350m's
-# logits to 1e-3): hymba-1.5b 1e-4, xlstm-350m 1e-3
+# amplify float32 noise in the gradients (tests/test_torch_models.py holds
+# xlstm-350m's logits to 1e-3; tests/test_torch_recurrent.py::
+# test_hymba_gradients_amplify_float32_noise moves hymba's gradients by
+# 8.7e-5 from a 1e-6 input perturbation, its loss by less than 1e-5): the
+# grad norm and the gradient leaves of hymba-1.5b to 1e-4 and of xlstm-350m
+# to 1e-3, every family's loss to 1e-5
 L4_REL = 1e-5
 L4_TOL = {"hymba-1.5b": 1e-4, "xlstm-350m": 1e-3}
-
-
-def bwd_bytes_ops(np, b, s, skv, h, kh, d, window, q_offset, elem,
-                  causal=True):
-    """What one flash backward must move and compute on this data: q, k,
-    v, o, dO and lse read once, dq, dk, dv written once; five products of
-    2·D operations per (query head, visible position) pair at the operand
-    type's rate."""
-    pos = q_offset + np.arange(s)
-    hi = np.minimum(pos + 1, skv) if causal else np.full(s, skv)
-    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
-    pairs = float(np.maximum(hi - lo, 0).sum())
-    nbytes = elem * (4 * b * s * h * d + 4 * b * skv * kh * d) + 4 * b * h * s
-    nops = 10.0 * d * h * b * pairs
-    t_bytes = nbytes / H100_HBM
-    t_ops = nops / (H100_BF16 if elem == 2 else H100_FP32)
-    return (nbytes, nops, max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def sdpa_bwd_ms(torch, F, say, time_ms, q, k, v, do, causal):
@@ -5377,6 +5306,7 @@ def bwd_kernel_phase(torch, np, say, check, dev, time_ms):
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
+    from repro_torch.analysis import kernel_work, roofline
     hmma = sass_hmma("flash_attention_bwd")
     say(f"L1 flash backward SASS: HMMA instructions per kernel {hmma}")
     check(sum(1 for f, n in hmma.items() if "_tc_kernel" in f and n > 0)
@@ -5410,8 +5340,11 @@ def bwd_kernel_phase(torch, np, say, check, dev, time_ms):
         ok = same and max(rels) <= BWD_LIMITS[dt] and (
             dt == "float32" or max(shares) <= BWD_ULP_SHARE)
         err_max = max(err_max, max(rels))
-        nbytes, nops, bound, bound_by = bwd_bytes_ops(
-            np, b, s, skv, h, kh, d, window, q_off, q.element_size(), causal)
+        elem = q.element_size()
+        nbytes, nops = kernel_work.flash_backward(b, s, skv, h, kh, d, window,
+                                                  q_off, elem, causal)
+        bound = roofline.bound_ms(nops, nbytes, kernel_work.peak_for(elem))
+        bound_by = roofline.bound_by(nops, nbytes, kernel_work.peak_for(elem))
         line = (f"L1 flash backward {tag}: B={b} S={s} Skv={skv} K={kh} "
                 f"G={g} D={d} window={window} q_offset={q_off} "
                 f"causal={causal} {dt} | max|kernel-plain|/max|plain| dq "
@@ -5507,32 +5440,6 @@ def l2_check(torch, np, dev, say, check):
     return dict(loss_rel=l_rel, grad_rel=g_rel)
 
 
-def device_ms_by_name(torch, fn, names, top=8):
-    """(device ms of the kernels whose names hold any of ``names``, device
-    ms of every kernel, the ``top`` kernels by device ms as (name, ms,
-    calls)) over one ``fn()`` under ``torch.profiler`` (device activity
-    only)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    hit = total = 0.0
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if getattr(ev, "device_type", None) is not None and \
-                "CUDA" not in str(ev.device_type):
-            continue
-        total += us
-        rows.append((ev.key[:70], us / 1e3, ev.count))
-        if any(n in ev.key for n in names):
-            hit += us
-    rows.sort(key=lambda r: -r[1])
-    return hit / 1e3, total / 1e3, rows[:top]
-
-
 def l2_run(torch, np, dev, say, check):
     """L2: h2o-danube-3-4b at full width and depth in bf16 (attention at
     unit-std scores, ``_unit_fan_in``: under the stock init the gradient
@@ -5548,6 +5455,7 @@ def l2_run(torch, np, dev, say, check):
     import math
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.analysis import kernel_work, profiler
     from repro_torch.data.pipeline import synthetic_batches
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import build_model
@@ -5584,14 +5492,15 @@ def l2_run(torch, np, dev, say, check):
             out["metrics"] = trainer.train_step(state, batch)[1]
 
         if step == L2_STEPS - 1:
-            bwd_ms, dev_ms, top = device_ms_by_name(
-                torch, run, ("bwd_dq", "bwd_dkv"))
+            prof = profiler.profile(run, dev)
         else:
             run()
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics = out["metrics"]
         launches_step = (ops.launches - f0, ops.bwd_launches - b0)
+        if step == L2_STEPS - 1:
+            prof_counts = dict(flash=launches_step[0], bwd=launches_step[1])
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         say(f"L2 step {step}: loss {losses[-1]:.4f} grad_norm "
@@ -5601,7 +5510,9 @@ def l2_run(torch, np, dev, say, check):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = L2_BATCH * L2_SEQ
     step_s = times[1] if L2_STEPS > 2 else times[-1]
-    floor_s = 8.0 * n_par * tokens / H100_BF16
+    floor_s = kernel_work.train_floor_s(n_par, tokens)
+    bwd_ms, dev_ms = prof.ms("bwd_dq", "bwd_dkv"), prof.total_ms
+    top = [(name[:70], ms, n) for name, ms, n in prof.top(8)]
     expect = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
     say(f"L2 step time {step_s:.3f} s (step 1), {tokens / step_s:.1f} "
         f"tokens/s; dense floor (6 + 2 for the remat forward) x "
@@ -5630,7 +5541,8 @@ def l2_run(torch, np, dev, say, check):
                 floor_share=floor_s / step_s, peak_gib=peak,
                 bwd_ms=bwd_ms, profiled_step_ms=times[-1] * 1e3,
                 device_ms=dev_ms, params_b=n_par / 1e9,
-                top_kernels=[[name, ms, n] for name, ms, n in top])
+                top_kernels=[[name, ms, n] for name, ms, n in top],
+                profile=prof, profile_counts=prof_counts)
 
 
 def l3_resume(torch, np, dev, say, check):
@@ -5679,9 +5591,10 @@ def l4_card_vs_cpu(torch, np, dev, say, check):
     """L4: one float32 ``Trainer.train_step`` (two microbatches, fp32
     moments and accumulation) per family at smoke size, from the same
     weights (drawn on the CPU, attention at unit-std scores) and batch, on
-    the card and on the CPU: the loss, grad norm and every gradient leaf
-    (of the first microbatch) within L4_REL (relative to the leaf's
-    largest value; L4_TOL for the recurrent families), and the parameters
+    the card and on the CPU: the loss within L4_REL, the grad norm and
+    every gradient leaf (of the first microbatch) within L4_REL (relative
+    to the leaf's largest value; L4_TOL for the recurrent families), and
+    the parameters
     after the step.  AdamW's first step
     moves an element by lr · g / (|g| + eps): where |g| sits at float32
     noise the two devices may move it in opposite directions by up to
@@ -5733,7 +5646,7 @@ def l4_card_vs_cpu(torch, np, dev, say, check):
             f"leaf {g_rel:.2g}; parameters after the step: worst leaf "
             f"{p_rel:.2g}, share within {L4_REL} {within:.6f}")
         tol = L4_TOL.get(arch, L4_REL)
-        check(l_rel <= tol and n_rel <= tol and g_rel <= tol
+        check(l_rel <= L4_REL and n_rel <= tol and g_rel <= tol
               and within >= 0.999,
               f"L4 {arch}: the card's train step disagrees with the CPU's")
         out[arch] = dict(loss_rel=l_rel, norm_rel=n_rel, grad_rel=g_rel,
@@ -5772,6 +5685,227 @@ def training_phase(torch, np, dev, say, check, time_ms):
                     bwd=l2["bwd"] + l3["bwd"] + l4["bwd"])
     row["launches"] = launches["bwd"]
     return row, launches, summary
+
+
+# -- phase N: the serving launcher at full width, the analysis plane ----------
+
+# N1: the launcher's pool with every member that fits one card at full width
+# (29.4 B parameters, ~58.9 GB in bf16); qwen2-72b (72.7 B, 145 GB in bf16)
+# stays at smoke size
+N1_FULL = ("h2o-danube-3-4b", "internlm2-20b", "gemma3-4b", "hymba-1.5b",
+           "xlstm-350m")
+N1_ARGS = ["--requests", "24", "--max-new", "8"]
+N1_STREAM = ["--arrival", "poisson", "--arrival-rate", "4", "--stream"]
+# N2: one decode chunk of N1's danube endpoint (its seed, slots and t_max)
+N2_ARCH = "h2o-danube-3-4b"
+
+
+def _free_card(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _launch_counts():
+    """The ops counters of the kernels the launcher's path runs."""
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    return dict(vote=tr_ops.launches, dual_solve=la_ops.launches,
+                blocked=la_ops.blocked_launches, paged=pd_ops.launches,
+                flash=fa_ops.launches)
+
+
+def _zero_counts():
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    tr_ops.launches = la_ops.launches = la_ops.blocked_launches = 0
+    pd_ops.launches = fa_ops.launches = 0
+
+
+def launcher_phase(torch, np, dev, say, check):
+    """N1: ``repro_torch.launch.serve.main`` on the card in batching mode,
+    N1_ARGS, with N1_FULL at full width and depth in bf16 behind
+    ``OmniRouter(RetrievalPredictor(k=8))``: every request served once, no
+    batch re-prefill, the vote, dual solve, paged decode and flash kernels
+    launched, and each request's endpoint that of the same launcher's route
+    on the CPU (the reference's pool at smoke size: the route does not
+    depend on the weights, since no request stops early); then the same
+    pool under Poisson arrivals with the streaming dual: every request
+    served over more than one window, with dual iterations.  Prints the
+    peak device memory, each run's wall time and route overhead.  Returns
+    the card's launches and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.zoo import param_count_estimate
+    sizes = {a: param_count_estimate(get_config(a)) for a in serve.POOL_ARCHS}
+    n_full = sum(sizes[a] for a in N1_FULL)
+    left = [a for a in serve.POOL_ARCHS if a not in N1_FULL]
+    say(f"N1 the launcher's pool: {', '.join(N1_FULL)} at full width and "
+        f"depth ({n_full / 1e9:.1f} B parameters, {2 * n_full / 1e9:.1f} GB "
+        f"in bf16); " + "; ".join(
+            f"{a} at smoke size: its {sizes[a] / 1e9:.1f} B parameters "
+            f"({2 * sizes[a] / 1e9:.0f} GB in bf16) do not fit one 80 GB "
+            f"card" for a in left))
+    t0 = time.perf_counter()
+    cpu = serve.main(N1_ARGS + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    full = ["--full", ",".join(N1_FULL), "--device", str(dev)]
+    runs, launches = {}, dict(vote=0, dual_solve=0, blocked=0, paged=0,
+                              flash=0)
+    for tag, extra in (("batching", []), ("stream", N1_STREAM)):
+        _free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = serve.main(N1_ARGS + extra + full)
+        took = time.perf_counter() - t0
+        counts = _launch_counts()
+        for key in launches:
+            launches[key] += counts[key]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _free_card(torch)
+        left_gib = torch.cuda.memory_allocated() / 2 ** 30
+        say(f"N1 {tag}: served {res['served']}/{res['n']}, SR "
+            f"{res['sr']:.3f}, ${res['cost']:.4f}; serve wall "
+            f"{res['wall_s']:.2f} s (main {took:.1f} s with the pool's "
+            f"build), route overhead {res['route_seconds']:.3f} s over "
+            f"{res['windows']} windows, {res['dual_iters']} dual iters; "
+            f"peak device memory {peak:.2f} GiB ({left_gib:.2f} GiB left "
+            f"after); launches {counts}")
+        runs[tag] = dict(
+            {k: res[k] for k in ("served", "n", "sr", "cost", "wall_s",
+                                 "route_seconds", "windows", "dual_iters",
+                                 "endpoint")},
+            reprefills=[e["reprefills"] for e in res["endpoints"]],
+            reqs=[e["reqs"] for e in res["endpoints"]],
+            main_s=took, peak_gib=peak, launches=counts)
+        check(res["served"] == res["n"] == 24
+              and res["rids"] == list(range(24)),
+              f"N1 {tag}: not every request served once")
+        check(all(e["reprefills"] == 0 for e in res["endpoints"]),
+              f"N1 {tag}: batch re-prefill")
+    bat, stream = runs["batching"], runs["stream"]
+    same = sum(a == b for a, b in zip(bat["endpoint"], cpu["endpoint"]))
+    say(f"N1 route: card (full-width pool) and CPU (smoke pool, {cpu_s:.1f}"
+        f" s) agree on {same}/{len(cpu['endpoint'])} requests' endpoints; "
+        f"per-endpoint requests card {bat['reqs']}, CPU "
+        f"{[e['reqs'] for e in cpu['endpoints']]}")
+    check(all(bat["launches"][k] > 0
+              for k in ("vote", "dual_solve", "paged", "flash")),
+          "N1: the vote, dual solve, paged decode or flash kernel did not "
+          "launch")
+    check(bat["endpoint"] == cpu["endpoint"],
+          "N1: a request's endpoint differs from the CPU route")
+    check(stream["windows"] > 1 and stream["dual_iters"] > 0,
+          "N1 stream: one window or no dual iteration")
+    return launches, dict(runs=runs, cpu_s=cpu_s, full=list(N1_FULL),
+                          params_b=n_full / 1e9)
+
+
+def analysis_phase(torch, np, dev, say, check, l2):
+    """N2: the analysis plane on the card.  L2's profiled train step and one
+    decode chunk of N1's danube endpoint (N1's prompts, its four slots),
+    each read by ``analysis.profiler``: every hand kernel's launches by
+    name equal its ``ops`` counter over the same window times the device
+    kernels one launch makes (flash forward 1; flash backward 2, dq and
+    dk/dv; paged decode 2, split and merge), and each window's busy share
+    is printed; ``analysis.analytic.memory_term``'s bytes and floor for
+    danube at the chunk's decode shape and at L2's train shape, beside the
+    measured ms."""
+    from repro_torch.analysis import analytic, profiler
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.qaserve import generate
+    from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import zoo
+    from repro_torch.serving.engine import Endpoint, Request
+    out = {}
+    # L2's profiled step (phase L): flash forward and backward by name
+    prof, counts = l2["profile"], l2["profile_counts"]
+    named = dict(flash=prof.launches("flash_tc_kernel", "flash_kernel"),
+                 bwd_dq=prof.launches("bwd_dq"),
+                 bwd_dkv=prof.launches("bwd_dkv"))
+    say(f"N2 L2's profiled step: launches by name {named}, ops counters "
+        f"{counts}; device busy {prof.busy_ms:.1f} of {prof.wall_ms:.1f} ms"
+        f" = {prof.busy_share:.1%}; kernels' device ms {prof.total_ms:.1f}")
+    check(named["flash"] == counts["flash"] > 0
+          and named["bwd_dq"] == named["bwd_dkv"] == counts["bwd"] > 0,
+          "N2: L2's launches by name differ from the ops counters")
+    out["L2"] = dict(named=named, counts=counts, busy_share=prof.busy_share,
+                     wall_ms=prof.wall_ms, device_ms=prof.total_ms)
+    # one decode chunk of N1's danube endpoint
+    cfg = get_config(N2_ARCH)
+    j = serve.POOL_ARCHS.index(N2_ARCH)
+    ep = Endpoint(cfg, max_concurrency=4, seed=j, device=dev)
+    _, _, test = generate(n=600, seed=0).split()
+    # the launcher's rule: tokens in the pool's smallest vocabulary
+    vocab_cfg = min((get_config(a) if a in N1_FULL else get_smoke_config(a)
+                     for a in serve.POOL_ARCHS), key=lambda c: c.vocab_size)
+    for i in range(ep.L):
+        ep.admit(Request(rid=i, tokens=encode_for_config(
+            vocab_cfg, test.queries[i], 32), max_new=8))
+    torch.cuda.synchronize()
+    pd_ops.launches = 0
+    done = []
+    chunk = profiler.profile(lambda: done.extend(ep.step()), dev)
+    n_paged = pd_ops.launches
+    named = dict(split=chunk.launches("split_kernel"),
+                 merge=chunk.launches("merge_kernel"))
+    step_ms = chunk.wall_ms / ep.sync_every
+    say(f"N2 danube decode chunk ({ep.L} slots, {ep.sync_every} steps, "
+        f"{cfg.n_layers} layers): paged decode ops counter {n_paged}, by "
+        f"name {named}; device busy {chunk.busy_ms:.2f} of "
+        f"{chunk.wall_ms:.2f} ms = {chunk.busy_share:.1%}; top kernels "
+        + "; ".join(f"{name[:48]} {ms:.2f} ms x {n}"
+                    for name, ms, n in chunk.top(5)))
+    check(len(done) == ep.L, "N2: the chunk did not finish its requests")
+    check(named["split"] == named["merge"] == n_paged
+          == ep.sync_every * cfg.n_layers,
+          "N2: the chunk's paged decode launches by name differ from the "
+          "ops counter")
+    decode = ShapeConfig("n1_decode", ep.t_max, ep.L, "decode")
+    mem_d = analytic.memory_term(cfg, decode, ep.model.decls(),
+                                 zoo.input_shapes(cfg, decode)["cache"])
+    train = ShapeConfig("l2_train", L2_SEQ, L2_BATCH, "train")
+    mem_t = analytic.memory_term(cfg, train, ep.model.decls(),
+                                 tcfg=TrainConfig(microbatches=8,
+                                                  moment_dtype="int8"))
+    say(f"N2 analytic HBM model, {N2_ARCH}: decode (B {ep.L}, T "
+        f"{ep.t_max}) {mem_d['memory_bytes_pd'] / 1e9:.3f} GB (params "
+        f"{mem_d['params_bytes_pd'] / 1e9:.3f}, cache "
+        f"{mem_d['cache_bytes_pd'] / 1e6:.2f} MB) -> floor "
+        f"{mem_d['memory_s'] * 1e3:.3f} ms a step against {step_ms:.2f} ms "
+        f"measured ({mem_d['memory_s'] * 1e3 / step_ms:.1%}); train (B "
+        f"{L2_BATCH} x {L2_SEQ}, 8 microbatches, int8 moments) "
+        f"{mem_t['memory_bytes_pd'] / 1e9:.1f} GB -> floor "
+        f"{mem_t['memory_s'] * 1e3:.1f} ms a step against "
+        f"{l2['step_s'] * 1e3:.1f} ms measured "
+        f"({mem_t['memory_s'] / l2['step_s']:.1%})")
+    out["chunk"] = dict(named=named, paged=n_paged,
+                        busy_share=chunk.busy_share, wall_ms=chunk.wall_ms,
+                        step_ms=step_ms, device_ms=chunk.total_ms)
+    out["memory"] = dict(decode=mem_d, train=mem_t)
+    del ep
+    _free_card(torch)
+    return n_paged, out
+
+
+def serve_analysis_phase(torch, np, dev, say, check, l2):
+    """Phase N: N1 (the launcher at full width) and N2 (the analysis
+    plane).  Returns the launches of the kernels and a summary."""
+    t0 = time.perf_counter()
+    launches, n1 = launcher_phase(torch, np, dev, say, check)
+    n2_paged, n2 = analysis_phase(torch, np, dev, say, check, l2)
+    launches["paged"] += n2_paged
+    took = time.perf_counter() - t0
+    say(f"phase N: {took:.1f} s")
+    return launches, dict(N1=n1, N2=n2, seconds=took)
 
 
 def _leaves(tree):
@@ -6039,22 +6173,31 @@ def main() -> int:
     rows["flash_attention_bwd"], l_runs, l_summary = training_phase(
         torch, np, dev, say, check, time_ms)
     mark("L")
+    # N. the serving launcher with five pool members at full width (N1) and
+    # the analysis plane on the card (N2: L2's profiled step, a decode chunk)
+    n_runs, n_summary = serve_analysis_phase(torch, np, dev, say, check,
+                                             l_summary["L2"])
+    del l_summary["L2"]["profile"]
+    mark("N")
     rows["paged_decode_attention"]["launches"] += (e1_paged + g3["paged"]
                                                    + h_runs["paged"]
-                                                   + mx_runs["paged"])
+                                                   + mx_runs["paged"]
+                                                   + n_runs["paged"])
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
                                            + g3["flash"] + h_runs["flash"]
                                            + mx_runs["flash"]
-                                           + l_runs["flash"])
+                                           + l_runs["flash"]
+                                           + n_runs["flash"])
     rows["decode_attention"]["launches"] = (main["dense"] + h_runs["dense"]
                                             + mx_runs["dense"])
     rows["decode_attention"]["max_abs_err"] = max(
         rows["decode_attention"]["max_abs_err"], main["i1"]["kernel_err"])
     rows["retrieval_vote"]["launches"] += (main["vote"] + g3["vote"]
-                                           + h_runs["vote"])
+                                           + h_runs["vote"] + n_runs["vote"])
     rows["dual_solve"]["launches"] += (main["dual_solve"] + g3["dual_solve"]
                                        + g4["dual_solve"]
-                                       + h_runs["dual_solve"])
+                                       + h_runs["dual_solve"]
+                                       + n_runs["dual_solve"])
 
     # V1. the paged verify kernel against its plain version and decode
     verify_err = verify_kernel_phase(torch, say, check, dev)
@@ -6065,7 +6208,8 @@ def main() -> int:
                                                time_ms)
     mark("V3, V4, G2 (spec stream) and the smoke spec pool")
     rows["paged_verify_attention"]["max_abs_err"] = verify_err
-    rows["shard_stats"]["launches"] = blocked_launches + g4["blocked"]
+    rows["shard_stats"]["launches"] = (blocked_launches + g4["blocked"]
+                                       + n_runs["blocked"])
     rows["shard_stats"]["max_abs_err"] = max(
         rows["shard_stats"]["max_abs_err"], blocked_err)
 
@@ -6086,6 +6230,7 @@ def main() -> int:
     say("phase H: " + json.dumps(h_summary))
     say("phases M and X: " + json.dumps(mx_summary))
     say("phase L: " + json.dumps(l_summary))
+    say("phase N: " + json.dumps(n_summary))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

@@ -1,7 +1,11 @@
 """Model zoo facade, the dense cache's growth and the page layout helpers
 of the paged serving plane.
 
-The port of ``repro.models.zoo``: ``build_model``; ``pad_cache``, which
+The port of ``repro.models.zoo``: ``build_model``; the inputs of an (arch
+x shape) cell, abstract (``input_shapes``, on the ``meta`` device, so
+nothing is allocated at ``decode_32k`` or ``long_500k``) or small and
+concrete (``concrete_inputs``, from an explicit ``torch.Generator``);
+``param_count_estimate``; ``pad_cache``, which
 grows a prefill cache so ``decode_step`` can append (the restart baseline);
 and the admission path's helpers — prefill ONE request and scatter its
 cache into the endpoint's fixed-shape paged state (``prefill_into_pages``),
@@ -11,10 +15,14 @@ encoder-decoder as ``EncDecLM``, every other family as ``DecoderLM``.
 """
 from __future__ import annotations
 
+import math
+from typing import Any, Dict, List, Optional
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.common import ParamDecl
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from .encdec import EncDecLM
 from .transformer import DecoderLM
 
@@ -23,6 +31,107 @@ def build_model(cfg: ModelConfig) -> DecoderLM:
     if cfg.family == "encdec":
         return EncDecLM(cfg)
     return DecoderLM(cfg)
+
+
+# ---------------------------------------------------------------------------
+# The inputs of an (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def input_shapes_keys(cfg: ModelConfig, shape: ShapeConfig) -> List[str]:
+    keys = []
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec" or cfg.frontend != "none":
+            keys.append("embeds")
+        keys.append("tokens")
+    else:
+        keys += ["token", "cache"]
+    return keys
+
+
+def _empty_cache(cfg: ModelConfig, b: int, s: int, device) -> dict:
+    model = build_model(cfg)
+    if cfg.family == "encdec":
+        return model.empty_cache(b, s, enc_len=s, device=device)
+    return model.empty_cache(b, s, device=device)
+
+
+def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The cell's inputs as tensors on the ``meta`` device: shapes and
+    dtypes, no storage.  A decode cell's ``cache`` is ``empty_cache``'s
+    tree with ``pos`` a 0-d int32 tensor, the reference's leaf (a live
+    cache carries ``pos`` as a Python int)."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=meta)
+
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            out["embeds"] = spec((b, s, cfg.d_model), torch.bfloat16)
+            out["tokens"] = spec((b, s), torch.int32)
+        elif cfg.frontend != "none":
+            flen = cfg.frontend_len
+            out["embeds"] = spec((b, flen, cfg.d_model), torch.bfloat16)
+            out["tokens"] = spec((b, s - flen), torch.int32)
+        else:
+            out["tokens"] = spec((b, s), torch.int32)
+    else:
+        out["token"] = spec((b, 1), torch.int32)
+        cache = _empty_cache(cfg, b, s, meta)
+        cache["pos"] = spec((), torch.int32)
+        out["cache"] = cache
+    return out
+
+
+def concrete_inputs(cfg: ModelConfig, shape: ShapeConfig,
+                    gen: torch.Generator,
+                    batch_override: Optional[int] = None,
+                    seq_override: Optional[int] = None) -> Dict[str, Any]:
+    """Small concrete inputs for smoke runs, drawn from ``gen`` on its own
+    device: bf16 normal embeddings, int32 tokens in ``[0, vocab)``; a
+    decode cell's zeroed cache at ``pos = s // 2``."""
+    b = batch_override or shape.global_batch
+    s = seq_override or shape.seq_len
+    dev = gen.device
+
+    def normal(dims):
+        return torch.randn(dims, generator=gen, device=dev).to(torch.bfloat16)
+
+    def tokens(dims):
+        return torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            out["embeds"] = normal((b, s, cfg.d_model))
+            out["tokens"] = tokens((b, s))
+        elif cfg.frontend != "none":
+            flen = min(cfg.frontend_len, s // 2)
+            out["embeds"] = normal((b, flen, cfg.d_model))
+            out["tokens"] = tokens((b, s - flen))
+        else:
+            out["tokens"] = tokens((b, s))
+    else:
+        out["token"] = tokens((b, 1))
+        cache = _empty_cache(cfg, b, s, dev)
+        cache["pos"] = s // 2
+        out["cache"] = cache
+    return out
+
+
+def count_params(decls) -> int:
+    """Elements over every ``ParamDecl`` leaf of a declaration tree."""
+    if isinstance(decls, ParamDecl):
+        return math.prod(decls.shape)
+    nodes = decls.values() if isinstance(decls, dict) else decls
+    return sum(count_params(v) for v in nodes)
+
+
+def param_count_estimate(cfg: ModelConfig) -> int:
+    return count_params(build_model(cfg).decls())
 
 
 def pad_cache(cache: dict, t_max: int) -> dict:

@@ -61,7 +61,16 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.kernels.lagrangian_assign.ops',\n"
         "        'repro_torch.training.train_step',\n"
         "        'repro_torch.data.pipeline', 'repro_torch.ft.checkpoint',\n"
-        "        'repro_torch.ft.health', 'repro_torch.launch.train'}\n"
+        "        'repro_torch.ft.health', 'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.serve', 'repro_torch.analysis.roofline',\n"
+        "        'repro_torch.analysis.analytic',\n"
+        "        'repro_torch.analysis.kernel_work',\n"
+        "        'repro_torch.analysis.profiler',\n"
+        "        'repro_torch.analysis.staticcheck',\n"
+        "        'repro_torch.analysis.staticcheck.callgraph',\n"
+        "        'repro_torch.analysis.staticcheck.core',\n"
+        "        'repro_torch.analysis.staticcheck.rules',\n"
+        "        'repro_torch.analysis.staticcheck.__main__'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -102,6 +111,26 @@ def test_source_scan_covers_the_model_families(rel):
 def test_source_scan_covers_the_training_path(rel):
     """The trainer, the data pipeline, the checkpointer, the health
     monitor and the launcher are among the scanned sources, and none
+    imports ``jax`` or ``repro``."""
+    path = ROOT / rel
+    assert path in _port_sources()
+    assert not _FORBIDDEN.search(path.read_text())
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/launch/serve.py", "src/repro_torch/models/zoo.py",
+    "src/repro_torch/analysis/roofline.py",
+    "src/repro_torch/analysis/analytic.py",
+    "src/repro_torch/analysis/kernel_work.py",
+    "src/repro_torch/analysis/profiler.py",
+    "src/repro_torch/analysis/staticcheck/__init__.py",
+    "src/repro_torch/analysis/staticcheck/__main__.py",
+    "src/repro_torch/analysis/staticcheck/callgraph.py",
+    "src/repro_torch/analysis/staticcheck/core.py",
+    "src/repro_torch/analysis/staticcheck/rules.py"])
+def test_source_scan_covers_the_launcher_and_analysis(rel):
+    """The serving launcher, the zoo's input helpers, the analysis plane
+    and the staticcheck twin are among the scanned sources, and none
     imports ``jax`` or ``repro``."""
     path = ROOT / rel
     assert path in _port_sources()

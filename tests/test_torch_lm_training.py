@@ -327,3 +327,45 @@ def test_launcher_smoke_run_on_the_cpu(tmp_path, capsys):
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "ckpt_00000002.json", "ckpt_00000002.npz", "ckpt_00000003.json",
         "ckpt_00000003.npz"]
+
+
+C11_DEPTHS = (2, 8, 24)
+
+
+def _c11_norms(layers, seq=16):
+    """The grad norm of one ``Trainer.train_step`` at d 512 and ``layers``
+    layers (h2o-danube-3-4b's smoke config widened, float32, batch 1), the
+    port's stock init carried to JAX: (JAX's, the port's)."""
+    jc = dataclasses.replace(jax_smoke("h2o-danube-3-4b"), dtype=jnp.float32,
+                             d_model=512, n_layers=layers)
+    pc = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                             dtype=torch.float32, d_model=512,
+                             n_layers=layers)
+    kw = dict(microbatches=1, moment_dtype="fp32", accum_dtype="fp32")
+    pt = Trainer(build_model(pc), TrainConfig(**kw))
+    jt = JaxTrainer(jax_build(jc), JaxTrainConfig(**kw))
+    ps = pt.init_state(0, "cpu")
+    jp = jax.tree.map(jnp.asarray,
+                      convert.train_state_to_numpy(ps)["params"])
+    b = next(jax_batches(jc, JaxShape("t", seq, 1, "train")))
+    _, jm = jax.jit(jt.train_step)({"params": jp, "opt": jt.opt.init(jp)},
+                                   {k: jnp.asarray(v) for k, v in b.items()})
+    _, pm = pt.train_step(ps, {k: torch.from_numpy(v) for k, v in b.items()})
+    return float(jm["grad_norm"]), float(pm["grad_norm"])
+
+
+def test_stock_init_gradients_explode_with_depth_in_jax_too():
+    """C11: under the stock init the grad norm grows by orders of magnitude
+    from 2 to 24 layers in the JAX package's own ``Trainer.train_step`` as
+    in the port's (measured 9.7 -> 3.7e3 -> 1.0e6 and 10.2 -> 3.6e3 ->
+    3.9e5): shared semantics, not a port fault.  The scores reach a std in
+    the hundreds and the softmax is nearly an argmax, so the gradient is
+    ill-conditioned and a float32 order moves it: the two stay within a
+    factor of 10 at every depth, not within a rounding."""
+    norms = [_c11_norms(layers) for layers in C11_DEPTHS]
+    for series in zip(*norms):
+        assert all(math.isfinite(x) for x in series), series
+        assert series[0] < series[1] < series[2], series
+        assert series[2] >= 1e4 * series[0], series
+    for jax_n, port_n in norms:
+        assert jax_n / 10 <= port_n <= 10 * jax_n, norms
