@@ -2178,10 +2178,10 @@ def sdpa_ms(torch, F, say, time_ms, q, k, v, mask=None, causal=False,
         return None
 
 
-def sass_hmma(lib):
-    """{kernel function: tensor-core instructions (HMMA, HGMMA)} of the
-    built library ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` beside
-    ``nvcc``."""
+def sass_hmma(lib, ops=("HMMA", "HGMMA")):
+    """{kernel function: tensor-core instructions} of the built library
+    ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` beside ``nvcc``: the
+    lines holding any of ``ops`` (HMMA: ``mma.sync``; HGMMA: ``wgmma``)."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "--dump-sass", str(_build._target(lib))],
@@ -2191,7 +2191,7 @@ def sass_hmma(lib):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+        elif fn is not None and any(op in line for op in ops):
             counts[fn] += 1
     return counts
 
@@ -5241,6 +5241,9 @@ BWD_CASES = [
      "bfloat16"),
 ]
 BWD_MAIN = 0
+# timed beside their bound and SDPA's backward: the main shape and dbrx's
+# heads (D 128, G 6, causal)
+BWD_TIMED = (BWD_MAIN, [c[0] for c in BWD_CASES].index("dbrx heads"))
 # max |kernel - plain| over max |plain| of each of dq, dk, dv.  float32:
 # both sum float32 products in another order.  bf16: P and dS are rounded
 # to bf16 before their products, and a float32 sum in another order moves
@@ -5298,20 +5301,25 @@ def bwd_kernel_phase(torch, np, say, check, dev, time_ms):
     """L1: the backward kernel (dq with Delta, then dk and dv) against
     ``flash_attention_bwd_ref`` on the forward kernel's own output and
     log-sum-exp, within BWD_LIMITS (bf16: and BWD_ULP_SHARE); two launches
-    on the same inputs bit-identical (no atomics).  Times the main case
-    beside its bound, the plain version and SDPA's backward.  Returns the
-    kernels-line row."""
+    on the same inputs bit-identical (no atomics).  Every bf16 tensor-core
+    instance's SASS holds HGMMA (wgmma) and no HMMA.  Times BWD_TIMED's
+    cases beside their bound and SDPA's backward, the main one beside the
+    plain version too.  Returns the kernels-line row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
     from repro_torch.analysis import kernel_work, roofline
-    hmma = sass_hmma("flash_attention_bwd")
-    say(f"L1 flash backward SASS: HMMA instructions per kernel {hmma}")
-    check(sum(1 for f, n in hmma.items() if "_tc_kernel" in f and n > 0)
-          == 2 * len(BWD_TC_DIMS),
-          "L1: a tensor-core backward kernel instance has no HMMA")
+    hgmma = sass_hmma("flash_attention_bwd", ("HGMMA",))
+    hmma = sass_hmma("flash_attention_bwd", ("HMMA",))
+    say(f"L1 flash backward SASS: HGMMA (wgmma) instructions per kernel "
+        f"{hgmma}; HMMA (mma.sync) {hmma}")
+    tc = [f for f in hgmma if "_tc_kernel" in f]
+    check(len(tc) == 2 * len(BWD_TC_DIMS)
+          and all(hgmma[f] > 0 and hmma[f] == 0 for f in tc),
+          "L1: a tensor-core backward kernel instance has no HGMMA, or "
+          "has HMMA")
     row, err_max = None, 0.0
     for i, (tag, b, s, skv, kh, g, d, window, q_off, causal, dt) in \
             enumerate(BWD_CASES):
@@ -5352,18 +5360,19 @@ def bwd_kernel_phase(torch, np, say, check, dev, time_ms):
                 f"(limit {BWD_LIMITS[dt]}); beyond one bf16 ulp "
                 f"{max(shares):.2e} of the elements; two launches "
                 f"bit-identical {same}")
-        if i == BWD_MAIN:
+        if i in BWD_TIMED:
             k_ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
                 q, k, v, out, do, lse, **kw), 5, warm=1)
-            p_ms = time_ms(torch, lambda: flash_attention_bwd_ref(
-                q, k, v, out, do, lse, **kw), 2, warm=1)
             lib = sdpa_bwd_ms(torch, F, say, time_ms, q, k, v, do, causal)
             line += (f" | kernel {k_ms:.3f} ms, bound {bound:.4f} ms = max("
                      f"{nbytes / 1e6:.2f} MB / 3.35 TB/s, {nops / 1e9:.2f} "
                      f"GFLOP / 989 TFLOP/s bf16) -> {bound / k_ms:.2%} of "
-                     f"it; plain {p_ms:.3f} ms; SDPA backward (is_causal, "
-                     f"enable_gqa) "
+                     f"it; SDPA backward (is_causal, enable_gqa) "
                      + (f"{lib:.3f} ms" if lib is not None else "n/a"))
+        if i == BWD_MAIN:
+            p_ms = time_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, out, do, lse, **kw), 2, warm=1)
+            line += f"; plain {p_ms:.3f} ms"
             row = dict(name="flash_attention_bwd", route="cuda",
                        source="src/repro_torch/csrc/flash_attention_bwd.cu",
                        replaces="src/repro/models/attention.py:62",

@@ -20,46 +20,69 @@
 // with no visible position (forward output 0) has every P = 0, so it gets
 // and gives zero gradients.
 //
-// Deterministic, with no atomics: two kernels, each owning its outputs.
-//   bwd_dq_kernel: one CTA per (block of query rows, kv head, sequence),
-//     the rows of the forward's layout (row r = query position q0 + r / G,
-//     head kh*G + r % G), 8 warps of 8 rows.  Its prologue computes Delta
-//     of its rows and writes it (scratch, (B, H, Sq)); then it loops over
-//     the visible key tiles of 32 positions: lane j scores position j
-//     against the warp's rows (S and dP), dS goes to a per-row shared
-//     buffer, and each lane accumulates D / 32 head dims of dQ.
-//   bwd_dkv_kernel: one CTA per (block of 64 key positions, kv head,
-//     sequence), 8 warps of 8 positions, launched after the first (it reads
-//     Delta).  It loops over the query rows that can see the block (every
-//     head of the GQA group, position-major), 32 rows a tile: lane j
-//     scores row j against the warp's positions, P and dS go to shared
-//     buffers, and each lane accumulates D / 32 head dims of dK and dV.
-//     The G heads of a group are summed in this one fixed order.
+// What bounds it on the H100: operations.  Five products of 2*D operations
+// per (query row, visible key position) pair at the bf16 tensor-core rate;
+// the bytes (q, k, v, O, dO, lse in, dq, dk, dv out) are a few per cent of
+// that time at training lengths.  This design does seven products, not
+// five: deterministic with no float atomics means two kernels that each
+// own their outputs, so S and dP are formed in both.
 //
-// bfloat16 at D <= 128 runs the same two kernels on the tensor cores
-// (bwd_dq_tc_kernel, bwd_dkv_tc_kernel): 4 warps of 16 rows (dQ: query
-// rows; dK/dV: key positions), mma.sync m16n8k16 bf16 x bf16 -> float32
-// with ldmatrix operands, the forward's fragment layout.  dQ: S = Q.K^T and
-// dP = dO.V^T as the forward's Q.K^T step over key tiles of 64, dS formed
-// in the accumulator fragments and reused, rounded to bf16, as the A
-// operand of dQ += dS.K (K by .trans ldmatrix, the forward's P.V step).
-// dK/dV: S^T = K.Q^T and dP^T = V.dO^T over query-row tiles of 32, then
-// dV += P^T.dO and dK += dS^T.(q * scale) the same way.  Every product is
-// bf16 x bf16, exact in float32, so the result is the CUDA-core one's up to
-// the order of the float32 sums.  The tiles each CTA streams (K and V in
-// dQ; the scaled Q rows, dO, lse and Delta in dK/dV) arrive by cp.async,
-// double buffered, as in the forward; the dQ kernel leaves the scaled Q
-// rows it forms in a scratch buffer for the dK/dV kernel.  D 256 and
-// float32 run on the CUDA cores.
+// bfloat16 at D <= 128, on the tensor cores (bwd_dq_tc_kernel,
+// bwd_dkv_tc_kernel): warpgroup tiles of 64 rows on wgmma (sm_90a,
+// csrc/hopper.cuh), fed by TMA.  A CTA is one producer warp (in a
+// warpgroup that gives its registers away with setmaxnreg) and two
+// consumer warpgroups; the producer streams tiles of 64 rows through a
+// ring of STAGES stages with mbarriers past the rows the CTA keeps in
+// shared memory.  Every panel is 64 rows x 64 bf16 in the 128-byte
+// swizzle; D 96 and 120 take a second panel whose columns past D TMA
+// fills with zeros (the contraction over D needs them zero).
+// P = exp2((S - lse) * log2 e), the plain version's argument S - lse.
+//   bwd_dq_tc_kernel: each consumer owns 64 query rows (the forward's
+//     layout, row r = position q0 + r / G, head kh*G + r % G; G that does
+//     not divide 64 leaves 64 mod G dead rows of zeros).  It loads them
+//     itself, q * scale rounded to bf16 (also written to a scratch for
+//     dK/dV) and dO, with Delta and lse, which it also writes per query
+//     tile for dK/dV.  Per streamed K/V tile: S = Qs.K^T and dP = dO.V^T
+//     (both operands in shared memory), P and dS in the accumulator
+//     registers, then dQ += dS.K with dS as the register A operand and K
+//     as an MN-major B operand; dQ is one m64n(64 NC) accumulator.
+//   bwd_dkv_tc_kernel: a CTA owns 64 key positions (K and V by TMA) and
+//     streams query tiles (scaled Q, dO by a 5-d TMA box (D, G, positions)
+//     that gives the row layout above; lse and Delta by a bulk copy).
+//     The consumers split the work by role: consumer 0 forms S^T = K.Qs^T,
+//     P^T in its accumulator registers and dV += P^T.dO; consumer 1 forms
+//     dP^T = V.dO^T, takes consumer 0's float32 P^T of the tile from
+//     shared memory (two buffers, named barriers), forms dS^T and dK +=
+//     dS^T.Qs; both A operands from registers.  Each warpgroup holds one
+//     m64n(64 NC) accumulator: with both dK and dV in one warpgroup
+//     (about 238 registers) the compiler serialised every wgmma of the
+//     kernel (ptxas C7512) under setmaxnreg's 240.  The G heads of a
+//     group are summed in one fixed order, the tile's rows.
+// Masks only where needed: each (warpgroup, tile) pair is classified once
+// as empty (skipped), full (no mask) or partial (masked per element) from
+// causal, window, q_offset and the real rows and keys.  Rows past Sq, dead
+// rows and keys past Skv are zeros in shared memory and add nothing (a key
+// past Skv is masked all the same: with a zero K row, exp(-lse) could
+// overflow).
+// A balanced causal schedule: a kernel's units (dQ: 128 query rows; dK/dV:
+// 64 keys) are paired, unit x with unit n-1-x in CTA x, so under a causal
+// mask every CTA walks about the same number of tiles (kernel.py:
+// bwd_schedule).  Deterministic:
+// every float32 sum runs in one order fixed by the schedule, with no
+// atomics, so two launches are bit-identical.
 //
-// What bounds it on the H100: operations.  Five products of 2*D
-// operations per (query row, visible key position) pair, at the bf16
-// tensor-core rate.  Not yet done: wgmma, TMA, warp specialisation, and
-// an even split of the causal work (the dK/dV CTA of the first key block
-// walks every query row).
+// float32, and bf16 at D 256 (whose dK and dV accumulators outgrow the
+// registers), run on the CUDA cores: bwd_dq_kernel, one CTA per (block of
+// query rows, kv head, sequence), 8 warps of 8 rows, lane j scoring key
+// position j of a tile of 32; bwd_dkv_kernel, one CTA per block of 64 key
+// positions, lane j scoring query row j of a tile of 32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -486,487 +509,577 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores (D <= 128): mma.sync m16n8k16 bf16 x bf16 ->
-// float32 with ldmatrix operands, the forward's fragment layout (lane l of a
-// warp holds rows l/4 and l/4 + 8 and columns 2*(l%4), 2*(l%4)+1 of each
-// 8-wide n-tile).  Shared rows are D rounded up to 16 (zeros past D, so the
-// k-steps over D see zero products there) plus 8 elements: an odd number of
-// 16-byte units, so the eight rows of an ldmatrix hit distinct banks.
+// bfloat16 on the tensor cores (D <= 128): wgmma warpgroup tiles fed by TMA.
 
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int TC_ROWS = 16 * TC_WARPS;   // query rows (dQ) or positions (dK, dV)
-constexpr int TC_BK = 64;                // key positions per tile (dQ)
-constexpr int TC_QT = 32;                // query rows per tile (dK, dV)
+using bf = __nv_bfloat16;
+using hopper::PANEL;
 
-__host__ __device__ constexpr int tc_dp(int D) { return (D + 15) / 16 * 16; }
-__host__ __device__ constexpr int tc_stride(int D) { return tc_dp(D) + 8; }
-// dQ: the scaled Q and dO rows, two K and two V tiles, lse and Delta
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int NCONS = 2;                 // consumer warpgroups a CTA
+constexpr int TC_THREADS = WG * (1 + NCONS);
+constexpr int TILE = 64;                 // rows of an own or a streamed tile
+constexpr int STAGES = 2;                // ring stages of streamed tiles
+constexpr int AUX = 2 * TILE;            // floats of a query tile's lse, Delta
+constexpr int XBUF = 32 * WG * 4;        // bytes of one float32 P^T tile
+constexpr int XREADY = 3, XFREE = 5;     // named barriers (two each)
+constexpr float L2E = 1.4426950408889634f;
+enum { TILE_EMPTY = 0, TILE_PARTIAL = 1, TILE_FULL = 2 };
+
+// panels of a row, and k16 steps of a contraction over D
+__host__ __device__ constexpr int tc_nc(int D) { return (D + 63) / 64; }
+__host__ __device__ constexpr int tc_kd(int D) { return (D + 15) / 16; }
+// dQ: each consumer's scaled-Q and dO panels, STAGES of K and V panels, a
+// full and an empty barrier a stage, 1024 bytes to align the panels
 __host__ __device__ constexpr size_t tc_dq_smem(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)tc_stride(D) * (2 * TC_ROWS + 4 * TC_BK)
-      + sizeof(float) * 2 * TC_ROWS;
+  return (size_t)PANEL * tc_nc(D) * (2 * NCONS + 2 * STAGES) + 16 * STAGES
+      + 1024;
 }
-// dK/dV: the K and V rows, two tiles each of scaled Q and dO rows, with
-// their lse and Delta
+// dK/dV: the unit's K and V panels, STAGES of scaled-Q and dO panels with
+// the tile's lse and Delta, two float32 P^T tiles, the ring's barriers and
+// the K/V pair's
 __host__ __device__ constexpr size_t tc_dkv_smem(int D) {
-  return sizeof(__nv_bfloat16) * (size_t)tc_stride(D) * (2 * TC_ROWS + 4 * TC_QT)
-      + sizeof(float) * 4 * TC_QT;
+  return (size_t)PANEL * tc_nc(D) * (2 + 2 * STAGES) + 2 * XBUF
+      + (size_t)4 * AUX * STAGES + 16 * STAGES + 16 + 1024;
 }
 
-__device__ inline unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ inline void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ inline void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ inline void ldsm_x2_t(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ inline unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+// Real query positions [p_lo, p_hi] (q_offset added) against the 64 keys
+// from t_lo: EMPTY (no visible pair), FULL (every pair visible, every key
+// below Skv) or PARTIAL.  kernel.py's bwd_tile_class is this function.
+__device__ inline int tile_class(int p_lo, int p_hi, int t_lo, int Skv,
+                                 int causal, int window) {
+  const int t_hi = t_lo + TILE - 1, te = min(t_hi, Skv - 1);
+  if (p_hi < p_lo || t_lo > te) return TILE_EMPTY;
+  if (causal && t_lo > p_hi) return TILE_EMPTY;
+  if (window > 0 && te <= p_lo - window) return TILE_EMPTY;
+  if (t_hi < Skv && (!causal || t_hi <= p_lo)
+      && (window <= 0 || t_lo > p_hi - window))
+    return TILE_FULL;
+  return TILE_PARTIAL;
 }
 
-// acc[NT][4] (16 rows x 8*NT columns) += A (16 x DP, rows of `a_rows`) .
-// B^T with B's rows the NT*8 rows of `b_rows` (both row-major in shared
-// memory, stride ST): the forward's Q.K^T step
-template <int NT, int KSTEPS, int ST>
-__device__ inline void mma_abt(float (&acc)[NT][4],
-                               const __nv_bfloat16* a_rows,
-                               const __nv_bfloat16* b_rows, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    unsigned a[4];
-    ldsm_x4(a, a_rows + (lane & 15) * ST + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned b[4];
-      ldsm_x4(b, b_rows + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ST
-                     + kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
+// The key tiles (first key, count) that dQ unit u (positions from
+// u * NCONS * BQ) walks, and the query tiles (first position, count) that
+// dK/dV unit u (keys from u * TILE) walks; kernel.py's bwd_schedule.
+__device__ inline void dq_range(int u, int BQ, int Sq, int Skv, int causal,
+                                int window, int q_offset, int& first,
+                                int& n) {
+  const int p_lo = q_offset + u * NCONS * BQ;
+  const int p_hi = q_offset + min((u + 1) * NCONS * BQ, Sq) - 1;
+  const int hi = causal ? min(Skv, p_hi + 1) : Skv;
+  const int lo = window > 0 ? max(0, p_lo - window + 1) : 0;
+  first = lo / TILE * TILE;
+  n = lo < hi ? (hi - first + TILE - 1) / TILE : 0;
+}
+__device__ inline void dkv_range(int u, int BQ, int Sq, int Skv, int causal,
+                                 int window, int q_offset, int& first,
+                                 int& n) {
+  const int t_lo = u * TILE, t_hi = min(t_lo + TILE, Skv) - 1;
+  const int lo = causal ? max(0, t_lo - q_offset) : 0;
+  const int hi = window > 0 ? min(Sq, t_hi + window - q_offset) : Sq;
+  first = lo / BQ * BQ;
+  n = lo < hi ? (hi - first + BQ - 1) / BQ : 0;
 }
 
-// out[DT][4] (16 rows x D) += X (16 x 16*KT, bf16 fragments from the
-// float32 accumulator x[2*KT][4]) . B (16*KT rows of `b_rows`, D columns):
-// the forward's P.V step
-template <int KT, int DT, int ST>
-__device__ inline void mma_xb(float (&out)[DT][4], const float (&x)[2 * KT][4],
-                              const __nv_bfloat16* b_rows, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    unsigned a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const __nv_bfloat16* row =
-        b_rows + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST;
-#pragma unroll
-    for (int np = 0; np < DT / 2; ++np) {
-      unsigned b[4];
-      ldsm_x4_t(b, row + np * 16 + (lane >> 4) * 8);
-      mma_bf16(out[2 * np], a, b[0], b[1]);
-      mma_bf16(out[2 * np + 1], a, b[2], b[3]);
-    }
-    if (DT & 1) {
-      unsigned b[2];
-      ldsm_x2_t(b, row + (DT - 1) * 8);
-      mma_bf16(out[DT - 1], a, b[0], b[1]);
-    }
-  }
+// descriptors of panels from `addr` (k16 steps over D: kstep(kk) added to
+// a K-major one; over rows: 2048 kk bytes, 128 kk, added to an MN-major one
+// spanning a row's NC panels)
+__device__ inline uint64_t desc(uint32_t addr) {
+  return hopper::desc_sw128(addr);
+}
+__device__ inline uint64_t desc_mn(uint32_t addr) {
+  return hopper::desc_sw128(addr, PANEL);
+}
+__host__ __device__ constexpr uint32_t kstep(int kk) {
+  return ((kk / 4) * PANEL + 32 * (kk % 4)) >> 4;
 }
 
-// one row of D bf16 from global into shared (zeros past D up to DP), the
-// row scaled by `scale` (rounded to bf16) when scale != 0; `src` null
-// writes zeros.  One 16-byte vector per call.
-template <int D, int ST>
-__device__ inline void tc_row_vec(__nv_bfloat16* dst_row,
-                                  const __nv_bfloat16* src_row, int c,
-                                  float scale) {
-  uint4 raw = make_uint4(0, 0, 0, 0);
-  if (src_row != nullptr && c * 8 < D) {
-    raw = __ldg(reinterpret_cast<const uint4*>(src_row + c * 8));
-    if (scale != 0.f) {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-    }
-  }
-  *reinterpret_cast<uint4*>(dst_row + c * 8) = raw;
+// Shared memory from its 1024-aligned base: (shared address, generic
+// pointer)
+__device__ inline uint32_t aligned_base(unsigned char* raw,
+                                        unsigned char*& gen) {
+  const uint32_t at = hopper::smem_u32(raw);
+  const uint32_t base = (at + 1023) & ~1023u;
+  gen = raw + (base - at);
+  return base;
 }
 
-// 16-byte global -> shared copy; bytes = 0 writes 16 zero bytes
-__device__ inline void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
-}
-// 4-byte global -> shared copy; bytes = 0 writes 4 zero bytes
-__device__ inline void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
-}
-__device__ inline void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ inline void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// columns D..DP-1 of `rows` shared rows: zeros (the copies never write them)
-template <int D, int ST>
-__device__ inline void tc_zero_tail(__nv_bfloat16* base, int rows, int tid) {
-  constexpr int DP = tc_dp(D);
-  if (DP > D) {
-    for (int r = tid; r < rows; r += TC_THREADS)
-#pragma unroll
-      for (int c = D; c < DP; c += 8)
-        *reinterpret_cast<uint4*>(base + r * ST + c) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// grid (n_qblocks, KH, B): 4 warps of 16 query rows (the forward's layout,
-// row r = position q0 + r / G, head kh*G + r % G).  Writes the scaled Q
-// rows it loads to qs_g ((B, Sq, H, D) scratch) for the dK/dV kernel.  K
-// and V tiles of 64 positions by cp.async, double buffered.
+// grid (ceil(units / 2), KH, B); CTA x takes dQ units x and units-1-x of
+// 128 query rows
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ o,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ qs_g,
-                 __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
-                 int KH, int BQ, int causal, int window, int q_offset,
-                 float scale_q) {
-  constexpr int DP = tc_dp(D), ST = tc_stride(D);
-  constexpr int KSTEPS = DP / 16, NT = TC_BK / 8, DT = D / 8;
-  constexpr int DV = DP / 8;               // 16-byte vectors of a shared row
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const bf* __restrict__ q, const bf* __restrict__ o,
+                 const bf* __restrict__ dout, const float* __restrict__ lse,
+                 float* __restrict__ aux, bf* __restrict__ qs_g,
+                 bf* __restrict__ dq, int Sq, int Skv, int H, int KH,
+                 int causal, int window, int q_offset, float scale_q) {
+  constexpr int NC = tc_nc(D), KD = tc_kd(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][ST]
-  __nv_bfloat16* ds_ = qs + TC_ROWS * ST;                         // dO rows
-  __nv_bfloat16* ks = ds_ + TC_ROWS * ST;                         // [2][BK][ST]
-  __nv_bfloat16* vs = ks + 2 * TC_BK * ST;                        // [2][BK][ST]
-  float* lse_s = reinterpret_cast<float*>(vs + 2 * TC_BK * ST);   // [ROWS]
-  float* dl_s = lse_s + TC_ROWS;                                  // [ROWS]
-  const int G = H / KH;
+  unsigned char* gen;
+  const uint32_t base = aligned_base(smem_raw, gen);
+  const uint32_t own_q = base;                            // [NCONS][NC]
+  const uint32_t own_do = own_q + NCONS * NC * PANEL;     // [NCONS][NC]
+  const uint32_t ring = own_do + NCONS * NC * PANEL;      // [STAGES][2][NC]
+  const uint32_t full = ring + STAGES * 2 * NC * PANEL;   // [STAGES]
+  const uint32_t empty = full + 8 * STAGES;               // [STAGES]
+  const int G = H / KH, BQ = TILE / G;
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // the longest first
-  const int q_end = min(q0 + BQ, Sq);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tig = lane & 3;
+  const int units = (Sq + NCONS * BQ - 1) / (NCONS * BQ);
+  const int u0 = blockIdx.x, u1 = units - 1 - blockIdx.x;
+  const int n_mine = u1 > u0 ? 2 : 1;
+  const int wg = threadIdx.x / WG;
 
-  for (int i = tid; i < TC_ROWS * DV; i += TC_THREADS) {
-    const int r = i / DV, c = i - r * DV;
-    const int qi = r / G, g = r - qi * G;
-    const bool live = q0 + qi < q_end;
-    const size_t off = (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D;
-    tc_row_vec<D, ST>(qs + r * ST, live ? q + off : nullptr, c, scale_q);
-    tc_row_vec<D, ST>(ds_ + r * ST, live ? dout + off : nullptr, c, 0.f);
-    if (live && c < DT)
-      *reinterpret_cast<uint4*>(qs_g + off + c * 8) =
-          *reinterpret_cast<const uint4*>(qs + r * ST + c * 8);
-  }
-  tc_zero_tail<D, ST>(ks, 4 * TC_BK, tid);   // both K and both V buffers
-  // Delta = rowsum(dO o O) and lse of the CTA's rows, 16 a warp
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const int qi = r / G, g = r - qi * G;
-    float dl = 0.f, l = 0.f;
-    if (q0 + qi < q_end) {               // uniform across the warp
-      const size_t row = ((size_t)b * Sq + q0 + qi) * H + kh * G + g;
-      float part = 0.f;
-      for (int d = lane; d < D; d += 32)
-        part = fmaf(__bfloat162float(dout[row * D + d]),
-                    __bfloat162float(o[row * D + d]), part);
-      dl = warp_sum(part);
-      const size_t li = ((size_t)b * H + kh * G + g) * Sq + q0 + qi;
-      l = lse[li];
-      if (lane == 0) delta[li] = dl;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, NCONS * WG);
     }
-    if (lane == 0) {
-      dl_s[r] = dl;
-      lse_s[r] = l;
-    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  const int row_a = warp * 16 + (lane >> 2);
-  int pos[2];
-  bool act[2];
-  float l_row[2], d_row[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row_a + 8 * h;
-    act[h] = q0 + r / G < q_end;
-    pos[h] = q_offset + q0 + r / G;
-    l_row[h] = lse_s[r];
-    d_row[h] = dl_s[r];
-  }
-  const int w_first = warp * 16 / G, w_last = (warp * 16 + 15) / G;
-  const bool w_any = q0 + w_first < q_end;
-  const int wq_lo = q_offset + q0 + w_first;
-  const int wq_hi = q_offset + min(q0 + w_last, q_end - 1);
-
-  int lo = 0, hi = Skv;
-  if (causal) hi = min(hi, q_offset + q_end);
-  if (window > 0) lo = max(0, q_offset + q0 - window + 1);
-  const int t_first = (lo / TC_BK) * TC_BK;
-  const int n_tiles = hi > t_first ? (hi - t_first + TC_BK - 1) / TC_BK : 0;
-
-  // K and V rows t0..t0+BK-1 into buffer buf; rows past Skv are zeros
-  auto issue = [&](int tile, int buf) {
-    const int t0 = t_first + tile * TC_BK;
-    __nv_bfloat16* kd = ks + buf * TC_BK * ST;
-    __nv_bfloat16* vd = vs + buf * TC_BK * ST;
-    for (int i = tid; i < TC_BK * DT; i += TC_THREADS) {
-      const int j = i / DT, c = i - j * DT;
-      const int t = t0 + j;
-      const bool in = t < Skv;
-      const size_t off =
-          (((size_t)b * Skv + (in ? t : Skv - 1)) * KH + kh) * D + c * 8;
-      cp_async16(kd + j * ST + c * 8, k + off, in ? 16 : 0);
-      cp_async16(vd + j * ST + c * 8, v + off, in ? 16 : 0);
-    }
-  };
-
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-
-  if (n_tiles > 0) issue(0, 0);
-  cp_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) issue(it + 1, (it + 1) & 1);
-    cp_commit();
-    cp_wait1();                          // tile it has landed
-    __syncthreads();
-    const int t0 = t_first + it * TC_BK;
-    const bool skip = !w_any || (causal && t0 > wq_hi)
-        || (window > 0 && t0 + TC_BK - 1 <= wq_lo - window);
-    if (!skip) {
-      const __nv_bfloat16* kb = ks + (it & 1) * TC_BK * ST;
-      const __nv_bfloat16* vb = vs + (it & 1) * TC_BK * ST;
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<NT, KSTEPS, ST>(s, qs + warp * 16 * ST, kb, lane);
-      mma_abt<NT, KSTEPS, ST>(dp, ds_ + warp * 16 * ST, vb, lane);
-      // dS = P o (dP - Delta), P = exp(S - lse), 0 where masked
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int t = t0 + 8 * j + 2 * tig + (e & 1);
-          const bool ok = act[h] && visible(t, pos[h], Skv, causal, window);
-          const float p = ok ? expf(s[j][e] - l_row[h]) : 0.f;
-          s[j][e] = p * (dp[j][e] - d_row[h]);
+  if (wg == 0) {                          // the producer: K and V tiles
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int m = 0; m < n_mine; ++m) {
+      int first, n;
+      dq_range(m ? u1 : u0, BQ, Sq, Skv, causal, window, q_offset, first, n);
+      for (int j = 0; j < n; ++j, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(full + 8 * s, 2 * NC * PANEL);
+        const uint32_t kt = ring + s * 2 * NC * PANEL;
+        for (int c = 0; c < NC; ++c) {
+          hopper::tma_load_4d(kt + c * PANEL, &k_map, full + 8 * s, 64 * c,
+                              kh, first + j * TILE, b);
+          hopper::tma_load_4d(kt + (NC + c) * PANEL, &v_map, full + 8 * s,
+                              64 * c, kh, first + j * TILE, b);
         }
-      // dQ += bf16(dS) . K
-      mma_xb<TC_BK / 16, DT, ST>(acc, s, kb, lane);
+      }
     }
-    __syncthreads();                     // buffer it & 1 is free
+    return;
   }
 
+  hopper::reg_alloc<240>();
+  const int cw = wg - 1, ct = threadIdx.x - wg * WG;
+  const int warp = ct >> 5, lane = ct & 31, tig = lane & 3;
+  const uint32_t my_q = own_q + cw * NC * PANEL;
+  const uint32_t my_do = own_do + cw * NC * PANEL;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int r0 = warp * 16 + (lane >> 2);   // the lane's rows r0, r0 + 8
+  int it = 0;
+  for (int m = 0; m < n_mine; ++m) {
+    const int unit = m ? u1 : u0;
+    const int q0 = (unit * NCONS + cw) * BQ;   // the warpgroup's positions
+    const int q_end = min(q0 + BQ, Sq);        // <= q0: no rows
+    hopper::named_sync(1 + cw, WG);            // the last unit's products
+    // the own rows: q * scale rounded to bf16 (also to qs_g) and dO, zeros
+    // past D, past Sq and in the dead rows
+    for (int i = ct; i < TILE * NC * 8; i += WG) {
+      const int r = i / (NC * 8), c = i % (NC * 8);
+      const int qi = r / G, g = r - qi * G;
+      uint4 qv = make_uint4(0, 0, 0, 0), dv = qv;
+      if (qi < BQ && q0 + qi < q_end && c * 8 < D) {
+        const size_t off =
+            (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D + c * 8;
+        qv = __ldg(reinterpret_cast<const uint4*>(q + off));
+        scale_vec<bf>(qv, scale_q);
+        *reinterpret_cast<uint4*>(qs_g + off) = qv;
+        dv = __ldg(reinterpret_cast<const uint4*>(dout + off));
+      }
+      const uint32_t at = (c / 8) * PANEL + hopper::swz(r, c % 8);
+      *reinterpret_cast<uint4*>(gen + (my_q - base) + at) = qv;
+      *reinterpret_cast<uint4*>(gen + (my_do - base) + at) = dv;
+    }
+    // Delta = rowsum(dO o O) and lse of the warp's 16 rows, to the query
+    // tile's aux slot (0 for a row that is not real); the lane keeps its two
+    float lse_r[2], dlt[2];
+    const size_t slot = ((size_t)(b * KH + kh) * n_qt + q0 / BQ) * AUX;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!act[h]) continue;
-    const int r = row_a + 8 * h;
-    const int qi = r / G, g = r - qi * G;
-    __nv_bfloat16* dst =
-        dq + (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D + 2 * tig;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr;
+      const int qi = r / G, g = r - qi * G;
+      float dl = 0.f, l = 0.f;
+      if (qi < BQ && q0 + qi < q_end) {     // uniform across the warp
+        const size_t row = ((size_t)b * Sq + q0 + qi) * H + kh * G + g;
+        float part = 0.f;
+        if (lane * 8 < D) {
+          uint4 x = __ldg(reinterpret_cast<const uint4*>(dout + row * D
+                                                         + lane * 8));
+          uint4 y = __ldg(reinterpret_cast<const uint4*>(o + row * D
+                                                         + lane * 8));
+          const bf* xe = reinterpret_cast<const bf*>(&x);
+          const bf* ye = reinterpret_cast<const bf*>(&y);
 #pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const float x0 = round_to<__nv_bfloat16>(acc[d][2 * h]) * scale_q;
-      const float x1 = round_to<__nv_bfloat16>(acc[d][2 * h + 1]) * scale_q;
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
-          __floats2bfloat162_rn(x0, x1);
+          for (int e = 0; e < 8; ++e)
+            part = fmaf(to_f32(xe[e]), to_f32(ye[e]), part);
+        }
+        dl = warp_sum(part);
+        l = lse[((size_t)b * H + kh * G + g) * Sq + q0 + qi];
+      }
+      if (q0 < Sq && lane == 0) {
+        aux[slot + r] = l;
+        aux[slot + TILE + r] = dl;
+      }
+      if ((lane >> 2) == (rr & 7)) {
+        lse_r[rr >> 3] = l;
+        dlt[rr >> 3] = dl;
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + cw, WG);
+
+    int pos[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pos[h] = q_offset + q0 + (r0 + 8 * h) / G;
+    const int p_lo = q_offset + q0, p_hi = q_offset + q_end - 1;
+    float acc[32 * NC];     // dQ, 64 x 64 NC: one accumulator over the panels
+#pragma unroll
+    for (int x = 0; x < 32 * NC; ++x) acc[x] = 0.f;
+
+    int first, n;
+    dq_range(unit, BQ, Sq, Skv, causal, window, q_offset, first, n);
+    for (int j = 0; j < n; ++j, ++it) {
+      const int s = it % STAGES, t0 = first + j * TILE;
+      hopper::mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const int cls = tile_class(p_lo, p_hi, t0, Skv, causal, window);
+      if (cls != TILE_EMPTY) {
+        const uint32_t kt = ring + s * 2 * NC * PANEL, vt = kt + NC * PANEL;
+        float sc[32], dp[32];
+        const uint64_t qd = desc(my_q), kd = desc(kt);
+        const uint64_t od = desc(my_do), vd = desc(vt);
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          hopper::wgmma_ss<0>(sc, qd + kstep(kk), kd + kstep(kk), kk > 0);
+        hopper::wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          hopper::wgmma_ss<0>(dp, od + kstep(kk), vd + kstep(kk), kk > 0);
+        hopper::wg_commit();
+        hopper::wg_wait<1>();
+        hopper::keep(sc);
+        // P = exp(S - lse); element x: row r0 + 8 ((x >> 1) & 1), key
+        // t0 + 8 (x >> 2) + 2 tig + (x & 1)
+        if (cls == TILE_FULL) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x)
+            sc[x] = exp2f((sc[x] - lse_r[(x >> 1) & 1]) * L2E);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int h = (x >> 1) & 1;
+            const int t = t0 + 8 * (x >> 2) + 2 * tig + (x & 1);
+            sc[x] = visible(t, pos[h], Skv, causal, window)
+                ? exp2f((sc[x] - lse_r[h]) * L2E) : 0.f;
+          }
+        }
+        hopper::wg_wait<0>();
+        hopper::keep(dp);
+        // dS = P o (dP - Delta), rounded to bf16 as the A operand
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          dp[x] = sc[x] * (dp[x] - dlt[(x >> 1) & 1]);
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(a[kk], dp, kk);
+        const uint64_t kmn = desc_mn(kt);
+        hopper::wg_fence();
+        hopper::keep(acc);
+        // dQ += dS . K: K rows are the contraction, MN-major
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<1>(acc, a[kk], kmn + 128 * kk);
+        hopper::wg_commit();
+        hopper::wg_wait<0>();
+        hopper::keep(acc);
+      }
+      hopper::mbar_arrive(empty + 8 * s);
+    }
+
+    // dQ = (dS.K rounded to bf16) * scale, rounded to bf16
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, qi = r / G, g = r - qi * G;
+      if (qi >= BQ || q0 + qi >= q_end) continue;
+      bf* dst = dq + (((size_t)b * Sq + q0 + qi) * H + kh * G + g) * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + 8 * j + 2 * tig;
+          if (col >= D) continue;
+          const float x0 = round_to<bf>(acc[32 * c + 4 * j + 2 * h]) * scale_q;
+          const float x1 =
+              round_to<bf>(acc[32 * c + 4 * j + 2 * h + 1]) * scale_q;
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(x0, x1);
+        }
     }
   }
 }
 
-// grid (n_kvblocks, KH, B): 4 warps of 16 key positions; loops over the
-// query rows that can see the block, TC_QT a tile, position-major: the
-// scaled Q rows (qs_g, from the dQ kernel), dO, lse and Delta of a tile by
-// cp.async, double buffered
+// grid (ceil(units / 2), KH, B); CTA x takes dK/dV units x and units-1-x
+// of 64 key positions.  Consumer 0 forms S^T, P^T and dV; consumer 1 dP^T,
+// dS^T and dK, reading consumer 0's float32 P^T of the tile from shared
+// memory (two buffers, named barriers XREADY and XFREE): one accumulator a
+// warpgroup
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ qs_g,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
-                  int KH, int causal, int window, int q_offset) {
-  constexpr int DP = tc_dp(D), ST = tc_stride(D);
-  constexpr int KSTEPS = DP / 16, NT = TC_QT / 8, DT = D / 8;
-  constexpr int DV = DP / 8;
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qs_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const float* __restrict__ aux, bf* __restrict__ dk,
+                  bf* __restrict__ dv, int Sq, int Skv, int H, int KH,
+                  int causal, int window, int q_offset) {
+  constexpr int NC = tc_nc(D), KD = tc_kd(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][ST]
-  __nv_bfloat16* vb = kb + TC_ROWS * ST;                          // [ROWS][ST]
-  __nv_bfloat16* qt = vb + TC_ROWS * ST;                          // [2][QT][ST]
-  __nv_bfloat16* dot = qt + 2 * TC_QT * ST;                       // [2][QT][ST]
-  float* lt = reinterpret_cast<float*>(dot + 2 * TC_QT * ST);     // [2][QT]
-  float* dt = lt + 2 * TC_QT;                                     // [2][QT]
-  const int G = H / KH;
+  unsigned char* gen;
+  const uint32_t base = aligned_base(smem_raw, gen);
+  const uint32_t own_k = base;                            // [NC]
+  const uint32_t own_v = own_k + NC * PANEL;              // [NC]
+  const uint32_t ring = own_v + NC * PANEL;               // [STAGES][2][NC]
+  const uint32_t xbuf = ring + STAGES * 2 * NC * PANEL;   // [2][32][WG]
+  const uint32_t auxs = xbuf + 2 * XBUF;                  // [STAGES][AUX]
+  const uint32_t full = auxs + 4 * AUX * STAGES;          // [STAGES]
+  const uint32_t empty = full + 8 * STAGES;               // [STAGES]
+  const uint32_t kv_full = empty + 8 * STAGES, kv_empty = kv_full + 8;
+  const int G = H / KH, BQ = TILE / G, n_qt = (Sq + BQ - 1) / BQ;
+  const uint32_t box_q = 128 * G * BQ;    // bytes of a scaled-Q or dO box
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * TC_ROWS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tig = lane & 3;
+  const int units = (Skv + TILE - 1) / TILE;
+  const int u0 = blockIdx.x, u1 = units - 1 - blockIdx.x;
+  const int n_mine = u1 > u0 ? 2 : 1;
+  const int wg = threadIdx.x / WG;
 
-  for (int i = tid; i < TC_ROWS * DV; i += TC_THREADS) {
-    const int j = i / DV, c = i - j * DV;
-    const int t = k0 + j;
-    const size_t off = (((size_t)b * Skv + t) * KH + kh) * D;
-    tc_row_vec<D, ST>(kb + j * ST, t < Skv ? k + off : nullptr, c, 0.f);
-    tc_row_vec<D, ST>(vb + j * ST, t < Skv ? v + off : nullptr, c, 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, NCONS * WG);
+    }
+    hopper::mbar_init(kv_full, 1);
+    hopper::mbar_init(kv_empty, NCONS * WG);
+    hopper::mbar_fence_init();
   }
-  tc_zero_tail<D, ST>(qt, 4 * TC_QT, tid);   // both Q and both dO buffers
+  // the dead rows of the ring's panels (64 mod G), which TMA never writes
+  for (int i = threadIdx.x; i < STAGES * 2 * NC * (TILE - G * BQ) * 8;
+       i += TC_THREADS) {
+    const int p = i / ((TILE - G * BQ) * 8), e = i % ((TILE - G * BQ) * 8);
+    *reinterpret_cast<uint4*>(gen + (ring - base) + p * PANEL
+                              + hopper::swz(G * BQ + e / 8, e % 8)) =
+        make_uint4(0, 0, 0, 0);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
 
-  const int k_last = min(k0 + TC_ROWS, Skv) - 1;
-  int i_lo = 0, i_hi = Sq;
-  if (causal) i_lo = max(0, k0 - q_offset);
-  if (window > 0) i_hi = min(Sq, k_last + window - q_offset);
-  const int rho_start = i_lo * G, rho_end = i_hi * G;
-  const int n_tiles =
-      rho_end > rho_start ? (rho_end - rho_start + TC_QT - 1) / TC_QT : 0;
-
-  // query rows r0..r0+QT-1 of tile `tile` into buffer buf; rows past the
-  // range are zeros (lse and Delta 0)
-  auto issue = [&](int tile, int buf) {
-    const int r0 = rho_start + tile * TC_QT;
-    __nv_bfloat16* qd = qt + buf * TC_QT * ST;
-    __nv_bfloat16* dd = dot + buf * TC_QT * ST;
-    for (int i = tid; i < TC_QT * DT; i += TC_THREADS) {
-      const int rr = i / DT, c = i - rr * DT;
-      const int rho = r0 + rr;
-      const bool live = rho < rho_end;
-      const int qi = live ? rho / G : 0, g = live ? rho - qi * G : 0;
-      const size_t off = (((size_t)b * Sq + qi) * H + kh * G + g) * D + c * 8;
-      cp_async16(qd + rr * ST + c * 8, qs_g + off, live ? 16 : 0);
-      cp_async16(dd + rr * ST + c * 8, dout + off, live ? 16 : 0);
-    }
-    if (tid < TC_QT) {
-      const int rho = r0 + tid;
-      const bool live = rho < rho_end;
-      const int qi = live ? rho / G : 0, g = live ? rho - qi * G : 0;
-      const size_t li = ((size_t)b * H + kh * G + g) * Sq + qi;
-      cp_async4(lt + buf * TC_QT + tid, lse + li, live ? 4 : 0);
-      cp_async4(dt + buf * TC_QT + tid, delta + li, live ? 4 : 0);
-    }
-  };
-
-  // this lane's two key positions
-  int t_row[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) t_row[h] = k0 + warp * 16 + (lane >> 2) + 8 * h;
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-
-  if (n_tiles > 0) issue(0, 0);
-  cp_commit();
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) issue(it + 1, (it + 1) & 1);
-    cp_commit();
-    cp_wait1();                          // tile it has landed
-    __syncthreads();
-    const int buf = it & 1;
-    const int r0 = rho_start + it * TC_QT;
-    const __nv_bfloat16* qb = qt + buf * TC_QT * ST;
-    const __nv_bfloat16* db = dot + buf * TC_QT * ST;
-    const float* lb = lt + buf * TC_QT;
-    const float* dlb = dt + buf * TC_QT;
-    // S^T = K . (q * scale)^T and dP^T = V . dO^T over the tile's rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<NT, KSTEPS, ST>(s, kb + warp * 16 * ST, qb, lane);
-    mma_abt<NT, KSTEPS, ST>(dp, vb + warp * 16 * ST, db, lane);
-    // P^T and dS^T; column c of the tile is query row r0 + c
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int lo2 = 0; lo2 < 2; ++lo2) {
-        const int c = 8 * j + 2 * tig + lo2;
-        const int rho = r0 + c;
-        const int qpos = q_offset + rho / G;
-        const bool live = rho < rho_end;
-        const float l_c = lb[c], d_c = dlb[c];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * h + lo2;
-          const bool ok = live
-              && visible(t_row[h], qpos, Skv, causal, window);
-          const float p = ok ? expf(s[j][e] - l_c) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - d_c);
-        }
+  if (wg == 0) {           // the producer: own K, V; scaled-Q, dO, aux tiles
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int m = 0; m < n_mine; ++m) {
+      const int unit = m ? u1 : u0;
+      if (m > 0) hopper::mbar_wait(kv_empty, (m - 1) & 1);
+      hopper::mbar_expect_tx(kv_full, 2 * NC * PANEL);
+      for (int c = 0; c < NC; ++c) {
+        hopper::tma_load_4d(own_k + c * PANEL, &k_map, kv_full, 64 * c, kh,
+                            unit * TILE, b);
+        hopper::tma_load_4d(own_v + c * PANEL, &v_map, kv_full, 64 * c, kh,
+                            unit * TILE, b);
       }
-    // dV += bf16(P^T) . dO;  dK += bf16(dS^T) . (q * scale)
-    mma_xb<TC_QT / 16, DT, ST>(dva, s, db, lane);
-    mma_xb<TC_QT / 16, DT, ST>(dka, dp, qb, lane);
-    __syncthreads();                     // buffer it & 1 is free
+      int first, n;
+      dkv_range(unit, BQ, Sq, Skv, causal, window, q_offset, first, n);
+      for (int j = 0; j < n; ++j, ++it) {
+        const int s = it % STAGES, pos0 = first + j * BQ;
+        hopper::mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(full + 8 * s, 2 * NC * box_q + 4 * AUX);
+        const uint32_t qt = ring + s * 2 * NC * PANEL;
+        for (int c = 0; c < NC; ++c) {
+          hopper::tma_load_5d(qt + c * PANEL, &qs_map, full + 8 * s, 64 * c,
+                              0, kh, pos0, b);
+          hopper::tma_load_5d(qt + (NC + c) * PANEL, &do_map, full + 8 * s,
+                              64 * c, 0, kh, pos0, b);
+        }
+        hopper::bulk_load(auxs + s * 4 * AUX,
+                          aux + ((size_t)(b * KH + kh) * n_qt + pos0 / BQ)
+                                    * AUX,
+                          4 * AUX, full + 8 * s);
+      }
+    }
+    return;
   }
 
+  hopper::reg_alloc<240>();
+  const int cw = wg - 1, ct = threadIdx.x - wg * WG;
+  const int warp = ct >> 5, lane = ct & 31, tig = lane & 3;
+  const uint32_t my_a = cw ? own_v : own_k;   // V (dP^T) or K (S^T)
+  int it = 0, used = 0;                       // tiles, tiles not skipped
+  for (int m = 0; m < n_mine; ++m) {
+    const int unit = m ? u1 : u0;
+    const int k0 = unit * TILE;               // the unit's keys
+    int t_row[2];                             // the lane's two keys
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int t = t_row[h];
-    if (t >= Skv) continue;
-    const size_t base = (((size_t)b * Skv + t) * KH + kh) * D + 2 * tig;
+    for (int h = 0; h < 2; ++h) t_row[h] = k0 + warp * 16 + (lane >> 2) + 8 * h;
+    float acc[32 * NC];                       // dV (consumer 0), dK (1)
 #pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * d) =
-          __floats2bfloat162_rn(dka[d][2 * h], dka[d][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * d) =
-          __floats2bfloat162_rn(dva[d][2 * h], dva[d][2 * h + 1]);
+    for (int x = 0; x < 32 * NC; ++x) acc[x] = 0.f;
+    hopper::mbar_wait(kv_full, m & 1);
+
+    int first, n;
+    dkv_range(unit, BQ, Sq, Skv, causal, window, q_offset, first, n);
+    for (int j = 0; j < n; ++j, ++it) {
+      const int s = it % STAGES, pos0 = first + j * BQ;
+      hopper::mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const int cls = tile_class(q_offset + pos0,
+                                 q_offset + min(pos0 + BQ, Sq) - 1, k0, Skv,
+                                 causal, window);
+      if (cls != TILE_EMPTY) {
+        const uint32_t qt = ring + s * 2 * NC * PANEL, dt = qt + NC * PANEL;
+        const float* la =
+            reinterpret_cast<const float*>(gen + (auxs - base) + s * 4 * AUX);
+        float* xb = reinterpret_cast<float*>(gen + (xbuf - base)
+                                             + (used & 1) * XBUF);
+        // S^T = K . Qs^T (consumer 0) or dP^T = V . dO^T (consumer 1)
+        float sc[32];
+        const uint64_t ad = desc(my_a), bd = desc(cw ? dt : qt);
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          hopper::wgmma_ss<0>(sc, ad + kstep(kk), bd + kstep(kk), kk > 0);
+        hopper::wg_commit();
+        hopper::wg_wait<0>();
+        hopper::keep(sc);
+        if (cw == 0) {
+          // P^T = exp(S^T - lse); element x: key t_row[(x >> 1) & 1],
+          // column 8 (x >> 2) + 2 tig + (x & 1).  Key t sees column col
+          // (position q_offset + pos0 + col / G) when col >= lo[h]
+          // (causal) and col < hi[h] (window).
+          int lo[2], hi[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = t_row[h] - q_offset - pos0;
+            lo[h] = causal ? k * G : INT_MIN;
+            hi[h] = t_row[h] >= Skv ? INT_MIN
+                : window > 0 ? (k + window) * G : INT_MAX;
+          }
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int col = 8 * (x >> 2) + 2 * tig + (x & 1);
+            const int h = (x >> 1) & 1;
+            const float p = exp2f((sc[x] - la[col]) * L2E);
+            sc[x] = cls == TILE_FULL || (col >= lo[h] && col < hi[h]) ? p
+                                                                     : 0.f;
+          }
+          // hand P^T to consumer 1 once it has read this buffer's last
+          if (used >= 2) hopper::named_sync(XFREE + (used & 1), 2 * WG);
+#pragma unroll
+          for (int x = 0; x < 32; ++x) xb[x * WG + ct] = sc[x];
+          hopper::named_arrive(XREADY + (used & 1), 2 * WG);
+        } else {
+          // dS^T = P^T o (dP^T - Delta), with consumer 0's P^T
+          const float* da = la + TILE;
+          hopper::named_sync(XREADY + (used & 1), 2 * WG);
+#pragma unroll
+          for (int x = 0; x < 32; ++x)
+            sc[x] = xb[x * WG + ct]
+                * (sc[x] - da[8 * (x >> 2) + 2 * tig + (x & 1)]);
+          hopper::named_arrive(XFREE + (used & 1), 2 * WG);
+        }
+        // dV += P^T . dO or dK += dS^T . Qs: the A operand rounded to bf16
+        // in registers, the tile's rows the contraction, B MN-major
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(a[kk], sc, kk);
+        const uint64_t bmn = desc_mn(cw ? qt : dt);
+        hopper::wg_fence();
+        hopper::keep(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<1>(acc, a[kk], bmn + 128 * kk);
+        hopper::wg_commit();
+        hopper::wg_wait<0>();
+        hopper::keep(acc);
+        ++used;
+      }
+      hopper::mbar_arrive(empty + 8 * s);
+    }
+    hopper::mbar_arrive(kv_empty);       // this unit's K and V are read
+
+    bf* out = cw ? dk : dv;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t_row[h];
+      if (t >= Skv) continue;
+      bf* dst = out + (((size_t)b * Skv + t) * KH + kh) * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + 8 * j + 2 * tig;
+          if (col >= D) continue;
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(acc[32 * c + 4 * j + 2 * h],
+                                    acc[32 * c + 4 * j + 2 * h + 1]);
+        }
     }
   }
+  // the hand-offs consumer 1 released last, which consumer 0 never awaited
+  if (cw == 0)
+    for (int u = max(used - 2, 0); u < used; ++u)
+      hopper::named_sync(XFREE + (u & 1), 2 * WG);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime: no -lcuda
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &status)
+        != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) != cudaSuccess)
+      return nullptr;
+#endif
+    return status == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 map over `ptr`: dims innermost first, byte strides of dims 1..,
+// the box; 128-byte swizzle, zeros outside the tensor
+bool make_map(CUtensorMap* map, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return fn != nullptr
+      && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const float* lse, float* delta, void* dq,
+              const void* dout, const float* lse, float* aux, void* dq,
               void* dk, void* dv, void* qs, int B, int Sq, int Skv, int H,
               int KH, int causal, int window, int q_offset, float scale_q,
               cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const int BQ = TC_ROWS / (H / KH);
   constexpr size_t s1 = tc_dq_smem(D), s2 = tc_dkv_smem(D);
   static_assert(s1 <= MAX_SMEM && s2 <= MAX_SMEM, "shared memory of a CTA");
   static const cudaError_t a1 = cudaFuncSetAttribute(
@@ -977,22 +1090,38 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
       (int)s2);
   if (a1 != cudaSuccess) return (int)a1;
   if (a2 != cudaSuccess) return (int)a2;
-  if (BQ < 1 || qs == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 g1((Sq + BQ - 1) / BQ, KH, B);
-  bwd_dq_tc_kernel<D><<<g1, TC_THREADS, s1, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(o),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(qs),
-      static_cast<bf*>(dq), Sq, Skv, H, KH, BQ, causal, window, q_offset,
+  const int G = H / KH;
+  if (G > TILE || qs == nullptr) return (int)cudaErrorInvalidValue;
+  const int BQ = TILE / G;
+  const cuuint64_t e = sizeof(bf);
+  // k, v (B, Skv, KH, D) as (D, KH, Skv, B), boxes of 64 keys; q-shaped
+  // (B, Sq, H, D) as (D, G, KH, Sq, B), boxes of BQ positions x G heads
+  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)Skv,
+                            (cuuint64_t)B};
+  const cuuint64_t ks[3] = {D * e, KH * D * e, (cuuint64_t)Skv * KH * D * e};
+  const cuuint32_t kb[4] = {64, 1, TILE, 1};
+  const cuuint64_t qd[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)KH,
+                            (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t qstr[4] = {D * e, G * D * e, H * D * e,
+                              (cuuint64_t)Sq * H * D * e};
+  const cuuint32_t qb[5] = {64, (cuuint32_t)G, 1, (cuuint32_t)BQ, 1};
+  CUtensorMap km, vm, qm, dm;
+  if (!make_map(&km, k, 4, kd, ks, kb) || !make_map(&vm, v, 4, kd, ks, kb)
+      || !make_map(&qm, qs, 5, qd, qstr, qb)
+      || !make_map(&dm, dout, 5, qd, qstr, qb))
+    return (int)cudaErrorNotSupported;
+  const int nq = (Sq + NCONS * BQ - 1) / (NCONS * BQ);
+  const int nk = (Skv + TILE - 1) / TILE;
+  bwd_dq_tc_kernel<D><<<dim3((nq + 1) / 2, KH, B), TC_THREADS, s1, stream>>>(
+      km, vm, static_cast<const bf*>(q), static_cast<const bf*>(o),
+      static_cast<const bf*>(dout), lse, aux, static_cast<bf*>(qs),
+      static_cast<bf*>(dq), Sq, Skv, H, KH, causal, window, q_offset,
       scale_q);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 g2((Skv + TC_ROWS - 1) / TC_ROWS, KH, B);
-  bwd_dkv_tc_kernel<D><<<g2, TC_THREADS, s2, stream>>>(
-      static_cast<const bf*>(qs), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Skv, H, KH, causal,
-      window, q_offset);
+  bwd_dkv_tc_kernel<D><<<dim3((nk + 1) / 2, KH, B), TC_THREADS, s2, stream>>>(
+      qm, dm, km, vm, aux, static_cast<bf*>(dk), static_cast<bf*>(dv), Sq,
+      Skv, H, KH, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -1057,26 +1186,28 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, o, dout and dq (B, Sq, H, D), k, v,
-// dk, dv (B, Skv, KH, D) of that type, contiguous, 16-byte aligned; lse and
-// delta float32 (B, H, Sq), delta scratch written here; qs scratch of q's
-// shape and type for the tensor-core path (bf16, D <= 128; null
-// otherwise).  D in {16, 64, 96, 120, 128, 256}; scale_q is d**-0.5
-// rounded to the type.  Two launches on ``stream`` (dQ and Delta, then dK
-// and dV); allocates nothing.
+// dk, dv (B, Skv, KH, D) of that type, contiguous, 16-byte aligned; lse
+// float32 (B, H, Sq).  scratch: float32 written here, Delta (B, H, Sq) on
+// the CUDA cores, each query tile's lse and Delta (B, KH, ceil(Sq / BQ),
+// 128) on the tensor cores (bf16, D <= 128; BQ = 64 / G); qs scratch of
+// q's shape and type on the tensor cores (null otherwise).  D in {16, 64,
+// 96, 120, 128, 256}; scale_q is d**-0.5 rounded to the type.  Two
+// launches on ``stream`` (dQ and Delta, then dK and dV); allocates
+// nothing.
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, void* qs, int B, int Sq, int Skv, int H, int KH, int D,
     int causal, int window, int q_offset, float scale_q, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
+    return launch_f32(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Skv, H,
                       KH, D, causal, window, q_offset, scale_q, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
 #define TC(DD)                                                                \
-  return launch_tc<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, qs, B, Sq,   \
+  return launch_tc<DD>(q, k, v, o, dout, lse, scratch, dq, dk, dv, qs, B, Sq, \
                        Skv, H, KH, causal, window, q_offset, scale_q, s)
   switch (D) {
     case 16: TC(16);
@@ -1085,7 +1216,7 @@ extern "C" int flash_attention_bwd_launch(
     case 120: TC(120);
     case 128: TC(128);
     case 256:     // the dK and dV accumulators outgrow the registers
-      return launch_inst<__nv_bfloat16, 8>(q, k, v, o, dout, lse, delta, dq,
+      return launch_inst<__nv_bfloat16, 8>(q, k, v, o, dout, lse, scratch, dq,
                                            dk, dv, B, Sq, Skv, H, KH, D,
                                            causal, window, q_offset, scale_q,
                                            s);

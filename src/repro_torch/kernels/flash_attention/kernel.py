@@ -2,8 +2,9 @@
 (``csrc/flash_attention.cu``, one launch on the current stream, bfloat16 on
 the tensor cores and float32 on the CUDA cores, optionally writing each
 row's log-sum-exp) and its backward (``csrc/flash_attention_bwd.cu``, two
-launches: dQ with Delta, then dK and dV).  They take CUDA tensors only;
-the libraries build from the repository's sources at first use."""
+launches: dQ with Delta, then dK and dV; ``bwd_schedule`` says what each of
+their CTAs walks on the tensor cores).  They take CUDA tensors only; the
+libraries build from the repository's sources at first use."""
 from __future__ import annotations
 
 import ctypes
@@ -29,12 +30,27 @@ INSTANCES = {16: (16, 1), 64: (16, 2), 96: (16, 3), 120: (16, 4),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# the backward on the CUDA cores: 8 warps of 8 rows (dQ) or key positions
-# (dK, dV), 64 a CTA; key tiles of 32 positions (dQ), query-row tiles of 32
-# (dK, dV).  The tensor-core kernels (bf16, d <= 128) have 64 rows a CTA too
+# the backward on the CUDA cores (float32; bf16 at d 256): 8 warps of 8
+# rows (dQ) or key positions (dK, dV), 64 a CTA; key tiles of 32 positions
+# (dQ), query-row tiles of 32 (dK, dV)
 BWD_ROWS = 64
 BWD_BK = 32
 BWD_QT = 32
+# the backward on the tensor cores (bf16, d <= 128): a producer warp (in a
+# warpgroup of its own) and BWD_CONS consumer warpgroups; dQ's consumers
+# each own BWD_TILE query rows, dK/dV's share BWD_TILE keys (one forms dV,
+# the other dK); streamed tiles of BWD_TILE rows through BWD_STAGES ring
+# stages; panels of 64 rows x 64 bf16; a query tile's lse and Delta, 2 x
+# BWD_TILE floats; dK/dV hands a float32 P^T tile (BWD_XBUF bytes, two
+# buffers) from one consumer to the other; tile classes of
+# ``bwd_tile_class``
+BWD_TILE = 64
+BWD_CONS = 2
+BWD_STAGES = 2
+BWD_PANEL = 64 * 64 * 2
+BWD_AUX = 2 * BWD_TILE
+BWD_XBUF = BWD_TILE * BWD_TILE * 4
+EMPTY, PARTIAL, FULL = 0, 1, 2
 
 
 @lru_cache(maxsize=1)
@@ -90,14 +106,32 @@ def smem_bytes(d: int, dtype) -> int:
     return 4 * rows * HALF + 4 * rows * d + 2 * BK * units * 16
 
 
+def _bwd_tc(d: int, dtype) -> bool:
+    """The backward runs on the tensor cores: bf16 at d <= 128."""
+    return dtype == torch.bfloat16 and d <= 128
+
+
 def bwd_smem_bytes(d: int, dtype) -> int:
-    """Dynamic shared memory of the larger of the backward's two CUDA-core
-    CTAs at head dim ``d`` (the tensor-core ones of bf16 at d <= 128 take
-    less): dQ holds 64 scaled Q and dO rows, a K and a V tile of 32
+    """Dynamic shared memory of the larger of the backward's two CTAs at
+    head dim ``d``.  Tensor cores (bf16, d <= 128; panels of 64 x 64 bf16,
+    ceil(d / 64) a row): dQ holds each consumer's scaled-Q and dO panels
+    and BWD_STAGES stages of K and V panels, dK/dV the unit's K and V
+    panels, BWD_STAGES stages of scaled-Q and dO panels with the tile's lse
+    and Delta, and two float32 P^T tiles; a full and an empty mbarrier (8
+    bytes each) a stage, dK/dV two more for its K and V, and 1024 bytes to
+    align the panels.  CUDA
+    cores: dQ holds 64 scaled Q and dO rows, a K and a V tile of 32
     positions and a float32 dS buffer (64 x 32); dK/dV holds 64 K and V
     rows, a tile of 32 scaled Q and dO rows, float32 P and dS buffers (64 x
-    32) and the tile's lse and Delta.  Rows padded to an odd number of
+    32) and the tile's lse and Delta, rows padded to an odd number of
     16-byte units."""
+    if _bwd_tc(d, dtype):
+        chunks = -(-d // 64)
+        dq = (BWD_PANEL * chunks * (2 * BWD_CONS + 2 * BWD_STAGES)
+              + 16 * BWD_STAGES + 1024)
+        dkv = (BWD_PANEL * chunks * (2 + 2 * BWD_STAGES) + 2 * BWD_XBUF
+               + 4 * BWD_AUX * BWD_STAGES + 16 * BWD_STAGES + 16 + 1024)
+        return max(dq, dkv)
     elem = 2 if dtype == torch.bfloat16 else 4
     units = d * elem // 16
     units += 1 - units % 2
@@ -106,6 +140,70 @@ def bwd_smem_bytes(d: int, dtype) -> int:
     dkv = row * (2 * BWD_ROWS + 2 * BWD_QT) + 4 * (2 * BWD_ROWS * BWD_QT
                                                     + 2 * BWD_QT)
     return max(dq, dkv)
+
+
+def bwd_tile_class(p_lo: int, p_hi: int, t_lo: int, skv: int, causal: bool,
+                   window: int) -> int:
+    """The tensor-core backward's class of a tile: real query positions
+    [p_lo, p_hi] (``q_offset`` added) against the BWD_TILE keys from
+    ``t_lo``.  EMPTY (no visible pair: skipped), FULL (every pair visible
+    and every key below ``skv``: no mask) or PARTIAL (masked per element).
+    The kernel's ``tile_class`` is this function."""
+    t_hi = t_lo + BWD_TILE - 1
+    te = min(t_hi, skv - 1)
+    if p_hi < p_lo or t_lo > te:
+        return EMPTY
+    if causal and t_lo > p_hi:
+        return EMPTY
+    if window > 0 and te <= p_lo - window:
+        return EMPTY
+    if (t_hi < skv and (not causal or t_hi <= p_lo)
+            and (window <= 0 or t_lo > p_hi - window)):
+        return FULL
+    return PARTIAL
+
+
+def bwd_schedule(sq: int, skv: int, g: int, causal: bool, window: int = 0,
+                 q_offset: int = 0) -> dict:
+    """What each CTA of the tensor-core backward walks, for one (sequence,
+    kv head); the kernels compute the same (``dq_range``, ``dkv_range``).
+
+    dQ unit u owns the query positions from u x BWD_CONS x BQ (consumer w
+    the BQ = BWD_TILE // g positions from (u x BWD_CONS + w) x BQ, all g
+    heads of each); dK/dV unit u the BWD_TILE keys from u x BWD_TILE (both
+    consumers: one forms dV, the other dK).
+    CTA x takes units x and n-1-x, so under a causal mask a long unit and
+    a short one share a CTA.  Returns {"dq": [...], "dkv": [...], "bq":
+    BQ}: per CTA a list of (unit, first, count), the streamed tiles the
+    unit walks: key tiles of BWD_TILE from key ``first`` (dQ), query tiles
+    of BQ positions from position ``first`` (dK/dV)."""
+    bq = BWD_TILE // g
+    out = {"bq": bq}
+    for kind, units in (("dq", -(-sq // (BWD_CONS * bq))),
+                        ("dkv", -(-skv // BWD_TILE))):
+        ctas = []
+        for x in range(-(-units // 2)):
+            walk = []
+            for u in sorted({x, units - 1 - x}):
+                if kind == "dq":
+                    p_lo = q_offset + u * BWD_CONS * bq
+                    p_hi = q_offset + min((u + 1) * BWD_CONS * bq, sq) - 1
+                    hi = min(skv, p_hi + 1) if causal else skv
+                    lo = max(0, p_lo - window + 1) if window > 0 else 0
+                    first = lo // BWD_TILE * BWD_TILE
+                    n = -(-(hi - first) // BWD_TILE) if lo < hi else 0
+                else:
+                    t_lo = u * BWD_TILE
+                    t_hi = min(t_lo + BWD_TILE, skv) - 1
+                    lo = max(0, t_lo - q_offset) if causal else 0
+                    hi = (min(sq, t_hi + window - q_offset) if window > 0
+                          else sq)
+                    first = lo // bq * bq
+                    n = -(-(hi - first) // bq) if lo < hi else 0
+                walk.append((u, first, n))
+            ctas.append(walk)
+        out[kind] = ctas
+    return out
 
 
 def query_block(h: int, kh: int, d: int, dtype) -> int:
@@ -214,17 +312,22 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    # the scaled q rows, formed by the dQ kernel for the dK/dV kernel (the
-    # tensor-core path: bf16 at d <= 128)
-    qs = (torch.empty_like(q) if q.dtype == torch.bfloat16 and d <= 128
-          else None)
+    if _bwd_tc(d, q.dtype):
+        # the scaled q rows and each query tile's lse and Delta, written by
+        # the dQ kernel for the dK/dV kernel
+        qs = torch.empty_like(q)
+        n_qt = -(-sq // (BWD_TILE // (h // kh)))
+        scratch = torch.empty(b * kh * n_qt * BWD_AUX, dtype=torch.float32,
+                              device=dev)
+    else:
+        qs = None
+        scratch = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(_bwd_launcher()(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if qs is None else qs.data_ptr(), b, sq, skv, h, kh, d,
             int(bool(causal)), int(window), int(q_offset), scale_q, stream),
             "flash_attention_bwd_launch")

@@ -31,8 +31,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro.models.attention import flash_attention_jnp  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as K  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    INSTANCES, MAX_SMEM, bwd_smem_bytes, flash_attention_bwd_cuda)
+    INSTANCES, MAX_SMEM, bwd_schedule, bwd_smem_bytes, bwd_tile_class,
+    flash_attention_bwd_cuda)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_chunked)
 
@@ -149,3 +151,104 @@ def test_backward_fits_shared_memory_at_every_head_dim(dtype):
     of the forward's instances, in both dtypes."""
     for d in INSTANCES:
         assert bwd_smem_bytes(d, dtype) <= MAX_SMEM, d
+
+
+# sq, skv, g, causal, window, q_offset
+SCHEDULE_CASES = [
+    (300, 300, 4, True, 0, 0),        # causal, G 4
+    (250, 250, 5, True, 64, 0),       # windowed, G 5 (hymba)
+    (200, 200, 1, False, 0, 0),       # non-causal
+    (130, 390, 1, False, 0, 0),       # cross-attention, Sq < Skv
+    (77, 300, 6, True, 0, 223),       # q_offset, G 6 (dbrx)
+    (150, 420, 4, True, 100, 270),    # q_offset and a window
+    (260, 200, 3, False, 90, 0),      # a window without causality, Sq > Skv
+]
+
+
+def _visible(sq, skv, causal, window, q_offset):
+    p = q_offset + np.arange(sq)[:, None]
+    t = np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= t <= p
+    if window > 0:
+        ok &= t > p - window
+    return ok
+
+
+def _walk(kind, sched, sq):
+    """(CTA, positions, first key) of every (rows, streamed tile) step that
+    the tensor-core backward's kernel ``kind`` runs: dQ's consumers each own
+    their query rows; dK/dV's two consumers share the unit's keys, one
+    forming dV and the other dK, so a step stands for both."""
+    bq = sched["bq"]
+    for x, cta in enumerate(sched[kind]):
+        for unit, first, n in cta:
+            for j in range(n):
+                if kind == "dkv":
+                    p0 = first + j * bq
+                    yield x, range(p0, min(p0 + bq, sq)), unit * K.BWD_TILE
+                    continue
+                for w in range(K.BWD_CONS):
+                    p0 = (unit * K.BWD_CONS + w) * bq
+                    yield (x, range(p0, min(p0 + bq, sq)),
+                           first + j * K.BWD_TILE)
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_bwd_schedule_covers_every_visible_pair_once(case, kind):
+    """Each kernel's CTAs, over the tiles ``bwd_schedule`` gives them and
+    the tiles ``bwd_tile_class`` does not skip, cover every visible (query
+    row, key) pair exactly once: every G head of a position rides in the
+    same tile row block, so positions stand for rows.  A FULL tile has
+    every pair visible (no mask needed), an EMPTY one none."""
+    sq, skv, g, causal, window, q_offset = case
+    vis = _visible(sq, skv, causal, window, q_offset)
+    sched = bwd_schedule(sq, skv, g, causal, window, q_offset)
+    assert sched["bq"] * g <= K.BWD_TILE < (sched["bq"] + 1) * g
+    count = np.zeros((sq, skv), int)
+    for _, pos, t0 in _walk(kind, sched, sq):
+        cls = bwd_tile_class(q_offset + pos.start, q_offset + pos.stop - 1,
+                             t0, skv, causal, window)
+        block = vis[pos.start:pos.stop, t0:min(t0 + K.BWD_TILE, skv)]
+        if cls == K.EMPTY:
+            assert not block.any()
+            continue
+        if cls == K.FULL:
+            assert block.all() and t0 + K.BWD_TILE <= skv
+        count[pos.start:pos.stop, t0:min(t0 + K.BWD_TILE, skv)] += 1
+    assert (count[vis] == 1).all()
+    assert sum(len(c) for c in sched[kind]) >= 1
+
+
+def test_bwd_schedule_balances_the_causal_work():
+    """At L1's main shape (h2o-danube-3-4b's heads over 4,096 causal
+    positions) the dK/dV CTA that walks the most tiles walks at most 1.25x
+    the mean (the first key block alone walked 512 tiles of 32 rows against
+    a mean of 260 before the pairing), and so does the dQ CTA."""
+    sched = bwd_schedule(4096, 4096, 4, True, 4096, 0)
+    for kind in ("dkv", "dq"):
+        work = [sum(n for _, _, n in cta) for cta in sched[kind]]
+        assert max(work) <= 1.25 * np.mean(work), (kind, max(work),
+                                                     np.mean(work))
+    # the pairs: CTA x holds units x and 63 - x of the 64 key blocks
+    assert [[u for u, _, _ in c] for c in sched["dkv"]] == [
+        [x, 63 - x] for x in range(32)]
+
+
+@pytest.mark.parametrize("d", [16, 64, 96, 120, 128])
+def test_tensor_core_backward_shared_memory_layout(d):
+    """bf16 at d <= 128: dQ holds 2 x BWD_CONS own panels a 64-column chunk
+    of the head dim (scaled Q, dO) and BWD_STAGES ring stages of two
+    streamed panels a chunk (K, V) with 16 bytes of mbarriers a stage;
+    dK/dV two own panels a chunk (K, V), the same ring of scaled Q and dO
+    with 512 bytes of lse and Delta a stage, two 16 KiB float32 P^T tiles,
+    and 16 bytes more of mbarriers; each 1024 bytes of alignment.  The
+    larger fits an SM."""
+    chunks = -(-d // 64)
+    dq = (8192 * chunks * (2 * K.BWD_CONS + 2 * K.BWD_STAGES)
+          + 16 * K.BWD_STAGES + 1024)
+    dkv = (8192 * chunks * (2 + 2 * K.BWD_STAGES) + 2 * 16384
+           + 512 * K.BWD_STAGES + 16 * K.BWD_STAGES + 16 + 1024)
+    assert bwd_smem_bytes(d, torch.bfloat16) == max(dq, dkv) <= MAX_SMEM
