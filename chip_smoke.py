@@ -5,7 +5,8 @@ top-k retrieval, the seed's per-iteration solve, the serving simulator,
 predictor training, the serving engine's failure plane, the sanitizer
 plane and runtime guards, int8 KV pools, the recurrent model families,
 the MoE family, the encoder-decoder, language-model training, the
-serving launcher at full width and the analysis plane) on one NVIDIA
+serving launcher at full width and the analysis plane, and distribution
+on ``torch.distributed`` with four ranks sharing the card) on one NVIDIA
 GPU.
 
 Run from the repository root with no arguments:
@@ -242,6 +243,29 @@ launch makes; the busy share of each window, and
 ``analysis.analytic.memory_term``'s bytes and floor beside the measured
 ms.  Every bound the script prints comes from
 ``repro_torch.analysis.kernel_work`` and ``roofline``.
+
+Distribution (phase Q, after G4): four ranks started by
+``repro_torch.launch.mesh.run_ranks`` share cuda:0 and talk over gloo,
+every collective staged through host memory (NCCL refuses two ranks on one
+card), so the phase proves the distributed semantics on the card and
+measures no multi-card speed.  Q1: the query-sharded blocked solve of the
+route batch's 16,384 ECCOS-H predictions (M 6, 16 shards, four a rank,
+``norm_grad``, the stall exit on) in both modes, cold, over a three-window
+warm stream and at a stall exit, held bit for bit (x, every SolveInfo and
+DualState field) to the one-rank blocked solve (one launch of the cluster
+ascent), each rank launching the shard-statistics kernel once an iteration
+of its loop and gathering the stated bytes; its ms a solve time-sliced
+beside the one launch's.  Q2: ``OmniRouter`` + ``StreamController`` over
+windows of 37, 53, 30 and 4,096 queries, each rank predicting its rows
+(the vote kernel on its shard): the assignments and the ledger (steps,
+budget spent, deficit) equal the one-rank stream's bit for bit.  Q3:
+``moe_ep`` at dbrx-132b's widths (d 6,144, d_ff 10,752, 16 experts, top-4,
+bf16, 2,048 tokens) over (data 2 x model 2) and (4 x 1)
+against ``moe_dense`` (capacity factor 8, within 2**-6 of the largest
+output) and the one-rank ``_moe_local``'s dropped copies (capacity factor
+1).  Q4: the compressed all-reduce (int8, bf16) of 16 Mi float32 over three
+steps with error feedback against the plain mean, and a 4-stage pipeline
+of 8 microbatches against the sequential product.
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -5917,6 +5941,565 @@ def serve_analysis_phase(torch, np, dev, say, check, l2):
     return launches, dict(N1=n1, N2=n2, seconds=took)
 
 
+# -- phase Q: distribution on torch.distributed, four ranks on one card -------
+
+# Four ranks share cuda:0 and talk over gloo, every collective staged
+# through host memory (NCCL refuses two ranks on one card): the phase
+# proves the distributed semantics on the card and measures no multi-card
+# speed.  One group of ranks (run_ranks) runs Q1-Q4; the parent then runs
+# the one-rank yardsticks.
+Q_RANKS = 4
+Q_TIMEOUT = 600.0       # the rank group's limit (it takes well under 90 s)
+Q1_SHARDS = 16          # four local shards a rank at N 16,384
+Q1_ITERS = 150          # the streaming solver of RouterConfig
+Q1_LR = 3.0
+Q1_STALL = 0.01
+Q1_ALPHA = 0.75
+Q1_WINDOW = 4_096       # the warm stream's windows (three)
+Q1_REPS = 5             # timed cold solves
+Q2_N = 8_500            # generate(n, seed=0).split(0.5, 0.0): 4,250 to route
+Q2_WINDOWS = (37, 53, 30, 4_096)
+Q2_SHARDS = 4
+Q2_FIT_STEPS = 40
+Q3_ARCH = "dbrx-132b"   # d 6,144, d_ff 10,752, 16 experts, top-4, bf16
+Q3_TOKENS = 2_048
+Q3_SHAPES = ((2, 2), (4, 1))    # (data, model)
+Q3_CFS = (8.0, 1.0)
+Q3_SEED = 5
+# moe_ep against moe_dense in bf16: the expert products tile other token
+# groups (another cuBLAS kernel, so a bf16-rounded h, u or y can move by an
+# ulp), and over (data 2 x model 2) each half of d_ff is combined and
+# rounded to bf16 before the model all-reduce adds the halves in bf16: a
+# few bf16 roundings (2**-9 each) of the largest output
+Q3_TOL = 2.0 ** -6
+Q4_NUMEL = 16 * 2 ** 20
+Q4_STEPS = 3
+Q4_STAGES, Q4_MICRO, Q4_MB, Q4_WIDTH = 4, 8, 256, 1_024
+Q4_PIPE_TOL = 1e-5
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _q_counts():
+    """(vote launches, shard-statistics launches, blocked launches)."""
+    from repro_torch.kernels.lagrangian_assign import ops as la_ops
+    from repro_torch.kernels.topk_retrieval import ops as tr_ops
+    return (tr_ops.launches, la_ops.stats_launches, la_ops.blocked_launches)
+
+
+def _cpu(info):
+    return [f.cpu() for f in info]
+
+
+def q1_run(torch, dev, inp):
+    """Q1's solves on this process (under a query mesh: this rank's part):
+    both modes, a cold solve at N 16,384 (timed ``Q1_REPS`` more times), a
+    three-window warm stream and a stall exit.  Returns each call's x,
+    SolveInfo (and DualState), shard-statistics and blocked launches and
+    gathered bytes."""
+    from repro_torch.core.optimizer import DualSolver
+    from repro_torch.analysis.roofline import collective_bytes
+    from repro_torch.launch import mesh as pmesh
+    cost, cap = inp["cost"].to(dev), inp["cap"].to(dev)
+    n, m = cost.shape
+    out = {}
+
+    def call(key, fn):
+        before = _q_counts()
+        pmesh.reset_collectives()
+        res = fn()
+        _sync(torch, dev)
+        c = [a - b for a, b in zip(_q_counts(), before)]
+        out[key] = dict(res, stats=c[1], blocked=c[2],
+                        moved=collective_bytes())
+
+    for mode, thr, b_stream in (("quality", Q1_ALPHA, Q1_ALPHA),
+                                ("budget", inp["budget"],
+                                 inp["budget"] * 3 * Q1_WINDOW / n)):
+        kw = dict(mode=mode, iters=Q1_ITERS, lr_constraint=Q1_LR,
+                  stall_tol=Q1_STALL, norm_grad=True, shards=Q1_SHARDS)
+        solver = DualSolver(**kw)
+        loads = torch.full((m,), float(int(0.3 * n)), device=dev)
+
+        def cold():
+            x, info = solver.solve(cost, cap, thr, loads)
+            return dict(x=x.cpu(), info=_cpu(info))
+        call((mode, "cold"), cold)
+        times = []
+        for _ in range(Q1_REPS):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            solver.solve(cost, cap, thr, loads)
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[(mode, "ms")] = statistics.median(times)
+        state = None
+        wl = torch.full((m,), float(int(0.3 * Q1_WINDOW)), device=dev)
+        for w in range(3):
+            rows = slice(w * Q1_WINDOW, (w + 1) * Q1_WINDOW)
+
+            def window():
+                nonlocal state
+                x, info, state = solver.route_window(
+                    cost[rows], cap[rows], b_stream, wl, state,
+                    share=1.0 / (3 - w), polish_margin=0.03)
+                return dict(x=x.cpu(), info=_cpu(info), state=_cpu(state))
+            call((mode, f"window {w}"), window)
+        stall = DualSolver(**dict(kw, iters=200, stall_tol=0.5,
+                                  stall_patience=2))
+
+        def stall_exit():
+            x, info = stall.solve(cost, cap, thr, loads)
+            return dict(x=x.cpu(), info=_cpu(info))
+        call((mode, "stall"), stall_exit)
+    return out
+
+
+def q2_predictor(torch, dev, arrays):
+    from repro_torch.convert import (predictor_params_from_numpy,
+                                     vector_store_from_numpy)
+    from repro_torch.core import HybridPredictor, PredictorConfig
+    params, (emb, labels, size), m = arrays
+    pred = HybridPredictor(PredictorConfig(n_models=m),
+                           params=predictor_params_from_numpy(params, dev),
+                           device=dev)
+    pred.retrieval.vstore = vector_store_from_numpy(emb, labels, size, dev)
+    return pred
+
+
+def q2_run(torch, np, dev, arrays):
+    """Q2's stream on this process: ``OmniRouter`` + ``StreamController``
+    over the windows ``Q2_WINDOWS`` of the pool's test split.  Returns the
+    assignments, the final DualState, ``window_multiple()`` and the
+    launches (vote, shard statistics, blocked)."""
+    from repro_torch.core import OmniRouter, RouterConfig
+    from repro_torch.core.control import StreamController
+    from repro_torch.data.qaserve import generate
+    _, _, test = generate(n=Q2_N, seed=0).split(0.5, 0.0)
+    router = OmniRouter(q2_predictor(torch, dev, arrays),
+                        RouterConfig(alpha=0.6, iters=60, shards=Q2_SHARDS))
+    ctrl = StreamController(router, horizon=sum(Q2_WINDOWS))
+    before = _q_counts()
+    xs, start = [], 0
+    for sz in Q2_WINDOWS:
+        loads = np.full(test.m, float(max(50, int(0.3 * sz))))
+        xs.append(ctrl.route(test.subset(np.arange(start, start + sz)),
+                             loads, np.zeros(test.m)))
+        start += sz
+    _sync(torch, dev)
+    counts = [a - b for a, b in zip(_q_counts(), before)]
+    return dict(xs=xs, state=_cpu(ctrl.state),
+                mult=router.window_multiple(), launches=counts)
+
+
+def q3_params(torch, dev, cfg, experts, fs):
+    """One MoE layer's parameters from ``Q3_SEED``, each expert matrix
+    drawn whole on its own generator (so every rank's slice is a slice of
+    the one set): experts ``experts``, the d_ff slice ``fs``."""
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def draw(seed, shape, fan_in):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(shape, generator=g, device=dev)
+                * fan_in ** -0.5)
+
+    base = Q3_SEED * 1000
+    gate, up, down = [], [], []
+    for e in experts:
+        gate.append(draw(base + 3 * e, (d, ff), d)[:, fs].to(cfg.dtype))
+        up.append(draw(base + 3 * e + 1, (d, ff), d)[:, fs].to(cfg.dtype))
+        down.append(draw(base + 3 * e + 2, (ff, d), ff)[fs].to(cfg.dtype))
+    return {"router": draw(base + 999, (d, cfg.n_experts), d),
+            "w_gate": torch.stack(gate), "w_up": torch.stack(up),
+            "w_down": torch.stack(down)}
+
+
+def q3_tokens(torch, dev, cfg):
+    g = torch.Generator(device=dev).manual_seed(Q3_SEED * 1000 + 998)
+    return torch.randn((Q3_TOKENS, cfg.d_model), generator=g,
+                       device=dev).to(cfg.dtype)
+
+
+def q3_config(cf):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(Q3_ARCH), capacity_factor=cf)
+
+
+def q3_rank(torch, dev):
+    """Q3 on this rank: ``moe_ep`` over each mesh shape and capacity
+    factor on this rank's slice and tokens."""
+    from repro_torch.common.sharding import ShardingRules, use_mesh
+    from repro_torch.analysis.roofline import collective_bytes
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.models import moe
+    out = {}
+    for shape in Q3_SHAPES:
+        mesh = pmesh.make_host_mesh(*shape)
+        cfg = q3_config(Q3_CFS[0])
+        c = mesh.coords
+        e_loc, f_loc = cfg.n_experts // shape[0], cfg.d_ff // shape[1]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        params = q3_params(
+            torch, dev, cfg, range(c["data"] * e_loc, (c["data"] + 1) * e_loc),
+            slice(c["model"] * f_loc, (c["model"] + 1) * f_loc))
+        t_loc = Q3_TOKENS // shape[0]
+        xl = q3_tokens(torch, dev, cfg)[c["data"] * t_loc:
+                                        (c["data"] + 1) * t_loc]
+        for cf in Q3_CFS:
+            stats = {}
+            with use_mesh(mesh, ShardingRules({})):
+                pmesh.reset_collectives()
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                y = moe.moe_ep(q3_config(cf), params, xl[None], stats=stats)
+                _sync(torch, dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            out[(shape, cf)] = dict(y=y[0].cpu(), keep=stats["keep"].cpu(),
+                                    moved=collective_bytes(), ms=ms)
+        out[(shape, "peak")] = (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else 0)
+        del params
+    return out
+
+
+def q4_rank(torch, dev, rank, world):
+    """Q4 on this rank: the compressed all-reduce (int8 and bf16, three
+    steps with error feedback) against the plain mean of every rank's
+    dequantised values, which each rank recomputes from the seeds; the
+    pipeline against the sequential product."""
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.analysis.roofline import collective_bytes
+    from repro_torch.launch import mesh as pmesh
+
+    def draw(seed, shape, scale=1.0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    mesh = pmesh.Mesh.build((world,), ("i",))
+    out = {}
+    for method in ("int8", "bf16"):
+        err, plain_err = None, [None] * world
+        gaps, tols, same_err = [], [], True
+        for step in range(Q4_STEPS):
+            xs = [draw(7000 + 10 * r + step, (Q4_NUMEL,))
+                  for r in range(world)]
+            pmesh.reset_collectives()
+            mean, err = compression.compressed_psum(
+                xs[rank], mesh.group("i"), err, method=method)
+            moved = collective_bytes()
+            local = []
+            for r in range(world):
+                target = xs[r] + (0.0 if plain_err[r] is None
+                                  else plain_err[r])
+                if method == "bf16":
+                    sent = target.to(torch.bfloat16).float()
+                else:
+                    q, scale = compression._quant(target)
+                    sent = compression._dequant(q, scale, target.shape)
+                plain_err[r] = target - sent
+                local.append(sent)
+            plain = local[0]
+            for r in range(1, world):
+                plain = plain + local[r]
+            plain = plain / world
+            mag = sum(v.abs() for v in local) / world
+            # int8: three float32 adds on each side in another order, each
+            # rounding at most 2**-24 of the four summands' total (2**-22
+            # of their mean magnitude); bf16: the partial sums rounded to
+            # bf16 (2**-9 each)
+            tol = mag * (2.0 ** -19 if method == "int8" else 2.0 ** -6)
+            gaps.append(float(((mean - plain).abs() - tol).max()))
+            same_err = same_err and bool(torch.equal(err, plain_err[rank]))
+        out[method] = dict(excess=max(gaps), same_err=same_err, moved=moved)
+    pipe = pmesh.Mesh.build((Q4_STAGES,), ("stage",))
+    ws = [draw(8000 + s, (Q4_WIDTH, Q4_WIDTH), Q4_WIDTH ** -0.5)
+          for s in range(Q4_STAGES)]
+    x = draw(8100, (Q4_MICRO, Q4_MB, Q4_WIDTH))
+    y = pipeline_forward(pipe, lambda w, h: torch.tanh(h @ w),
+                         Q4_MICRO)(ws[pipe.axis_index("stage")], x)
+    h = x
+    for w in ws:
+        h = torch.tanh(h @ w)
+    out["pipeline"] = float((y - h).abs().max())
+    return out
+
+
+def q_rank(rank, world, device, args):
+    """Phase Q's rank body (``run_ranks`` loads it from this file): Q1 and
+    Q2 under the query mesh, Q3 and Q4 on meshes of their own; one
+    shard-statistics launch held against its plain version at this rank's
+    shape.  Returns what the parent checks."""
+    import numpy as np
+    import torch
+    from repro_torch.common.sharding import query_mesh, query_rules, use_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    t0 = time.perf_counter()
+    with use_mesh(query_mesh(), query_rules()):
+        out["q1"] = q1_run(torch, device, args["q1"])
+        out["q2"] = q2_run(torch, np, device, args["q2"])
+    out["q12_s"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        from repro_torch.kernels.lagrangian_assign.kernel import (
+            shard_stats_cuda)
+        from repro_torch.kernels.lagrangian_assign.ref import shard_stats_ref
+        rows = args["q1"]["cost"].shape[0] // world
+        a = args["q1"]["cost"][rank * rows:(rank + 1) * rows].to(device)
+        b = -args["q1"]["cap"][rank * rows:(rank + 1) * rows].to(device)
+        lb = Q1_SHARDS // world
+        nv = torch.full((lb,), float(rows // lb), device=device)
+        lam, lam2 = torch.tensor(0.5, device=device), a[0] * 0.0
+        got = shard_stats_cuda(a, b, lam, lam2, nv, lblocks=lb)
+        want = shard_stats_ref(a, b, lam, lam2, nv, lblocks=lb)
+        out["stats_err"] = float((got - want).abs().max())
+        out["stats_same"] = bool(torch.equal(got, want))
+    t0 = time.perf_counter()
+    out["q3"] = q3_rank(torch, device)
+    out["q3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["q4"] = q4_rank(torch, device, rank, world)
+    out["q4_s"] = time.perf_counter() - t0
+    return out
+
+
+def _same_list(a, b) -> bool:
+    return len(a) == len(b) and all(bool((x == y).all()) and
+                                    x.shape == y.shape for x, y in zip(a, b))
+
+
+def sharded_phase(torch, np, dev, say, check, cost, cap, budget):
+    """Phase Q: four ranks on the card (``run_ranks``, gloo) run Q1 (the
+    sharded solve of the 16k predictions), Q2 (the query-sharded stream),
+    Q3 (``moe_ep`` at dbrx-132b's widths) and Q4 (the compressed
+    all-reduce and the pipeline); the parent holds them to the one-rank
+    port on the card.  Returns (the shard-statistics launches, the vote
+    launches, the shard-statistics kernel's error, a summary)."""
+    from repro_torch.analysis.roofline import sharded_solve_bytes
+    from repro_torch.convert import predictor_params_to_numpy
+    from repro_torch.core import HybridPredictor, PredictorConfig
+    from repro_torch.data.qaserve import generate
+    from repro_torch.kernels.lagrangian_assign.ref import loop_iterations
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import moe
+
+    t_all = time.perf_counter()
+    train, _, _ = generate(n=Q2_N, seed=0).split(0.5, 0.0)
+    pred = HybridPredictor(PredictorConfig(n_models=train.m), device=dev
+                           ).fit(train, steps=Q2_FIT_STEPS)
+    vs = pred.retrieval.vstore
+    q2_arrays = (predictor_params_to_numpy(pred.trained.params),
+                 (vs.emb.cpu().numpy(), vs.labels.cpu().numpy(), vs.size),
+                 train.m)
+    del pred
+    # the 16k predictions go to the ranks through run_ranks's argument file
+    args = dict(q1=dict(cost=cost.cpu(), cap=cap.cpu(), budget=budget),
+                q2=q2_arrays)
+    t0 = time.perf_counter()
+    ranks = run_ranks(f"{ROOT / 'chip_smoke.py'}:q_rank", Q_RANKS,
+                      backend="gloo", device=dev.type, timeout=Q_TIMEOUT,
+                      args=args)
+    group_s = time.perf_counter() - t0
+    say(f"Q: {Q_RANKS} ranks on one {dev.type} device, backend gloo "
+        f"(collectives staged through host memory): the group took "
+        f"{group_s:.1f} s (rank 0: Q1+Q2 {ranks[0]['q12_s']:.1f} s, Q3 "
+        f"{ranks[0]['q3_s']:.1f} s, Q4 {ranks[0]['q4_s']:.1f} s)")
+    summary = dict(ranks=Q_RANKS, backend="gloo", group_s=group_s)
+
+    # Q1: the one-rank blocked solve (on the card: the one-launch cluster
+    # ascent) on the same calls, and the ranks held to it bit for bit
+    one = q1_run(torch, dev, args["q1"])
+    n, m = cost.shape
+    stats_launches = 0
+    q1 = {}
+    for key, want in one.items():
+        if key[1] == "ms":
+            continue
+        for r, rk in enumerate(ranks):
+            got = rk["q1"][key]
+            same = (torch.equal(got["x"], want["x"])
+                    and _same_list(got["info"], want["info"])
+                    and _same_list(got.get("state", []),
+                                   want.get("state", [])))
+            check(same, f"Q1 {key} rank {r}: the sharded solve differs from"
+                  " the one-rank blocked solve")
+            iters_run = int(got["info"][7])
+            loop = loop_iterations(200 if key[1] == "stall" else Q1_ITERS,
+                                   iters_run)
+            check(got["stats"] == loop and got["blocked"] == 0,
+                  f"Q1 {key} rank {r}: {got['stats']} shard-statistics "
+                  f"launches, {got['blocked']} blocked, for a loop of {loop}")
+            rows = got["x"].shape[0]
+            want_bytes = sharded_solve_bytes(loop, Q1_SHARDS, m, rows,
+                                             norm_grad=True)
+            check(got["moved"]["all-gather"] == want_bytes,
+                  f"Q1 {key} rank {r}: gathered {got['moved']} bytes, "
+                  f"stated {want_bytes}")
+            stats_launches += got["stats"]
+        check(want["blocked"] == 1 and want["stats"] == 0,
+              f"Q1 {key}: the one-rank solve was not one blocked launch")
+        row = q1[" ".join(key)] = dict(
+            iters_run=int(want["info"][7]),
+            launches_a_rank=ranks[0]["q1"][key]["stats"],
+            gathered_bytes=ranks[0]["q1"][key]["moved"]["all-gather"])
+        fields = "SolveInfo, DualState" if "state" in want else "SolveInfo"
+        say(f"Q1 {key[0]} {key[1]}: {Q_RANKS} ranks = the one-rank blocked "
+            f"solve bit for bit (x, {fields}); iters_run {row['iters_run']},"
+            f" {row['launches_a_rank']} shard-statistics launches a rank "
+            f"(the loop's iterations: whole chunks of 8 up to the stall "
+            f"exit), {row['gathered_bytes']:,} bytes all-gathered a rank")
+    for mode in ("quality", "budget"):
+        sharded_ms = statistics.median(rk["q1"][(mode, "ms")]
+                                       for rk in ranks)
+        q1[f"{mode} ms"] = dict(sharded=sharded_ms,
+                                one_rank=one[(mode, "ms")])
+        say(f"Q1 {mode}: a cold solve at N {n:,} takes {sharded_ms:.2f} ms "
+            f"on {Q_RANKS} ranks time-sliced on one card over gloo (not a "
+            f"multi-card time), {one[(mode, 'ms')]:.3f} ms as one cluster "
+            f"launch on one rank")
+    summary["Q1"] = q1
+    if dev.type == "cuda":
+        stats_err = max(rk["stats_err"] for rk in ranks)
+        check(all(rk["stats_same"] for rk in ranks),
+              "Q: a rank's shard-statistics kernel differs from its plain "
+              "version")
+    else:
+        stats_err = 0.0
+
+    # Q2: the one-rank stream on the card
+    one2 = q2_run(torch, np, dev, q2_arrays)
+    vote_launches = 0
+    for r, rk in enumerate(ranks):
+        got = rk["q2"]
+        check(got["mult"] == Q2_SHARDS and one2["mult"] == Q2_SHARDS,
+              f"Q2 rank {r}: window_multiple() {got['mult']}")
+        for w, (a, b) in enumerate(zip(got["xs"], one2["xs"])):
+            check(len(a) == Q2_WINDOWS[w] and np.array_equal(a, b),
+                  f"Q2 rank {r} window {w}: assignments differ")
+        # the ledger exact, as the reference's 8-device test asks: on the
+        # card a rank's predictions of its rows are the whole window's bit
+        # for bit (not so on the CPU, whose float32 sigmoid rounds a
+        # batch's vector body and scalar tail apart: ROADMAP C14)
+        st, st0 = got["state"], one2["state"]
+        for i, f in ((2, "budget_spent"), (3, "sr_deficit"), (4, "steps")):
+            check(bool(torch.equal(st[i], st0[i])), f"Q2 rank {r}: {f} "
+                  "differs from the one-rank stream's")
+        for i, f in ((0, "lam"), (1, "lam_load")):
+            check(bool(torch.allclose(st[i], st0[i], rtol=1e-4, atol=1e-5)),
+                  f"Q2 rank {r}: {f} beyond rtol 1e-4, atol 1e-5")
+        vote, stats, blocked = got["launches"]
+        check(vote > 0 and stats > 0 and blocked == 0,
+              f"Q2 rank {r}: launches (vote, shard statistics, blocked) "
+              f"{got['launches']}")
+        vote_launches += vote
+        stats_launches += stats
+    summary["Q2"] = dict(windows=list(Q2_WINDOWS),
+                         launches_rank0=ranks[0]["q2"]["launches"],
+                         one_rank_launches=one2["launches"])
+    say(f"Q2: OmniRouter + StreamController over windows {Q2_WINDOWS}, "
+        f"window_multiple() {Q2_SHARDS}: assignments = the one-rank stream "
+        f"bit for bit on every rank, and the ledger's steps, budget spent "
+        f"and deficit; λ within rtol 1e-4;"
+        f" rank 0's launches (vote, shard statistics, blocked) "
+        f"{ranks[0]['q2']['launches']}, one rank's {one2['launches']}")
+
+    # Q3: moe_ep against moe_dense (capacity factor 8) and the one-rank
+    # local body's drops (capacity factor 1), with every expert on the card
+    cfg = q3_config(Q3_CFS[0])
+    params = q3_params(torch, dev, cfg, range(cfg.n_experts),
+                       slice(None))
+    x = q3_tokens(torch, dev, cfg)
+    with torch.no_grad():
+        dense = moe.moe_dense(cfg, params, x[None])[0]
+    scale = float(dense.float().abs().max())
+    q3 = {}
+    for shape in Q3_SHAPES:
+        t_loc = Q3_TOKENS // shape[0]
+        peak = max(rk["q3"][(shape, "peak")] for rk in ranks) / 2 ** 30
+        for cf in Q3_CFS:
+            err, drops, same_drops = 0.0, 0, True
+            for r, rk in enumerate(ranks):
+                got = rk["q3"][(shape, cf)]
+                dc = r // shape[1]
+                xl = x[dc * t_loc:(dc + 1) * t_loc]
+                if cf == Q3_CFS[0]:
+                    want = dense[dc * t_loc:(dc + 1) * t_loc]
+                else:
+                    st = {}
+                    with torch.no_grad():
+                        want = moe._moe_local(
+                            q3_config(cf), xl, params["router"],
+                            params["w_gate"], params["w_up"],
+                            params["w_down"], n_dest=1, stats=st)
+                    same_drops = same_drops and bool(
+                        torch.equal(st["keep"].cpu(), got["keep"]))
+                drops += int((~got["keep"]).sum())
+                err = max(err, float((got["y"].float()
+                                      - want.float().cpu()).abs().max()))
+            moved = ranks[0]["q3"][(shape, cf)]["moved"]
+            ms = statistics.median(rk["q3"][(shape, cf)]["ms"]
+                                   for rk in ranks)
+            tag = f"Q3 {shape[0]}x{shape[1]} cf {cf:g}"
+            yard = ("moe_dense" if cf == Q3_CFS[0]
+                    else "_moe_local(n_dest=1)")
+            say(f"{tag}: max|moe_ep - {yard}| {err:.4g} ({err / scale:.3g} "
+                f"of the largest output "
+                f"{scale:.4g}; limit {Q3_TOL:.4g}); dropped copies {drops},"
+                f" same drops {same_drops}; rank 0 moved "
+                f"{moved['all-to-all']:,} bytes all-to-all, "
+                f"{moved['all-reduce']:,} all-reduce; {ms:.1f} ms a layer "
+                f"(4 ranks time-sliced, gloo through the host); peak "
+                f"{peak:.2f} GiB a rank")
+            check(err <= Q3_TOL * scale, f"{tag}: beyond the bf16 limit")
+            check(same_drops, f"{tag}: the dropped copies differ")
+            if cf == Q3_CFS[0]:
+                check(drops == 0, f"{tag}: copies dropped at capacity 8")
+            else:
+                check(drops > 0, f"{tag}: nothing dropped at capacity 1")
+            q3[f"{shape[0]}x{shape[1]} cf{cf:g}"] = dict(
+                err=err, rel=err / scale, drops=drops, ms=ms,
+                peak_gib=peak, all_to_all=moved["all-to-all"],
+                all_reduce=moved["all-reduce"])
+    del params, dense
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    summary["Q3"] = q3
+
+    # Q4
+    q4 = ranks[0]["q4"]
+    for r, rk in enumerate(ranks):
+        for method in ("int8", "bf16"):
+            got = rk["q4"][method]
+            check(got["excess"] <= 0.0 and got["same_err"],
+                  f"Q4 {method} rank {r}: the mean or the residual differs "
+                  "from the plain mean of the dequantised blocks")
+        check(rk["q4"]["pipeline"] <= Q4_PIPE_TOL,
+              f"Q4 pipeline rank {r}: {rk['q4']['pipeline']:.3g} from the "
+              "sequential product")
+    say(f"Q4: compressed all-reduce of {Q4_NUMEL:,} float32 over "
+        f"{Q_RANKS} ranks, {Q4_STEPS} steps with error feedback: int8 and "
+        f"bf16 = the plain mean of the dequantised blocks within the "
+        f"stated limits, residuals bit for bit (rank 0 all-reduced "
+        f"{q4['int8']['moved']['all-reduce']:,} bytes a step in int8's "
+        f"float32, {q4['bf16']['moved']['all-reduce']:,} in bf16); "
+        f"pipeline {Q4_STAGES} stages x {Q4_MICRO} microbatches: max|"
+        f"pipeline - sequential| {max(rk['q4']['pipeline'] for rk in ranks):.3g}")
+    summary["Q4"] = dict(pipeline=max(rk["q4"]["pipeline"] for rk in ranks),
+                         int8_bytes=q4["int8"]["moved"]["all-reduce"],
+                         bf16_bytes=q4["bf16"]["moved"]["all-reduce"])
+    check(stats_launches > 0, "Q: no shard-statistics launch on the ranks")
+    summary["shard_stats_launches"] = stats_launches
+    summary["vote_launches"] = vote_launches
+    summary["seconds"] = time.perf_counter() - t_all
+    say(f"phase Q: {summary['seconds']:.1f} s")
+    return stats_launches, vote_launches, stats_err, summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6136,6 +6719,17 @@ def main() -> int:
     # clean under it, no compile event in a warmed pass
     g4, g4_sites = guards_phase(torch, np, dev, say, check, cost, cap)
     mark("G4")
+    # Q. distribution: four ranks on the card over gloo (the sharded solve
+    # of these predictions, the query-sharded stream, moe_ep at dbrx's
+    # widths, the compressed all-reduce and the pipeline)
+    q_stats, q_vote, q_err, q_summary = sharded_phase(
+        torch, np, dev, say, check, cost, cap, budget)
+    rows["shard_stats"]["per_iteration_kernel"]["launches"] = q_stats
+    rows["shard_stats"]["per_iteration_kernel"]["max_abs_err"] = max(
+        rows["shard_stats"]["per_iteration_kernel"]["max_abs_err"], q_err)
+    rows["retrieval_vote"]["launches"] += q_vote
+    rows["retrieval_vote"]["sharded_launches"] = q_vote
+    mark("Q")
 
     # T. ECCOS-T, ECCOS-H and S3 fit on the card
     fits = predictor_fit_phase(torch, np, dev, say, check)
@@ -6240,6 +6834,7 @@ def main() -> int:
     say("phases M and X: " + json.dumps(mx_summary))
     say("phase L: " + json.dumps(l_summary))
     say("phase N: " + json.dumps(n_summary))
+    say("phase Q: " + json.dumps(q_summary, default=str))
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"total {time.perf_counter() - t_all:.1f} s; peak device memory "

@@ -15,8 +15,12 @@ their type (``PEAK_FLOPS``, ``PEAK_TF32`` or ``PEAK_FP32``).
 :mod:`repro_torch.analysis.kernel_work` counts each hand kernel's work.
 
 The reference's ``collective_bytes`` parses XLA's HLO text for the result
-bytes of its collectives; the port has no counterpart until it runs
-across cards on ``torch.distributed`` (ROADMAP Queue A, distribution).
+bytes of its collectives.  The port's reads the byte counters of the
+collective wrappers of :mod:`repro_torch.launch.mesh`, through which every
+collective of the port runs: result bytes by kind (``all-gather``,
+``all-to-all``, ``all-reduce``, ``send/recv``, ``broadcast``) and a count,
+on this rank since the counters' last reset.  ``sharded_solve_bytes`` is
+what a query-sharded dual solve should gather.
 """
 from __future__ import annotations
 
@@ -37,6 +41,25 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32) -> float:
 def bound_by(flops: float, nbytes: float, peak: float = PEAK_FP32) -> str:
     """Which side sets ``bound_ms``: "bytes" or "operations"."""
     return "bytes" if nbytes / HBM_BW >= flops / peak else "operations"
+
+
+def collective_bytes() -> Dict[str, int]:
+    """This rank's collective result bytes by kind, and the count of
+    collectives, since ``launch.mesh.reset_collectives()``."""
+    from repro_torch.launch.mesh import collective_stats
+    return collective_stats()
+
+
+def sharded_solve_bytes(loop_iters: int, shards: int, m: int, n: int, *,
+                        norm_grad: bool) -> int:
+    """All-gather result bytes of one query-sharded blocked solve on each
+    rank: each iteration the loop ran gathers every shard's [ΣA, ΣB,
+    histogram] (S × (2 + M) float32); the prologue gathers two per-shard
+    sums with ``norm_grad``; the SolveInfo and the ledger five chosen sums
+    (S float32 each) and the counts (S × M float32); and the final x, N
+    int64."""
+    return 4 * shards * ((2 + m) * loop_iters + 2 * norm_grad + 5 + m) \
+        + 8 * n
 
 
 def roofline_terms(flops_pd: float, bytes_pd: float,

@@ -1,9 +1,14 @@
-"""Shared helpers: parameter declarations, the default device and the
-runtime guards."""
+"""Shared helpers: parameter declarations, the default device, the
+runtime guards and the sharding rules."""
 from .guards import (CompileGuard, device_get, global_compile_count,
                      no_host_sync, record_compile, strict_numerics)
 from .params import ParamDecl, default_device, init_params
+from .sharding import (ShardingRules, active_mesh, active_rules, base_rules,
+                       logical_shard, query_axis_info, query_mesh,
+                       query_rules, use_mesh)
 
-__all__ = ["CompileGuard", "ParamDecl", "default_device", "device_get",
-           "global_compile_count", "init_params", "no_host_sync",
-           "record_compile", "strict_numerics"]
+__all__ = ["CompileGuard", "ParamDecl", "ShardingRules", "active_mesh",
+           "active_rules", "base_rules", "default_device", "device_get",
+           "global_compile_count", "init_params", "logical_shard",
+           "no_host_sync", "query_axis_info", "query_mesh", "query_rules",
+           "record_compile", "strict_numerics", "use_mesh"]

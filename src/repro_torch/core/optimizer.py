@@ -1,9 +1,10 @@
 """ECCOS/OmniRouter constrained optimizer (paper §3.2, Appendix A) in PyTorch.
 
-The port of ``repro.core.optimizer`` on one device: the one-shot solve,
-the threshold sweeps (``solve_batch``, ``solve_grid``), the streaming window,
-the blocked/masked window solve (``shards``, ``n_valid``) and the legacy
-entry points ``solve_assignment`` / ``solve_budget``.
+The port of ``repro.core.optimizer``: the one-shot solve, the threshold
+sweeps (``solve_batch``, ``solve_grid``), the streaming window, the
+blocked/masked window solve (``shards``, ``n_valid``) on one device or
+sharded over the ranks of an active query mesh, and the legacy entry
+points ``solve_assignment`` / ``solve_budget``.
 Both modes share one code path through the unified parameterization
 
     scores_ij = A_ij + lam * B_ij + lam2_j,   feasible  ⇔  Σ B[i, x_i] <= t
@@ -168,10 +169,16 @@ def _chosen_sum(mat, x):
     return mat.gather(1, x[:, None]).sum()
 
 
-def _shards_sum(v: torch.Tensor) -> torch.Tensor:
-    """(lblocks, ...) per-shard values -> their sum: each shard's values in
-    :func:`ordered_sum` order, then the partials in shard order."""
-    return in_shard_order(ordered_sum(v.reshape(v.shape[0], -1)))
+def _same(part):
+    return part
+
+
+def _shards_sum(v: torch.Tensor, gather=_same) -> torch.Tensor:
+    """(lblocks, ...) per-shard values -> their sum over every shard: each
+    shard's values in :func:`ordered_sum` order, then (``gather`` bringing
+    in every rank's partials, in global shard order) the partials in shard
+    order."""
+    return in_shard_order(gather(ordered_sum(v.reshape(v.shape[0], -1))))
 
 
 def _solve_ref(cost, quality, threshold, loads, lam0=0.0, lam20=None,
@@ -510,9 +517,20 @@ def brute_force(cost: np.ndarray, quality: np.ndarray, threshold: float,
 # of the capacity vector.  The same path carries the masked window:
 # ``n_valid`` marks the valid-row prefix of a padded window; padding rows
 # are zeroed out of every matrix, masked out of every histogram and
-# excluded from repair/polish moves, so they never touch the ledger.  The
-# reference runs this core on one device or one shard per device; the port
-# runs every shard on one device (multi-GPU waits).
+# excluded from repair/polish moves, so they never touch the ledger.
+#
+# Under an active query mesh (``common.sharding.query_axis_info``) the same
+# core runs on every rank over its ``lblocks = gshards / ranks`` contiguous
+# local shards, whose global ids start at ``rank · lblocks``.  Every
+# cross-shard sum goes through one hook, ``gather``: the ordered all-gather
+# of the local per-shard partials (rank-major, so global shard order), after
+# which every rank applies the same ``in_shard_order``.  So the sharded
+# solve walks the one-rank blocked solve's trajectory bit for bit: the
+# prologue's sums, each iteration's [ΣA, ΣB, histogram] (the ascent is
+# ``ref.blocked_dual_ascent_ref``'s loop with the shard-statistics op and
+# the hook; one rank takes the one-launch cluster kernel instead), the
+# chosen sums and the final ``x``, all-gathered so every rank returns the
+# whole window, as the reference's ``out_specs`` do.
 
 def _shard_quotas(loads, shard_ids, gshards: int):
     """Exact integer partition of per-model capacity across query shards:
@@ -528,24 +546,26 @@ def _shard_quotas(loads, shard_ids, gshards: int):
 
 def _blocked_prologue(a_mat, b_mat, t_eff, loads, lr_eff, lr_load_eff, lam0,
                       lam20, n_valid, *, lblocks: int, norm_grad: bool,
-                      lr_con: float, lr_load: float):
+                      lr_con: float, lr_load: float, d0: int = 0,
+                      gather=_same):
     """The problem the blocked ascent runs on: the per-shard valid-row
-    counts ``nv_loc`` (the padding is a suffix of the window) and, with
-    ``norm_grad``, the scale-free conditioning.  Returns (a_mat, b_mat,
-    nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar, b_bar)."""
+    counts ``nv_loc`` of the local shards ``d0 … d0 + lblocks - 1`` (the
+    padding is a suffix of the window) and, with ``norm_grad``, the
+    scale-free conditioning.  Returns (a_mat, b_mat, nv_loc, t_eff, lr_eff,
+    lr_load_eff, lam0, lam20, a_bar, b_bar)."""
     dev = a_mat.device
     nloc, m = a_mat.shape
     nl = nloc // lblocks
     one, tiny = _f32(1.0, dev), _f32(1e-30, dev)
-    shard_ids = torch.arange(lblocks, device=dev)
+    shard_ids = d0 + torch.arange(lblocks, device=dev)
     nv_loc = torch.clamp(n_valid - shard_ids.float() * nl, 0.0, float(nl))
     a_bar = b_bar = one
     if norm_grad:
         denom = n_valid * _f32(m, dev) + tiny
-        a_bar = _shards_sum(a_mat.reshape(lblocks, nl, m).abs()) / denom \
-            + tiny
-        b_bar = _shards_sum(b_mat.reshape(lblocks, nl, m).abs()) / denom \
-            + tiny
+        a_bar = _shards_sum(a_mat.reshape(lblocks, nl, m).abs(),
+                            gather) / denom + tiny
+        b_bar = _shards_sum(b_mat.reshape(lblocks, nl, m).abs(),
+                            gather) / denom + tiny
         a_mat, b_mat = a_mat / a_bar, b_mat / b_bar
         t_eff = t_eff / b_bar
         lr_eff = _f32(lr_con, dev) / (one + t_eff.abs())
@@ -563,27 +583,36 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
                          n_valid, *, mode: str, iters: int, patience: int,
                          lblocks: int, polish: bool, norm_grad: bool,
                          lr_con: float, lr_load: float,
+                         gshards: int, d0: int, gather,
                          stats: Optional[dict] = None):
     """Dual ascent (+ optional repair/polish + ledger sums) over ``lblocks``
-    query shards, all on the tensors' device.  Returns (x (N,), SolveInfo,
-    final csum, final qsum).
+    local query shards (global ids ``d0 …``) of ``gshards``, on the
+    tensors' device; ``gather`` is None when the local shards are all.  Returns (this rank's x (N_loc,),
+    SolveInfo, final csum, final qsum); everything but x is replicated.
 
-    The whole ascent is one call of ``ops.blocked_dual_ascent``: one
-    launch of the cluster kernel on the card (no host read), the plain loop
-    on the CPU (a host read every ``ref.SYNC_EVERY`` iterations); both keep
-    the reference's semantics (stall early exit, ``iters_run`` exact) and
-    give the same bits."""
+    Without ``gather`` the whole ascent is one call of
+    ``ops.blocked_dual_ascent``: one launch of the cluster kernel on the
+    card (no host read), the plain loop on the CPU (a host read every
+    ``ref.SYNC_EVERY`` iterations).  With it (a query mesh) the ascent is
+    ``ref.blocked_dual_ascent_ref``'s loop over ``ops.shard_stats`` (one
+    launch of the shard-statistics kernel an iteration on the card) and the
+    hook.  All keep the reference's semantics (stall early exit,
+    ``iters_run`` exact) and give the same bits."""
     global solve_host_reads
-    from repro_torch.kernels.lagrangian_assign.ops import blocked_dual_ascent
+    from repro_torch.kernels.lagrangian_assign import ops
+    from repro_torch.kernels.lagrangian_assign.ref import (
+        blocked_dual_ascent_ref)
     dev = a_mat.device
     nloc, m = a_mat.shape
     nl = nloc // lblocks
+    hook = _same if gather is None else gather
     (a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20, a_bar,
      b_bar) = _blocked_prologue(a_mat, b_mat, t_eff, loads, lr_eff,
                                 lr_load_eff, lam0, lam20, n_valid,
                                 lblocks=lblocks, norm_grad=norm_grad,
-                                lr_con=lr_con, lr_load=lr_load)
-    shard_ids = torch.arange(lblocks, device=dev)
+                                lr_con=lr_con, lr_load=lr_load, d0=d0,
+                                gather=hook)
+    shard_ids = d0 + torch.arange(lblocks, device=dev)
     rows = torch.arange(nl, device=dev)
     valid2 = rows[None, :] < nv_loc.long()[:, None]           # (S, nl)
     cols = torch.arange(m, device=dev)
@@ -597,12 +626,19 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
 
     def chosen(mat3, x2):
         vals = mat3.gather(2, x2[..., None])[..., 0]
-        return _shards_sum(torch.where(valid2, vals, 0.0))
+        return _shards_sum(torch.where(valid2, vals, 0.0), hook)
 
     t0 = time.perf_counter()
-    out, reads = blocked_dual_ascent(
-        a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
-        stall_tol, step0, loads, iters=iters, patience=patience)
+    args = (a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff, lam0, lam20,
+            stall_tol, step0, loads)
+    if gather is None:
+        out, reads = ops.blocked_dual_ascent(*args, iters=iters,
+                                             patience=patience)
+    else:
+        out, reads = blocked_dual_ascent_ref(*args, iters=iters,
+                                             patience=patience,
+                                             stats=ops.shard_stats,
+                                             gather=gather)
     solve_host_reads += reads
     lam, lam_b, best_a = out[0], out[1], out[2]
     found = out[3] > 0.0
@@ -617,7 +653,7 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
         lam=lam * a_bar / b_bar, lam_load=lam2 * a_bar, feasible=found,
         cost=chosen(c3, x2),
         quality=chosen(q3, x2) / torch.clamp(n_valid, min=1.0),
-        counts=onehot(x2).sum(dim=1).sum(dim=0),
+        counts=in_shard_order(hook(onehot(x2).sum(dim=1))),
         objective=torch.where(found, best_a, asum_e) * a_bar,
         iters_run=t_run)
     if stats is not None:
@@ -626,7 +662,7 @@ def _blocked_window_core(a_mat, b_mat, cost, quality, t_eff, p_eff, loads,
         stats["solve_s"] = stats.get("solve_s", 0.0) + t1 - t0
 
     if polish:
-        quotas = _shard_quotas(loads, shard_ids, lblocks)
+        quotas = _shard_quotas(loads, shard_ids, gshards)
         lam1 = (lam * a_bar / b_bar if mode == "quality"
                 else torch.zeros((), device=dev))
         shares = p_eff * nv_loc / torch.clamp(n_valid, min=1.0)
@@ -654,28 +690,44 @@ def _blocked_window(cost, quality, threshold, loads, lam0, lam20, stall_tol,
                     step0, n_valid, p_eff, *, mode: str, iters: int,
                     lr_con: float, lr_load: float, patience: int,
                     norm_grad: bool, gshards: int, polish: bool,
-                    stats: Optional[dict] = None):
-    """The reference's ``_blocked_window_fn`` on one device: zero the
-    padding rows, map onto the unified problem with the valid-row count,
-    and run :func:`_blocked_window_core` over ``gshards`` shards."""
+                    stats: Optional[dict] = None, ranks: int = 1,
+                    rank: int = 0, group=None):
+    """The reference's ``_blocked_window_fn``: zero the padding rows, map
+    onto the unified problem with the valid-row count, and run
+    :func:`_blocked_window_core` over ``gshards`` shards.  With ``group``
+    (a query mesh of ``ranks``), cost/quality are this rank's rows, the
+    ``rank``-th contiguous slice of the window, and the returned x is the
+    whole window, all-gathered."""
     dev = cost.device
     n, m = cost.shape
+    lblocks = gshards // ranks
+    gather = None
+    if group is not None:
+        from repro_torch.launch.mesh import all_gather
+
+        def gather(part):
+            return all_gather(part, group)
     nvf = _f32(n_valid, dev)
     # padding rows (a suffix) contribute exactly 0.0 to every reduction,
     # the stream ledger included
-    validr = (torch.arange(n, device=dev) < nvf)[:, None]
+    validr = ((torch.arange(n, device=dev) + rank * n) < nvf)[:, None]
     cost = cost.float() * validr
     quality = quality.float() * validr
     a_mat, b_mat, t_eff, lr_eff = _mode_params(
         cost, quality, _f32(threshold, dev), lr_con,
         budget_mode=(mode == "budget"), n_eff=nvf)
-    return _blocked_window_core(
+    out = _blocked_window_core(
         a_mat, b_mat, cost, quality, t_eff, _f32(p_eff, dev),
         loads.float(), _f32(lr_eff, dev), _f32(lr_load, dev),
         _f32(lam0, dev), _f32(lam20, dev).reshape(m), _f32(stall_tol, dev),
         _f32(step0, dev), nvf, mode=mode, iters=iters, patience=patience,
-        lblocks=gshards, polish=polish, norm_grad=norm_grad, lr_con=lr_con,
-        lr_load=lr_load, stats=stats)
+        lblocks=lblocks, polish=polish, norm_grad=norm_grad, lr_con=lr_con,
+        lr_load=lr_load, stats=stats, gshards=gshards, d0=rank * lblocks,
+        gather=gather)
+    if gather is None:
+        return out
+    x, info, csum, qsum = out
+    return gather(x), info, csum, qsum
 
 
 def _sync(device):
@@ -700,8 +752,14 @@ class DualSolver:
     ``shards`` > 1, or a masked window (``n_valid``), takes the blocked
     solve (:func:`_blocked_window_core`): every shard on the one device,
     the whole ascent through ``ops.blocked_dual_ascent`` (one kernel
-    launch on the card).  The reference's query mesh (one shard per device) waits for
-    multi-GPU ``torch.distributed``.
+    launch on the card).  Under an active query mesh
+    (``common.sharding.use_mesh(query_mesh(), query_rules())`` on every
+    rank of a ``torch.distributed`` world) every solve is blocked and
+    sharded (``_plan``): each rank runs its contiguous shards, one
+    shard-statistics launch an iteration on the card, and every rank
+    returns the whole window, bit for bit the one-rank blocked solve's.
+    The caller passes every rank the whole window, or, with ``local=True``
+    (``route_arrays``, ``route_window``), each rank its own rows.
     """
 
     mode: str = "quality"          # "quality" | "budget"
@@ -713,7 +771,8 @@ class DualSolver:
     stall_patience: int = 3        # cumulative stalled iters before exit
     norm_grad: bool = False        # scale-free subgradient (streaming)
     shards: int = 1                # blocked stats reduction over the query
-    #                                axis (all shards on one device)
+    #                                axis; under a query mesh of D ranks
+    #                                1 adopts D, else a multiple of D
     robust: bool = False           # route_window solves against the quality
     #                                lower-confidence bound q - kappa*sigma
     kappa: float = 1.0             # LCB width (0 == bit-identical to robust
@@ -737,10 +796,41 @@ class DualSolver:
                 f"shards — pad the window (StreamController pads to "
                 f"power-of-two buckets and passes n_valid)")
 
-    def _blocked(self, n_valid, n: int) -> bool:
-        """Whether a call takes the blocked path (checking divisibility)."""
-        if self.shards > 1 or n_valid is not None:
-            self._check_divisible(n, self.shards)
+    def _plan(self):
+        """(mesh, axes, global shard count) honouring an active query mesh.
+
+        No mesh (or no "query" rule): blocked execution on one device with
+        ``self.shards`` blocks.  An active query mesh of D ranks: the shard
+        count adopts D (when ``shards`` is 1) or must be a multiple of it;
+        each rank then runs shards/D contiguous blocks."""
+        from repro_torch.common.sharding import query_axis_info
+        qa = query_axis_info()
+        if qa is None:
+            return None, None, self.shards
+        mesh, axes, d = qa
+        gsh = self.shards if self.shards > 1 else d
+        if gsh % d:
+            raise ValueError(
+                f"DualSolver.shards={gsh} must be a multiple of the active "
+                f"query-mesh size {d}")
+        return mesh, axes, gsh
+
+    def _rows(self, n: int, local: bool):
+        """(plan, the window's global row count) of a call whose tensors
+        hold ``n`` rows: the whole window, or this rank's rows."""
+        plan = self._plan()
+        if not local:
+            return plan, n
+        if plan[0] is None:
+            raise ValueError("local=True needs an active query mesh")
+        return plan, n * plan[0].axis_size(plan[1])
+
+    def _blocked(self, plan, n_valid, n: int) -> bool:
+        """Whether a call takes the blocked path (checking divisibility of
+        the global row count ``n``)."""
+        mesh, _, gsh = plan
+        if mesh is not None or gsh > 1 or n_valid is not None:
+            self._check_divisible(n, gsh)
             return True
         return False
 
@@ -753,16 +843,27 @@ class DualSolver:
         return state.lam, state.lam_load, torch.clamp(state.steps, max=400.0)
 
     def _blocked_call(self, cost, quality, threshold, loads, state, n_valid,
-                      p_eff, *, polish: bool, stats=None):
-        n, m = cost.shape
+                      p_eff, plan, n: int, *, polish: bool, stats=None):
+        """The blocked solve of an n-row window; under a query mesh each
+        rank takes its rows of cost/quality unless they hold only those."""
+        mesh, axes, gsh = plan
+        m = cost.shape[1]
         lam0, lam20, step0 = self._warm(state, m, cost.device)
+        kw = {}
+        if mesh is not None:
+            ranks, rank = mesh.axis_size(axes), mesh.axis_index(axes)
+            rows = n // ranks
+            if cost.shape[0] == n:
+                cost = cost[rank * rows:(rank + 1) * rows]
+                quality = quality[rank * rows:(rank + 1) * rows]
+            kw = dict(ranks=ranks, rank=rank, group=mesh.group(axes))
         return _blocked_window(
             cost, quality, threshold, loads, lam0, lam20, self.stall_tol,
             step0, n if n_valid is None else n_valid, p_eff, mode=self.mode,
             iters=self.iters, lr_con=self.lr_constraint,
             lr_load=self.lr_workload, patience=self.stall_patience,
-            norm_grad=self.norm_grad, gshards=self.shards, polish=polish,
-            stats=stats)
+            norm_grad=self.norm_grad, gshards=gsh, polish=polish,
+            stats=stats, **kw)
 
     def _inputs(self, cost, quality, loads):
         dev = (cost.device if isinstance(cost, torch.Tensor)
@@ -776,10 +877,11 @@ class DualSolver:
         warm-starts the ascent from a previous window's multipliers;
         ``n_valid`` marks the valid-row prefix of a padded window."""
         cost, quality, loads = self._inputs(cost, quality, loads)
-        if self._blocked(n_valid, cost.shape[0]):
+        plan, n = self._rows(cost.shape[0], False)
+        if self._blocked(plan, n_valid, n):
             x, info, _, _ = self._blocked_call(
                 cost, quality, threshold, loads, state, n_valid, threshold,
-                polish=False)
+                plan, n, polish=False)
             return x, info
         return self._solve_whole(cost, quality, threshold, loads, state)
 
@@ -840,20 +942,23 @@ class DualSolver:
     def route_arrays(self, cost, quality, threshold, loads,
                      polish_threshold=None,
                      state: Optional[DualState] = None, n_valid=None,
-                     stats: Optional[dict] = None
+                     stats: Optional[dict] = None, local: bool = False
                      ) -> Tuple[torch.Tensor, SolveInfo]:
         """Solve -> workload repair -> primal (or budget) polish.
 
         ``stats`` (optional dict) receives ``solve_s`` and ``polish_s``
-        (device-synchronized wall seconds) and the move counts."""
+        (device-synchronized wall seconds) and the move counts.
+        ``local`` (a query mesh only): cost/quality are this rank's rows;
+        x is still the whole window."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
-        if self._blocked(n_valid, cost.shape[0]):
+        plan, n = self._rows(cost.shape[0], local)
+        if self._blocked(plan, n_valid, n):
             # repair/polish run shard-locally against an exact capacity
             # partition (budget mode polishes to the budget itself)
             pt = threshold if polish_threshold is None else polish_threshold
             x, info, _, _ = self._blocked_call(
-                cost, quality, threshold, loads, state, n_valid, pt,
+                cost, quality, threshold, loads, state, n_valid, pt, plan, n,
                 polish=True, stats=stats)
             return x, info
         t0 = time.perf_counter()
@@ -878,7 +983,8 @@ class DualSolver:
     def route_window(self, cost, quality, threshold, loads,
                      state: Optional[DualState] = None, *, share=1.0,
                      polish_margin: float = 0.0, n_valid=None,
-                     quality_std=None, stats: Optional[dict] = None
+                     quality_std=None, stats: Optional[dict] = None,
+                     local: bool = False
                      ) -> Tuple[torch.Tensor, SolveInfo, DualState]:
         """One streaming window: fold the cumulative ledger into this
         window's effective threshold, warm-start the ascent from the
@@ -893,7 +999,10 @@ class DualSolver:
         bound ``q - kappa*sigma`` (``quality_std`` when given, else the
         Bernoulli std of the clipped predicted quality), taken in float32
         on the solve's device before the path is chosen, so the fused, the
-        blocked and the padded solves and the ledger all see the bound."""
+        blocked and the padded solves and the ledger all see the bound.
+
+        ``local`` (a query mesh only): cost/quality (and ``quality_std``)
+        are this rank's rows; x is still the whole window."""
         cost, quality, loads = self._inputs(cost, quality, loads)
         dev = cost.device
         if self.robust:
@@ -906,7 +1015,8 @@ class DualSolver:
             kappa = torch.full((), self.kappa, dtype=torch.float32,
                                device=dev)
             quality = quality - kappa * sigma
-        n, m = cost.shape
+        plan, n = self._rows(cost.shape[0], local)
+        m = cost.shape[1]
         if state is None:
             state = init_dual_state(m, dev)
         threshold = _f32(threshold, dev)
@@ -916,9 +1026,9 @@ class DualSolver:
             p_eff = torch.clamp(t_eff + polish_margin, 0.0, 1.0)
         else:
             p_eff = t_eff
-        if self._blocked(n_valid, n):
+        if self._blocked(plan, n_valid, n):
             x, info, csum, qsum = self._blocked_call(
-                cost, quality, t_eff, loads, state, n_valid, p_eff,
+                cost, quality, t_eff, loads, state, n_valid, p_eff, plan, n,
                 polish=True, stats=stats)
         else:
             x, info = self.route_arrays(cost, quality, t_eff, loads,
@@ -938,6 +1048,11 @@ class DualSolver:
             # opt-in sanitizer plane (repro_torch.analysis.sanitize): ledger
             # conservation and an independent NumPy feasibility certificate.
             # Every call is eager here, so every window is checked.
+            if local:
+                from repro_torch.launch.mesh import all_gather
+                group = plan[0].group(plan[1])
+                cost = all_gather(cost, group)
+                quality = all_gather(quality, group)
             _sanitize.check_route_window(
                 mode=self.mode, x=x, cost=cost, quality=quality,
                 threshold=threshold, t_eff=t_eff, loads=loads,

@@ -1,6 +1,6 @@
 """OmniRouter facade: two-stage routing (predict → constrained optimize).
 
-The port of ``repro.core.router`` on its single-device path.  ``route``
+The port of ``repro.core.router``.  ``route``
 consumes a :class:`RouteBatch`: the host tokenizes the query text, and
 everything after — featurize → retrieve → vote → blend → dual solve →
 repair → polish — runs on the predictor's device, with no host round-trip
@@ -16,6 +16,14 @@ Speculative pair columns (``RouterConfig.spec_pairs``): ``route_window``
 splices the (draft, verify) columns between predict and solve
 (``core.speculative.expand_pair_columns``, on the device, priced by the
 live acceptance EWMA), so the solve and the warm state span M + P columns.
+
+Under an active query mesh (``common.sharding.use_mesh(query_mesh(),
+query_rules())`` on every rank) each rank tokenizes and predicts only its
+contiguous rows of the batch, with the predictor and its VectorStore
+replicated (the reference's ``_sharded_predict``: the retrieval vote runs
+on each rank's shard, and no collective is needed), and feeds them to the
+query-sharded solve (``DualSolver(local=True)``); every rank returns the
+whole assignment.
 
 With ``robust=True`` the streaming solve runs against the quality
 lower-confidence bound ``q - kappa*sigma`` (``DualSolver.robust``), taken
@@ -58,7 +66,8 @@ class RouterConfig:
     stall_tol: float = 0.01
     stall_patience: int = 3
     # query-axis shards of the streaming solver: >1 runs the blocked dual
-    # solve (all shards on one device)
+    # solve (all shards on one device, or shards/D a rank under a query
+    # mesh of D ranks)
     shards: int = 1
     # robust=True solves streaming windows against the quality lower-
     # confidence bound q - kappa*sigma (Bernoulli sigma); kappa=0 is
@@ -129,12 +138,23 @@ class OmniRouter(Policy):
         return (self.cfg.alpha,
                 min(self.cfg.alpha + self.cfg.alpha_margin, 1.0))
 
-    def _predict(self, batch: RouteBatch):
-        """Tokenize on the host, predict on the device: (cap, cost, loads)."""
+    def _predict(self, batch: RouteBatch, solver: DualSolver):
+        """Tokenize on the host, predict on the device: (cap, cost, loads,
+        the time predicting began, whether the rows are this rank's).
+        Under a query mesh (``solver``'s plan) each rank takes its own
+        contiguous rows (the reference's ``_sharded_predict``)."""
         dev = self.predictor.device
+        queries, input_len = batch.queries, batch.input_len
+        mesh, axes, gshards = solver._plan()
+        if mesh is not None:
+            n = len(queries)
+            solver._check_divisible(n, gshards)
+            d, r = mesh.axis_size(axes), mesh.axis_index(axes)
+            rows = slice(r * (n // d), (r + 1) * (n // d))
+            queries, input_len = queries[rows], np.asarray(input_len)[rows]
         t0 = time.perf_counter()
         toks = torch.as_tensor(tokenizer.encode_batch(
-            batch.queries, self.predictor.token_len), device=dev)
+            queries, self.predictor.token_len), device=dev)
         t1 = time.perf_counter()
         self.last_timing = {"tokenize_s": t1 - t0}
         self.predict_seconds += t1 - t0
@@ -144,9 +164,9 @@ class OmniRouter(Policy):
 
         with torch.no_grad():
             cap, _, cost = self.predictor.predict_device(
-                self.predictor.device_inputs(), toks, f32(batch.input_len),
+                self.predictor.device_inputs(), toks, f32(input_len),
                 f32(batch.price_in), f32(batch.price_out))
-        return cap, cost, f32(batch.available), t1
+        return cap, cost, f32(batch.available), t1, mesh is not None
 
     def _finish(self, x, stats, t1):
         x = x.cpu().numpy()
@@ -157,17 +177,19 @@ class OmniRouter(Policy):
         return x
 
     def route(self, batch: RouteBatch, rng=None) -> np.ndarray:
-        cap, cost, avail, t1 = self._predict(batch)
+        cap, cost, avail, t1, local = self._predict(batch, self.solver)
         threshold, polish_threshold = self._thresholds()
         stats: dict = {}
         x, _ = self.solver.route_arrays(cost, cap, threshold, avail,
                                         polish_threshold=polish_threshold,
-                                        stats=stats)
+                                        stats=stats, local=local)
         return self._finish(x, stats, t1)
 
     def window_multiple(self) -> int:
-        """Bucket sizes must divide into this many query shards."""
-        return self.stream_solver.shards
+        """Bucket sizes must divide into this many query shards (the
+        streaming solver's plan: under a query mesh, a multiple of its
+        ranks)."""
+        return self.stream_solver._plan()[2]
 
     def route_window(self, batch: RouteBatch, state: Optional[DualState],
                      *, share: float = 1.0, rng=None,
@@ -184,7 +206,8 @@ class OmniRouter(Policy):
         state_in = state
         threshold = (self.cfg.budget if self.cfg.budget is not None
                      else self.cfg.alpha)
-        cap, cost, avail, t1 = self._predict(batch)
+        cap, cost, avail, t1, local = self._predict(batch,
+                                                    self.stream_solver)
         if self.pairs:
             e_acc = torch.as_tensor(self.acceptance.expected(),
                                     dtype=torch.float32, device=cost.device)
@@ -195,7 +218,7 @@ class OmniRouter(Policy):
         x, info, state = self.stream_solver.route_window(
             cost, cap, threshold, avail, state, share=share,
             polish_margin=self.cfg.alpha_margin, n_valid=n_valid,
-            stats=stats)
+            stats=stats, local=local)
         if _sanitize.active("ledgersan"):
             _sanitize.check_state_monotone(state_in, state,
                                            where="OmniRouter.route_window")

@@ -13,6 +13,12 @@ solve (``core.optimizer._blocked_window_core``): one launch of the
 hand-written cluster kernel on a CUDA tensor, the plain loop on a CPU
 tensor; ``blocked_launches`` counts its kernel launches.
 
+``shard_stats`` is one iteration's per-shard [ΣA, ΣB, histogram] of that
+ascent: one launch of the hand-written shard-statistics kernel on a CUDA
+tensor, the plain version on a CPU tensor; ``stats_launches`` counts its
+kernel launches.  The query-sharded solve runs it on every rank, every
+iteration (``ref.blocked_dual_ascent_ref`` with ``stats=shard_stats``).
+
 ``assign_step`` is one step of the seed's per-iteration solve (one launch
 per dual iteration, the structure ``solve_fused`` replaced): on a CUDA
 tensor one launch of the hand-written kernel, whose last CTA adds the block
@@ -31,11 +37,14 @@ import torch
 from repro_torch.core.optimizer import (SolveInfo, _f32, _mode_params,
                                         _normalize_problem)
 
-from .kernel import assign_step_cuda, blocked_dual_ascent_cuda, dual_solve_cuda
-from .ref import assign_step_ref, blocked_dual_ascent_ref, fused_dual_solve_ref
+from .kernel import (assign_step_cuda, blocked_dual_ascent_cuda,
+                     dual_solve_cuda, shard_stats_cuda)
+from .ref import (assign_step_ref, blocked_dual_ascent_ref,
+                  fused_dual_solve_ref, shard_stats_ref)
 
 launches = 0
 blocked_launches = 0
+stats_launches = 0
 step_launches = 0
 
 
@@ -72,6 +81,21 @@ def blocked_dual_ascent(a_mat, b_mat, nv_loc, t_eff, lr_eff, lr_load_eff,
     if a_mat.device.type != "cpu":
         raise ValueError(f"no blocked dual ascent for device {a_mat.device}")
     return blocked_dual_ascent_ref(*args, iters=iters, patience=patience)
+
+
+def shard_stats(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
+    """Per-shard [ΣA, ΣB, histogram] of one dual iteration over
+    ``lblocks`` contiguous shards: (lblocks, 2 + M) float32 (see
+    ``ref.shard_stats_ref``).  A CUDA tensor launches the kernel once or
+    raises; a CPU tensor runs the plain version."""
+    global stats_launches
+    if a_mat.is_cuda:
+        out = shard_stats_cuda(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
+        stats_launches += 1
+        return out
+    if a_mat.device.type != "cpu":
+        raise ValueError(f"no shard statistics for device {a_mat.device}")
+    return shard_stats_ref(a_mat, b_mat, lam, lam2, nv, lblocks=lblocks)
 
 
 def fused_dual_solve(a_mat, b_mat, thresh, lr_eff, lr_load, lam0, lam20,

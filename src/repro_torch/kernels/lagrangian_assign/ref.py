@@ -174,18 +174,38 @@ def shard_stats_ref(a_mat, b_mat, lam, lam2, nv, *, lblocks: int):
                       _kernel_order_sum(vb)[:, None], hist], dim=1)
 
 
+def _same(part):
+    return part
+
+
 SYNC_EVERY = 8   # blocked iterations between host reads of the loop's
 #                  active flag (frozen iterations change nothing)
 
 
+def loop_iterations(iters: int, iters_run: int) -> int:
+    """The iterations :func:`blocked_dual_ascent_ref`'s loop runs for an
+    ``iters_run``: whole chunks of ``SYNC_EVERY`` up to the stall exit
+    (the frozen ones past it included), at most ``iters``."""
+    return min(iters, SYNC_EVERY * -(-iters_run // SYNC_EVERY))
+
+
 def blocked_dual_ascent_ref(a_mat, b_mat, nv_loc, t_eff, lr_eff,
                             lr_load_eff, lam0, lam20, stall_tol, step0,
-                            loads, *, iters: int, patience: int):
+                            loads, *, iters: int, patience: int,
+                            stats=None, gather=None):
     """The blocked window solve's dual ascent on the unified, normalised
     problem: a_mat/b_mat (S·nl, M) as S contiguous query shards, nv_loc
     (S,) valid rows per shard; scalars 0-dim float32 tensors; lam20 and
-    loads (M,).  Each iteration takes [ΣA, ΣB, histogram] from
-    :func:`shard_stats_ref` and combines the shards in order.
+    loads (M,).  Each iteration takes [ΣA, ΣB, histogram] of each shard
+    from ``stats`` (:func:`shard_stats_ref` by default) and combines the
+    shards in order.
+
+    The query-sharded solve runs this loop on each rank over its local
+    shards: ``stats`` is then the dispatching ``ops.shard_stats`` (the
+    kernel on the card) and ``gather`` the ordered all-gather that turns
+    the local (S_loc, 2 + M) partials into every shard's, in global shard
+    order; every rank then combines them alike.  Without ``gather`` the
+    local shards are all the shards.
 
     The loop keeps the reference's semantics (stall early exit,
     ``iters_run`` exact) without reading its condition every iteration: an
@@ -212,12 +232,16 @@ def blocked_dual_ascent_ref(a_mat, b_mat, nv_loc, t_eff, lr_eff,
     found = torch.zeros((), dtype=torch.bool, device=dev)
     stall = torch.zeros((), dtype=torch.int32, device=dev)
     t_run = torch.zeros((), dtype=torch.int32, device=dev)
+    if stats is None:
+        stats = shard_stats_ref
+    if gather is None:
+        gather = _same
     t = reads = 0
     while t < iters:
         for _ in range(min(SYNC_EVERY, iters - t)):
             active = stall < patience
-            tot = in_shard_order(shard_stats_ref(a_mat, b_mat, lam, lam2,
-                                                 nv_loc, lblocks=lblocks))
+            tot = in_shard_order(gather(stats(a_mat, b_mat, lam, lam2,
+                                              nv_loc, lblocks=lblocks)))
             asum, bsum, cnt = tot[0], tot[1], tot[2:]
             feasible = active & (bsum <= t_eff) & torch.all(cnt <= loads)
             better = feasible & (asum < best_a)

@@ -12,8 +12,9 @@ moments in place.  The metrics stay on the device.
 
 The sharded half of the reference's ``Trainer`` (``state_specs``,
 ``abstract_state``, ``jitted`` and ``hoist_gather``: sharding rules, mesh
-placement and AOT lowering) waits for the port's distribution slice
-(ROADMAP Queue A item 4).
+placement and AOT lowering) is part 2 of distribution (ROADMAP Queue A
+item 3); part 1 gave the port its meshes (``launch.mesh``) and rule tables
+(``common.sharding``, ``distributed.sharding``).
 """
 from __future__ import annotations
 

@@ -70,7 +70,11 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.analysis.staticcheck.callgraph',\n"
         "        'repro_torch.analysis.staticcheck.core',\n"
         "        'repro_torch.analysis.staticcheck.rules',\n"
-        "        'repro_torch.analysis.staticcheck.__main__'}\n"
+        "        'repro_torch.analysis.staticcheck.__main__',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.common.sharding',\n"
+        "        'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.distributed.compression',\n"
+        "        'repro_torch.distributed.pipeline'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -131,6 +135,21 @@ def test_source_scan_covers_the_training_path(rel):
 def test_source_scan_covers_the_launcher_and_analysis(rel):
     """The serving launcher, the zoo's input helpers, the analysis plane
     and the staticcheck twin are among the scanned sources, and none
+    imports ``jax`` or ``repro``."""
+    path = ROOT / rel
+    assert path in _port_sources()
+    assert not _FORBIDDEN.search(path.read_text())
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/launch/mesh.py", "src/repro_torch/common/sharding.py",
+    "src/repro_torch/distributed/__init__.py",
+    "src/repro_torch/distributed/sharding.py",
+    "src/repro_torch/distributed/compression.py",
+    "src/repro_torch/distributed/pipeline.py"])
+def test_source_scan_covers_the_distribution_plane(rel):
+    """The rank harness and mesh, the sharding rules, the compressed
+    all-reduce and the pipeline are among the scanned sources, and none
     imports ``jax`` or ``repro``."""
     path = ROOT / rel
     assert path in _port_sources()
