@@ -1058,7 +1058,7 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
     # S6. the all-smoke float32 pool behind BalanceAware, card vs CPU
     cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
             for a in SMOKE_POOL]
-    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    host = [_f32(build_model(c).init(i, "cpu")) for i, c in enumerate(cfgs)]
     rng = np.random.RandomState(7)
     todo = [(rng.randint(1, 512, (int(rng.randint(2, 40)),)).astype(np.int32),
              int(rng.randint(4, 17))) for _ in range(CPU_REQS)]
@@ -1353,7 +1353,7 @@ def restart_smoke_pool(torch, np, dev, say, check):
                                             null_route_features)
     cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
             for a in R2_POOL]
-    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    host = [_f32(build_model(c).init(i, "cpu")) for i, c in enumerate(cfgs)]
     rng = np.random.RandomState(7)
     prompts = [rng.randint(1, 500, (R2_LEN,)).astype(np.int32)
                for _ in range(R2_REQS)]
@@ -1421,7 +1421,7 @@ def failure_plane_smoke(torch, np, dev, say, check):
                                             null_route_features)
     cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
             for a in E1_POOL]
-    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    host = [_f32(build_model(c).init(i, "cpu")) for i, c in enumerate(cfgs)]
     rng = np.random.RandomState(5)
     prompts = [rng.randint(1, 500, (9,)).astype(np.int32)
                for _ in range(E1_REQS)]
@@ -2135,8 +2135,8 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     # scores (the full-width check's weights), junk draft (other seed)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
-    v32 = _unit_fan_in(build_model(cfg32).init(0, dev))
-    d32 = _unit_fan_in(build_model(dcfg32).init(7, dev))
+    v32 = _unit_fan_in(_f32(build_model(cfg32).init(0, dev)))
+    d32 = _unit_fan_in(_f32(build_model(dcfg32).init(7, dev)))
     d_ep = Endpoint(dcfg32, params=d32, **ep_kw)
     v_ep = Endpoint(cfg32, params=v32, **ep_kw)
     i_outs, i_srv, _, _, _ = spec_run(torch, np, d_ep, v_ep, prompts,
@@ -2157,7 +2157,7 @@ def speculative_plane(torch, np, dev, say, check, time_ms):
     # S6 (spec). a float32 smoke speculative pool, card vs CPU
     scfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
                                dtype=torch.float32)
-    host = [build_model(scfg).init(seed, "cpu") for seed in (7, 0)]
+    host = [_f32(build_model(scfg).init(seed, "cpu")) for seed in (7, 0)]
     rng = np.random.RandomState(8)
     todo = [(rng.randint(1, 512, (int(rng.randint(2, 30)),)).astype(np.int32),
              int(rng.randint(4, 17))) for _ in range(SPEC_CPU_REQS)]
@@ -4085,7 +4085,7 @@ def race_phase(torch, np, dev, say, check):
             label="G3 engine exploration") as guard:
         ev0 = sanitize.counters["events"]
         eps = [Endpoint(c, device=dev, params=_tree_to(
-            build_model(c).init(i, "cpu"), dev), **E1_EP)
+            _f32(build_model(c).init(i, "cpu")), dev), **E1_EP)
             for i, c in enumerate(cfgs)]
 
         def make_server():
@@ -4759,7 +4759,7 @@ def six_pool_phase(torch, np, dev, say, check):
     test = test.subset(np.arange(H4_REQS))
     cfgs = [dataclasses.replace(get_smoke_config(a), dtype=torch.float32)
             for a in H4_POOL]
-    host = [build_model(c).init(i, "cpu") for i, c in enumerate(cfgs)]
+    host = [_f32(build_model(c).init(i, "cpu")) for i, c in enumerate(cfgs)]
     vocab_cfg = min(cfgs, key=lambda c: c.vocab_size)
     runs, card_eps = {}, None
     for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -5448,7 +5448,7 @@ def l2_check(torch, np, dev, say, check):
     cfg = dataclasses.replace(get_config(L2_ARCH), dtype=torch.float32,
                               n_layers=L2_CHECK_LAYERS)
     model = build_model(cfg)
-    params = _unit_fan_in(model.init(0, dev))
+    params = _unit_fan_in(_f32(model.init(0, dev)))
     raw = next(synthetic_batches(cfg, ShapeConfig("t", L2_CHECK_SEQ, 1,
                                                   "train")))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
@@ -5648,7 +5648,7 @@ def l4_card_vs_cpu(torch, np, dev, say, check):
         tcfg = TrainConfig(microbatches=2, moment_dtype="fp32",
                            accum_dtype="fp32")
         model = build_model(cfg)
-        base = _unit_fan_in(model.init(0, cpu))
+        base = _unit_fan_in(_f32(model.init(0, cpu)))
         raw = next(synthetic_batches(cfg, ShapeConfig("t", L4_SEQ, L4_BATCH,
                                                       "train")))
         res = []
@@ -5976,6 +5976,42 @@ Q4_NUMEL = 16 * 2 ** 20
 Q4_STEPS = 3
 Q4_STAGES, Q4_MICRO, Q4_MB, Q4_WIDTH = 4, 8, 256, 1_024
 Q4_PIPE_TOL = 1e-5
+# Q5: the FSDP x TP train step of h2o-danube-3-4b at full width (d 3,840,
+# 32 / 8 heads of 120, d_ff 10,240, vocabulary 32,000), its depth cut to
+# Q5_LAYERS, in float32 (the float32 configuration's bf16 init cast, as the
+# reference's mesh test casts its own), microbatches 2, fp32 moments and
+# accumulation, remat as published (full), on mesh (data 2 x model 2),
+# hoist_gather off and on; held to the one-rank Trainer.train_step on the
+# card with the reference test's bounds (loss 1e-4; parameters 2.5 x
+# 3e-4: step-1 Adam moves a coordinate by about lr x sign(g), so that bound
+# alone would pass any gradient).  The gradient itself is held through the
+# moments it leaves (m = 0.1 x clip x g, v) and its norm.  Under this
+# config's random init the softmax is nearly an argmax (see the serving
+# plane's note), so the gradient moves far more than a rounding: the step
+# is run a second time on one rank from the state moved by at most one ulp
+# a coordinate, and that floor sets the bound.  Each leaf's moment blocks
+# on each rank lie within Q5_FLOOR_X times the floor's distance from the
+# one-rank step's (in the norm over the block), where that distance is at
+# least the floor's relative distance over all the rank's blocks times
+# the leaf's norm (one sample of the floor is noisy on a small leaf), and
+# never tighter than Q5_MOMENT_TOL of the leaf's norm; the gradient norm
+# within Q5_FLOOR_X times the floor's relative distance of m, or
+# Q5_NORM_TOL.
+# A zeroed, halved, sign-flipped or unreduced gradient lies at 50-200% of
+# the norm, the floor at well under 1%.
+Q5_ARCH, Q5_LAYERS, Q5_MESH = "h2o-danube-3-4b", 2, (2, 2)
+Q5_BATCH, Q5_SEQ, Q5_MICRO, Q5_SEED = 4, 512, 2, 11
+Q5_LOSS_TOL, Q5_PARAM_TOL = 1e-4, 2.5 * 3e-4
+Q5_FLOOR_X, Q5_NORM_TOL, Q5_MOMENT_TOL = 4.0, 1e-4, 1e-4
+# Q6: the sequence-sharded decode at danube's heads (K 8, G 4, D 120), B 2,
+# T 8,192 over the four ranks, pos inside rank 2's slice (rank 3's fully
+# masked): float32 within Q6_TOL of the one-rank dense decode kernel, bf16
+# within one bf16 ulp; the partials entry held to its plain version; the
+# reference test's 8-slice case (B 1, T 2,048, H 4, K 2, D 64, pos 1,800)
+Q6_B, Q6_T, Q6_K, Q6_G, Q6_D = 2, 8_192, 8, 4, 120
+Q6_POS = (4_096 + 1_000, 4_096 + 1_537)
+Q6_TOL = 2e-5
+Q6_REF = (1, 2_048, 4, 2, 64, 1_800, 8)     # B, T, H, K, D, pos, slices
 
 
 def _sync(torch, dev):
@@ -6230,6 +6266,201 @@ def q4_rank(torch, dev, rank, world):
     return out
 
 
+def q5_config(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(Q5_ARCH), n_layers=Q5_LAYERS,
+                               dtype=torch.float32)
+
+
+def q5_tokens(np, cfg):
+    return np.random.RandomState(Q5_SEED).randint(
+        0, cfg.vocab_size, (Q5_BATCH, Q5_SEQ)).astype(np.int32)
+
+
+def q5_leaf_names(tree, pre=""):
+    """The leaves' paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in q5_leaf_names(tree[k],
+                                                               f"{pre}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in q5_leaf_names(v, f"{pre}/{i}")]
+    return [pre]
+
+
+def q5_rank(torch, np, dev, rank, world):
+    """Q5 on this rank: the one-rank step on the card (every rank at once:
+    a whole state each, ~11 GiB, and a process's first float32 step pays
+    ~9 s of first use, which the ranks then pay side by side), then the
+    one-rank step again from the state moved by at most one ulp a
+    coordinate (the floor), then the sharded step with hoist_gather off
+    and on from the same state; each held to the one-rank step on this
+    rank's blocks (parameters and both moments)."""
+    import dataclasses
+    from repro_torch.analysis.roofline import (collective_bytes,
+                                               sharded_train_bytes)
+    from repro_torch.common import cast_tree, shard_tree
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.models import build_model
+    from repro_torch.models.zoo import input_logical
+    from repro_torch.training import Trainer, tree_leaves
+    from repro_torch.training.optim import tree_unflatten
+    cfg = q5_config(torch)
+    tcfg = TrainConfig(microbatches=Q5_MICRO, moment_dtype="fp32",
+                       accum_dtype="fp32")
+    tr = Trainer(build_model(cfg), tcfg)
+    mesh = pmesh.make_host_mesh(*Q5_MESH)
+    rules = rules_for(cfg, mesh, "train")
+    specs = tr.state_specs(rules)["params"]
+    batch = {"tokens": torch.from_numpy(q5_tokens(np, cfg)).to(dev)}
+    local_batch = shard_tree(batch, input_logical(
+        cfg, ShapeConfig("t", Q5_SEQ, Q5_BATCH, "train"), rules), mesh)
+
+    def moment_gaps(opt, ref):
+        """Per moment, per leaf: (|opt's block - ref's|, |ref's|)."""
+        return {key: [(float((a.float() - b.float()).norm()),
+                       float(b.float().norm()))
+                      for a, b in zip(tree_leaves(opt[key]),
+                                      tree_leaves(ref[key]))]
+                for key in ref}
+
+    params = cast_tree(tr.model.init(Q5_SEED, dev))
+    start = shard_tree(params, specs, mesh)
+    t0 = time.perf_counter()
+    state, met = tr.train_step({"params": params, "opt": tr.opt.init(params)},
+                               batch)
+    _sync(torch, dev)
+    out = {"one": {k: float(v) for k, v in met.items()},
+           "one_s": time.perf_counter() - t0}
+    want = shard_tree(state["params"], specs, mesh)
+    def blocks(opt):
+        return {key: shard_tree(opt[key], specs, mesh) for key in ("m", "v")}
+
+    moments = blocks(state["opt"])
+    del state, params
+    params = cast_tree(tr.model.init(Q5_SEED, dev))
+    gen = torch.Generator(device=dev).manual_seed(Q5_SEED + rank)
+    for t in tree_leaves(params):
+        t.mul_(1 + 2.0 ** -23 * (2 * torch.rand(
+            t.shape, generator=gen, device=dev) - 1))
+    state, met = tr.train_step({"params": params, "opt": tr.opt.init(params)},
+                               batch)
+    out["floor"] = dict(grad_norm=float(met["grad_norm"]),
+                        gaps=moment_gaps(blocks(state["opt"]), moments))
+    out["leaves"] = q5_leaf_names(want)
+    del state, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for hoist in (False, True):
+        t2 = Trainer(tr.model, dataclasses.replace(tcfg, hoist_gather=hoist))
+        params = tree_unflatten(start,
+                                (t.clone() for t in tree_leaves(start)))
+        local = {"params": params, "opt": t2.opt.init(params)}
+        step = t2.sharded_step(mesh, rules)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        fa_ops.launches = fa_ops.bwd_launches = 0
+        pmesh.reset_collectives()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        local, met = step(local, local_batch)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        moved = collective_bytes()
+        gap = max(float((a.float() - b.float()).abs().max()) for a, b in
+                  zip(tree_leaves(local["params"]), tree_leaves(want)))
+        reckoned = sharded_train_bytes(
+            t2.model, t2.tcfg, cast_tree(t2.abstract_state()["params"]),
+            rules, mesh.shape, local_batch["tokens"].shape[0], Q5_SEQ)
+        out[hoist] = dict(
+            metrics={k: float(v) for k, v in met.items()}, gap=gap,
+            moment_gaps=moment_gaps(local["opt"], moments), moved=moved, reckoned=reckoned, wall_s=wall,
+            flash=(fa_ops.launches, fa_ops.bwd_launches),
+            peak=(torch.cuda.max_memory_allocated(dev)
+                  if dev.type == "cuda" else 0))
+        del local, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def q6_inputs(torch, dev, dtype, b, t, h, kh, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    draw = [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, 1, h, d), (b, t, kh, d), (b, t, kh, d))]
+    return tuple(draw)
+
+
+def q6_rel_err(got, want):
+    """max |got - want| over want's largest |value| (0 when empty)."""
+    if want.numel() == 0:
+        return 0.0
+    return (float((got - want).abs().max())
+            / max(float(want.abs().max()), 1e-30))
+
+
+def q6_rank(torch, dev, rank, world):
+    """Q6 on this rank: the sequence-sharded decode (float32, bf16) against
+    the one-rank dense decode on the card, and the partials entry on this
+    rank's slice against its plain version."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, decode_attention_partials_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_partials_ref)
+    from repro_torch.launch import mesh as pmesh
+    mesh = pmesh.Mesh.build((world,), ("seq",))
+    t_loc = Q6_T // world
+    pos = torch.tensor(Q6_POS, dtype=torch.int32, device=dev)
+    lens = torch.clamp(pos - rank * t_loc, min=0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = q6_inputs(torch, dev, dtype, Q6_B, Q6_T, Q6_K * Q6_G,
+                            Q6_K, Q6_D, 61)
+        kl = k[:, rank * t_loc:(rank + 1) * t_loc].contiguous()
+        vl = v[:, rank * t_loc:(rank + 1) * t_loc].contiguous()
+        d_ops.partial_launches = 0
+        pmesh.reset_collectives()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = d_ops.sharded_decode_attention(q, kl, vl, pos,
+                                             offset=rank * t_loc,
+                                             group=mesh.group("seq"))
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = d_ops.partial_launches
+        moved = pmesh.collective_stats()["all-gather"]
+        # the one-rank decode and the partials entry, outside the counts
+        if dev.type == "cuda":
+            one = decode_attention_cuda(q, k, v, pos)
+            parts = decode_attention_partials_cuda(q, kl, vl, lens)
+        else:
+            one = d_ops.decode_attention_ref(q, k, v, pos)
+            parts = d_ops.decode_attention_partials_ref(q, kl, vl, lens)
+        plain = decode_attention_partials_ref(q, kl, vl, lens)
+        # o, l and the live splits' m each relative to the plain version's
+        # largest; an empty split's m must be NEG_INF exactly
+        live = plain[1] > -1e29
+        p_err = max(q6_rel_err(parts[0], plain[0]),
+                    q6_rel_err(parts[2], plain[2]),
+                    q6_rel_err(parts[1][live], plain[1][live]),
+                    0.0 if bool((parts[1][~live] == plain[1][~live]).all())
+                    else float("inf"))
+        diff = (got.float() - one.float()).abs()
+        e = torch.floor(torch.log2(one.float().abs().clamp(min=2.0 ** -126)))
+        out[str(dtype)] = dict(
+            err=float(diff.max()), in_ulp=bool((diff <= torch.exp2(e - 7))
+                                                .all()),
+            partials_rel_err=p_err, launches=launches, moved=moved, wall_s=wall,
+            masked=bool((parts[1] == -1e30).all()) if rank == world - 1
+            else None)
+    return out
+
+
 def q_rank(rank, world, device, args):
     """Phase Q's rank body (``run_ranks`` loads it from this file): Q1 and
     Q2 under the query mesh, Q3 and Q4 on meshes of their own; one
@@ -6265,6 +6496,183 @@ def q_rank(rank, world, device, args):
     t0 = time.perf_counter()
     out["q4"] = q4_rank(torch, device, rank, world)
     out["q4_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["q5"] = q5_rank(torch, np, device, rank, world)
+    out["q5_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["q6"] = q6_rank(torch, device, rank, world)
+    out["q6_s"] = time.perf_counter() - t0
+    return out
+
+
+def q5_report(torch, dev, say, check, ranks):
+    """Q5's checks in the parent: each rank's sharded step against its
+    one-rank step (the gradient against the one-ulp floor), the counted
+    bytes against the reckoning, the flash launches a rank."""
+    from repro_torch.configs import get_config
+    cfg = q5_config(torch)
+    depth = get_config(Q5_ARCH).n_layers
+    remat = 2 if cfg.remat != "none" else 1
+    want_flash = (Q5_LAYERS * Q5_MICRO * remat, Q5_LAYERS * Q5_MICRO)
+    say(f"Q5: {Q5_ARCH} at full width (d {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocabulary "
+        f"{cfg.vocab_size}), depth cut from {depth} to {Q5_LAYERS} layers; "
+        f"float32 (the bf16 init cast), batch {Q5_BATCH} x {Q5_SEQ}, "
+        f"{Q5_MICRO} microbatches, fp32 moments and accumulation, remat "
+        f"{cfg.remat}; mesh (data {Q5_MESH[0]} x model {Q5_MESH[1]})")
+    out, flash = {}, [0, 0]
+    for hoist in (False, True):
+        tag = f"Q5 hoist_gather {'on' if hoist else 'off'}"
+        loss_gap = gap = norm_gap = floor_rel = 0.0
+        ratio = {"m": 0.0, "v": 0.0}
+        for r, rk in enumerate(ranks):
+            got, one = rk["q5"][hoist], rk["q5"]["one"]
+            floor = rk["q5"]["floor"]
+            dl = abs(got["metrics"]["loss"] - one["loss"])
+            dn = (abs(got["metrics"]["grad_norm"] - one["grad_norm"])
+                  / one["grad_norm"])
+            # the floor's distance of each moment relative to the moment,
+            # over this rank's blocks: how far a one-ulp move carries it
+            rel = {key: (sum(g * g for g, _ in floor["gaps"][key])
+                         / sum(n * n for _, n in floor["gaps"][key])) ** 0.5
+                   for key in ratio}
+            loss_gap, gap = max(loss_gap, dl), max(gap, got["gap"])
+            norm_gap, floor_rel = max(norm_gap, dn), max(floor_rel, rel["m"])
+            check(dl < Q5_LOSS_TOL, f"{tag} rank {r}: loss {dl:.3g} from "
+                  "the one-rank step")
+            check(got["gap"] < Q5_PARAM_TOL, f"{tag} rank {r}: a parameter "
+                  f"{got['gap']:.3g} from the one-rank step")
+            check(dn <= max(Q5_FLOOR_X * rel["m"], Q5_NORM_TOL),
+                  f"{tag} rank {r}: gradient norm "
+                  f"{got['metrics']['grad_norm']:.7g}, one-rank "
+                  f"{one['grad_norm']:.7g} ({dn:.3g} relative; the one-ulp "
+                  f"floor moves m by {rel['m']:.3g})")
+            for key in ratio:
+                for name, (gs, n), (gp, _) in zip(
+                        rk["q5"]["leaves"], got["moment_gaps"][key],
+                        floor["gaps"][key]):
+                    base = max(gp, rel[key] * n)
+                    ratio[key] = max(ratio[key], gs / base if base > 0 else
+                                     (0.0 if gs == 0 else float("inf")))
+                    check(gs <= max(Q5_FLOOR_X * base, Q5_MOMENT_TOL * n),
+                          f"{tag} rank {r}: moment {key} of {name} {gs:.3g} "
+                          f"from the one-rank step's (the one-ulp floor "
+                          f"{gp:.3g}, over the rank's blocks {rel[key]:.3g} "
+                          f"relative; its norm {n:.3g})")
+            check(all(got["moved"][k] == n
+                      for k, n in got["reckoned"].items()),
+                  f"{tag} rank {r}: moved {got['moved']}, reckoned "
+                  f"{got['reckoned']}")
+            if dev.type == "cuda":
+                check(tuple(got["flash"]) == want_flash,
+                      f"{tag} rank {r}: flash (forward, backward) launches "
+                      f"{got['flash']}, want {want_flash}")
+            flash[0] += got["flash"][0]
+            flash[1] += got["flash"][1]
+        walls = [rk["q5"][hoist]["wall_s"] for rk in ranks]
+        peak = max(rk["q5"][hoist]["peak"] for rk in ranks) / 2 ** 30
+        moved = ranks[0]["q5"][hoist]["moved"]
+        out["hoist" if hoist else "gather"] = dict(
+            loss_gap=loss_gap, param_gap=gap, grad_norm_rel_gap=norm_gap,
+            floor_m_rel=floor_rel, moment_over_floor=ratio,
+            grad_norm=ranks[0]["q5"][hoist]["metrics"]["grad_norm"],
+            loss=ranks[0]["q5"][hoist]["metrics"]["loss"],
+            one_rank_loss=ranks[0]["q5"]["one"]["loss"],
+            wall_s=statistics.median(walls), peak_gib=peak,
+            all_gather=moved["all-gather"],
+            reduce_scatter=moved["reduce-scatter"],
+            all_reduce=moved["all-reduce"],
+            flash_a_rank=ranks[0]["q5"][hoist]["flash"])
+        say(f"{tag}: loss {ranks[0]['q5'][hoist]['metrics']['loss']:.6f} "
+            f"({loss_gap:.3g} from the one-rank step; limit {Q5_LOSS_TOL:g}),"
+            f" parameters within {gap:.3g} (limit {Q5_PARAM_TOL:.3g}), "
+            f"gradient norm {ranks[0]['q5'][hoist]['metrics']['grad_norm']:.7g}"
+            f" within {norm_gap:.3g} relative (limit {Q5_FLOOR_X:g} x the "
+            f"one-ulp floor's {floor_rel:.3g}), each leaf's moments m, v "
+            f"within {ratio['m']:.3g}, {ratio['v']:.3g} x the floor's "
+            f"distance (limit {Q5_FLOOR_X:g}); rank "
+            f"0 moved {moved['all-gather']:,} bytes all-gathered, "
+            f"{moved['reduce-scatter']:,} reduce-scattered, "
+            f"{moved['all-reduce']:,} all-reduced = roofline."
+            f"sharded_train_bytes on every rank; flash (forward, backward) "
+            f"launches a rank {ranks[0]['q5'][hoist]['flash']}; a step "
+            f"{statistics.median(walls):.2f} s wall (median of the ranks: "
+            f"four processes time-sliced on one card over host-staged "
+            f"gloo, not a multi-card time), peak {peak:.2f} GiB a rank")
+    out["flash_launches"] = flash
+    out["one_rank_s"] = statistics.median(rk["q5"]["one_s"] for rk in ranks)
+    one, floor = ranks[0]["q5"]["one"], ranks[0]["q5"]["floor"]
+    out["floor_grad_norm_rel"] = (abs(floor["grad_norm"] - one["grad_norm"])
+                                  / one["grad_norm"])
+    say(f"Q5 floor: the one-rank step from the state moved by at most one "
+        f"ulp a coordinate moves the gradient norm by "
+        f"{out['floor_grad_norm_rel']:.3g} relative ({one['grad_norm']:.7g}"
+        f" to {floor['grad_norm']:.7g}) and m by up to "
+        f"{out['gather']['floor_m_rel']:.3g} of its norm on a rank")
+    say(f"Q5 one-rank step on each rank (side by side, each its process's "
+        f"first float32 step): {out['one_rank_s']:.2f} s wall")
+    return out
+
+
+def q6_report(torch, dev, say, check, ranks):
+    """Q6's checks in the parent, and the reference test's 8-slice case in
+    this process."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    out = {"partial_launches": 0, "partials_rel_err": 0.0}
+    for dtype in ("torch.float32", "torch.bfloat16"):
+        err = 0.0
+        for r, rk in enumerate(ranks):
+            got = rk["q6"][dtype]
+            err = max(err, got["err"])
+            out["partials_rel_err"] = max(out["partials_rel_err"],
+                                          got["partials_rel_err"])
+            out["partial_launches"] += got["launches"]
+            if dtype == "torch.float32":
+                check(got["err"] <= Q6_TOL, f"Q6 {dtype} rank {r}: "
+                      f"{got['err']:.3g} from the one-rank decode")
+            else:
+                check(got["in_ulp"], f"Q6 {dtype} rank {r}: beyond one bf16"
+                      " ulp of the one-rank decode")
+            check(got["partials_rel_err"] <= Q6_TOL, f"Q6 {dtype} rank {r}: "
+                  f"the partials entry {got['partials_rel_err']:.3g} "
+                  "(relative) from its plain version")
+            if dev.type == "cuda":
+                check(got["launches"] == 1, f"Q6 {dtype} rank {r}: "
+                      f"{got['launches']} partials launches")
+        check(ranks[-1]["q6"][dtype]["masked"], f"Q6 {dtype}: the last "
+              "rank's slice past pos is not all empty splits")
+        out[dtype] = dict(err=err, wall_s=statistics.median(
+            rk["q6"][dtype]["wall_s"] for rk in ranks),
+            gathered=ranks[0]["q6"][dtype]["moved"])
+        say(f"Q6 {dtype[6:]}: sequence-sharded decode (B {Q6_B}, T {Q6_T:,} "
+            f"over {len(ranks)} ranks, K {Q6_K}, G {Q6_G}, D {Q6_D}, pos "
+            f"{Q6_POS}) max |sharded - one-rank kernel| {err:.3g}"
+            + (f" (limit {Q6_TOL:g})" if dtype == "torch.float32"
+               else " (within one bf16 ulp)")
+            + f"; one partials launch a rank, {out[dtype]['gathered']:,} "
+            f"bytes of partials all-gathered; "
+            f"{out[dtype]['wall_s'] * 1e3:.2f} ms (time-sliced)")
+    b, t, h, kh, d, pos, n = Q6_REF
+    q, k, v = q6_inputs(torch, dev, torch.float32, b, t, h, kh, d, 62)
+    before = d_ops.partial_launches
+    parts = [d_ops.decode_attention_partials(
+        q, k[:, s * t // n:(s + 1) * t // n].contiguous(),
+        v[:, s * t // n:(s + 1) * t // n].contiguous(),
+        max(pos - s * t // n, 0)) for s in range(n)]
+    out["partial_launches"] += d_ops.partial_launches - before
+    o, m, l = (torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+    got = d_ops.merge_partials(o, m, l).reshape(b, 1, h, d)
+    want = decode_attention_ref(q, k, v, torch.tensor([pos], device=dev))
+    err8 = float((got - want).abs().max())
+    check(err8 <= Q6_TOL, f"Q6 8-slice case: {err8:.3g} from the plain "
+          "decode")
+    out["eight_slice_err"] = err8
+    say(f"Q6 8-slice case (B {b}, T {t:,}, H {h}, K {kh}, D {d}, pos {pos}):"
+        f" partials of {n} slices merged, max |merged - plain decode| "
+        f"{err8:.3g} (limit {Q6_TOL:g}); partials entry against its plain "
+        f"version on every rank's slice: {out['partials_rel_err']:.3g} "
+        "relative")
     return out
 
 
@@ -6308,7 +6716,8 @@ def sharded_phase(torch, np, dev, say, check, cost, cap, budget):
     say(f"Q: {Q_RANKS} ranks on one {dev.type} device, backend gloo "
         f"(collectives staged through host memory): the group took "
         f"{group_s:.1f} s (rank 0: Q1+Q2 {ranks[0]['q12_s']:.1f} s, Q3 "
-        f"{ranks[0]['q3_s']:.1f} s, Q4 {ranks[0]['q4_s']:.1f} s)")
+        f"{ranks[0]['q3_s']:.1f} s, Q4 {ranks[0]['q4_s']:.1f} s, Q5 "
+        f"{ranks[0]['q5_s']:.1f} s, Q6 {ranks[0]['q6_s']:.1f} s)")
     summary = dict(ranks=Q_RANKS, backend="gloo", group_s=group_s)
 
     # Q1: the one-rank blocked solve (on the card: the one-launch cluster
@@ -6492,6 +6901,8 @@ def sharded_phase(torch, np, dev, say, check, cost, cap, budget):
     summary["Q4"] = dict(pipeline=max(rk["q4"]["pipeline"] for rk in ranks),
                          int8_bytes=q4["int8"]["moved"]["all-reduce"],
                          bf16_bytes=q4["bf16"]["moved"]["all-reduce"])
+    summary["Q5"] = q5_report(torch, dev, say, check, ranks)
+    summary["Q6"] = q6_report(torch, dev, say, check, ranks)
     check(stats_launches > 0, "Q: no shard-statistics launch on the ranks")
     summary["shard_stats_launches"] = stats_launches
     summary["vote_launches"] = vote_launches
@@ -6506,6 +6917,14 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def _f32(tree):
+    """A float32 configuration's init (bf16 leaves, as the reference
+    declares them) cast to float32, as the reference's float32 checks cast
+    theirs (``common.cast_tree``)."""
+    from repro_torch.common import cast_tree
+    return cast_tree(tree)
 
 
 def _tree_to(tree, where):
@@ -6786,13 +7205,21 @@ def main() -> int:
                                                    + h_runs["paged"]
                                                    + mx_runs["paged"]
                                                    + n_runs["paged"])
+    q5_flash = q_summary["Q5"]["flash_launches"]
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
                                            + g3["flash"] + h_runs["flash"]
                                            + mx_runs["flash"]
                                            + l_runs["flash"]
-                                           + n_runs["flash"])
+                                           + n_runs["flash"] + q5_flash[0])
+    rows["flash_attention"]["sharded_step_launches"] = q5_flash[0]
+    rows["flash_attention_bwd"]["launches"] += q5_flash[1]
+    rows["flash_attention_bwd"]["sharded_step_launches"] = q5_flash[1]
+    q6 = q_summary["Q6"]
     rows["decode_attention"]["launches"] = (main["dense"] + h_runs["dense"]
-                                            + mx_runs["dense"])
+                                            + mx_runs["dense"]
+                                            + q6["partial_launches"])
+    rows["decode_attention"]["partials_launches"] = q6["partial_launches"]
+    rows["decode_attention"]["partials_max_rel_err"] = q6["partials_rel_err"]
     rows["decode_attention"]["max_abs_err"] = max(
         rows["decode_attention"]["max_abs_err"], main["i1"]["kernel_err"])
     rows["retrieval_vote"]["launches"] += (main["vote"] + g3["vote"]

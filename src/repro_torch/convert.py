@@ -53,14 +53,18 @@ def vector_store_from_numpy(emb, labels, size: int, device=None
 def model_params_from_numpy(cfg, tree, device=None):
     """A ``DecoderLM`` parameter tree of NumPy arrays (the JAX layout:
     ``segs[si][j]`` dicts of stacked ``(count, ...)`` leaves) -> the same
-    tree of tensors on ``device``, each in the dtype the port's own
-    declaration gives it (``DecoderLM.decls()``): ``cfg.dtype``, or float32
-    for the leaves the reference declares float32 (hymba's ``w_dt``,
-    ``dt_bias``, ``a_log``, ``d_skip`` and ``beta``, the mLSTM's
-    ``w_gates``).  The arrays may arrive as float32 either way, which holds
-    bf16 values exactly."""
+    tree of tensors on ``device``.  In a float32 configuration every leaf
+    is float32: the reference declares most leaves bf16 whatever the
+    configuration's dtype, and its float32 runs cast that init to float32
+    (``common.cast_tree`` on the port's side).  In any other configuration
+    each leaf takes the dtype of its declaration (``DecoderLM.decls()``):
+    bf16, or float32 for the leaves the reference declares float32
+    (hymba's ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip`` and ``beta``, the
+    mLSTM's ``w_gates``, the MoE router).  The arrays may arrive as
+    float32 either way, which holds bf16 values exactly."""
     from repro_torch.models import build_model
     device = default_device(device)
+    f32 = cfg.dtype == torch.float32
 
     def walk(node, decl):
         if isinstance(node, dict):
@@ -68,7 +72,7 @@ def model_params_from_numpy(cfg, tree, device=None):
         if isinstance(node, (list, tuple)):
             return [walk(v, d) for v, d in zip(node, decl)]
         return torch.from_numpy(np.array(node, np.float32)).to(
-            device=device, dtype=decl.dtype)
+            device=device, dtype=torch.float32 if f32 else decl.dtype)
 
     return walk(tree, build_model(cfg).decls())
 

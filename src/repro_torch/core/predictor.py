@@ -51,28 +51,40 @@ class PredictorConfig:
 
 def _enc_layer_decls(cfg: PredictorConfig) -> dict:
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.d_model // cfg.n_heads
+    f32 = torch.float32
     return {
-        "ln1": ParamDecl((d,), init="ones"),
-        "wqkv": ParamDecl((d, 3, h, hd), init="scaled"),
-        "wo": ParamDecl((h, hd, d), init="scaled"),
-        "ln2": ParamDecl((d,), init="ones"),
-        "w1": ParamDecl((d, cfg.d_ff), init="scaled"),
-        "w2": ParamDecl((cfg.d_ff, d), init="scaled"),
+        "ln1": ParamDecl((d,), ("p_none",), init="ones", dtype=f32),
+        "wqkv": ParamDecl((d, 3, h, hd),
+                          ("p_embed", "p_none", "p_heads", "p_none"),
+                          init="scaled", dtype=f32),
+        "wo": ParamDecl((h, hd, d), ("p_heads", "p_none", "p_embed"),
+                        init="scaled", dtype=f32),
+        "ln2": ParamDecl((d,), ("p_none",), init="ones", dtype=f32),
+        "w1": ParamDecl((d, cfg.d_ff), ("p_embed", "p_mlp"), init="scaled",
+                        dtype=f32),
+        "w2": ParamDecl((cfg.d_ff, d), ("p_mlp", "p_embed"), init="scaled",
+                        dtype=f32),
     }
 
 
 def predictor_decls(cfg: PredictorConfig) -> dict:
-    d = cfg.d_model
+    """The reference's tree, its logical axes and its float32 dtype."""
+    d, f32 = cfg.d_model, torch.float32
     return {
-        "tok_embed": ParamDecl((cfg.vocab, d), init="normal"),
-        "pos_embed": ParamDecl((cfg.max_len, d), init="normal"),
+        "tok_embed": ParamDecl((cfg.vocab, d), ("p_vocab", "p_embed"),
+                               init="normal", dtype=f32),
+        "pos_embed": ParamDecl((cfg.max_len, d), ("p_none", "p_embed"),
+                               init="normal", dtype=f32),
         "layers": [_enc_layer_decls(cfg) for _ in range(cfg.n_layers)],
-        "final_ln": ParamDecl((d,), init="ones"),
-        "model_embed": ParamDecl((cfg.n_models, d), init="normal", scale=0.5),
-        "cap_w": ParamDecl((d,), init="scaled"),
-        "cap_b": ParamDecl((), init="zeros"),
-        "len_w": ParamDecl((d, cfg.n_buckets), init="scaled"),
-        "len_b": ParamDecl((cfg.n_buckets,), init="zeros"),
+        "final_ln": ParamDecl((d,), ("p_none",), init="ones", dtype=f32),
+        "model_embed": ParamDecl((cfg.n_models, d), ("p_none", "p_embed"),
+                                 init="normal", scale=0.5, dtype=f32),
+        "cap_w": ParamDecl((d,), ("p_embed",), init="scaled", dtype=f32),
+        "cap_b": ParamDecl((), (), init="zeros", dtype=f32),
+        "len_w": ParamDecl((d, cfg.n_buckets), ("p_embed", "p_none"),
+                           init="scaled", dtype=f32),
+        "len_b": ParamDecl((cfg.n_buckets,), ("p_none",), init="zeros",
+                           dtype=f32),
     }
 
 

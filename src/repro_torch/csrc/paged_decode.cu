@@ -12,7 +12,11 @@
 // decode_attention_kernel (body _kernel over a (B, T, K, D) cache, ragged T
 // masked) — entry point decode_launch, which also runs the multi-position
 // verify over a dense cache (the int8 pools' dequantized view; the reference
-// runs that one as plain jnp).  All three run the same split kernel.
+// runs that one as plain jnp).  All three run the same split kernel.  A
+// fourth entry point, decode_partials_launch, runs the dense decode's split
+// pass alone and leaves its partials unmerged: the reference kernel's own
+// output, which the sequence-sharded decode merges across ranks
+// (ops.merge_partials there).
 // The dense one reads the contiguous cache as pages of one position whose
 // ids are b*T + t (no block table), so at the same split boundaries
 // (SPLIT_POS positions) it equals the paged decode bit for bit.  Verify and
@@ -457,7 +461,7 @@ int launch_rows(const void* q, const void* kp, const void* vp, const int* bt,
       static_cast<const T*>(vp), bt, lens, o_part, m_part, l_part, H, KH, D,
       PS, P, pps, window, scale, S, dense_t);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || out == nullptr) return (int)err;
   merge_kernel<T><<<dim3(B * KH, R), D, 0, stream>>>(
       o_part, m_part, l_part, static_cast<T*>(out), H, KH, D, n_splits, S);
   return (int)cudaGetLastError();
@@ -557,4 +561,24 @@ extern "C" int decode_launch(int dtype, const void* q, const void* k,
   return dispatch(dtype, q, k, v, nullptr, lens, o_part, m_part, l_part, out,
                   B, H, KH, D, 1, T, window, scale, SPLIT_POS, n_splits, S, T,
                   stream);
+}
+
+// The dense decode's split partials, unmerged (decode_launch without its
+// merge): q (B, 1, H, D), caches (B, T, KH, D), lens (B,) valid lengths
+// (0 allowed: every split empty).  o (B, KH, n_splits, G, D) holds each
+// split's unnormalised P.V numerator, m and l (B, KH, n_splits, G) its
+// score max and exp sum; a split with no valid position holds (0, NEG_INF,
+// 0).  n_splits = ceil(T / SPLIT_POS), G at most GMAX.
+extern "C" int decode_partials_launch(int dtype, const void* q, const void* k,
+                                      const void* v, const int* lens,
+                                      float* o_part, float* m_part,
+                                      float* l_part, int B, int H, int KH,
+                                      int D, int T, float scale, int n_splits,
+                                      void* stream) {
+  if (T <= 0 || H % KH != 0 || H / KH > GMAX
+      || (long long)n_splits * SPLIT_POS < T)
+    return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, q, k, v, nullptr, lens, o_part, m_part, l_part,
+                  nullptr, B, H, KH, D, 1, T, 0, scale, SPLIT_POS, n_splits,
+                  1, T, stream);
 }

@@ -3,7 +3,8 @@
 speculative verify (S positions per sequence) and the dense-cache decode
 and verify (S >= 1 query positions against a contiguous ``(B, T, K, D)``
 cache), each the split pass and the log-sum-exp merge, two launches on the
-current stream.
+current stream; and the dense decode's split pass alone, its partials
+unmerged (``decode_attention_partials_cuda``, one launch).
 They take CUDA tensors only; the library builds from the repository's
 sources at first use."""
 from __future__ import annotations
@@ -47,6 +48,16 @@ def _dense_launcher():
     fn = _build.load("paged_decode").decode_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _partials_launcher():
+    fn = _build.load("paged_decode").decode_partials_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -205,3 +216,38 @@ def decode_attention_cuda(q, k_cache, v_cache, lens, *, window: int = 0):
             kh, d, t, int(window), d ** -0.5, n_splits, stream),
             "decode_launch")
     return out
+
+
+def decode_attention_partials_cuda(q, k_cache, v_cache, lens):
+    """The dense decode's split pass alone: q (B,1,H,D); caches (B,T,K,D)
+    of q's dtype (bfloat16 or float32), contiguous; lens (B,) int32 valid
+    lengths (0 allowed).  Returns the unmerged partials of splits of
+    ``SPLIT_POS`` positions in the reference kernel's layout, float32: o
+    (B,K,n_splits,G,D) the unnormalised numerators, m and l
+    (B,K,n_splits,G) the score max and the exp sum; a split with no valid
+    position gives (0, -1e30, 0).  ``ref.decode_attention_partials_ref``
+    is its plain version; ``ops.merge_partials`` of them is
+    ``decode_attention_cuda``'s result before its rounding to q's type."""
+    b, s, h, d, kh = _check_inputs(q, k_cache, v_cache, (("lens", lens),),
+                                   GMAX)
+    t = k_cache.shape[1]
+    if s != 1 or k_cache.shape[0] != b or tuple(lens.shape) != (b,):
+        raise ValueError("q must be (B,1,H,D), the caches (B,T,K,D) and "
+                         "lens (B,)")
+    dev = q.device
+    n_splits = -(-t // SPLIT_POS)
+    g = h // kh
+    o_part = torch.empty((b, kh, n_splits, g, d), dtype=torch.float32,
+                         device=dev)
+    m_part = torch.empty((b, kh, n_splits, g), dtype=torch.float32,
+                         device=dev)
+    l_part = torch.empty_like(m_part)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_partials_launcher()(
+            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lens.data_ptr(), o_part.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), b, h, kh, d, t, d ** -0.5,
+            n_splits, stream),
+            "decode_partials_launch")
+    return o_part, m_part, l_part

@@ -3,9 +3,10 @@
 Counterparts of ``repro.kernels.decode_attention.ref`` (``gather_pages``,
 ``decode_attention_ref``, ``paged_decode_attention_ref``, and for the
 speculative verify ``verify_attention_ref``, ``paged_verify_attention_ref``
-and the NumPy oracle ``paged_verify_attention_np``, copied as it is).  The split merge
-(``ops.merge_partials`` there) has no counterpart: the CUDA kernel merges
-its own splits, and the plain version computes no splits.  The softmax
+and the NumPy oracle ``paged_verify_attention_np``, copied as it is), and
+``decode_attention_partials_ref``, the plain version of the dense decode's
+unmerged split partials (the reference kernel's own output, which its
+``ops.merge_partials`` merges).  The softmax
 and both products run in float32 on operands widened from their storage
 type, and the result is rounded once to q's type: the numerics of the TPU
 kernel, which the CUDA kernel (``kernel.py``) shares.  These versions gather
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .kernel import SPLIT_POS
 
 NEG_INF = -1e30
 
@@ -51,6 +54,34 @@ def decode_attention_ref(q, k_cache, v_cache, lens, *, window: int = 0):
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_partials_ref(q, k_cache, v_cache, lens):
+    """The split partials of :func:`decode_attention_ref` over splits of
+    ``SPLIT_POS`` positions (the CUDA kernel's): q (B,1,H,D); caches
+    (B,T,K,D); lens (B,) valid lengths, clamped to [0, T].  Returns float32
+    o (B,K,S,G,D) the unnormalised P.V numerators, m and l (B,K,S,G) the
+    score max and the exp sum; a split with no valid position gives (0,
+    NEG_INF, 0)."""
+    b, _, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    g, ns = h // kh, -(-t // SPLIT_POS)
+    pad = ns * SPLIT_POS - t
+    kc = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    vc = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    kc = kc.reshape(b, ns, SPLIT_POS, kh, d)
+    vc = vc.reshape(b, ns, SPLIT_POS, kh, d)
+    qf = q.reshape(b, kh, g, d).float() * (d ** -0.5)
+    s = torch.einsum("bkgd,bnpkd->bkngp", qf, kc)
+    n = torch.clamp(lens.to(torch.int32), 0, t).reshape(b, 1, 1)
+    pos = torch.arange(ns * SPLIT_POS, device=q.device).reshape(
+        1, ns, SPLIT_POS)
+    valid = (pos < n)[:, None, :, None, :]                 # (B,1,S,1,P)
+    m = torch.where(valid, s, float("-inf")).amax(-1)
+    m = torch.where(torch.isinf(m), torch.full_like(m, NEG_INF), m)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bkngp,bnpkd->bkngd", p, vc)
+    return o, m, p.sum(-1)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_table, lens, *,

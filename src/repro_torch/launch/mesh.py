@@ -7,7 +7,9 @@ the row-major coordinates of ``r`` in the mesh's shape, and the mesh holds
 one process group for each line through this rank along each set of axes
 (``Mesh.group``).  Collectives go through the wrappers below, which count
 the bytes of their results by kind (``collective_stats``, read by
-``repro_torch.analysis.roofline.collective_bytes``).
+``repro_torch.analysis.roofline.collective_bytes``).  Every sum
+(``all_reduce``, ``reduce_scatter``) adds the ranks' parts in group-rank
+order, in one place (``_rank_sum``).
 
 ``run_ranks`` starts ``world`` ranks, each a fresh interpreter
 (``python -m repro_torch.launch.mesh``), never a fork of the caller.  The
@@ -43,7 +45,8 @@ import torch.distributed as dist
 
 SRC = Path(__file__).resolve().parents[2]      # the directory of repro_torch
 BACKENDS = ("gloo",)
-KINDS = ("all-gather", "all-to-all", "all-reduce", "send/recv", "broadcast")
+KINDS = ("all-gather", "all-to-all", "all-reduce", "reduce-scatter",
+         "send/recv", "broadcast")
 
 # result bytes and calls of the collective wrappers below, by kind
 _stats: Dict[str, list] = {k: [0, 0] for k in KINDS}
@@ -197,6 +200,43 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return out.to(t.device)
 
 
+def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``all_gather`` along ``dim``: the group's blocks concatenated along
+    that dim in group-rank order (counted as one all-gather)."""
+    if dim == 0:
+        return all_gather(t, group)
+    return all_gather(t.movedim(dim, 0), group).movedim(0, dim).contiguous()
+
+
+def _rank_sum(parts) -> torch.Tensor:
+    """The parts added in group-rank order, ((p0 + p1) + p2) + ...: the one
+    order of every ordered cross-rank sum, the same on every rank and on
+    every device."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out += p
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's sum of ``t``, split along ``dim`` into one block per
+    group rank: this rank's block.  Each rank sends block i to group rank
+    i (an all-to-all, as gloo has no reduce-scatter) and adds the blocks it
+    receives in group-rank order (``_rank_sum``).  Counted as one
+    reduce-scatter of the result's bytes.  A CUDA tensor is staged through
+    host memory."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n} blocks")
+    h = _host(t.movedim(dim, 0))
+    got = torch.empty_like(h)
+    dist.all_to_all_single(got, h, group=group)
+    out = _rank_sum(got.chunk(n)).movedim(0, dim).contiguous()
+    _note("reduce-scatter", out.numel() * out.element_size())
+    return out.to(t.device)
+
+
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """Equal chunks of dim 0 exchanged: chunk i goes to group rank i, and
     the result holds the chunks received in group-rank order (the tiled
@@ -210,10 +250,14 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The group's sum (a new tensor).  A CUDA tensor is staged through
-    host memory."""
-    h = _host(t).clone()
-    dist.all_reduce(h, group=group)
+    """The group's sum (a new tensor): the parts, all-gathered, added in
+    group-rank order (``_rank_sum``), so the sum does not depend on gloo's
+    schedule.  Counted as one all-reduce of the result's bytes.  A CUDA
+    tensor is staged through host memory."""
+    h = _host(t)
+    parts = [torch.empty_like(h) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, h, group=group)
+    h = _rank_sum(parts)
     _note("all-reduce", h.numel() * h.element_size())
     return h.to(t.device)
 

@@ -34,17 +34,22 @@ from .layers import rope
 
 def attn_decls(cfg: ModelConfig) -> dict:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt = cfg.dtype
     decls = {
-        "wq": ParamDecl((d, h, hd), init="scaled", dtype=dt),
-        "wk": ParamDecl((d, k, hd), init="scaled", dtype=dt),
-        "wv": ParamDecl((d, k, hd), init="scaled", dtype=dt),
-        "wo": ParamDecl((h, hd, d), init="scaled", dtype=dt),
+        "wq": ParamDecl((d, h, hd), ("p_embed", "p_heads", "p_none"),
+                        init="scaled"),
+        "wk": ParamDecl((d, k, hd), ("p_embed", "p_kv_heads", "p_none"),
+                        init="scaled"),
+        "wv": ParamDecl((d, k, hd), ("p_embed", "p_kv_heads", "p_none"),
+                        init="scaled"),
+        "wo": ParamDecl((h, hd, d), ("p_heads", "p_none", "p_embed"),
+                        init="scaled"),
     }
     if cfg.qkv_bias:
-        decls["bq"] = ParamDecl((h, hd), init="zeros", dtype=dt)
-        decls["bk"] = ParamDecl((k, hd), init="zeros", dtype=dt)
-        decls["bv"] = ParamDecl((k, hd), init="zeros", dtype=dt)
+        decls["bq"] = ParamDecl((h, hd), ("p_heads", "p_none"), init="zeros")
+        decls["bk"] = ParamDecl((k, hd), ("p_kv_heads", "p_none"),
+                                init="zeros")
+        decls["bv"] = ParamDecl((k, hd), ("p_kv_heads", "p_none"),
+                                init="zeros")
     return decls
 
 

@@ -34,16 +34,16 @@ class EncDecLM(DecoderLM):
     def decls(self) -> dict:
         """The reference's tree: no ``out_embed`` (the LM head falls back to
         ``embed``, whatever ``tie_embeddings`` says)."""
-        cfg, dt = self.cfg, self.cfg.dtype
+        cfg = self.cfg
 
         def segs(plan):
             return [[_stack(_layer_decls(cfg, k), count) for k in pattern]
                     for count, pattern in plan]
 
         return {
-            "embed": embed_decls(cfg.padded_vocab, cfg.d_model, dt),
-            "enc_norm": norm_decl(cfg.d_model, dt),
-            "final_norm": norm_decl(cfg.d_model, dt),
+            "embed": embed_decls(cfg.padded_vocab, cfg.d_model),
+            "enc_norm": norm_decl(cfg.d_model),
+            "final_norm": norm_decl(cfg.d_model),
             "enc_segs": segs(self.enc_plan),
             "segs": segs(self.plan),
         }
@@ -53,15 +53,13 @@ class EncDecLM(DecoderLM):
         """embeds (B, S_enc, d) -> the encoder's memory (B, S_enc, d)."""
         cfg = self.cfg
         layers = self._layers(params, "enc_segs", self.enc_plan)
-        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in layers),
-                       embeds.to(cfg.dtype))
+        x = _run_stack(cfg, layers, embeds.to(cfg.dtype))
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     # -- decoder over the encoder's memory ------------------------------------
     def _dec_hidden(self, params, tokens, memory):
         cfg = self.cfg
-        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in
-                             self._layers(params)),
+        x = _run_stack(cfg, self._layers(params),
                        embed_lookup(params["embed"], tokens),
                        enc_memory=memory)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)

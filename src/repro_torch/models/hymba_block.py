@@ -25,17 +25,20 @@ from .ssm import chunked_gla, gla_decode_step
 
 def ssd_decls(cfg: ModelConfig) -> dict:
     d, h, p, n = cfg.d_model, cfg.n_heads, cfg.hd, cfg.ssm_state
-    dt, f32 = cfg.dtype, torch.float32
+    f32 = torch.float32
+    ex = ("p_embed", "p_none", "p_none")
     return {
-        "w_x": ParamDecl((d, h, p), init="scaled", dtype=dt),
-        "w_z": ParamDecl((d, h, p), init="scaled", dtype=dt),
-        "w_b": ParamDecl((d, h, n), init="scaled", dtype=dt),
-        "w_c": ParamDecl((d, h, n), init="scaled", dtype=dt),
-        "w_dt": ParamDecl((d, h), init="scaled", dtype=f32),
-        "dt_bias": ParamDecl((h,), init="zeros", dtype=f32),
-        "a_log": ParamDecl((h,), init="zeros", dtype=f32),
-        "d_skip": ParamDecl((h,), init="ones", dtype=f32),
-        "conv_w": ParamDecl((cfg.ssm_conv, h * p), init="scaled", dtype=dt),
+        "w_x": ParamDecl((d, h, p), ex, init="scaled"),
+        "w_z": ParamDecl((d, h, p), ex, init="scaled"),
+        "w_b": ParamDecl((d, h, n), ex, init="scaled"),
+        "w_c": ParamDecl((d, h, n), ex, init="scaled"),
+        "w_dt": ParamDecl((d, h), ("p_embed", "p_none"), init="scaled",
+                          dtype=f32),
+        "dt_bias": ParamDecl((h,), ("p_none",), init="zeros", dtype=f32),
+        "a_log": ParamDecl((h,), ("p_none",), init="zeros", dtype=f32),
+        "d_skip": ParamDecl((h,), ("p_none",), init="ones", dtype=f32),
+        "conv_w": ParamDecl((cfg.ssm_conv, h * p), ("p_none", "p_none"),
+                            init="scaled"),
     }
 
 
@@ -74,12 +77,13 @@ def ssd_branch(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
 def hymba_decls(cfg: ModelConfig) -> dict:
     d_inner = cfg.n_heads * cfg.hd
     return {
-        "norm": norm_decl(cfg.d_model, cfg.dtype),
+        "norm": norm_decl(cfg.d_model),
         "attn": attn_decls(cfg),
         "ssd": ssd_decls(cfg),
-        "attn_norm": norm_decl(d_inner, cfg.dtype),
-        "ssd_norm": norm_decl(d_inner, cfg.dtype),
-        "beta": ParamDecl((2,), init="ones", dtype=torch.float32),
+        "attn_norm": norm_decl(d_inner),
+        "ssd_norm": norm_decl(d_inner),
+        "beta": ParamDecl((2,), ("p_none",), init="ones",
+                          dtype=torch.float32),
     }
 
 

@@ -3,7 +3,8 @@
 The port of ``repro.models.layers``: RMSNorm (float32 inside), RoPE, the
 gated MLP, the embedding lookup, the LM head, the chunked-vocabulary
 cross-entropy of the training loss and the depthwise causal convolution of
-the recurrent blocks.  Every declaration takes the config's dtype.
+the recurrent blocks.  Every declaration carries the reference's logical
+axes and its dtype (bf16, whatever the config's dtype).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (x * torch.rsqrt(var + eps)).to(dt) * w
 
 
-def norm_decl(d: int, dtype) -> ParamDecl:
-    return ParamDecl((d,), init="ones", dtype=dtype)
+def norm_decl(d: int) -> ParamDecl:
+    return ParamDecl((d,), ("p_none",), init="ones")
 
 
 # ---------------------------------------------------------------------------
@@ -51,11 +52,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # Gated MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_decls(d: int, ff: int, dtype) -> dict:
+def mlp_decls(d: int, ff: int) -> dict:
     return {
-        "w_gate": ParamDecl((d, ff), init="scaled", dtype=dtype),
-        "w_up": ParamDecl((d, ff), init="scaled", dtype=dtype),
-        "w_down": ParamDecl((ff, d), init="scaled", dtype=dtype),
+        "w_gate": ParamDecl((d, ff), ("p_embed", "p_mlp"), init="scaled"),
+        "w_up": ParamDecl((d, ff), ("p_embed", "p_mlp"), init="scaled"),
+        "w_down": ParamDecl((ff, d), ("p_mlp", "p_embed"), init="scaled"),
     }
 
 
@@ -68,8 +69,8 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 # Embedding / LM head
 # ---------------------------------------------------------------------------
 
-def embed_decls(padded_vocab: int, d: int, dtype) -> ParamDecl:
-    return ParamDecl((padded_vocab, d), init="normal", dtype=dtype)
+def embed_decls(padded_vocab: int, d: int) -> ParamDecl:
+    return ParamDecl((padded_vocab, d), ("p_vocab", "p_embed"), init="normal")
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -84,6 +85,15 @@ def logits_for(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def chunked_softmax_xent(table: torch.Tensor, hidden: torch.Tensor,
                          labels: torch.Tensor, mask: torch.Tensor,
                          vocab_size: int, chunk: int) -> torch.Tensor:
+    """The mean masked NLL: :func:`xent_sums`'s NLL sum over max(mask sum,
+    1)."""
+    tot, cnt = xent_sums(table, hidden, labels, mask, vocab_size, chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def xent_sums(table: torch.Tensor, hidden: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor, vocab_size: int,
+              chunk: int):
     """Cross-entropy without materializing the (tokens, V) logits at once.
 
     hidden (B, S, d); labels/mask (B, S); table (V_padded, d).  A loop over
@@ -92,7 +102,7 @@ def chunked_softmax_xent(table: torch.Tensor, hidden: torch.Tensor,
     float32: exact products, float32 sums, as the reference's
     ``preferred_element_type``), masks the vocabulary padding with -1e30,
     and adds its masked NLL (logsumexp minus the gold score) and mask
-    count.  Returns the NLL sum over max(mask sum, 1).  No chunk is
+    count.  Returns (the NLL sum, the mask sum), float32 0-d.  No chunk is
     rematerialized: under autograd each keeps its logits for the backward,
     as the reference's ``lax.scan`` keeps its residuals."""
     b, s, d = hidden.shape
@@ -120,7 +130,7 @@ def chunked_softmax_xent(table: torch.Tensor, hidden: torch.Tensor,
         gold = logits.gather(1, y[sl, None])[:, 0]
         tot = tot + ((lse - gold) * m[sl]).sum()
         cnt = cnt + m[sl].sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 # ---------------------------------------------------------------------------

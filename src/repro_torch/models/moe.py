@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import ParamDecl, active_mesh
+from repro_torch.common import (ParamDecl, ShardingRules, active_mesh,
+                                param_specs, shard_tree)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh, all_reduce, all_to_all
 
@@ -35,20 +36,24 @@ from repro_torch.launch.mesh import Mesh, all_reduce, all_to_all
 def moe_decls(cfg: ModelConfig) -> dict:
     """Router (float32 in every model dtype, as the reference declares it),
     the stacked experts ``(E, d, ff)`` / ``(E, ff, d)`` and, with
-    ``n_shared_experts``, the shared expert of width ``ff * n_shared``."""
-    d, ff, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+    ``n_shared_experts``, the shared expert of width ``ff * n_shared``;
+    bf16 elsewhere."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    ex = ("p_experts", "p_expert_embed", "p_mlp")
     decls = {
-        "router": ParamDecl((d, e), init="scaled", dtype=torch.float32),
-        "w_gate": ParamDecl((e, d, ff), init="scaled", dtype=dt),
-        "w_up": ParamDecl((e, d, ff), init="scaled", dtype=dt),
-        "w_down": ParamDecl((e, ff, d), init="scaled", dtype=dt),
+        "router": ParamDecl((d, e), ("p_embed", "p_none"), init="scaled",
+                            dtype=torch.float32),
+        "w_gate": ParamDecl((e, d, ff), ex, init="scaled"),
+        "w_up": ParamDecl((e, d, ff), ex, init="scaled"),
+        "w_down": ParamDecl((e, ff, d), ("p_experts", "p_mlp",
+                                         "p_expert_embed"), init="scaled"),
     }
     if cfg.n_shared_experts:
         sf = ff * cfg.n_shared_experts
         decls["shared"] = {
-            "w_gate": ParamDecl((d, sf), init="scaled", dtype=dt),
-            "w_up": ParamDecl((d, sf), init="scaled", dtype=dt),
-            "w_down": ParamDecl((sf, d), init="scaled", dtype=dt),
+            "w_gate": ParamDecl((d, sf), ("p_embed", "p_mlp"), init="scaled"),
+            "w_up": ParamDecl((d, sf), ("p_embed", "p_mlp"), init="scaled"),
+            "w_down": ParamDecl((sf, d), ("p_mlp", "p_embed"), init="scaled"),
         }
     return decls
 
@@ -161,19 +166,20 @@ def _groups(mesh: Optional[Mesh]):
     return n_dest, data, model
 
 
+# the reference's shard_map in_specs of the expert leaves: experts over
+# ``data``, each expert's FFN dim over ``model``
+_EP_RULES = ShardingRules({"p_experts": "data", "p_mlp": "model"})
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
 def shard_moe_params(cfg: ModelConfig, params: dict, mesh: Mesh) -> dict:
-    """This rank's slice of one layer's MoE parameters under ``mesh``:
-    experts split over ``data``, each expert's FFN dim over ``model`` (the
-    reference's in_specs); the router and the shared expert whole."""
-    c = mesh.coords
-    e_loc = cfg.n_experts // mesh.shape.get("data", 1)
-    f_loc = cfg.d_ff // mesh.shape.get("model", 1)
-    es = slice(c.get("data", 0) * e_loc, (c.get("data", 0) + 1) * e_loc)
-    fs = slice(c.get("model", 0) * f_loc, (c.get("model", 0) + 1) * f_loc)
+    """This rank's slice of one layer's MoE parameters under ``mesh``: the
+    expert leaves' blocks under their declarations' specs in ``_EP_RULES``
+    (``shard_tree``); the router and the shared expert whole."""
+    specs = param_specs(moe_decls(cfg), _EP_RULES)
     out = dict(params)
-    out["w_gate"] = params["w_gate"][es, :, fs].contiguous()
-    out["w_up"] = params["w_up"][es, :, fs].contiguous()
-    out["w_down"] = params["w_down"][es, fs, :].contiguous()
+    out.update(shard_tree({k: params[k] for k in _EXPERT_KEYS},
+                          {k: specs[k] for k in _EXPERT_KEYS}, mesh))
     return out
 
 

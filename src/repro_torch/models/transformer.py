@@ -53,8 +53,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ref import gather_pages
 from .attention import attention_block, attn_decls, project_kv_token
 from .hymba_block import hymba_decls, hymba_layer
-from .layers import (chunked_softmax_xent, embed_decls, embed_lookup,
-                     logits_for, mlp, mlp_decls, norm_decl, rms_norm)
+from .layers import (embed_decls, embed_lookup, logits_for, mlp, mlp_decls,
+                     norm_decl, rms_norm, xent_sums)
 from .moe import moe_block, moe_decls
 from .plan import LayerKind, layer_plan
 from .xlstm_blocks import _dims as xlstm_dims
@@ -63,8 +63,8 @@ from .xlstm_blocks import mlstm_block, mlstm_decls, slstm_block, slstm_decls
 
 def _stack(decls, count: int):
     if isinstance(decls, ParamDecl):
-        return ParamDecl((count,) + decls.shape, decls.init, decls.scale,
-                         decls.dtype)
+        return ParamDecl((count,) + decls.shape, ("p_layers",) + decls.logical,
+                         decls.init, decls.scale, decls.dtype)
     return {k: _stack(v, count) for k, v in decls.items()}
 
 
@@ -78,12 +78,38 @@ def _unbind(stacked, count: int) -> list:
     return list(stacked.unbind(0))
 
 
+class LayerHooks:
+    """Identity hooks of the full-sequence forward.  ``layer`` maps the
+    parameters of the layer at pattern position j of segment si just
+    before the layer uses them (inside its remat checkpoint, so what it
+    makes is freed after the forward and made again in the backward);
+    ``to_model`` and ``from_model`` wrap the input and the output of a
+    dense layer's attention and MLP.  The sharded train step
+    (``training.sharded``) overrides them with its FSDP gathers and its
+    tensor-parallel collectives."""
+
+    def layer(self, params: dict, si: int, j: int) -> dict:
+        return params
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def from_model(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+_NO_HOOKS = LayerHooks()
+
+
 def _layer_out(cfg: ModelConfig, kind: LayerKind, params: dict,
-               x: torch.Tensor, q_offset: int = 0, enc_memory=None
+               x: torch.Tensor, q_offset: int = 0, enc_memory=None,
+               hooks: LayerHooks = _NO_HOOKS, where: tuple = (0, 0)
                ) -> torch.Tensor:
-    """A full-sequence layer's output alone (the cache dropped)."""
-    return _apply_layer(cfg, kind, params, x, q_offset=q_offset,
-                        enc_memory=enc_memory)[0]
+    """A full-sequence layer's output alone (the cache dropped); ``where``
+    is the layer's (segment, pattern position) for ``hooks.layer``."""
+    return _apply_layer(cfg, kind, hooks.layer(params, *where), x,
+                        q_offset=q_offset, enc_memory=enc_memory,
+                        hooks=hooks)[0]
 
 
 def _leaf_tensors(tree):
@@ -94,23 +120,22 @@ def _leaf_tensors(tree):
 
 def _run_stack(cfg: ModelConfig, layers, x: torch.Tensor, **kw
                ) -> torch.Tensor:
-    """x through ``layers`` ((kind, layer params) in stack order).  Under
-    autograd with ``cfg.remat != "none"`` each layer body that takes a
-    gradient runs under ``checkpoint`` (its activations recomputed in the
-    backward)."""
+    """x through ``layers`` (``DecoderLM._layers``' tuples in stack
+    order).  Under autograd with ``cfg.remat != "none"`` each layer body
+    that takes a gradient runs under ``checkpoint`` (its activations
+    recomputed in the backward)."""
     remat = cfg.remat != "none" and torch.is_grad_enabled()
-    for kind, lp in layers:
+    for kind, lp, si, j, _ in layers:
         if remat and (x.requires_grad or any(
                 t.requires_grad for t in _leaf_tensors(lp))):
             x = checkpoint(_layer_out, cfg, kind, lp, x, use_reentrant=False,
-                           **kw)
+                           where=(si, j), **kw)
         else:
-            x = _layer_out(cfg, kind, lp, x, **kw)
+            x = _layer_out(cfg, kind, lp, x, where=(si, j), **kw)
     return x
 
 
 def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
-    dt = cfg.dtype
     if kind.block == "mlstm":
         return {"mlstm": mlstm_decls(cfg)}
     if kind.block == "slstm":
@@ -118,30 +143,31 @@ def _layer_decls(cfg: ModelConfig, kind: LayerKind) -> dict:
     if kind.block == "hymba":
         return {
             "hymba": hymba_decls(cfg),
-            "ln2": norm_decl(cfg.d_model, dt),
-            "ffn": mlp_decls(cfg.d_model, cfg.d_ff, dt),
+            "ln2": norm_decl(cfg.d_model),
+            "ffn": mlp_decls(cfg.d_model, cfg.d_ff),
         }
     d = {
-        "ln1": norm_decl(cfg.d_model, dt),
+        "ln1": norm_decl(cfg.d_model),
         "attn": attn_decls(cfg),
-        "ln2": norm_decl(cfg.d_model, dt),
+        "ln2": norm_decl(cfg.d_model),
         "ffn": (moe_decls(cfg) if kind.is_moe else
-                mlp_decls(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, dt)),
+                mlp_decls(cfg.d_model, cfg.dense_d_ff or cfg.d_ff)),
     }
     if kind.block == "xdec":
-        d["ln_cross"] = norm_decl(cfg.d_model, dt)
+        d["ln_cross"] = norm_decl(cfg.d_model)
         d["cross"] = attn_decls(cfg)
     return d
 
 
 def _ffn_residual(cfg: ModelConfig, kind: LayerKind, params: dict,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, hooks: LayerHooks = _NO_HOOKS
+                  ) -> torch.Tensor:
     """Post-attention tail shared by the full-sequence and decode paths:
     ln2 + (MoE or dense) FFN residual."""
     f = rms_norm(x, params["ln2"], cfg.norm_eps)
     if kind.is_moe:
         return x + moe_block(cfg, params["ffn"], f)
-    return x + mlp(params["ffn"], f)
+    return x + hooks.from_model(mlp(params["ffn"], hooks.to_model(f)))
 
 
 def _cross(cfg: ModelConfig, params: dict, x: torch.Tensor, **kw):
@@ -154,11 +180,13 @@ def _cross(cfg: ModelConfig, params: dict, x: torch.Tensor, **kw):
 
 
 def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
-                 x: torch.Tensor, *, q_offset: int = 0, enc_memory=None):
+                 x: torch.Tensor, *, q_offset: int = 0, enc_memory=None,
+                 hooks: LayerHooks = _NO_HOOKS):
     """Full-sequence layer.  Returns (x, this layer's cache: {"k", "v"} of
     an attention layer, with hymba's {"s", "conv"} and an xdec layer's
     encoder K/V {"ck", "cv"} (cross-attention into ``enc_memory``); the
-    recurrent blocks' final state)."""
+    recurrent blocks' final state).  ``hooks`` wraps the attention and
+    the dense MLP of an attention layer (``LayerHooks``)."""
     if kind.block == "mlstm":
         out, st = mlstm_block(cfg, params["mlstm"], x)
         return x + out, st
@@ -172,16 +200,16 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, params: dict,
         return (_ffn_residual(cfg, kind, params, x + out),
                 {"k": k, "v": v, **ssm})
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    a, (k, v) = attention_block(cfg, params["attn"], h,
+    a, (k, v) = attention_block(cfg, params["attn"], hooks.to_model(h),
                                 causal=kind.block != "enc",
                                 window=kind.window, q_offset=q_offset)
-    x = x + a
+    x = x + hooks.from_model(a)
     cache = {"k": k, "v": v}
     if kind.block == "xdec":
         ca, (cache["ck"], cache["cv"]) = _cross(cfg, params, x,
                                                 kv_x=enc_memory)
         x = x + ca
-    return _ffn_residual(cfg, kind, params, x), cache
+    return _ffn_residual(cfg, kind, params, x, hooks), cache
 
 
 def _quant_kv(x: torch.Tensor):
@@ -433,14 +461,13 @@ class DecoderLM:
     def decls(self) -> dict:
         cfg = self.cfg
         d = {
-            "embed": embed_decls(cfg.padded_vocab, cfg.d_model, cfg.dtype),
-            "final_norm": norm_decl(cfg.d_model, cfg.dtype),
+            "embed": embed_decls(cfg.padded_vocab, cfg.d_model),
+            "final_norm": norm_decl(cfg.d_model),
             "segs": [[_stack(_layer_decls(cfg, k), count) for k in pattern]
                      for count, pattern in self.plan],
         }
         if not cfg.tie_embeddings:
-            d["out_embed"] = embed_decls(cfg.padded_vocab, cfg.d_model,
-                                         cfg.dtype)
+            d["out_embed"] = embed_decls(cfg.padded_vocab, cfg.d_model)
         return d
 
     def init(self, seed: int = 0, device=None):
@@ -475,11 +502,12 @@ class DecoderLM:
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     # -- full-sequence forward ------------------------------------------
-    def hidden(self, params, tokens=None, embeds=None, q_offset: int = 0):
+    def hidden(self, params, tokens=None, embeds=None, q_offset: int = 0,
+               hooks: LayerHooks = _NO_HOOKS):
         cfg = self.cfg
         x = self._embed_input(params, tokens, embeds)
-        x = _run_stack(cfg, ((kind, lp) for kind, lp, *_ in
-                             self._layers(params)), x, q_offset=q_offset)
+        x = _run_stack(cfg, self._layers(params), x, q_offset=q_offset,
+                       hooks=hooks)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     # -- training loss ----------------------------------------------------
@@ -488,10 +516,16 @@ class DecoderLM:
         (B, F, d)] [, "mask" (B, F + S)]}: labels are the tokens rolled by
         one (the frontend's F positions padded with 0 in front), scored at
         positions max(F - 1, 0) .. F + S - 2 where ``mask`` > 0."""
+        h = self.hidden(params, batch["tokens"], batch.get("embeds"))
+        tot, cnt = self.loss_sums(h, self._out_table(params), batch)
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def loss_sums(self, h, table, batch: dict):
+        """(NLL sum, scored positions) of ``loss`` over the final hidden
+        states ``h`` and the LM head ``table`` (``layers.xent_sums``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         embeds = batch.get("embeds")
-        h = self.hidden(params, tokens, embeds)
         b, s, _ = h.shape
         flen = 0 if embeds is None else embeds.shape[1]
         padded = tokens if flen == 0 else torch.cat(
@@ -502,8 +536,8 @@ class DecoderLM:
         mask = mask[None, :].expand(b, s)
         if batch.get("mask") is not None:
             mask = mask & (batch["mask"] > 0)
-        return chunked_softmax_xent(self._out_table(params), h, labels, mask,
-                                    cfg.vocab_size, cfg.logit_chunk)
+        return xent_sums(table, h, labels, mask, cfg.vocab_size,
+                         cfg.logit_chunk)
 
     def logits(self, params, tokens=None, embeds=None) -> torch.Tensor:
         h = self.hidden(params, tokens, embeds)

@@ -32,18 +32,21 @@ def _dims(cfg: ModelConfig):
 
 def mlstm_decls(cfg: ModelConfig) -> dict:
     d, d_inner, h, dk, dv = _dims(cfg)
-    dt = cfg.dtype
+    inner = ("p_mlp", "p_none", "p_none")
     return {
-        "norm": norm_decl(d, dt),
-        "w_up": ParamDecl((d, 2 * d_inner), init="scaled", dtype=dt),
-        "conv_w": ParamDecl((cfg.ssm_conv, d_inner), init="scaled", dtype=dt),
-        "wq": ParamDecl((d_inner, h, dk), init="scaled", dtype=dt),
-        "wk": ParamDecl((d_inner, h, dk), init="scaled", dtype=dt),
-        "wv": ParamDecl((d_inner, h, dv), init="scaled", dtype=dt),
-        "w_gates": ParamDecl((d_inner, 2, h), init="scaled",
+        "norm": norm_decl(d),
+        "w_up": ParamDecl((d, 2 * d_inner), ("p_embed", "p_mlp"),
+                          init="scaled"),
+        "conv_w": ParamDecl((cfg.ssm_conv, d_inner), ("p_none", "p_mlp"),
+                            init="scaled"),
+        "wq": ParamDecl((d_inner, h, dk), inner, init="scaled"),
+        "wk": ParamDecl((d_inner, h, dk), inner, init="scaled"),
+        "wv": ParamDecl((d_inner, h, dv), inner, init="scaled"),
+        "w_gates": ParamDecl((d_inner, 2, h), inner, init="scaled",
                              dtype=torch.float32),
-        "head_norm": ParamDecl((h, dv), init="ones", dtype=dt),
-        "w_down": ParamDecl((d_inner, d), init="scaled", dtype=dt),
+        "head_norm": ParamDecl((h, dv), ("p_none", "p_none"), init="ones"),
+        "w_down": ParamDecl((d_inner, d), ("p_mlp", "p_embed"),
+                            init="scaled"),
     }
 
 
@@ -92,14 +95,16 @@ def slstm_decls(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     h = cfg.n_heads
     dh = d // h
-    dt = cfg.dtype
     return {
-        "norm": norm_decl(d, dt),
-        "w_in": ParamDecl((d, 4, h, dh), init="scaled", dtype=dt),
-        "r_w": ParamDecl((4, h, dh, dh), init="scaled", dtype=dt),
-        "w_ff_up": ParamDecl((d, 4 * d), init="scaled", dtype=dt),
-        "w_ff_down": ParamDecl((2 * d, d), init="scaled", dtype=dt),
-        "w_out": ParamDecl((d, d), init="scaled", dtype=dt),
+        "norm": norm_decl(d),
+        "w_in": ParamDecl((d, 4, h, dh), ("p_embed", "p_none", "p_none",
+                                          "p_none"), init="scaled"),
+        "r_w": ParamDecl((4, h, dh, dh), ("p_none",) * 4, init="scaled"),
+        "w_ff_up": ParamDecl((d, 4 * d), ("p_embed", "p_mlp"),
+                             init="scaled"),
+        "w_ff_down": ParamDecl((2 * d, d), ("p_mlp", "p_embed"),
+                               init="scaled"),
+        "w_out": ParamDecl((d, d), ("p_embed", "p_none"), init="scaled"),
     }
 
 

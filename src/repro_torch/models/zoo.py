@@ -4,7 +4,8 @@ of the paged serving plane.
 The port of ``repro.models.zoo``: ``build_model``; the inputs of an (arch
 x shape) cell, abstract (``input_shapes``, on the ``meta`` device, so
 nothing is allocated at ``decode_32k`` or ``long_500k``) or small and
-concrete (``concrete_inputs``, from an explicit ``torch.Generator``);
+concrete (``concrete_inputs``, from an explicit ``torch.Generator``), and
+their mesh axes under a rule table (``input_logical``, ``cache_specs``);
 ``param_count_estimate``; ``pad_cache``, which
 grows a prefill cache so ``decode_step`` can append (the restart baseline);
 and the admission path's helpers — prefill ONE request and scatter its
@@ -83,6 +84,48 @@ def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
         cache["pos"] = spec((), torch.int32)
         out["cache"] = cache
     return out
+
+
+# the logical axes of a cache leaf, by its key (parallel to the buffers of
+# ``DecoderLM.empty_cache``: the layer axis leads)
+_CACHE_LOGICAL = {
+    "k": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "v": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "k_scale": (None, "cache_batch", "cache_seq", "cache_kv_heads"),
+    "v_scale": (None, "cache_batch", "cache_seq", "cache_kv_heads"),
+    "ck": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "cv": (None, "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "s": (None, "cache_batch", None, None, None),
+    "conv": (None, "cache_batch", None, None),
+    "c": (None, "cache_batch", None, None),
+    "n": (None, "cache_batch", None, None),
+    "h": (None, "cache_batch", None, None),
+}
+
+
+def cache_specs(cache_shape_tree, rules) -> Dict[str, Any]:
+    """The mesh axes of every leaf of a cache built by ``empty_cache``
+    (meta tensors will do), under ``rules``; ``pos`` is replicated."""
+    return {"pos": (), "segs": [
+        [{key: rules.spec(_CACHE_LOGICAL[key][:leaf.dim()])
+          for key, leaf in layer.items()} for layer in seg]
+        for seg in cache_shape_tree["segs"]]}
+
+
+def input_logical(cfg: ModelConfig, shape: ShapeConfig, rules
+                  ) -> Dict[str, Any]:
+    """The mesh axes of ``input_shapes``'s tree under ``rules``: the batch
+    axis of the inputs (``"batch"``), a decode cell's cache by
+    :func:`cache_specs`."""
+    specs: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        if "embeds" in input_shapes_keys(cfg, shape):
+            specs["embeds"] = rules.spec(("batch", None, None))
+        specs["tokens"] = rules.spec(("batch", None))
+    else:
+        specs["token"] = rules.spec(("batch", None))
+        specs["cache"] = cache_specs(input_shapes(cfg, shape)["cache"], rules)
+    return specs
 
 
 def concrete_inputs(cfg: ModelConfig, shape: ShapeConfig,

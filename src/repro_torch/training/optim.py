@@ -31,13 +31,18 @@ class QTensor:
     scale: torch.Tensor
 
 
-def quantize(x: torch.Tensor) -> QTensor:
+def quantize(x: torch.Tensor, row_max=None) -> QTensor:
+    """``row_max`` (optional) maps the local rows' max |x| to the whole
+    rows' (a row split over ranks: the max over its blocks)."""
     xf = x.float()
     if xf.ndim == 0:
         scale = torch.clamp(xf.abs() / 127.0, min=1e-12)
         scaled = xf / scale
     else:
-        scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-12)
+        amax = xf.abs().amax(-1)
+        if row_max is not None:
+            amax = row_max(amax)
+        scale = torch.clamp(amax / 127.0, min=1e-12)
         scaled = xf / scale[..., None]
     # torch.round rounds half to even, as jnp.round does
     q = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
@@ -58,6 +63,17 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s nesting holding the next of ``leaves`` (an
+    iterator) at each leaf, in ``tree_leaves`` order: the inverse of
+    ``tree_leaves``."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_unflatten(v, leaves) for v in tree]
+    return next(leaves)
 
 
 def tree_map(fn, tree):
@@ -86,10 +102,10 @@ def _read_state(s, dtype: str) -> torch.Tensor:
     return s.float()
 
 
-def _write_state(s, x: torch.Tensor, dtype: str):
+def _write_state(s, x: torch.Tensor, dtype: str, row_max=None):
     """Store the float32 moment ``x`` into the state leaf ``s``."""
     if dtype == "int8":
-        t = quantize(x)
+        t = quantize(x, row_max)
         s.q.copy_(t.q)
         s.scale.copy_(t.scale)
     else:
@@ -119,6 +135,19 @@ def _part(s, sl):
     return s[sl]
 
 
+def sum_squares(leaves) -> torch.Tensor:
+    """The leaves' squares summed in leaf order (float32 0-d)."""
+    gsq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        gsq = gsq + torch.sum(torch.square(g.float()))
+    return gsq
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """sqrt of :func:`sum_squares` (the clip's global norm)."""
+    return torch.sqrt(sum_squares(leaves))
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     cfg: TrainConfig
@@ -130,11 +159,15 @@ class AdamW:
                 "v": tree_map(lambda p: _zeros_like_state(p, dt), params)}
 
     @torch.no_grad()
-    def update(self, grads, state: dict, params) -> torch.Tensor:
+    def update(self, grads, state: dict, params, *, gnorm=None,
+               row_max=None) -> torch.Tensor:
         """One step: the parameters and ``state`` change in place; returns
         the global gradient norm (before the clip).  ``grads`` is a tree
         like ``params`` or the list of its leaves in ``tree_leaves`` order;
-        leaves above ``SLICE_ELEMS`` elements go in slices."""
+        leaves above ``SLICE_ELEMS`` elements go in slices.  A sharded
+        step passes its local blocks with the whole gradient's norm
+        (``gnorm``) and, for int8 moments, one ``quantize`` ``row_max``
+        (or None) a leaf."""
         c = self.cfg
         dt = c.moment_dtype
         state["step"] += 1
@@ -143,16 +176,14 @@ class AdamW:
         b1c = float(np.float32(1.0) - np.float32(c.beta1) ** step)
         b2c = float(np.float32(1.0) - np.float32(c.beta2) ** step)
         flat_g = tree_leaves(grads)
-        # global-norm clip; the leaves' squares summed in leaf order
-        gsq = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
-        for g in flat_g:
-            gsq = gsq + torch.sum(torch.square(g.float()))
-        gnorm = torch.sqrt(gsq)
+        if gnorm is None:
+            gnorm = global_norm(flat_g)
         clip = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
-        for g_l, m_l, v_l, p_l in zip(flat_g, tree_leaves(state["m"]),
-                                      tree_leaves(state["v"]),
-                                      tree_leaves(params)):
+        rows = row_max or [None] * len(flat_g)
+        for g_l, m_l, v_l, p_l, rm in zip(flat_g, tree_leaves(state["m"]),
+                                          tree_leaves(state["v"]),
+                                          tree_leaves(params), rows):
             for sl in _slices(p_l, SLICE_ELEMS):
                 g = g_l[sl].float() * clip
                 m_s, v_s, p = _part(m_l, sl), _part(v_l, sl), p_l[sl]
@@ -163,7 +194,7 @@ class AdamW:
                 delta = (mh / (torch.sqrt(vh) + c.eps)
                          + c.weight_decay * p.float())
                 p.copy_(p.float() - c.learning_rate * delta)
-                _write_state(m_s, m, dt)
-                _write_state(v_s, v, dt)
+                _write_state(m_s, m, dt, rm)
+                _write_state(v_s, v, dt, rm)
                 del g, m, v, mh, vh, delta
         return gnorm

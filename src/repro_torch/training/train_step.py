@@ -1,7 +1,8 @@
-"""Trainer: the microbatched language-model train step on one device.
+"""Trainer: the microbatched language-model train step, on one device and
+sharded over a mesh of ranks.
 
-The port of ``repro.training.train_step.Trainer``'s ``init_state`` and
-``train_step`` for every model of the zoo.  The batch is split into
+The port of ``repro.training.train_step.Trainer`` for every model of the
+zoo.  The batch is split into
 ``tcfg.microbatches`` along its leading axis; each microbatch's loss is
 differentiated over the parameter leaves (``torch.autograd.grad`` on
 detached views that require a gradient, so the state's tensors never do),
@@ -10,11 +11,13 @@ reference adds them (``a + x.astype(acc_dt)``), the sum is divided by the
 microbatch count, and ``AdamW.update`` writes the new parameters and
 moments in place.  The metrics stay on the device.
 
-The sharded half of the reference's ``Trainer`` (``state_specs``,
-``abstract_state``, ``jitted`` and ``hoist_gather``: sharding rules, mesh
-placement and AOT lowering) is part 2 of distribution (ROADMAP Queue A
-item 3); part 1 gave the port its meshes (``launch.mesh``) and rule tables
-(``common.sharding``, ``distributed.sharding``).
+``abstract_state`` is the state as meta tensors, ``state_specs`` the mesh
+axes of every leaf under a rule table (int8 moments: ``q`` as its
+parameter, ``scale`` its leading axes), and ``sharded_step`` the
+counterpart of the reference's ``jitted``: the same step over a ("data",
+"model") mesh of ranks, each holding its blocks of the state
+(``training.sharded``: FSDP x TP for the dense family, with the
+``hoist_gather`` branch).
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.common.params import map_tree, param_specs, param_structs
 from repro_torch.configs.base import TrainConfig
-from .optim import AdamW, tree_leaves, tree_map
+from .optim import AdamW, QTensor, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -41,6 +45,34 @@ class Trainer:
         moments."""
         params = self.model.init(seed, device)
         return {"params": params, "opt": self.opt.init(params)}
+
+    def abstract_state(self) -> Dict[str, Any]:
+        """The state's shapes and dtypes as ``meta`` tensors (nothing is
+        allocated)."""
+        params = param_structs(self.model.decls())
+        return {"params": params, "opt": self.opt.init(params)}
+
+    def state_specs(self, rules) -> Dict[str, Any]:
+        """The mesh axes of every state leaf under ``rules`` (tuples, the
+        reference's PartitionSpecs): the parameters' from their logical
+        axes; the moments shard as their parameters, an int8 moment's
+        ``scale`` over its parameter's leading axes; ``step`` replicated."""
+        p_specs = param_specs(self.model.decls(), rules)
+        if self.tcfg.moment_dtype == "int8":
+            m_specs = map_tree(lambda s: QTensor(q=s, scale=s[:-1]),
+                               p_specs)
+        else:
+            m_specs = p_specs
+        return {"params": p_specs,
+                "opt": {"step": (), "m": m_specs, "v": m_specs}}
+
+    def sharded_step(self, mesh, rules):
+        """The counterpart of the reference's ``jitted``: a callable
+        ``(local state, local batch) -> (state, metrics)`` running this
+        step over ``mesh`` under ``rules`` (``training.sharded.
+        ShardedStep``)."""
+        from .sharded import ShardedStep
+        return ShardedStep(self, mesh, rules)
 
     # -- step -----------------------------------------------------------------
     def train_step(self, state: Dict[str, Any], batch: Dict[str, Any]

@@ -74,7 +74,10 @@ def test_import_port_loads_no_jax_and_no_reference():
         "        'repro_torch.launch.mesh', 'repro_torch.common.sharding',\n"
         "        'repro_torch.distributed.sharding',\n"
         "        'repro_torch.distributed.compression',\n"
-        "        'repro_torch.distributed.pipeline'}\n"
+        "        'repro_torch.distributed.pipeline',\n"
+        "        'repro_torch.training.sharded', 'repro_torch.common.params',\n"
+        "        'repro_torch.kernels.decode_attention.kernel',\n"
+        "        'repro_torch.kernels.decode_attention.ref'}\n"
         "sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -146,11 +149,17 @@ def test_source_scan_covers_the_launcher_and_analysis(rel):
     "src/repro_torch/distributed/__init__.py",
     "src/repro_torch/distributed/sharding.py",
     "src/repro_torch/distributed/compression.py",
-    "src/repro_torch/distributed/pipeline.py"])
+    "src/repro_torch/distributed/pipeline.py",
+    "src/repro_torch/training/sharded.py", "src/repro_torch/common/params.py",
+    "src/repro_torch/training/optim.py",
+    "src/repro_torch/kernels/decode_attention/ops.py",
+    "src/repro_torch/kernels/decode_attention/kernel.py",
+    "src/repro_torch/kernels/decode_attention/ref.py"])
 def test_source_scan_covers_the_distribution_plane(rel):
     """The rank harness and mesh, the sharding rules, the compressed
-    all-reduce and the pipeline are among the scanned sources, and none
-    imports ``jax`` or ``repro``."""
+    all-reduce, the pipeline, the sharded train step with its parameter
+    specs and optimizer, and the sequence-sharded decode are among the
+    scanned sources, and none imports ``jax`` or ``repro``."""
     path = ROOT / rel
     assert path in _port_sources()
     assert not _FORBIDDEN.search(path.read_text())

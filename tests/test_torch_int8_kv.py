@@ -48,6 +48,7 @@ from repro.models.transformer import _quant_kv as jax_quant  # noqa: E402
 from repro.models.zoo import pad_cache as jax_pad  # noqa: E402
 from repro.models.zoo import prefill_into_pages as jax_pip  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.common import cast_tree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
@@ -297,7 +298,8 @@ def test_dense_multi_position_branch_matches_jax(pos, window):
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
                               dtype=torch.float32)
     m = build_model(cfg)
-    p = {k: v[0] for k, v in m.init(0, "cpu")["segs"][0][0]["attn"].items()}
+    p = {k: v[0] for k, v in
+         cast_tree(m.init(0, "cpu"))["segs"][0][0]["attn"].items()}
     rng = np.random.RandomState(6)
     b, t, s_q = 3, 24, 4
     kv = [rng.randn(b, t, cfg.n_kv_heads, cfg.hd).astype(np.float32)

@@ -332,10 +332,23 @@ def test_launcher_smoke_run_on_the_cpu(tmp_path, capsys):
 C11_DEPTHS = (2, 8, 24)
 
 
+def _f32_draws(decls):
+    """The declarations with every leaf float32: the stock init's draws
+    unrounded (a float32 configuration's own init rounds them to bf16, as
+    the reference's does)."""
+    if isinstance(decls, dict):
+        return {k: _f32_draws(v) for k, v in decls.items()}
+    if isinstance(decls, list):
+        return [_f32_draws(v) for v in decls]
+    return dataclasses.replace(decls, dtype=torch.float32)
+
+
 def _c11_norms(layers, seq=16):
     """The grad norm of one ``Trainer.train_step`` at d 512 and ``layers``
     layers (h2o-danube-3-4b's smoke config widened, float32, batch 1), the
-    port's stock init carried to JAX: (JAX's, the port's)."""
+    port's stock init (its float32 draws, seed 0) carried to JAX: (JAX's,
+    the port's)."""
+    from repro_torch.common import init_params
     jc = dataclasses.replace(jax_smoke("h2o-danube-3-4b"), dtype=jnp.float32,
                              d_model=512, n_layers=layers)
     pc = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
@@ -344,7 +357,9 @@ def _c11_norms(layers, seq=16):
     kw = dict(microbatches=1, moment_dtype="fp32", accum_dtype="fp32")
     pt = Trainer(build_model(pc), TrainConfig(**kw))
     jt = JaxTrainer(jax_build(jc), JaxTrainConfig(**kw))
-    ps = pt.init_state(0, "cpu")
+    p = init_params(_f32_draws(pt.model.decls()),
+                    torch.Generator(device="cpu").manual_seed(0), "cpu")
+    ps = {"params": p, "opt": pt.opt.init(p)}
     jp = jax.tree.map(jnp.asarray,
                       convert.train_state_to_numpy(ps)["params"])
     b = next(jax_batches(jc, JaxShape("t", seq, 1, "train")))

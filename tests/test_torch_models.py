@@ -54,6 +54,7 @@ from repro.models import build_model as jax_build  # noqa: E402
 from repro.models.zoo import pad_cache as jax_pad  # noqa: E402
 from repro.models.zoo import prefill_into_pages as jax_pip  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.common import cast_tree  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
@@ -285,7 +286,8 @@ def test_decode_matches_full_forward(arch):
     (float32, to isolate logic from bf16 rounding)."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     m = build_model(cfg)
-    params = m.init(0, "cpu")
+    # the float32 config's bf16 init (the reference's) cast to float32
+    params = cast_tree(m.init(0, "cpu"))
     toks = torch.from_numpy(np.random.RandomState(4).randint(
         1, cfg.vocab_size, (2, 32)).astype(np.int32))
     full = m.logits(params, toks)
@@ -450,7 +452,7 @@ def test_unported_attention_branches_raise(kwargs):
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
                               dtype=torch.float32)
     m = build_model(cfg)
-    p = m.init(0, "cpu")["segs"][0][0]["attn"]
+    p = cast_tree(m.init(0, "cpu"))["segs"][0][0]["attn"]
     x = torch.zeros(1, 2, cfg.d_model)
     with pytest.raises(NotImplementedError):
         attention_block(cfg, {k: v[0] for k, v in p.items()}, x, **kwargs)

@@ -31,6 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.common import init_params as jax_init  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import moe as j_moe  # noqa: E402
+from repro_torch.common import cast_tree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
@@ -65,6 +66,8 @@ def _layer(arch, dtype):
             decl.dtype)
 
     pf = carry(jf, moe.moe_decls(pc))
+    if dtype == "float32":          # and so does the port
+        pf = cast_tree(pf)
     x = np.random.RandomState(1).randn(2, 13, jc.d_model).astype(np.float32)
     return (jc, jf, pc, pf, jnp.asarray(x).astype(jc.dtype),
             torch.from_numpy(x).to(pc.dtype))

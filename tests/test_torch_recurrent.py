@@ -47,6 +47,7 @@ from repro.models import layers as j_layers  # noqa: E402
 from repro.models import ssm as j_ssm  # noqa: E402
 from repro.models import xlstm_blocks as j_xlstm  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.common import cast_tree  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import hymba_block, layers, ssm  # noqa: E402
 from repro_torch.models import xlstm_blocks  # noqa: E402
@@ -503,7 +504,7 @@ def _l4_move(arch, rel=1e-6):
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     model = build_model(cfg)
-    base = unit(model.init(0, "cpu"))
+    base = unit(cast_tree(model.init(0, "cpu")))
     raw = next(synthetic_batches(cfg, ShapeConfig("t", 64, 4, "train")))
     micro = {k: torch.from_numpy(v)[:2] for k, v in raw.items()}
 
