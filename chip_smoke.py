@@ -265,7 +265,15 @@ against ``moe_dense`` (capacity factor 8, within 2**-6 of the largest
 output) and the one-rank ``_moe_local``'s dropped copies (capacity factor
 1).  Q4: the compressed all-reduce (int8, bf16) of 16 Mi float32 over three
 steps with error feedback against the plain mean, and a 4-stage pipeline
-of 8 microbatches against the sequential product.
+of 8 microbatches against the sequential product.  Q5: the FSDP x TP
+train step of danube at full width (depth 2, float32) against the
+one-rank step and its one-ulp floor.  Q6: the sequence-sharded decode.
+Q7: the elastic re-mesh, a (2 x 2) state saved, restored under (1 x 4)
+bit for bit, and stepped on.  Q8: the MoE family's sharded step,
+dbrx-132b at full width (depth 1, capacity factor 8) on (2 x 2) under its
+own train policy, on the bf16 flash kernels of every rank, against the
+one-rank step run first in a process of its own.  C16 (in the serving
+plane): an uncast float32 endpoint, card against CPU.
 
 It checks the launch counters and the results, and prints one JSON line of
 kernel figures, the card's name and power limit, and a last JSON line
@@ -275,9 +283,11 @@ no CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -498,6 +508,13 @@ DENSE_MAIN = 0
 RESTART_T_MAX = 128     # R1: the restart endpoint's cache growth per rebuild
 R2_POOL = ("h2o-danube-3-4b", "gemma3-4b")
 R2_REQS, R2_LEN, R2_NEW = 9, 9, 6
+# C16: a float32 configuration on its own bf16 init (uncast, as the
+# reference runs it): bf16 activations against float32 pools, the decode
+# entries promoting the queries before the paged kernel (row 6); card ==
+# CPU, or at a request's first differing token the card's choice within
+# C16_NEAR_TIE of the top of the CPU's own logits (a few bf16 ulps: the
+# card's and the CPU's bf16 products round apart)
+C16_ARCH, C16_REQS, C16_NEW, C16_NEAR_TIE = "h2o-danube-3-4b", 6, 8, 2.0 ** -5
 # -- phase E: the serving engine's failure plane ------------------------------
 # E1: the float32 smoke pool of the reference's engine fault tests (with
 # gemma3-4b in hymba's place; phase H serves hymba), on the card and the
@@ -1090,6 +1107,8 @@ def serving_plane(torch, np, dev, say, check, time_ms, heads):
 
     # R2. the float32 smoke pool, paged vs restart, card vs CPU
     restart_smoke_pool(torch, np, dev, say, check)
+    # C16. an uncast float32 endpoint, card vs CPU
+    row["launches"] += uncast_endpoint_check(torch, np, dev, say, check)
     return row, {"flash": s4_flash + r1["flash"] + e2["flash"]
                  + g1["flash"] + i1["flash"],
                  "dense": r1["dense"] + i1["dense"],
@@ -1394,6 +1413,71 @@ def restart_smoke_pool(torch, np, dev, say, check):
           and card_launches[("card", "restart")][1] > 0
           and card_launches[("cpu", "restart")] == (0, 0),
           "R2: the card did not run the kernels, or the CPU launched them")
+
+
+def uncast_endpoint_check(torch, np, dev, say, check):
+    """C16: the danube smoke endpoint in the float32 configuration on its
+    own bf16 init (no cast), on the card and on the CPU: float32 pools
+    under bf16 queries, which ``decode_attention.ops`` promotes before the
+    paged kernel.  The card's greedy tokens equal the CPU's, or differ
+    first at a near tie of the CPU's own logits.  Returns the card's paged
+    decode launches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import ops as pd_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Endpoint, Request
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_smoke_config(C16_ARCH), dtype=torch.float32)
+    model = build_model(cfg)
+    host = model.init(16, "cpu")
+    rng = np.random.RandomState(16)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(rng.randint(5, 40)),))
+               .astype(np.int32) for _ in range(C16_REQS)]
+    outs, launches, pools = {}, {}, set()
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        ep = Endpoint(cfg, max_concurrency=3, t_max=64, page_size=8,
+                      device=where, params=_tree_to(host, where))
+        pools |= {t.dtype for t in _leaves(ep._state)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()}
+        reqs = [Request(i, p, max_new=C16_NEW) for i, p in enumerate(prompts)]
+        pd_ops.launches = 0
+        nxt = 0
+        while nxt < len(reqs) or ep.active_count():
+            while nxt < len(reqs) and ep.has_capacity():
+                ep.admit(reqs[nxt])
+                nxt += 1
+            ep.step()
+        launches[tag] = pd_ops.launches
+        outs[tag] = [list(r.output) for r in reqs]
+    equal, worst = 0, 0.0
+    for prompt, a, b in zip(prompts, outs["card"], outs["cpu"]):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        check(len(a) == len(b) == C16_NEW, "C16: a request was not served")
+        if not diff:
+            equal += 1
+            continue
+        i = diff[0]
+        seq = torch.from_numpy(np.concatenate(
+            [prompt, np.asarray(b[:i], np.int32)])[None])
+        with torch.no_grad():
+            _, logits = model.prefill(host, seq)
+        logits = logits[0].float()
+        gap = float(logits.max() - logits[a[i]])
+        rel = gap / float(logits.abs().max())
+        worst = max(worst, rel)
+        check(rel <= C16_NEAR_TIE, f"C16: the card's token {a[i]} at step "
+              f"{i} lies {rel:.3g} below the top of the CPU's logits")
+    check(pools == {torch.float32}, f"C16: pools {pools}")
+    check(launches["card"] > 0 and launches["cpu"] == 0,
+          f"C16: paged decode launches {launches}")
+    took = time.perf_counter() - t0
+    say(f"C16 uncast float32 endpoint ({C16_ARCH} smoke on its bf16 init, "
+        f"float32 pools; {C16_REQS} requests of {C16_NEW} tokens): card == "
+        f"CPU in {equal} of {C16_REQS}, the others first differ at a near "
+        f"tie ({worst:.3g} of the largest logit; limit {C16_NEAR_TIE:g}); "
+        f"card paged decode launches {launches['card']}; {took:.1f} s")
+    return launches["card"]
 
 
 def e1_fault_plan():
@@ -5854,8 +5938,10 @@ def analysis_phase(torch, np, dev, say, check, l2):
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.data.qaserve import generate
     from repro_torch.data.tokenizer import encode_for_config
+    from repro_torch.distributed.sharding import rules_for
     from repro_torch.kernels.decode_attention import ops as pd_ops
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import zoo
     from repro_torch.serving.engine import Endpoint, Request
     out = {}
@@ -5902,11 +5988,17 @@ def analysis_phase(torch, np, dev, say, check, l2):
           == ep.sync_every * cfg.n_layers,
           "N2: the chunk's paged decode launches by name differ from the "
           "ops counter")
+    # the per-device terms on a one-device mesh: the bytes on one card
+    one = Mesh((1, 1), ("data", "model"))
     decode = ShapeConfig("n1_decode", ep.t_max, ep.L, "decode")
-    mem_d = analytic.memory_term(cfg, decode, ep.model.decls(),
-                                 zoo.input_shapes(cfg, decode)["cache"])
+    rules_d = rules_for(cfg, one, "decode", global_batch=ep.L)
+    cache = zoo.input_shapes(cfg, decode)["cache"]
+    mem_d = analytic.memory_term(cfg, decode, one, rules_d, ep.model.decls(),
+                                 cache, zoo.cache_specs(cache, rules_d))
     train = ShapeConfig("l2_train", L2_SEQ, L2_BATCH, "train")
-    mem_t = analytic.memory_term(cfg, train, ep.model.decls(),
+    mem_t = analytic.memory_term(cfg, train, one,
+                                 rules_for(cfg, one, "train"),
+                                 ep.model.decls(),
                                  tcfg=TrainConfig(microbatches=8,
                                                   moment_dtype="int8"))
     say(f"N2 analytic HBM model, {N2_ARCH}: decode (B {ep.L}, T "
@@ -6012,6 +6104,43 @@ Q6_B, Q6_T, Q6_K, Q6_G, Q6_D = 2, 8_192, 8, 4, 120
 Q6_POS = (4_096 + 1_000, 4_096 + 1_537)
 Q6_TOL = 2e-5
 Q6_REF = (1, 2_048, 4, 2, 64, 1_800, 8)     # B, T, H, K, D, pos, slices
+# Q7: the elastic re-mesh.  Q5's step (danube at full width, float32, fp32
+# moments and accumulation, hoist_gather on) at depth Q7_LAYERS on mesh
+# (data 2 x model 2) leaves its sharded state (4.8 GB whole; int8 moments
+# would halve it, but a step from int8 moments moves a coordinate whose v
+# rounds to 0 by lr x m / eps, so Q5's parameter bound cannot hold);
+# Checkpointer.save(specs=, mesh=) gathers it on rank 0's host, which
+# writes it; each rank checks the
+# file's blocks against its own (2 x 2) blocks, restores it under (1 x 4)
+# and checks its blocks against local_block of the whole, bit for bit; then
+# one sharded step on (1 x 4) from the restored state, held to the one-rank
+# step from the saved state with Q5's bounds and moment checks (the one-ulp
+# floor measured the same way) and the gradient norm within Q5_FLOOR_X
+# times the floor's own move of the norm (never under Q5_NORM_TOL).
+Q7_LAYERS, Q7_BATCH, Q7_SEQ, Q7_MICRO, Q7_SEED = 1, 2, 512, 1, 17
+Q7_SAVE, Q7_LOAD = (2, 2), (1, 4)
+# Q8: the MoE family's sharded step, dbrx-132b at full width (d 6,144, 48 /
+# 8 heads of 128, 16 experts top-4, d_ff 10,752, vocabulary 100,352), its
+# depth cut from 40 to Q8_LAYERS and capacity_factor set to 8.0 (no copy
+# drops, as the reference's own EP test sets it), on mesh (data 2 x model
+# 2) under dbrx's own train policy (the reference's dryrun.tcfg_for: int8
+# moments, bf16 accumulation, hoist_gather on, as n_experts > 0), bf16
+# parameters as declared, remat as published (full).  The one-rank step
+# (~30 GB) runs once, in a process of its own, before the rank group: it
+# keeps on the host its loss, gradient norm, both moments and, for each
+# rank's blocks, the one-ulp floor (the one-rank step again from the state
+# moved by at most one bf16 ulp a coordinate), writes the moments to a
+# file and frees the card.  Each rank holds its sharded step to it: the
+# loss within Q8_LOSS_TOL relative, the gradient norm within Q5_FLOOR_X
+# times the floor's own move of the norm (a zeroed, halved or doubled
+# gradient lies at 50-100% of it, the floor at a few %), every copy kept,
+# the bytes = the reckoning.  Each leaf's m and v blocks are held as Q5
+# holds them, but in bf16 one ulp moves m by about its own norm, so that
+# holds nothing: in bf16 the loss and the norm are Q8's checks of the
+# step (the CPU rank tests hold the MoE step's moments in float32).
+Q8_ARCH, Q8_LAYERS, Q8_MESH, Q8_CF = "dbrx-132b", 1, (2, 2), 8.0
+Q8_BATCH, Q8_SEQ, Q8_MICRO, Q8_SEED = 2, 512, 1, 13
+Q8_LOSS_TOL = 1e-4
 
 
 def _sync(torch, dev):
@@ -6461,6 +6590,345 @@ def q6_rank(torch, dev, rank, world):
     return out
 
 
+def q_moment_gaps(torch, got, want):
+    """Per moment, per leaf: (|got - want|, |want|) in the norm over the
+    block (an int8 moment dequantized)."""
+    from repro_torch.training import tree_leaves
+    from repro_torch.training.optim import QTensor, dequantize
+
+    def value(t, dev):
+        if isinstance(t, QTensor):
+            return dequantize(QTensor(q=t.q.to(dev), scale=t.scale.to(dev)))
+        return t.to(dev).float()
+
+    out = {}
+    for key in ("m", "v"):
+        out[key] = []
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(want[key])):
+            dev = (a.q if isinstance(a, QTensor) else a).device
+            va, vb = value(a, dev), value(b, dev)
+            out[key].append((float((va - vb).norm()), float(vb.norm())))
+    return out
+
+
+def q_perturb(torch, dev, params, seed):
+    """Every leaf moved by at most one ulp of its dtype a coordinate (its
+    ``eps`` relative), in place (float32 arithmetic, rounded to the
+    leaf's dtype): the floor's start."""
+    from repro_torch.training import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for t in tree_leaves(params):
+        move = 1 + torch.finfo(t.dtype).eps * (
+            2 * torch.rand(t.shape, generator=gen, device=dev) - 1)
+        t.copy_((t.float() * move).to(t.dtype))
+
+
+def q7_config(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(Q5_ARCH), n_layers=Q7_LAYERS,
+                               dtype=torch.float32)
+
+
+def q7_rank(torch, np, dev, rank, world, workdir):
+    """Q7 on this rank: the (2 x 2) step, the save, the file's blocks
+    against this rank's, the restore under (1 x 4) against local_block of
+    the whole, the one-rank step and its floor from the saved state, and
+    the (1 x 4) step from the restored state held to it."""
+    from repro_torch.analysis.roofline import (collective_bytes,
+                                               sharded_train_bytes)
+    from repro_torch.common import cast_tree, shard_tree
+    from repro_torch.common.params import (map_state, state_tensors,
+                                           tree_bytes)
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.ft.checkpoint import Checkpointer
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.models import build_model
+    from repro_torch.models.zoo import input_logical
+    from repro_torch.training import Trainer, tree_leaves
+    t_all = time.perf_counter()
+    cfg = q7_config(torch)
+    tr = Trainer(build_model(cfg), TrainConfig(
+        microbatches=Q7_MICRO, moment_dtype="fp32", accum_dtype="fp32",
+        hoist_gather=True))
+    tokens = np.random.RandomState(Q7_SEED).randint(
+        0, cfg.vocab_size, (Q7_BATCH, Q7_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    shape = ShapeConfig("t", Q7_SEQ, Q7_BATCH, "train")
+
+    def on(mesh_shape):
+        mesh = pmesh.make_host_mesh(*mesh_shape)
+        rules = rules_for(cfg, mesh, "train")
+        return (mesh, rules, tr.state_specs(rules),
+                shard_tree(batch, input_logical(cfg, shape, rules), mesh))
+
+    m22, r22, s22, b22 = on(Q7_SAVE)
+    params = cast_tree(tr.model.init(Q7_SEED, dev))
+    local = shard_tree({"params": params, "opt": tr.opt.init(params)}, s22,
+                       m22)
+    del params
+    local, _ = tr.sharded_step(m22, r22)(local, b22)
+    _sync(torch, dev)
+    out = {"first_s": time.perf_counter() - t_all}
+    ck = Checkpointer(workdir)
+    t0 = time.perf_counter()
+    ck.save(1, local, specs=s22, mesh=m22)
+    out["save_s"] = time.perf_counter() - t0
+    like = map_state(lambda t: torch.empty((), dtype=t.dtype),
+                 cast_tree(tr.abstract_state()))
+    whole, _ = ck.restore(like)                  # the saved state, host
+    out["saved_blocks_same"] = all(
+        torch.equal(w, l.cpu()) for w, l in zip(
+            state_tensors(shard_tree(whole, s22, m22)),
+            state_tensors(local)))
+    del local
+    m14, r14, s14, b14 = on(Q7_LOAD)
+    like_dev = map_state(lambda t: torch.empty((), dtype=t.dtype, device=dev),
+                     like)
+    t0 = time.perf_counter()
+    restored, step_no = ck.restore(like_dev, specs=s14, mesh=m14)
+    _sync(torch, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_blocks_same"] = step_no == 1 and all(
+        torch.equal(w, r.cpu()) for w, r in zip(
+            state_tensors(shard_tree(whole, s14, m14)),
+            state_tensors(restored)))
+    out["sizes"] = dict(whole=tree_bytes(whole), block=tree_bytes(restored))
+
+    def one_rank(start):
+        state = map_state(lambda t: t.to(dev), start)
+        state, met = tr.train_step(state, batch)
+        return state, {k: float(v) for k, v in met.items()}
+
+    # the one-rank step from the saved state, and its one-ulp floor
+    t0 = time.perf_counter()
+    state, one = one_rank(whole)
+    want = shard_tree(state, s14, m14)
+    del state
+    start = map_state(lambda t: t.to(dev), whole)
+    q_perturb(torch, dev, start["params"], Q7_SEED + rank)
+    state, floor = one_rank(start)
+    floor_gaps = q_moment_gaps(torch, shard_tree(state["opt"], s14["opt"],
+                                                 m14), want["opt"])
+    del state, start
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["one_rank_s"] = time.perf_counter() - t0
+    step = tr.sharded_step(m14, r14)
+    fa_ops.launches = fa_ops.bwd_launches = 0
+    pmesh.reset_collectives()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    restored, met = step(restored, b14)
+    _sync(torch, dev)
+    out.update(
+        one=one, floor=dict(grad_norm=floor["grad_norm"], gaps=floor_gaps),
+        metrics={k: float(v) for k, v in met.items()},
+        wall_s=time.perf_counter() - t0, moved=collective_bytes(),
+        reckoned=sharded_train_bytes(
+            tr.model, tr.tcfg, cast_tree(tr.abstract_state()["params"]), r14,
+            m14.shape, b14["tokens"].shape[0], Q7_SEQ),
+        gap=max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(tree_leaves(restored["params"]),
+                    tree_leaves(want["params"]))),
+        moment_gaps=q_moment_gaps(torch, restored["opt"], want["opt"]),
+        leaves=q5_leaf_names(want["params"]),
+        flash=(fa_ops.launches, fa_ops.bwd_launches), s=0.0)
+    del restored, want, whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_all
+    return out
+
+
+def q8_config(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(Q8_ARCH), n_layers=Q8_LAYERS,
+                               capacity_factor=Q8_CF)
+
+
+def q8_trainer(torch):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+    return Trainer(build_model(q8_config(torch)), TrainConfig(
+        microbatches=Q8_MICRO, moment_dtype="int8", accum_dtype="bf16",
+        hoist_gather=True))
+
+
+def q8_batch(torch, np, dev, cfg):
+    return {"tokens": torch.from_numpy(np.random.RandomState(Q8_SEED).randint(
+        0, cfg.vocab_size, (Q8_BATCH, Q8_SEQ)).astype(np.int32)).to(dev)}
+
+
+def q8_one(rank, world, device, args):
+    """Q8's one-rank step, alone in its process: the step from the bf16
+    init, then the floor; writes both moments (int8 values and scales) to
+    ``args["path"]`` and returns the loss, the norms, the floor's gaps on
+    each rank's blocks and the peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.common.params import (local_block, map_state,
+                                           spec_leaves)
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.training import tree_leaves
+    from repro_torch.training.optim import QTensor, dequantize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device
+    tr = q8_trainer(torch)
+    cfg = tr.model.cfg
+    batch = q8_batch(torch, np, dev, cfg)
+
+    def run(perturb):
+        params = tr.model.init(Q8_SEED, dev)
+        if perturb:
+            q_perturb(torch, dev, params, Q8_SEED + 1)
+        state = {"params": params, "opt": tr.opt.init(params)}
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, met = tr.train_step(state, batch)
+        _sync(torch, dev)
+        opt = {k: state["opt"][k] for k in ("m", "v")}
+        del state, params
+        return opt, {k: float(v) for k, v in met.items()}, \
+            time.perf_counter() - t0
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    marks = [time.perf_counter()]
+    opt, met, step_s = run(False)
+    host = map_state(lambda t: t.cpu(), opt)
+    del opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    floor_opt, floor_met, _ = run(True)
+    marks.append(time.perf_counter())
+    meshes = [Mesh(Q8_MESH, ("data", "model"), rank=r)
+              for r in range(Q8_MESH[0] * Q8_MESH[1])]
+    specs = tr.state_specs(rules_for(cfg, meshes[0], "train"))["params"]
+    # each rank's blocks of each leaf, dequantized on the card a leaf at a
+    # time: (|floor - one|, |one|) in the norm over the block
+    gaps = [{"m": [], "v": []} for _ in meshes]
+    for key in ("m", "v"):
+        for one, floor, spec in zip(tree_leaves(host[key]),
+                                    tree_leaves(floor_opt[key]),
+                                    spec_leaves(specs)):
+            one = dequantize(QTensor(q=one.q.to(dev),
+                                     scale=one.scale.to(dev)))
+            floor = dequantize(floor)
+            for r, m in enumerate(meshes):
+                a, b = local_block(floor, spec, m), local_block(one, spec, m)
+                gaps[r][key].append((float((a - b).norm()),
+                                     float(b.norm())))
+            del one, floor
+    del floor_opt
+    marks.append(time.perf_counter())
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    # raw .npy files (no archive checksum over 9 GB), read back per block
+    out = Path(args["path"])
+    out.mkdir(parents=True, exist_ok=True)
+    for key in ("m", "v"):
+        for i, t in enumerate(tree_leaves(host[key])):
+            np.save(out / f"{key}{i}q.npy", t.q.numpy())
+            np.save(out / f"{key}{i}s.npy", t.scale.numpy())
+    marks.append(time.perf_counter())
+    return dict(metrics=met, floor_grad_norm=floor_met["grad_norm"],
+                floor_gaps=gaps, step_s=step_s, peak=peak,
+                parts_s=dict(zip(("step", "floor", "gaps", "file"),
+                                 (b - a for a, b in zip(marks, marks[1:])))))
+
+
+def q8_local_params(torch, dev, model, seed, specs, mesh):
+    """This rank's blocks of ``model.init(seed, dev)`` without the whole
+    tree at once: each leaf drawn whole, in init's order, and cut to its
+    block before the next is drawn."""
+    from repro_torch.common import ParamDecl
+    from repro_torch.common.params import _init_leaf, local_block
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(decl, spec):
+        if isinstance(decl, ParamDecl):
+            return local_block(_init_leaf(decl, gen, dev), spec, mesh)
+        if isinstance(decl, dict):
+            return {k: walk(decl[k], spec[k]) for k in sorted(decl)}
+        return [walk(d, s) for d, s in zip(decl, spec)]
+
+    return walk(model.decls(), specs)
+
+
+def q8_rank(torch, np, dev, rank, world, path):
+    """Q8 on this rank: dbrx-132b's sharded step on (2 x 2) from this
+    rank's blocks of the same init, held to the one-rank step's moments
+    (read from ``path``, this rank's blocks only)."""
+    from repro_torch.analysis.roofline import (collective_bytes,
+                                               sharded_train_bytes)
+    from repro_torch.common import shard_tree
+    from repro_torch.common.params import local_block
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.models.zoo import input_logical
+    from repro_torch.training import tree_leaves
+    from repro_torch.training.optim import QTensor, tree_unflatten
+    t_all = time.perf_counter()
+    tr = q8_trainer(torch)
+    cfg = tr.model.cfg
+    mesh = pmesh.make_host_mesh(*Q8_MESH)
+    rules = rules_for(cfg, mesh, "train")
+    specs = tr.state_specs(rules)
+    params = q8_local_params(torch, dev, tr.model, Q8_SEED, specs["params"],
+                             mesh)
+    local = {"params": params, "opt": tr.opt.init(params)}
+    lb = shard_tree(q8_batch(torch, np, dev, cfg), input_logical(
+        cfg, ShapeConfig("t", Q8_SEQ, Q8_BATCH, "train"), rules), mesh)
+    step = tr.sharded_step(mesh, rules)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa_ops.launches = fa_ops.bwd_launches = 0
+    pmesh.reset_collectives()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    local, met = step(local, lb)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    out = dict(metrics={k: float(v) for k, v in met.items()}, wall_s=wall,
+               moved=collective_bytes(),
+               flash=(fa_ops.launches, fa_ops.bwd_launches),
+               kept=[int(x) for x in step.moe_kept],
+               peak=(torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else 0),
+               rows=lb["tokens"].shape[0])
+    out["reckoned"] = sharded_train_bytes(
+        tr.model, tr.tcfg, tr.abstract_state()["params"], rules, mesh.shape,
+        out["rows"], Q8_SEQ)
+    # the one-rank step's moments, this rank's blocks only (mapped)
+    def block(name, spec):
+        whole = np.load(Path(path) / name, mmap_mode="r")
+        return local_block(torch.from_numpy(whole), spec, mesh).to(dev)
+
+    want = {}
+    for key in ("m", "v"):
+        blocks = [QTensor(q=block(f"{key}{i}q.npy", s.q),
+                          scale=block(f"{key}{i}s.npy", s.scale))
+                  for i, s in enumerate(tree_leaves(specs["opt"][key]))]
+        want[key] = tree_unflatten(local["opt"][key], iter(blocks))
+    out["moment_gaps"] = q_moment_gaps(torch, local["opt"], want)
+    out["leaves"] = q5_leaf_names(local["params"])
+    del local, want, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_all
+    return out
+
+
 def q_rank(rank, world, device, args):
     """Phase Q's rank body (``run_ranks`` loads it from this file): Q1 and
     Q2 under the query mesh, Q3 and Q4 on meshes of their own; one
@@ -6502,7 +6970,204 @@ def q_rank(rank, world, device, args):
     t0 = time.perf_counter()
     out["q6"] = q6_rank(torch, device, rank, world)
     out["q6_s"] = time.perf_counter() - t0
+    out["q7"] = q7_rank(torch, np, device, rank, world, args["q7_dir"])
+    out["q8"] = q8_rank(torch, np, device, rank, world, args["q8_path"])
     return out
+
+
+def q_hold(check, tag, r, got, one, floor_gaps, floor_norm, leaves, *,
+           loss_rel=None):
+    """Q5's checks of one rank's sharded step against the one-rank step
+    (``one``) for Q7 and Q8: the loss (absolute Q5_LOSS_TOL, or relative
+    ``loss_rel``), the parameters (Q5_PARAM_TOL, where the rank measured
+    them), the gradient norm within Q5_FLOOR_X times the one-ulp floor's
+    own relative move of the norm (never under Q5_NORM_TOL), each leaf's m
+    and v blocks within Q5_FLOOR_X times the floor's distance (at least the
+    rank's relative floor times the leaf's norm; never under Q5_MOMENT_TOL
+    of it).  In bf16 (Q8) the floor moves m by about its own norm, so the
+    moment check there is no check of the gradient: the loss and the norm
+    are.  Returns (loss gap, norm gap, the floor's relative move of the
+    norm, of m, the worst leaf's distance over its floor for m and v)."""
+    dl = abs(got["metrics"]["loss"] - one["loss"])
+    if loss_rel is not None:
+        dl /= abs(one["loss"])
+    dn = abs(got["metrics"]["grad_norm"] - one["grad_norm"]) \
+        / one["grad_norm"]
+    fn = abs(floor_norm - one["grad_norm"]) / one["grad_norm"]
+    rel = {key: (sum(g * g for g, _ in floor_gaps[key])
+                 / sum(n * n for _, n in floor_gaps[key])) ** 0.5
+           for key in ("m", "v")}
+    check(dl < (Q5_LOSS_TOL if loss_rel is None else loss_rel),
+          f"{tag} rank {r}: loss {dl:.3g} from the one-rank step"
+          + (" (relative)" if loss_rel is not None else ""))
+    if "gap" in got:
+        check(got["gap"] < Q5_PARAM_TOL, f"{tag} rank {r}: a parameter "
+              f"{got['gap']:.3g} from the one-rank step")
+    check(dn <= max(Q5_FLOOR_X * fn, Q5_NORM_TOL),
+          f"{tag} rank {r}: gradient norm {got['metrics']['grad_norm']:.7g},"
+          f" one-rank {one['grad_norm']:.7g} ({dn:.3g} relative; the one-ulp"
+          f" floor moves the norm to {floor_norm:.7g}, {fn:.3g} relative)")
+    ratio = {"m": 0.0, "v": 0.0}
+    for key in ratio:
+        for name, (gs, n), (gp, _) in zip(leaves, got["moment_gaps"][key],
+                                          floor_gaps[key]):
+            base = max(gp, rel[key] * n)
+            ratio[key] = max(ratio[key], gs / base if base > 0 else
+                             (0.0 if gs == 0 else float("inf")))
+            check(gs <= max(Q5_FLOOR_X * base, Q5_MOMENT_TOL * n),
+                  f"{tag} rank {r}: moment {key} of {name} {gs:.3g} from the "
+                  f"one-rank step's (the one-ulp floor {gp:.3g}, over the "
+                  f"rank's blocks {rel[key]:.3g} relative; its norm {n:.3g})")
+    check(all(got["moved"][k] == n for k, n in got["reckoned"].items()),
+          f"{tag} rank {r}: moved {got['moved']}, reckoned "
+          f"{got['reckoned']}")
+    return dl, dn, fn, rel["m"], ratio
+
+
+def q7_report(torch, dev, say, check, ranks):
+    """Q7's checks in the parent: the blocks bit for bit, the (1 x 4) step
+    against the one-rank step from the saved state."""
+    cfg = q7_config(torch)
+    remat = 2 if cfg.remat != "none" else 1
+    want_flash = (Q7_LAYERS * Q7_MICRO * remat, Q7_LAYERS * Q7_MICRO)
+    gaps = dict(loss=0.0, norm=0.0, floor_norm=0.0, floor_m=0.0, m=0.0,
+                v=0.0, param=0.0)
+    flash = [0, 0]
+    for r, rk in enumerate(ranks):
+        got = rk["q7"]
+        check(got["saved_blocks_same"], f"Q7 rank {r}: the saved file's "
+              f"blocks under {Q7_SAVE} differ from the rank's own")
+        check(got["restored_blocks_same"], f"Q7 rank {r}: the blocks "
+              f"restored under {Q7_LOAD} differ from local_block of the "
+              "saved state")
+        dl, dn, fn, fm, ratio = q_hold(check, "Q7", r, got, got["one"],
+                                       got["floor"]["gaps"],
+                                       got["floor"]["grad_norm"],
+                                       got["leaves"])
+        for k, v in (("loss", dl), ("norm", dn), ("floor_norm", fn),
+                     ("floor_m", fm),
+                     ("m", ratio["m"]), ("v", ratio["v"]),
+                     ("param", got["gap"])):
+            gaps[k] = max(gaps[k], v)
+        if dev.type == "cuda":
+            check(tuple(got["flash"]) == want_flash, f"Q7 rank {r}: flash "
+                  f"(forward, backward) launches {got['flash']}, want "
+                  f"{want_flash}")
+        flash[0] += got["flash"][0]
+        flash[1] += got["flash"][1]
+    med = {k: statistics.median(rk["q7"][k] for rk in ranks)
+           for k in ("s", "first_s", "save_s", "restore_s", "one_rank_s",
+                     "wall_s")}
+    moved = ranks[0]["q7"]["moved"]
+    say(f"Q7 re-mesh: {Q5_ARCH} at full width, depth cut to {Q7_LAYERS}, "
+        f"float32, batch {Q7_BATCH} x {Q7_SEQ}, {Q7_MICRO} microbatch, "
+        f"hoist_gather on; the state after a {Q7_SAVE} step "
+        f"({ranks[0]['q7']['sizes']['whole'] / 1e9:.2f} GB whole) saved "
+        f"(gathered on rank 0's host, which writes it) in "
+        f"{med['save_s']:.2f} s and"
+        f" restored under {Q7_LOAD} "
+        f"({ranks[0]['q7']['sizes']['block'] / 1e9:.2f} GB a rank) in {med['restore_s']:.2f} s: the file's blocks = each "
+        f"rank's, the restored blocks = local_block of the saved state, bit "
+        f"for bit on every rank; the {Q7_LOAD} step from them: loss within "
+        f"{gaps['loss']:.3g} (limit {Q5_LOSS_TOL:g}), parameters within "
+        f"{gaps['param']:.3g} (limit {Q5_PARAM_TOL:.3g}), gradient norm "
+        f"within {gaps['norm']:.3g} relative (limit {Q5_FLOOR_X:g} x the "
+        f"one-ulp floor's move of the norm, up to {gaps['floor_norm']:.3g}; "
+        f"the floor moves m by {gaps['floor_m']:.3g}), moments m, v within "
+        f"{gaps['m']:.3g}, "
+        f"{gaps['v']:.3g} x the floor's distance (limit {Q5_FLOOR_X:g}); "
+        f"rank 0 moved {moved['all-gather']:,} bytes all-gathered, "
+        f"{moved['all-reduce']:,} all-reduced = the reckoning; flash "
+        f"(forward, backward) a rank {ranks[0]['q7']['flash']}; the step "
+        f"{med['wall_s']:.2f} s wall (four processes time-sliced on one card "
+        f"over host-staged gloo, not a multi-card time); Q7 {med['s']:.1f} s "
+        f"(the {Q7_SAVE} step {med['first_s']:.1f}, the one-rank step and "
+        f"its floor {med['one_rank_s']:.1f})")
+    return dict(gaps, flash_launches=flash, **med,
+                whole_bytes=ranks[0]["q7"]["sizes"]["whole"],
+                all_gather=moved["all-gather"],
+                all_reduce=moved["all-reduce"])
+
+
+def q8_report(torch, dev, say, check, ranks, one):
+    """Q8's checks in the parent: each rank's dbrx-132b step against the
+    one-rank step's loss, norm and moments (the floor per rank's blocks),
+    every copy kept, the bytes, the bf16 flash launches a rank."""
+    from repro_torch.configs import get_config
+    cfg = q8_config(torch)
+    full = get_config(Q8_ARCH)
+    remat = 2 if cfg.remat != "none" else 1
+    want_flash = (Q8_LAYERS * Q8_MICRO * remat, Q8_LAYERS * Q8_MICRO)
+    gaps = dict(loss=0.0, norm=0.0, floor_norm=0.0, floor_m=0.0, m=0.0,
+                v=0.0)
+    flash, kept, copies = [0, 0], 0, 0
+    for r, rk in enumerate(ranks):
+        got = rk["q8"]
+        dl, dn, fn, fm, ratio = q_hold(
+            check, "Q8", r, got, one["metrics"], one["floor_gaps"][r],
+            one["floor_grad_norm"], got["leaves"], loss_rel=Q8_LOSS_TOL)
+        for k, v in (("loss", dl), ("norm", dn), ("floor_norm", fn),
+                     ("floor_m", fm),
+                     ("m", ratio["m"]), ("v", ratio["v"])):
+            gaps[k] = max(gaps[k], v)
+        kept += got["kept"][0]
+        copies += got["kept"][1]
+        check(got["kept"][1] > 0 and got["kept"][0] == got["kept"][1],
+              f"Q8 rank {r}: copies kept {got['kept']}")
+        check(got["moved"]["all-to-all"] > 0, f"Q8 rank {r}: no token "
+              "exchange")
+        if dev.type == "cuda":
+            check(tuple(got["flash"]) == want_flash, f"Q8 rank {r}: flash "
+                  f"(forward, backward) launches {got['flash']}, want "
+                  f"{want_flash}")
+        flash[0] += got["flash"][0]
+        flash[1] += got["flash"][1]
+    wall = statistics.median(rk["q8"]["wall_s"] for rk in ranks)
+    took = statistics.median(rk["q8"]["s"] for rk in ranks)
+    peak = max(rk["q8"]["peak"] for rk in ranks) / 2 ** 30
+    moved = ranks[0]["q8"]["moved"]
+    say(f"Q8: {Q8_ARCH} at full width (d {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, d_ff {cfg.d_ff}, vocabulary {cfg.vocab_size}); cut: "
+        f"depth {full.n_layers} -> {Q8_LAYERS}, capacity_factor "
+        f"{full.capacity_factor:g} -> {Q8_CF:g}; bf16 parameters, int8 "
+        f"moments, bf16 accumulation, hoist_gather on, remat {cfg.remat}; "
+        f"batch {Q8_BATCH} x {Q8_SEQ}, {Q8_MICRO} microbatch"
+        f"{'es' if Q8_MICRO > 1 else ''}; mesh (data "
+        f"{Q8_MESH[0]} x model {Q8_MESH[1]})")
+    say(f"Q8: loss {ranks[0]['q8']['metrics']['loss']:.6f} against the "
+        f"one-rank step's {one['metrics']['loss']:.6f} ({gaps['loss']:.3g} "
+        f"relative; limit {Q8_LOSS_TOL:g}); gradient norm "
+        f"{ranks[0]['q8']['metrics']['grad_norm']:.6g} against "
+        f"{one['metrics']['grad_norm']:.6g} ({gaps['norm']:.3g} relative; "
+        f"limit {Q5_FLOOR_X:g} x the one-ulp floor's move of the norm, to "
+        f"{one['floor_grad_norm']:.6g}: {gaps['floor_norm']:.3g}); moments "
+        f"m, v within {gaps['m']:.3g}, {gaps['v']:.3g} x the floor's "
+        f"distance (the floor moves m by {gaps['floor_m']:.3g}, so in bf16 "
+        f"that is no check of the gradient); "
+        f"copies kept {kept} of {copies} ({kept / max(copies, 1):.4f}); "
+        f"rank 0 moved {moved['all-gather']:,} bytes all-gathered, "
+        f"{moved['reduce-scatter']:,} reduce-scattered, "
+        f"{moved['all-reduce']:,} all-reduced, {moved['all-to-all']:,} "
+        f"all-to-all = roofline.sharded_train_bytes on every rank; bf16 "
+        f"flash (forward, backward) launches a rank "
+        f"{ranks[0]['q8']['flash']}; a step {wall:.2f} s wall (median of "
+        f"the ranks: four processes time-sliced on one card over "
+        f"host-staged gloo, not a multi-card time), peak {peak:.2f} GiB a "
+        f"rank; the one-rank step {one['step_s']:.2f} s in its own process,"
+        f" peak {one['peak'] / 2 ** 30:.2f} GiB (s by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in one["parts_s"].items())
+        + f"); Q8 {took:.1f} s a rank")
+    return dict(gaps, kept=kept, copies=copies, wall_s=wall, s=took,
+                peak_gib=peak, one_rank_s=one["step_s"],
+                one_rank_peak_gib=one["peak"] / 2 ** 30,
+                loss=ranks[0]["q8"]["metrics"]["loss"],
+                one_rank_loss=one["metrics"]["loss"],
+                all_gather=moved["all-gather"],
+                reduce_scatter=moved["reduce-scatter"],
+                all_reduce=moved["all-reduce"],
+                all_to_all=moved["all-to-all"], flash_launches=flash,
+                flash_a_rank=ranks[0]["q8"]["flash"])
 
 
 def q5_report(torch, dev, say, check, ranks):
@@ -6705,19 +7370,33 @@ def sharded_phase(torch, np, dev, say, check, cost, cap, budget):
                  (vs.emb.cpu().numpy(), vs.labels.cpu().numpy(), vs.size),
                  train.m)
     del pred
+    # Q8's one-rank step, alone on the card before the rank group
+    work = Path(tempfile.mkdtemp(prefix="phase-q-"))
+    t0 = time.perf_counter()
+    q8_one_out = run_ranks(f"{ROOT / 'chip_smoke.py'}:q8_one", 1,
+                           backend="gloo", device=dev.type,
+                           timeout=Q_TIMEOUT,
+                           args=dict(path=str(work / "q8_moments")))[0]
+    q8_one_s = time.perf_counter() - t0
+    say(f"Q8 one-rank process: {q8_one_s:.1f} s")
     # the 16k predictions go to the ranks through run_ranks's argument file
     args = dict(q1=dict(cost=cost.cpu(), cap=cap.cpu(), budget=budget),
-                q2=q2_arrays)
+                q2=q2_arrays, q7_dir=str(work / "q7"),
+                q8_path=str(work / "q8_moments"))
     t0 = time.perf_counter()
-    ranks = run_ranks(f"{ROOT / 'chip_smoke.py'}:q_rank", Q_RANKS,
-                      backend="gloo", device=dev.type, timeout=Q_TIMEOUT,
-                      args=args)
+    try:
+        ranks = run_ranks(f"{ROOT / 'chip_smoke.py'}:q_rank", Q_RANKS,
+                          backend="gloo", device=dev.type,
+                          timeout=Q_TIMEOUT, args=args)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     group_s = time.perf_counter() - t0
     say(f"Q: {Q_RANKS} ranks on one {dev.type} device, backend gloo "
         f"(collectives staged through host memory): the group took "
         f"{group_s:.1f} s (rank 0: Q1+Q2 {ranks[0]['q12_s']:.1f} s, Q3 "
         f"{ranks[0]['q3_s']:.1f} s, Q4 {ranks[0]['q4_s']:.1f} s, Q5 "
-        f"{ranks[0]['q5_s']:.1f} s, Q6 {ranks[0]['q6_s']:.1f} s)")
+        f"{ranks[0]['q5_s']:.1f} s, Q6 {ranks[0]['q6_s']:.1f} s, Q7 "
+        f"{ranks[0]['q7']['s']:.1f} s, Q8 {ranks[0]['q8']['s']:.1f} s)")
     summary = dict(ranks=Q_RANKS, backend="gloo", group_s=group_s)
 
     # Q1: the one-rank blocked solve (on the card: the one-launch cluster
@@ -6903,6 +7582,13 @@ def sharded_phase(torch, np, dev, say, check, cost, cap, budget):
                          bf16_bytes=q4["bf16"]["moved"]["all-reduce"])
     summary["Q5"] = q5_report(torch, dev, say, check, ranks)
     summary["Q6"] = q6_report(torch, dev, say, check, ranks)
+    summary["Q7"] = q7_report(torch, dev, say, check, ranks)
+    summary["Q8"] = q8_report(torch, dev, say, check, ranks, q8_one_out)
+    summary["Q8"]["one_rank_process_s"] = q8_one_s
+    # the sharded steps' flash launches (Q5, Q7 float32; Q8 bf16)
+    summary["sharded_flash"] = [sum(summary[q]["flash_launches"][i]
+                                    for q in ("Q5", "Q7", "Q8"))
+                                for i in (0, 1)]
     check(stats_launches > 0, "Q: no shard-statistics launch on the ranks")
     summary["shard_stats_launches"] = stats_launches
     summary["vote_launches"] = vote_launches
@@ -7205,15 +7891,16 @@ def main() -> int:
                                                    + h_runs["paged"]
                                                    + mx_runs["paged"]
                                                    + n_runs["paged"])
-    q5_flash = q_summary["Q5"]["flash_launches"]
+    sharded_flash = q_summary["sharded_flash"]
     rows["flash_attention"]["launches"] = (main["flash"] + e1_flash
                                            + g3["flash"] + h_runs["flash"]
                                            + mx_runs["flash"]
                                            + l_runs["flash"]
-                                           + n_runs["flash"] + q5_flash[0])
-    rows["flash_attention"]["sharded_step_launches"] = q5_flash[0]
-    rows["flash_attention_bwd"]["launches"] += q5_flash[1]
-    rows["flash_attention_bwd"]["sharded_step_launches"] = q5_flash[1]
+                                           + n_runs["flash"]
+                                           + sharded_flash[0])
+    rows["flash_attention"]["sharded_step_launches"] = sharded_flash[0]
+    rows["flash_attention_bwd"]["launches"] += sharded_flash[1]
+    rows["flash_attention_bwd"]["sharded_step_launches"] = sharded_flash[1]
     q6 = q_summary["Q6"]
     rows["decode_attention"]["launches"] = (main["dense"] + h_runs["dense"]
                                             + mx_runs["dense"]

@@ -88,29 +88,45 @@ def sharded_train_bytes(model, tcfg, params, rules, mesh_shape, rows: int,
     * all-reduce: per microbatch the scored positions and the NLL sum (8
       bytes, over ``data``); per layer and microbatch r + 3 activations
       (rows / g x seq x d) over ``model`` (two in the forward, one in the
-      recompute, two in the backward); at the end the gradient of every
-      leaf not sharded over ``data`` (over ``data``) and of the replicated
-      KV projections (over ``model``), in the accumulator's dtype; the
-      squared norm (4 bytes)."""
+      recompute, two in the backward; a MoE layer's sum over ``model``
+      stands where the MLP's does); at the end the gradient of every leaf
+      not sharded over ``data`` (over ``data``) and of the replicated KV
+      projections and the MoE router (over ``model``), in the
+      accumulator's dtype; the squared norm (4 bytes);
+    * all-to-all: an expert leaf (its ``p_experts`` dim over ``data``) is
+      neither gathered nor reduced over ``data``; instead, with dp > 1,
+      each MoE layer exchanges its send buffer (E experts x the capacity
+      of ``moe._capacity`` at rows / g x seq tokens x d, in the
+      activations' dtype) twice a microbatch in the forward, twice in the
+      backward and twice more in the recompute (the combine saves the
+      returned buffer, so the recompute runs up to both exchanges): 2 r +
+      2 exchanges."""
     from repro_torch.common.params import dim_axes, param_specs, spec_leaves
+    from repro_torch.models.moe import _capacity, router_decls
     from repro_torch.training.optim import tree_leaves
     cfg = model.cfg
+
     dp, tp = mesh_shape["data"], mesh_shape["model"]
     g = tcfg.microbatches
     rounds = 1 if tcfg.hoist_gather else g
     remat = 2 if cfg.remat != "none" else 1
     acc = 2 if tcfg.accum_dtype == "bf16" else 4
-    decls = tree_leaves(model.decls())
-    specs = param_specs(model.decls(), rules)
+    tree = model.decls()
+    decls = tree_leaves(tree)
+    specs = param_specs(tree, rules)
+    routers = router_decls(tree)      # gradients partial over ``model``
     leaves = tree_leaves(params)
     sizes = {"data": dp, "model": tp}
-    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0,
+           "all-to-all": 0}
     for decl, spec, leaf in zip(decls, spec_leaves(specs), leaves):
         numel, item = leaf.numel(), leaf.element_size()
         axes = [dim_axes(e) for e in spec]
         split = math.prod(sizes[a] for ax in axes for a in ax)
         local = numel // split
-        on_data = any("data" in ax for ax in axes)
+        expert = any("data" in ax and lg == "p_experts"
+                     for ax, lg in zip(axes, decl.logical))
+        on_data = not expert and any("data" in ax for ax in axes)
         on_model = any("model" in ax for ax in axes)
         vocab = any("model" in ax and lg == "p_vocab"
                     for ax, lg in zip(axes, decl.logical))
@@ -123,20 +139,28 @@ def sharded_train_bytes(model, tcfg, params, rules, mesh_shape, rows: int,
                                       else g * local * item)
         if vocab and tp > 1:
             out["all-gather"] += per * item * numel
-        if not on_data and dp > 1:
+        if not on_data and not expert and dp > 1:
             out["all-reduce"] += local * acc
-        if (tp > 1 and "p_kv_heads" in decl.logical
-                and rules.mesh_axes("p_kv_heads") is None):
+        if tp > 1 and (id(decl) in routers or (
+                "p_kv_heads" in decl.logical
+                and rules.mesh_axes("p_kv_heads") is None)):
             out["all-reduce"] += local * acc
         n_last = math.prod(sizes[a] for a in axes[-1]) if axes else 1
         if tcfg.moment_dtype == "int8" and n_last > 1:
             out["all-gather"] += 2 * n_last * 4 * local // (
                 leaf.shape[-1] // n_last)
     layers = sum(c * len(p) for c, p in model.plan)
+    act_item = params["embed"].element_size()
     if dp > 1:
         out["all-reduce"] += 8 * g
+        moe_layers = sum(c for c, p in model.plan for k in p if k.is_moe)
+        if moe_layers:
+            cap = _capacity(cfg, rows // g * seq)
+            out["all-to-all"] += (moe_layers * g * (2 * remat + 2)
+                                  * cfg.n_experts * cap * cfg.d_model
+                                  * act_item)
     if tp > 1:
-        act = rows // g * seq * cfg.d_model * params["embed"].element_size()
+        act = rows // g * seq * cfg.d_model * act_item
         out["all-reduce"] += layers * g * (remat + 3) * act
     if dp * tp > 1:
         out["all-reduce"] += 4

@@ -1,9 +1,10 @@
-"""Rule implementations of the port: SC01, SC03, SC06, SC07, SC09, SC10.
+"""Rule implementations of the port: SC01, SC03, SC04, SC06, SC07, SC09,
+SC10.
 
 Each returns a list of Findings; messages are fixer-facing: they say what
 to change, not just what matched.  SC06, SC07 and SC09 are the
 reference's rules (``repro.analysis.staticcheck.rules``) unchanged; SC01,
-SC03 and SC10 are their PyTorch forms.
+SC03, SC04 and SC10 are their PyTorch forms.
 """
 from __future__ import annotations
 
@@ -583,9 +584,228 @@ def _check_sc10(mod: Module) -> list[Finding]:
     return findings
 
 
+# ---------------------------------------------------------------------------
+# SC04 unsafe-reduction
+# ---------------------------------------------------------------------------
+# A float sum across ranks must go through the port's one ordered place
+# (ROADMAP C4): ``launch.mesh._rank_sum``, which the counted ``all_reduce``
+# and ``reduce_scatter`` wrappers use, and ``kernels.lagrangian_assign.ref.
+# ordered_sum``.  In a sharded scope (a function that takes a group or a
+# mesh, reads a ``mesh`` attribute, or asks for its rank, its index on an
+# axis or a mesh's group), the parts an all-gather
+# returns and values reshaped into a (blocks, ...) layout are tainted; a
+# ``.sum()``/``.mean()``/``torch.sum``/``torch.mean`` over them outside
+# those helpers adds the ranks' parts in an order nobody fixed.  A direct
+# ``torch.distributed`` sum (``all_reduce`` or ``reduce_scatter_tensor``
+# with ``ReduceOp.SUM``, the default) leaves the order to the backend and
+# is refused anywhere but ``launch/mesh.py``.
+
+SC04_REDUCTIONS = {"sum", "mean"}
+SC04_ORDERED = {"_rank_sum", "ordered_sum", "all_reduce", "reduce_scatter"}
+SC04_GATHERS = {"all_gather", "gather_dim"}
+SC04_DIST_SUMS = {"all_reduce", "reduce_scatter_tensor", "reduce_scatter"}
+BLOCK_DIM_RE = re.compile(r"(^|_)(l|n)?blocks?$|(^|_)shards?$")
+SC04_SCOPE_PARAMS = re.compile(r"(^|_)(group|mesh)$")
+
+
+def _name_of(func: ast.expr) -> str | None:
+    if isinstance(func, ast.Name):
+        return func.id
+    if isinstance(func, ast.Attribute):
+        return func.attr
+    return None
+
+
+def _root(node: ast.expr) -> str | None:
+    while isinstance(node, (ast.Attribute, ast.Subscript, ast.Call)):
+        node = node.func if isinstance(node, ast.Call) else node.value
+    return node.id if isinstance(node, ast.Name) else None
+
+
+def _dist_names(tree: ast.Module) -> tuple[set[str], set[str]]:
+    """(names bound to ``torch.distributed``, names imported from it)."""
+    modules, members = set(), set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            for a in n.names:
+                if a.name == "torch.distributed" and a.asname:
+                    modules.add(a.asname)
+        elif isinstance(n, ast.ImportFrom):
+            if n.module == "torch" and n.names:
+                modules |= {a.asname or a.name for a in n.names
+                            if a.name == "distributed"}
+            elif n.module == "torch.distributed":
+                members |= {a.asname or a.name for a in n.names}
+    return modules, members
+
+
+def _is_dist_call(call: ast.Call, modules: set[str], members: set[str]
+                  ) -> str | None:
+    """The ``torch.distributed`` function a call names, or None."""
+    f = call.func
+    if isinstance(f, ast.Name) and f.id in members:
+        return f.id
+    if isinstance(f, ast.Attribute):
+        v = f.value
+        if isinstance(v, ast.Name) and v.id in modules:
+            return f.attr
+        if (isinstance(v, ast.Attribute) and v.attr == "distributed"
+                and isinstance(v.value, ast.Name) and v.value.id == "torch"):
+            return f.attr
+    return None
+
+
+def _is_sum_op(call: ast.Call) -> bool:
+    """No ``op`` (SUM is the default), or an op naming SUM."""
+    ops = [k.value for k in call.keywords if k.arg == "op"]
+    if not ops:
+        return True
+    return any(isinstance(o, ast.Attribute) and o.attr == "SUM" for o in ops)
+
+
+def _sc04_scope(fnode, modules: set[str], members: set[str]) -> bool:
+    if any(SC04_SCOPE_PARAMS.search(p) for p in _func_params(fnode)):
+        return True
+    for n in ast.walk(fnode):
+        if isinstance(n, ast.Call) and (
+                _is_dist_call(n, modules, members) == "get_rank"
+                or _name_of(n.func) in ("group", "get_rank")):
+            return True
+        if isinstance(n, ast.Call) and _name_of(n.func) == "axis_index":
+            return True
+        if isinstance(n, ast.Attribute) and n.attr in ("rank", "mesh") \
+                and isinstance(n.ctx, ast.Load):
+            return True
+    return False
+
+
+def _check_sc04(mod: Module) -> list[Finding]:
+    findings: list[Finding] = []
+    modules, members = _dist_names(mod.tree)
+    if not mod.rel.endswith("launch/mesh.py"):
+        for n in ast.walk(mod.tree):
+            if not isinstance(n, ast.Call):
+                continue
+            name = _is_dist_call(n, modules, members)
+            if name in SC04_DIST_SUMS and _is_sum_op(n):
+                findings.append(Finding(
+                    mod.rel, n.lineno, "SC04",
+                    f"direct `torch.distributed.{name}` with SUM: the "
+                    "backend picks the order of the ranks' parts, so the sum "
+                    "differs from run to run and from the one-rank result; "
+                    "use `launch.mesh.all_reduce` / `reduce_scatter`, which "
+                    "add them in group-rank order (`_rank_sum`)."))
+    scopes: list[ast.AST] = []
+
+    def find(node: ast.AST) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and _sc04_scope(child, modules, members):
+                scopes.append(child)     # nested defs analysed within it
+            else:
+                find(child)
+
+    find(mod.tree)
+    for scope in scopes:
+        findings.extend(_check_sc04_scope(mod, scope, modules, members))
+    return findings
+
+
+def _check_sc04_scope(mod: Module, scope, modules: set[str],
+                      members: set[str]) -> list[Finding]:
+    def gathered(node: ast.AST) -> bool:
+        """A gather that returns the ranks' parts (the port's wrappers;
+        ``dist.all_gather`` writes them into its first argument)."""
+        return (isinstance(node, ast.Call)
+                and _name_of(node.func) in SC04_GATHERS
+                and _is_dist_call(node, modules, members) is None)
+
+    tainted: set[str] = {"<gather>"}
+    for n in ast.walk(scope):
+        if not isinstance(n, ast.Call):
+            continue
+        if (_is_dist_call(n, modules, members) == "all_gather" and n.args
+                and isinstance(n.args[0], ast.Name)):
+            tainted.add(n.args[0].id)
+        if (_name_of(n.func) == "reshape" and isinstance(n.func, ast.Attribute)
+                and n.args and isinstance(n.args[0], ast.Name)
+                and BLOCK_DIM_RE.search(n.args[0].id)):
+            root = _root(n.func.value)
+            if root:
+                tainted.add(root)
+
+    def names_outside(node: ast.AST) -> set[str]:
+        """The names ``node`` reads, and "<gather>" for a gather's parts;
+        the ordered helpers' results are clean, and shape reads and len()
+        are static, not data flow."""
+        if isinstance(node, ast.Call) and _name_of(node.func) in SC04_ORDERED:
+            return set()
+        if isinstance(node, ast.Attribute) and node.attr in STATIC_ATTRS:
+            return set()
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                and node.func.id == "len":
+            return set()
+        out = {node.id} if isinstance(node, ast.Name) else set()
+        if gathered(node):
+            out.add("<gather>")
+        for child in ast.iter_child_nodes(node):
+            out |= names_outside(child)
+        return out
+
+    changed = True
+    while changed:
+        changed = False
+        for n in ast.walk(scope):
+            if not isinstance(n, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+                continue
+            if n.value is None:
+                continue
+            if not names_outside(n.value) & tainted:
+                continue
+            targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+            for t in targets:
+                for c in ast.walk(t):
+                    if isinstance(c, ast.Name) and c.id not in tainted:
+                        tainted.add(c.id)
+                        changed = True
+    findings: list[Finding] = []
+
+    def visit(node: ast.AST) -> None:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                and node.name in SC04_ORDERED and node is not scope:
+            return                          # the ordered helpers themselves
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in SC04_REDUCTIONS):
+            torch_fn = (isinstance(node.func.value, ast.Name)
+                        and node.func.value.id == "torch")
+            operands = list(node.args) if torch_fn else [node.func.value]
+            names = set()
+            for op in operands:
+                names |= names_outside(op)
+            hit = sorted(names & tainted)
+            if hit:
+                what = (f"torch.{node.func.attr}" if torch_fn
+                        else f".{node.func.attr}()")
+                part = ("an all-gather's result" if hit[-1] == "<gather>"
+                        else f"`{hit[-1]}`")
+                findings.append(Finding(
+                    mod.rel, node.lineno, "SC04",
+                    f"`{what}` over the ranks' parts ({part}) outside the "
+                    "ordered helpers: the float sum's order is not the one "
+                    "every rank and device shares (C4); add the parts with "
+                    "`launch.mesh._rank_sum` or `ref.ordered_sum`."))
+        for child in ast.iter_child_nodes(node):
+            visit(child)
+
+    visit(scope)
+    return findings
+
+
 def check_module(mod: Module, graph: CallGraph) -> list[Finding]:
     out: list[Finding] = []
     out += _check_sc01(mod, graph)
+    out += _check_sc04(mod)
     out += _check_sc06(mod)
     out += _check_sc07(mod)
     out += _check_sc09(mod)

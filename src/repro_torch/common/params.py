@@ -117,22 +117,30 @@ def param_structs(decls):
                                           device="meta"), decls)
 
 
-def _tensors(tree):
-    """The tensor leaves of a state tree: dicts, lists, and objects with
-    ``q`` and ``scale`` (an int8 moment) hold them; other leaves (a step
-    count) hold none."""
+def map_state(fn, tree):
+    """``fn`` over the tensors of a state tree (dicts in sorted key order,
+    lists, an int8 moment's ``q`` and ``scale``); other leaves, such as a
+    step count, pass as they are."""
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensors(v)]
+        return {k: map_state(fn, tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tensors(v)]
+        return [map_state(fn, v) for v in tree]
     if hasattr(tree, "q") and hasattr(tree, "scale"):
-        return [tree.q, tree.scale]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+        return type(tree)(q=fn(tree.q), scale=fn(tree.scale))
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def state_tensors(tree) -> list:
+    """The tensors of a state tree in ``map_state``'s order (dict keys
+    sorted, lists in order, an int8 moment's ``q`` then ``scale``)."""
+    out = []
+    map_state(out.append, tree)
+    return out
 
 
 def tree_bytes(tree) -> int:
     """Bytes of every tensor leaf of a tree (meta tensors count too)."""
-    return int(sum(t.numel() * t.element_size() for t in _tensors(tree)))
+    return int(sum(t.numel() * t.element_size() for t in state_tensors(tree)))
 
 
 def cast_tree(tree, src: torch.dtype = torch.bfloat16,
@@ -165,10 +173,10 @@ def _is_spec(x) -> bool:
         e is None or isinstance(e, (str, tuple)) for e in x)
 
 
-def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec``, a contiguous copy: each
-    dim split into equal blocks over the product of its mesh axes, the
-    rank's block the row-major index of its coordinates along them
+def _block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The view of ``mesh.rank``'s block of ``t`` under ``spec``: each dim
+    split into equal blocks over the product of its mesh axes, the rank's
+    block the row-major index of its coordinates along them
     (``mesh.axis_index``)."""
     out = t
     for dim, entry in enumerate(spec):
@@ -181,7 +189,13 @@ def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
                              f"into {n} blocks over {axes}")
         size = t.shape[dim] // n
         out = out.narrow(dim, mesh.axis_index(axes) * size, size)
-    return out.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (see ``_block``), a
+    contiguous copy."""
+    return _block(t, spec, mesh).clone(memory_format=torch.contiguous_format)
 
 
 def _walk_state(fn, tree, specs):
@@ -206,11 +220,16 @@ def shard_tree(tree, specs, mesh):
     return _walk_state(lambda t, s: local_block(t, s, mesh), tree, specs)
 
 
-def gather_tree(tree, specs, mesh):
+def gather_tree(tree, specs, mesh, *, to_root: bool = False):
     """The inverse of :func:`shard_tree`: every leaf whole on every rank,
     its blocks all-gathered along each sharded dim (collective: every rank
-    of the mesh calls it, counted by ``launch.mesh``)."""
+    of the mesh calls it, counted by ``launch.mesh``).  With ``to_root``,
+    only rank 0 of the mesh gets the tree whole: each block goes to it
+    once, sent by the rank at coordinate 0 on every axis the leaf is not
+    split over (counted as send/recv); the other ranks return None."""
     from repro_torch.launch.mesh import gather_dim
+    if to_root:
+        return _gather_to_root(tree, specs, mesh)
 
     def whole(t, spec):
         for dim in reversed(range(len(spec))):
@@ -220,3 +239,31 @@ def gather_tree(tree, specs, mesh):
         return t
 
     return _walk_state(whole, tree, specs)
+
+
+def _gather_to_root(tree, specs, mesh):
+    """``gather_tree(..., to_root=True)``: rank 0 receives each block once,
+    in leaf order and then rank order, and copies it into place."""
+    from repro_torch.launch.mesh import Mesh, recv, send
+    at = [Mesh(tuple(mesh.shape.values()), mesh.axis_names, rank=r)
+          for r in range(mesh.size)]
+
+    def whole(t, spec):
+        split = {a for entry in spec for a in dim_axes(entry)}
+        owners = [m for m in at if all(c == 0 for a, c in m.coords.items()
+                                       if a not in split)]
+        if mesh.rank != 0:
+            if any(m.rank == mesh.rank for m in owners):
+                send(t, 0)
+            return None
+        shape = list(t.shape)
+        for dim, entry in enumerate(spec):
+            shape[dim] *= mesh.axis_size(dim_axes(entry))
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        for m in owners:
+            _block(out, spec, m).copy_(t if m.rank == 0 else
+                                       recv(t, m.rank))
+        return out
+
+    out = _walk_state(whole, tree, specs)
+    return out if mesh.rank == 0 else None

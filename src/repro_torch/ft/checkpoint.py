@@ -12,6 +12,17 @@ either package restores into the other.  The leaves are copied to the host
 on the caller's thread; the file is written on a thread of its own, and
 only the last ``keep`` checkpoints stay.  ``restore`` places each leaf on
 the device and in the dtype of the matching leaf of the tree it is given.
+
+Over a mesh of ranks (the counterpart of the reference's sharded save and
+its ``restore(..., shardings=)``, the elastic re-mesh): ``save(...,
+specs=, mesh=)`` takes each rank's local blocks, gathers them whole on
+the host of the mesh's rank 0 alone (``common.gather_tree(...,
+to_root=True)``: every other rank sends it the blocks only it holds),
+which writes the file an unsharded save writes, and returns on every
+rank once it is complete;
+``restore(..., specs=, mesh=)`` reads each leaf whole on the host and
+keeps this rank's block under its spec on the given mesh
+(``common.local_block``), which may differ from the mesh that saved.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.params import gather_tree, local_block, map_state
 from repro_torch.training.optim import QTensor
 
 
@@ -68,6 +80,19 @@ def _like(arr: np.ndarray, like):
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def _specs_like(tree, specs) -> list:
+    """``specs``' entry for each leaf of ``tree``, in ``_paths`` order (a
+    QTensor's spec holds its ``q``'s and its ``scale``'s)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _specs_like(tree[k],
+                                                             specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v, sp in zip(tree, specs) for x in _specs_like(v, sp)]
+    if isinstance(tree, QTensor):
+        return [specs.q, specs.scale]
+    return [specs]
+
+
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
@@ -88,8 +113,22 @@ class Checkpointer:
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"ckpt_{step:08d}")
 
-    def save(self, step: int, tree, *, blocking: bool = False):
-        host = _flatten(tree)           # device->host happens on caller thread
+    def save(self, step: int, tree, *, blocking: bool = False, specs=None,
+             mesh=None):
+        """Write ``tree`` as checkpoint ``step`` (on a thread of its own
+        unless ``blocking``).  With ``specs`` and ``mesh`` (a ``launch.
+        mesh.Mesh`` over the ranks), ``tree`` is this rank's local blocks:
+        every rank of the mesh calls this, the blocks are gathered whole
+        on the mesh's rank 0, which writes the unsharded file, and every
+        rank returns once it is complete."""
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            # gathered on rank 0's host, which writes the file; the other
+            # ranks only send their blocks
+            tree = gather_tree(map_state(lambda t: t.detach().cpu(), tree),
+                               specs, mesh, to_root=True)
+        # device->host happens on caller thread
+        host = _flatten(tree) if tree is not None else {}
 
         def _write():
             path = self._path(step)
@@ -105,7 +144,11 @@ class Checkpointer:
             self._gc()
 
         self.wait()
-        if blocking:
+        if sharded:
+            if mesh.rank == 0:
+                _write()
+            torch.distributed.barrier(group=mesh.group(mesh.axis_names))
+        elif blocking:
             _write()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
@@ -136,15 +179,28 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like_tree, *, step: Optional[int] = None):
+    def restore(self, like_tree, *, step: Optional[int] = None, specs=None,
+                mesh=None):
         """(the checkpoint in the structure of ``like_tree``, its step):
         each leaf on the device and in the dtype of like_tree's leaf at the
-        same path (the latest checkpoint unless ``step`` is given)."""
+        same path (the latest checkpoint unless ``step`` is given).  With
+        ``specs`` and ``mesh``, each leaf is read whole on the host and
+        this rank's block under its spec on ``mesh`` is kept (the elastic
+        re-mesh: ``mesh`` need not be the one that saved)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        pairs = _paths(like_tree)
+        spec_of = (_specs_like(like_tree, specs) if specs is not None
+                   else [None] * len(pairs))
+        leaves = []
         with np.load(self._path(step) + ".npz") as data:
-            leaves = [_like(data[key], like)
-                      for key, like in _paths(like_tree)]
+            for (key, like), spec in zip(pairs, spec_of):
+                if spec is None or not isinstance(like, torch.Tensor):
+                    leaves.append(_like(data[key], like))
+                    continue
+                whole = _like(data[key], torch.empty(
+                    (), dtype=like.dtype, device="cpu"))
+                leaves.append(local_block(whole, spec, mesh).to(like.device))
         return _rebuild(like_tree, iter(leaves)), step

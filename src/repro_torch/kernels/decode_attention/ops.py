@@ -15,11 +15,17 @@ kernel's split pass alone, made through ``decode_attention_partials``.
 ``sharded_decode_attention`` the sequence-sharded decode: each rank holds
 a slice of the cache's positions, computes its slice's partials and
 merges every rank's, gathered in rank order.
+
+Queries of another dtype than the pools or caches (bf16 queries against a
+float32 configuration's float32 pools) are promoted as JAX promotes them
+before they reach a kernel, whose operands share one dtype
+(``kernels.promoted``); the result takes q's dtype.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import promoted
 from .kernel import (decode_attention_cuda, decode_attention_partials_cuda,
                      paged_decode_attention_cuda,
                      paged_verify_attention_cuda)
@@ -33,6 +39,8 @@ dense_launches = 0
 partial_launches = 0
 
 
+
+@promoted
 def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
                            window: int = 0):
     """q (B,1,H,D); pools (n_pages, PS, K, D); block_table (B,P) int32;
@@ -49,6 +57,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
                                       window=window)
 
 
+@promoted
 def paged_verify_attention(q, k_pages, v_pages, block_table, lens, *,
                            window: int = 0):
     """q (B,S,H,D): query s of sequence b attends to positions < lens[b] +
@@ -66,6 +75,7 @@ def paged_verify_attention(q, k_pages, v_pages, block_table, lens, *,
                                       window=window)
 
 
+@promoted
 def decode_attention(q, k_cache, v_cache, lens, *, window: int = 0):
     """q (B,1,H,D); caches (B,T,K,D); lens the valid lengths, an int or a
     0-d tensor shared by the batch, or (B,) per sequence.  Returns
@@ -92,6 +102,7 @@ def _batch_lens(lens, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(lens), dtype=torch.int32, device=device)
 
 
+@promoted
 def verify_attention(q, k_cache, v_cache, lens, *, window: int = 0):
     """The dense-cache verify: q (B,S,H,D), query s of sequence b attends
     to positions < lens[b] + s of the caches (B,T,K,D); lens an int or a

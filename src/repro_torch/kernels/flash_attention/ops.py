@@ -9,12 +9,17 @@ backward launches the backward kernel (``csrc/flash_attention_bwd.cu``) or
 raises; on a CPU tensor both directions run their plain versions.  With
 no input requiring a gradient the call is the plain forward launch.
 ``launches`` counts the forward kernel's launches made through
-``flash_attention``, ``bwd_launches`` the backward kernel's.
+``flash_attention``, ``bwd_launches`` the backward kernel's.  Operands of
+two dtypes (bf16 queries against a float32 encoder's keys) are promoted
+as JAX promotes them before they reach the kernel, whose operands share
+one dtype (``kernels.promoted``); the result takes q's dtype, as the
+reference's does.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import promoted
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import flash_attention_bwd_ref, flash_attention_chunked
 
@@ -53,6 +58,7 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@promoted
 def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                     q_offset: int = 0):
     """q (B,Sq,H,D); k/v (B,Skv,K,D); query row i at position ``q_offset +

@@ -29,7 +29,7 @@ from repro_torch.common import ParamDecl
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from .layers import rope
+from .layers import matmul, rope
 
 
 def attn_decls(cfg: ModelConfig) -> dict:
@@ -54,9 +54,10 @@ def attn_decls(cfg: ModelConfig) -> dict:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matrix product."""
+    """einsum('bsd,dhk->bshk') as one matrix product (``layers.matmul``:
+    a float32 input against bf16 weights promotes, as in JAX)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def _pos2d(pos, s: int, device=None) -> torch.Tensor:
@@ -143,5 +144,5 @@ def attention_block(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                                         window=window, q_offset=q_offset)
         new_kv = (k, v)
     b, s, h, hd = out.shape
-    y = out.reshape(b, s, h * hd) @ params["wo"].reshape(h * hd, -1)
+    y = matmul(out.reshape(b, s, h * hd), params["wo"].reshape(h * hd, -1))
     return y, new_kv

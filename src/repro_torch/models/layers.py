@@ -60,9 +60,19 @@ def mlp_decls(d: int, ff: int) -> dict:
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype JAX promotes the pair to (a float32
+    activation against a bf16 weight: both float32), as the reference's
+    products do; PyTorch's own refuse a mixed pair."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    h = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+    return matmul(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,15 @@ def moe_decls(cfg: ModelConfig) -> dict:
     return decls
 
 
+def router_decls(decls) -> set:
+    """The ids of the MoE routers' declarations in a model's declaration
+    tree (``model.decls()``; each MoE layer's ``ffn`` ``router``): under TP
+    every ``model`` rank computes the router from the same tokens, so the
+    sharded step and its reckoning add its gradient over ``model``."""
+    return {id(layer["ffn"]["router"]) for seg in decls.get("segs", ())
+            for layer in seg if "router" in layer.get("ffn", {})}
+
+
 def _router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
     """x (T, d) -> (weights (T, k) float32, expert ids (T, k), the float32
     logits (T, E))."""
@@ -95,12 +104,17 @@ def _moe_local(cfg: ModelConfig, x_loc: torch.Tensor,
                router_w: torch.Tensor, w_gate: torch.Tensor,
                w_up: torch.Tensor, w_down: torch.Tensor, *, n_dest: int,
                data_group=None, model_group=None,
-               stats: Optional[dict] = None) -> torch.Tensor:
+               stats: Optional[dict] = None, exchange=all_to_all,
+               reduce=all_reduce) -> torch.Tensor:
     """One rank's MoE body: x_loc (T_loc, d) its tokens, router_w (d, E)
     whole, w_gate/w_up (E / n_dest, d, ff_loc) and w_down (E / n_dest,
     ff_loc, d) its experts.  Standalone with ``n_dest=1`` and no groups.
     ``stats`` (optional) receives ``keep``, the (T_loc·k,) mask of the
-    (token, expert) copies that found a slot."""
+    (token, expert) copies that found a slot.  ``exchange(t, group)`` and
+    ``reduce(t, group)`` are the token exchange over ``data`` and the sum
+    over ``model``: ``launch.mesh``'s ``all_to_all`` and ``all_reduce``
+    here, their autograd forms in the sharded train step
+    (``training.sharded``)."""
     t_loc, d = x_loc.shape
     e, k = cfg.n_experts, cfg.top_k
     e_loc = e // n_dest
@@ -125,7 +139,7 @@ def _moe_local(cfg: ModelConfig, x_loc: torch.Tensor,
     if data_group is not None and n_dest > 1:
         # (E, cap, d) = n_dest chunks of E_loc experts: chunk i to rank i;
         # what comes back is one chunk from each source rank
-        recv = all_to_all(send, data_group)
+        recv = exchange(send, data_group)
     else:
         recv = send
     # group by local expert: (E_loc, n_src·cap, d)
@@ -138,7 +152,7 @@ def _moe_local(cfg: ModelConfig, x_loc: torch.Tensor,
     # combined (T, d) buffer is top_k times smaller than the expert buffer
     y = y.reshape(e_loc, n_dest, cap, d).transpose(0, 1).contiguous()
     if data_group is not None and n_dest > 1:
-        y = all_to_all(y, data_group)
+        y = exchange(y, data_group)
     y = y.reshape(e, cap, d)
 
     gathered = y[flat_e, slot.clamp(max=cap - 1)]               # (T·k, d)
@@ -151,7 +165,7 @@ def _moe_local(cfg: ModelConfig, x_loc: torch.Tensor,
         out = out + gathered[:, j]
     out = out.to(x_loc.dtype)
     if model_group is not None:
-        out = all_reduce(out, model_group)          # deferred TP reduction
+        out = reduce(out, model_group)              # deferred TP reduction
     return out
 
 

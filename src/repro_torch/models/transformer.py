@@ -84,9 +84,10 @@ class LayerHooks:
     before the layer uses them (inside its remat checkpoint, so what it
     makes is freed after the forward and made again in the backward);
     ``to_model`` and ``from_model`` wrap the input and the output of a
-    dense layer's attention and MLP.  The sharded train step
-    (``training.sharded``) overrides them with its FSDP gathers and its
-    tensor-parallel collectives."""
+    dense layer's attention and MLP; ``moe`` computes a MoE layer's FFN
+    (``moe.moe_block``).  The sharded train step (``training.sharded``)
+    overrides them with its FSDP gathers, its tensor-parallel collectives
+    and its expert-parallel body."""
 
     def layer(self, params: dict, si: int, j: int) -> dict:
         return params
@@ -96,6 +97,10 @@ class LayerHooks:
 
     def from_model(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def moe(self, cfg: ModelConfig, params: dict, x: torch.Tensor
+            ) -> torch.Tensor:
+        return moe_block(cfg, params, x)
 
 
 _NO_HOOKS = LayerHooks()
@@ -166,7 +171,7 @@ def _ffn_residual(cfg: ModelConfig, kind: LayerKind, params: dict,
     ln2 + (MoE or dense) FFN residual."""
     f = rms_norm(x, params["ln2"], cfg.norm_eps)
     if kind.is_moe:
-        return x + moe_block(cfg, params["ffn"], f)
+        return x + hooks.moe(cfg, params["ffn"], f)
     return x + hooks.from_model(mlp(params["ffn"], hooks.to_model(f)))
 
 

@@ -31,6 +31,23 @@ partitions it there).  Here the partitioning is written out.
   projections are replicated (``rules_for``) and each rank selects the
   KV heads of its query heads; the ranks' partial gradients of those
   leaves are added over ``model`` at the end of the step.
+* **The experts (the MoE family, under ``head_tp``).** The router is
+  declared ``p_embed`` and gathered over ``data`` like any other leaf; the
+  experts are stored expert-parallel (``p_experts`` over ``data``,
+  ``p_mlp`` over ``model``, the reference's train rules) and never
+  gathered.  A MoE layer's tokens go through ``models.moe._moe_local``,
+  the counterpart of the reference's ``shard_map`` body: its token
+  exchange over ``data`` is ``_Exchange`` (an equal-chunk all-to-all,
+  whose backward is the same exchange of the gradient) and its deferred
+  sum over ``model`` is ``_ReduceFromModel``, with ``_CopyToModel`` on its
+  input.  So an expert's gradient is whole on the rank that holds it (the
+  tokens of every data rank reached it), and the router, computed on every
+  ``model`` rank from the same tokens, takes a partial gradient there (its
+  weights multiply that rank's part of the expert output), which is added
+  over ``model`` at the end of the step, as the replicated KV
+  projections' are.  With a capacity per rank (``moe._capacity``) a copy
+  may drop, which the one-device step's ``moe_dense`` never does; the
+  step counts the copies kept (``moe_kept``).
 * **The vocabulary.** The embedding table and the LM head are stored
   sharded over ``model`` (``p_vocab``) and all-gathered whole for the
   lookup and the loss; every rank then computes the same gradient of the
@@ -46,8 +63,9 @@ partitions it there).  Here the partitioning is written out.
 
 Every collective is a counted wrapper of ``launch.mesh``;
 ``analysis.roofline.sharded_train_bytes`` states what one step moves.
-The MoE, recurrent and encoder-decoder families and the ``seq_sp``
-policy are not ported here and raise.
+The recurrent and encoder-decoder families, the ``seq_sp`` policy, the
+shared expert and plans that mix MoE and dense FFN layers are not ported
+here and raise.
 """
 from __future__ import annotations
 
@@ -60,7 +78,8 @@ import torch
 from repro_torch.common.params import (dim_axes, local_block, map_tree,
                                        param_specs)
 from repro_torch.launch.mesh import (Mesh, all_gather, all_reduce,
-                                     gather_dim, reduce_scatter)
+                                     all_to_all, gather_dim, reduce_scatter)
+from repro_torch.models.moe import _moe_local, router_decls
 from repro_torch.models.transformer import LayerHooks
 from .optim import sum_squares, tree_leaves, tree_unflatten
 from .train_step import _micro
@@ -114,6 +133,22 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _Exchange(torch.autograd.Function):
+    """Equal chunks of dim 0 exchanged over ``group``
+    (``launch.mesh.all_to_all``).  The exchange is a permutation of the
+    chunks that is its own inverse, so its backward is the same exchange
+    of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
 class _Hooks(LayerHooks):
     """The step's hooks into ``DecoderLM.hidden``: a layer's gathers and
     KV-head selection (``ShardedStep._layer_params``), and Megatron's
@@ -134,38 +169,85 @@ class _Hooks(LayerHooks):
         g = self.step.model_g
         return x if g is None else _ReduceFromModel.apply(x, g)
 
+    def moe(self, cfg, params, x):
+        """The expert-parallel body on this rank's tokens: the router
+        gathered whole, this rank's experts, the exchange and the ``model``
+        sum in their autograd forms."""
+        st = self.step
+        b, s, d = x.shape
+        stats = {}
+        y = _moe_local(cfg, self.to_model(x).reshape(b * s, d),
+                       params["router"], params["w_gate"], params["w_up"],
+                       params["w_down"], n_dest=st.dp, data_group=st.data,
+                       model_group=st.model_g, stats=stats,
+                       exchange=_Exchange.apply,
+                       reduce=_ReduceFromModel.apply)
+        keep = stats["keep"].detach()
+        st.moe_kept = st.moe_kept + torch.stack(
+            [keep.sum(), torch.tensor(keep.numel(), device=keep.device)])
+        return y.reshape(b, s, d)
+
 
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     """How the step treats one parameter leaf: the dims gathered over
     ``data`` (reduce-scattered back) and over ``model`` (the vocabulary:
-    its block kept), whether its gradient is partial over ``model`` (the
-    replicated KV projections), and the axes it is replicated over."""
+    its block kept), whether it is an expert leaf (its ``p_experts`` dim
+    over ``data`` is expert parallelism: never gathered, its gradient
+    whole on its rank), whether its gradient is partial over ``model``
+    (the replicated KV projections, the MoE router), and the axes it is
+    replicated over."""
 
     spec: tuple
     data_dims: Tuple[int, ...]
     vocab_dims: Tuple[int, ...]
+    expert: bool
     model_partial: bool
     replicated: Tuple[str, ...]
 
 
-def _leaf_plan(decl, spec, rules, tp: int) -> _Leaf:
-    data_dims, vocab_dims, axes = [], [], set()
+def _leaf_plan(decl, spec, rules, tp: int, router: bool = False) -> _Leaf:
+    data_dims, vocab_dims, axes, expert = [], [], set(), False
     for dim, entry in enumerate(spec):
         got = dim_axes(entry)
         if any(a not in _AXES for a in got) or len(got) > 1:
             raise NotImplementedError(
                 f"spec {spec}: the sharded step takes dims over one of "
                 f"{_AXES}")
-        if got == ("data",):
+        if got == ("data",) and decl.logical[dim] == "p_experts":
+            expert = True
+        elif got == ("data",):
             data_dims.append(dim)
         elif got == ("model",) and decl.logical[dim] == "p_vocab":
             vocab_dims.append(dim)
         axes.update(got)
-    partial = (tp > 1 and "p_kv_heads" in decl.logical
-               and rules.mesh_axes("p_kv_heads") is None)
-    return _Leaf(spec, tuple(data_dims), tuple(vocab_dims), partial,
+    partial = tp > 1 and (router or (
+        "p_kv_heads" in decl.logical
+        and rules.mesh_axes("p_kv_heads") is None))
+    return _Leaf(spec, tuple(data_dims), tuple(vocab_dims), expert, partial,
                  tuple(a for a in _AXES if a not in axes))
+
+
+def _unported(cfg, plan) -> Optional[str]:
+    """What of ``cfg``'s plan the sharded step does not cover, or None."""
+    kinds = [k for _, pattern in plan for k in pattern]
+    if cfg.family not in ("dense", "moe") or any(k.block != "attn"
+                                                 for k in kinds):
+        return (f"the {cfg.family!r} family: TP of the recurrent and "
+                "encoder-decoder families is left to port")
+    if cfg.family == "moe":
+        if cfg.n_shared_experts:
+            return ("the shared expert (n_shared_experts "
+                    f"{cfg.n_shared_experts}): its TP is left to port")
+        if not all(k.is_moe for k in kinds):
+            return (f"a plan that mixes MoE and dense FFN layers (moe_every "
+                    f"{cfg.moe_every}) is left to port")
+        if cfg.attn_policy != "head_tp":
+            return (f"the {cfg.attn_policy!r} attention policy of a MoE "
+                    "configuration is left to port")
+    elif any(k.is_moe for k in kinds):
+        return "MoE layers in a dense configuration"
+    return None
 
 
 class ShardedStep:
@@ -179,13 +261,11 @@ class ShardedStep:
 
     def __init__(self, trainer, mesh: Mesh, rules):
         model, cfg = trainer.model, trainer.model.cfg
-        if cfg.family != "dense" or any(
-                k.block != "attn" or k.is_moe
-                for _, pattern in model.plan for k in pattern):
+        missing = _unported(cfg, model.plan)
+        if missing is not None:
             raise NotImplementedError(
-                f"the sharded step covers the dense family, not "
-                f"{cfg.family!r}: TP of the MoE, recurrent and "
-                "encoder-decoder families is left to port")
+                f"the sharded step covers the dense family and the MoE "
+                f"family's all-MoE head_tp plans, not {missing}")
         if tuple(mesh.axis_names) != _AXES:
             raise NotImplementedError(f"mesh axes {mesh.axis_names}: the "
                                       f"sharded step runs on {_AXES}")
@@ -199,12 +279,17 @@ class ShardedStep:
                 "ported: the heads must split over 'model'")
         decls = model.decls()
         self.specs = param_specs(decls, rules)
-        self.plans = map_tree(lambda d, s: _leaf_plan(d, s, rules, self.tp),
-                              decls, self.specs)
+        routers = router_decls(decls)
+        self.plans = map_tree(
+            lambda d, s: _leaf_plan(d, s, rules, self.tp,
+                                    router=id(d) in routers),
+            decls, self.specs)
         self.data = mesh.group("data") if self.dp > 1 else None
         self.model_g = mesh.group("model") if self.tp > 1 else None
         self.world = mesh.group(_AXES) if mesh.size > 1 else None
         self.kv_idx = self._kv_heads()
+        # the MoE copies kept and sent this step (a device tensor)
+        self.moe_kept = torch.zeros(2, dtype=torch.int64)
 
     # -- the pieces of a leaf ------------------------------------------------
     def _gather(self, t: torch.Tensor, plan: _Leaf, offset: int = 0):
@@ -284,7 +369,7 @@ class ShardedStep:
             for dim in plan.data_dims:
                 if self.dp > 1:
                     acc = reduce_scatter(acc, self.data, dim)
-        if not plan.data_dims and self.dp > 1:
+        if not plan.data_dims and not plan.expert and self.dp > 1:
             acc = all_reduce(acc, self.data)
         if plan.model_partial:
             acc = all_reduce(acc, self.model_g)
@@ -326,6 +411,7 @@ class ShardedStep:
         acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for p in base]
         dev = flat[0].device
+        self.moe_kept = torch.zeros(2, dtype=torch.int64, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(g):
             mb = {k: _micro(v, g, i) for k, v in batch.items()}

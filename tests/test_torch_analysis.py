@@ -8,8 +8,12 @@
   the reference's shapes and dtypes at small sizes;
 - ``analytic.memory_term``: the bytes of the reference's ``memory_term``
   on a one-device mesh (its rules from ``repro.distributed.sharding.
-  rules_for``) within 1e-12 relative, for the ten x four cells, with the
-  launcher's full ``TrainConfig`` in the train cell;
+  rules_for``, the port's from its own) within 1e-12 relative, for the ten
+  x four cells, with the launcher's full ``TrainConfig`` in the train
+  cell; the per-device terms (``params_bytes_per_device``,
+  ``cache_bytes_per_device``, ``activation_bytes_per_device``,
+  ``memory_term``) on shape-only meshes (16, 16) and (2, 16, 16), the
+  reference's an ``AbstractMesh``, within 1e-12 relative;
 - ``kernel_work``: PERF.md's kernel-table bounds (NVIDIA H100 80GB HBM3,
   700 W constants): row 2 at the route batch, row 9 at danube's and
   hymba's heads, row 9b at danube's and L2's dense floor;
@@ -36,6 +40,9 @@ from repro_torch.analysis import (analytic, kernel_work, profiler,  # noqa: E402
 from repro_torch.configs import (SHAPES, get_config, get_smoke_config,  # noqa: E402
                                  list_archs)
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    rules_for as port_rules_for)
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import build_model, zoo  # noqa: E402
 
 ARCHS = list_archs()
@@ -135,20 +142,24 @@ def test_concrete_inputs_match_the_reference_shapes(arch):
 def test_memory_term_matches_the_reference_on_one_device(arch):
     cfg, jcfg = get_config(arch), jax_config(arch)
     mesh = make_host_mesh(1, 1)
+    pmesh = Mesh((1, 1), ("data", "model"))
     decls, jdecls = build_model(cfg).decls(), jax_build(jcfg).decls()
     jtcfg = jax_analytic.TrainConfig(microbatches=LAUNCH_TCFG.microbatches,
                                      moment_dtype=LAUNCH_TCFG.moment_dtype)
     for name, shape in SHAPES.items():
         rules = rules_for(jcfg, mesh, shape.kind,
                           global_batch=shape.global_batch)
-        cache = jcache = jspecs = None
+        prules = port_rules_for(cfg, pmesh, shape.kind,
+                                global_batch=shape.global_batch)
+        cache = specs = jcache = jspecs = None
         if shape.is_decode:
             cache = zoo.input_shapes(cfg, shape)["cache"]
+            specs = zoo.cache_specs(cache, prules)
             jcache = jax_zoo.input_shapes(jcfg, shape)["cache"]
             jspecs = jax_zoo.cache_specs(jcache, rules)
         train = shape.kind == "train"
-        got = analytic.memory_term(cfg, shape, decls, cache,
-                                   LAUNCH_TCFG if train else None)
+        got = analytic.memory_term(cfg, shape, pmesh, prules, decls, cache,
+                                   specs, LAUNCH_TCFG if train else None)
         want = jax_analytic.memory_term(jcfg, shape, mesh, rules, jdecls,
                                         jcache, jspecs,
                                         jtcfg if train else None)
@@ -159,6 +170,59 @@ def test_memory_term_matches_the_reference_on_one_device(arch):
                 (name, key)
         assert got["memory_s"] == pytest.approx(
             got["memory_bytes_pd"] / roofline.HBM_BW, rel=1e-15)
+
+
+# the production meshes: (16, 16) over (data, model) and (2, 16, 16) over
+# (pod, data, model); the reference reads only their shape and axis names
+PROD_MESHES = (((16, 16), ("data", "model")),
+               ((2, 16, 16), ("pod", "data", "model")))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh_shape", PROD_MESHES,
+                         ids=["16x16", "2x16x16"])
+def test_per_device_terms_match_the_reference(arch, mesh_shape):
+    """``params_bytes_per_device``, ``cache_bytes_per_device``,
+    ``activation_bytes_per_device`` and ``memory_term`` against the
+    reference's on a shape-only mesh (``AbstractMesh`` there), for the four
+    SHAPES under ``rules_for`` of each one's mode, within 1e-12
+    relative."""
+    from jax.sharding import AbstractMesh
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    jmesh, pmesh = AbstractMesh(*mesh_shape), Mesh(*mesh_shape)
+    decls, jdecls = build_model(cfg).decls(), jax_build(jcfg).decls()
+    jtcfg = jax_analytic.TrainConfig(microbatches=LAUNCH_TCFG.microbatches,
+                                     moment_dtype=LAUNCH_TCFG.moment_dtype)
+    for name, shape in SHAPES.items():
+        rules = rules_for(jcfg, jmesh, shape.kind,
+                          global_batch=shape.global_batch)
+        prules = port_rules_for(cfg, pmesh, shape.kind,
+                                global_batch=shape.global_batch)
+        pairs = [(analytic.params_bytes_per_device(decls, prules, pmesh),
+                  jax_analytic.params_bytes_per_device(jdecls, rules, jmesh)),
+                 (analytic.activation_bytes_per_device(cfg, shape, pmesh),
+                  jax_analytic.activation_bytes_per_device(jcfg, shape,
+                                                           jmesh))]
+        cache = specs = jcache = jspecs = None
+        if shape.is_decode:
+            cache = zoo.input_shapes(cfg, shape)["cache"]
+            specs = zoo.cache_specs(cache, prules)
+            jcache = jax_zoo.input_shapes(jcfg, shape)["cache"]
+            jspecs = jax_zoo.cache_specs(jcache, rules)
+            pairs.append((analytic.cache_bytes_per_device(cache, specs,
+                                                          pmesh),
+                          jax_analytic.cache_bytes_per_device(jcache, jspecs,
+                                                              jmesh)))
+        train = shape.kind == "train"
+        got = analytic.memory_term(cfg, shape, pmesh, prules, decls, cache,
+                                   specs, LAUNCH_TCFG if train else None)
+        want = jax_analytic.memory_term(jcfg, shape, jmesh, rules, jdecls,
+                                        jcache, jspecs,
+                                        jtcfg if train else None)
+        pairs += [(got[k], want[k]) for k in sorted(want)
+                  if k != "memory_s"]
+        for i, (a, b) in enumerate(pairs):
+            assert a == pytest.approx(b, rel=1e-12, abs=0), (name, i)
 
 
 def test_kernel_work_reproduces_the_kernel_table_bounds():

@@ -165,6 +165,21 @@ def test_source_scan_covers_the_distribution_plane(rel):
     assert not _FORBIDDEN.search(path.read_text())
 
 
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/models/layers.py", "src/repro_torch/models/attention.py",
+    "src/repro_torch/models/transformer.py",
+    "src/repro_torch/kernels/flash_attention/ops.py",
+    "src/repro_torch/ft/checkpoint.py", "src/repro_torch/models/moe.py",
+    "src/repro_torch/training/sharded.py"])
+def test_source_scan_covers_promotion_remesh_and_moe_step(rel):
+    """The modules that promote mixed dtypes as JAX does (C16), the
+    checkpointer's re-mesh and the MoE family's sharded step are among
+    the scanned sources, and none imports ``jax`` or ``repro``."""
+    path = ROOT / rel
+    assert path in _port_sources()
+    assert not _FORBIDDEN.search(path.read_text())
+
+
 def test_source_scan_pattern_catches_imports():
     """The scan itself: it flags real imports and passes the port's own."""
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",

@@ -9,7 +9,10 @@ written by the port restores into JAX's; the files hold the same keys,
 shapes and dtypes.  Async saves, ``keep`` and ``latest_step``; restoring
 onto the like tree's device and dtype; and a launcher run resumed from its
 step-3 checkpoint equal, bit for bit, to the uninterrupted run on the
-CPU.
+CPU.  The elastic re-mesh in one process: the reference's 8 x 8 case,
+saved under (2, 4) and restored under (4, 2) on shape-only meshes, every
+coordinate's block bit for bit (the sharded save itself runs on ranks in
+``tests/test_torch_sharded_train.py``).
 """
 import json
 import shutil
@@ -158,3 +161,35 @@ def test_resume_equals_the_uninterrupted_run(tmp_path):
     assert sorted(a.files) == sorted(b.files)
     for key in a.files:
         assert np.array_equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_elastic_remesh_restores_every_block(tmp_path, writer):
+    """The reference's re-mesh case (``tests/test_distributed.py::
+    test_elastic_checkpoint_remesh``): an 8 x 8 ``arange`` sharded
+    ``("data", "model")`` over a (2, 4) mesh is saved (the file a sharded
+    save writes: its blocks gathered whole), then restored under (4, 2);
+    on shape-only meshes, each of the eight coordinates keeps exactly its
+    block, bit for bit, from the port's file and from JAX's."""
+    from repro_torch.common.params import local_block
+    from repro_torch.launch.mesh import Mesh
+    axes, spec = ("data", "model"), ("data", "model")
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    saved = [local_block(w, spec, Mesh((2, 4), axes, rank=r))
+             for r in range(8)]
+    whole = torch.cat([torch.cat(saved[i * 4:(i + 1) * 4], dim=1)
+                       for i in range(2)], dim=0)
+    assert torch.equal(whole, w)
+    if writer == "port":
+        Checkpointer(str(tmp_path)).save(1, {"w": whole}, blocking=True)
+    else:
+        JaxCheckpointer(str(tmp_path)).save(
+            1, {"w": jnp.asarray(whole.numpy())}, blocking=True)
+    ck = Checkpointer(str(tmp_path))
+    for r in range(8):
+        mesh = Mesh((4, 2), axes, rank=r)
+        like = {"w": torch.zeros((2, 4), dtype=torch.float32)}
+        got, step = ck.restore(like, specs={"w": spec}, mesh=mesh)
+        d, m = mesh.coords["data"], mesh.coords["model"]
+        assert step == 1 and got["w"].shape == (2, 4)
+        assert torch.equal(got["w"], w[2 * d:2 * d + 2, 4 * m:4 * m + 4])

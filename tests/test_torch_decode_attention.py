@@ -244,3 +244,67 @@ def test_dense_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(q, kc, kc.clone(),
                               torch.tensor([5, 30], dtype=torch.int32))
+
+
+# C16: an entry given q and the pools in two dtypes computes as JAX's
+# reference does (all in float32, the result in q's dtype).  The pools and
+# queries here hold values the other dtype cannot, so a cast down (pools
+# to bf16 for bf16 queries, or float32 queries to bf16 pools) moves a
+# large share of the outputs by a bf16 rounding: every case of its
+# direction fails.
+MIXED = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+JNP = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
+
+
+def _mixed_close(got: torch.Tensor, want, q_dtype):
+    """float32 results within the decode tolerance (2e-5); bf16 results
+    equal but for at most one in a thousand (at least one), where the
+    packages' float32 sums, 2e-5 apart at most, round to neighbouring bf16
+    values: each within one bf16 ulp of its value plus 2e-5."""
+    assert got.dtype == q_dtype and want.dtype == jnp.dtype(JNP[q_dtype])
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    err = np.abs(got - want)
+    if q_dtype == torch.float32:
+        assert float(err.max()) < 2e-5
+        return
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert bool((err <= ulp + 2e-5).all())
+    assert int((err > 0).sum()) <= max(1, want.size // 1000)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", MIXED)
+@pytest.mark.parametrize("b,h,kh,d,ps,p_max,window,lens", CASES)
+def test_mixed_dtype_paged_decode_promotes_as_jax(b, h, kh, d, ps, p_max,
+                                                  window, lens, q_dtype,
+                                                  kv_dtype):
+    q, kp, vp, bt, ln = _inputs(b, h, kh, d, ps, p_max, lens)
+    got = ops.paged_decode_attention(
+        torch.from_numpy(q).to(q_dtype), torch.from_numpy(kp).to(kv_dtype),
+        torch.from_numpy(vp).to(kv_dtype), torch.from_numpy(bt),
+        torch.from_numpy(ln), window=window)
+    want = jax_ref(jnp.asarray(q, JNP[q_dtype]), jnp.asarray(kp, JNP[kv_dtype]),
+                   jnp.asarray(vp, JNP[kv_dtype]), jnp.asarray(bt),
+                   jnp.asarray(ln), window=window)
+    _mixed_close(got, want, q_dtype)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", MIXED)
+@pytest.mark.parametrize("case", [DENSE_CASES[0], DENSE_CASES[4]])
+def test_mixed_dtype_dense_decode_promotes_as_jax(case, q_dtype, kv_dtype):
+    b, t, h, kh, d, window, pos = case
+    rng = np.random.RandomState(3)
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    kc, vc = (rng.randn(b, t, kh, d).astype(np.float32) for _ in range(2))
+    lens = np.maximum(1, pos - 37 * np.arange(b)[::-1]).astype(np.int32)
+    got = ops.decode_attention(
+        torch.from_numpy(q).to(q_dtype), torch.from_numpy(kc).to(kv_dtype),
+        torch.from_numpy(vc).to(kv_dtype), torch.from_numpy(lens),
+        window=window)
+    want = jax_dense_ref(jnp.asarray(q, JNP[q_dtype]),
+                         jnp.asarray(kc, JNP[kv_dtype]),
+                         jnp.asarray(vc, JNP[kv_dtype]), jnp.asarray(lens),
+                         window=window)
+    _mixed_close(got, want, q_dtype)

@@ -1,16 +1,18 @@
 """The port's parameter declarations and their specs against the JAX
-package (declarations only: nothing of full size is allocated).
+package at smoke size (nothing of full size is allocated).
 
 - C15: in a float32 configuration the reference's ``ParamDecl`` keeps its
   bf16 default, so its init is bf16 but for the leaves it declares float32
   (hymba's five, the mLSTM's ``w_gates``, the MoE router).  The port's
   init equals it leaf for leaf: the keys, shapes, dtypes and logical axes
   of every declaration, and the dtypes of what ``init`` draws (the
-  reference's through ``jax.eval_shape``); ``hidden`` on that init returns
-  the reference's dtype (bf16) in the nine configurations whose input is
-  tokens.  ``convert.model_params_from_numpy`` gives float32 leaves in a
-  float32 configuration and ``common.cast_tree`` casts an init the same
-  way.
+  reference's through ``jax.eval_shape``).
+- C16: ``hidden`` on that init returns the reference's dtype (bf16) in
+  all ten configurations, seamless-m4t's float32 frames promoted against
+  its bf16 weights as JAX promotes them, its float32 encoder memory and a
+  cross-attention over it held to JAX's values.  ``convert.model_params_from_numpy`` gives float32
+  leaves in a float32 configuration and ``common.cast_tree`` casts an init
+  the same way.
 - The specs: ``param_specs``, ``Trainer.state_specs`` (fp32 and int8
   moments), ``zoo.input_logical`` and ``zoo.cache_specs`` under
   ``rules_for`` in train, prefill and decode on meshes (2, 4), (4, 2) and
@@ -55,6 +57,10 @@ from repro_torch.training import QTensor, Trainer  # noqa: E402
 ARCHS = list_archs()
 MESHES = ((2, 4), (4, 2), (1, 4))
 MODES = ("train", "prefill", "decode")
+# C16: seamless-m4t's float32 encoder memory against JAX's (float32 sums
+# in another order), and a bf16 cross-attention over it (a few bf16
+# roundings of 2**-9 each, as chip_smoke.py's Q3_TOL)
+ENC_TOL, CROSS_TOL = 1e-5, 2.0 ** -6
 SHAPES = {"train": ("t", 32, 8, "train"), "prefill": ("p", 32, 8, "prefill"),
           "decode": ("d", 64, 8, "decode")}
 
@@ -105,23 +111,64 @@ def test_float32_config_init_matches_the_reference(arch):
         assert _dtype_name(leaf.dtype) == _dtype_name(structs[key].dtype), key
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if a != "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_float32_config_hidden_dtype_matches_the_reference(arch):
     """``hidden`` on the float32 configuration's own (bf16) init returns
     the reference's dtype.  seamless-m4t's encoder reads float32 frame
-    embeddings against bf16 weights, which JAX promotes and PyTorch's
-    products refuse (ROADMAP C16): that configuration casts its init."""
+    embeddings against bf16 weights, which JAX promotes to float32, and so
+    does the port (C16: ``layers.matmul``; the flash entry promotes the
+    decoder's bf16 queries against the encoder's float32 keys).  Its
+    values: the encoder's float32 memory within ``ENC_TOL`` of JAX's
+    largest value, and the first decoder layer's cross-attention (bf16
+    queries over that memory) within ``CROSS_TOL`` of JAX's largest value
+    (a few bf16 roundings).  The bf16 decoder stack past it departs from
+    JAX's by bf16 rounding compounded through the random init, as the
+    bf16 configuration's does, so its values are not held."""
     jc, pc = _configs(arch)
     jm, pm = jax_build(jc), build_model(pc)
     toks = np.random.RandomState(0).randint(1, jc.vocab_size, (2, 16)
                                             ).astype(np.int32)
-    want = jax.eval_shape(lambda p: jm.hidden(p, jnp.asarray(toks)),
-                          jm.init(jax.random.PRNGKey(0)))
+    jp = jm.init(jax.random.PRNGKey(0))
+    if arch != "seamless-m4t-large-v2":
+        want = jax.eval_shape(lambda p: jm.hidden(p, jnp.asarray(toks)), jp)
+        with torch.no_grad():
+            got = pm.hidden(pm.init(0, "cpu"), torch.from_numpy(toks))
+        assert tuple(got.shape) == want.shape
+        assert _dtype_name(got.dtype) == _dtype_name(want.dtype) == \
+            "bfloat16"
+        return
+    from repro.models.attention import attention_block as jax_attention
+    from repro_torch.models.attention import attention_block
+    # the reference's init carried over leaf for leaf in its own dtypes
+    pp = convert.model_params_from_numpy(
+        dataclasses.replace(pc, dtype=torch.bfloat16),
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jp), "cpu")
+    assert {t.dtype for t in _flat(pp).values()} == {torch.bfloat16}
+    frames = np.random.RandomState(1).randn(2, 17, jc.d_model).astype(
+        np.float32)
+    want = jm.hidden(jp, jnp.asarray(toks), jnp.asarray(frames))
+    jmem = jm.encode(jp, jnp.asarray(frames))
     with torch.no_grad():
-        got = pm.hidden(pm.init(0, "cpu"), torch.from_numpy(toks))
+        got = pm.hidden(pp, torch.from_numpy(toks), torch.from_numpy(frames))
+        mem = pm.encode(pp, torch.from_numpy(frames))
     assert tuple(got.shape) == want.shape
     assert _dtype_name(got.dtype) == _dtype_name(want.dtype) == "bfloat16"
+    assert _dtype_name(mem.dtype) == _dtype_name(jmem.dtype) == "float32"
+    jmem = np.asarray(jmem)
+    assert np.abs(mem.numpy() - jmem).max() <= ENC_TOL * np.abs(jmem).max()
+    x = np.asarray(jp["embed"], np.float32)[toks]          # bf16 values
+    cross = jax.tree.map(lambda a: a[0], jp["segs"][0][0]["cross"])
+    jy, _ = jax_attention(jc, cross, jnp.asarray(x, jnp.bfloat16),
+                          causal=False, use_rope=False, kv_x=jmem)
+    with torch.no_grad():
+        py, _ = attention_block(
+            pc, {k: v[0] for k, v in pp["segs"][0][0]["cross"].items()},
+            torch.from_numpy(x).bfloat16(), causal=False, use_rope=False,
+            kv_x=mem)
+    assert py.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
+    jy = np.asarray(jy, np.float32)
+    assert np.abs(py.float().numpy() - jy).max() <= \
+        CROSS_TOL * np.abs(jy).max()
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "hymba-1.5b"])

@@ -43,6 +43,9 @@
 
 Greedy tokens are compared exactly: the logits agree to ~1e-5 (see
 ``tests/test_torch_models.py``), far inside these models' top-2 gaps.
+The one uncast float32 endpoint (C16) runs bf16 activations, whose
+roundings differ between the packages: there a differing token must be a
+near tie of the reference's logits.
 """
 import dataclasses
 import itertools
@@ -157,6 +160,115 @@ def test_endpoint_churn_matches_jax_and_drains():
     assert not pe.block_table.any() and pe.active_count() == 0
     assert pe.batch_reprefills == 0 and pe.prefill_calls == len(todo)
     assert pe.decoded_tokens == sum(m for _, m in todo)
+
+
+# C16: a logit a few bf16 ulps (2**-8 relative each) below the top counts
+# as a tie the two packages' bf16 roundings may break either way
+NEAR_TIE = 2.0 ** -5
+
+
+def test_uncast_float32_endpoint_serves_as_jax():
+    """C16: a float32 configuration on its own (bf16) init, as the
+    reference runs it: bf16 activations against float32 KV pools (the
+    decode entries promote the bf16 queries to the pools' float32 before
+    the kernel's one-dtype contract, as JAX promotes them).  The port's
+    endpoint serves the smoke requests in lockstep with the JAX endpoint:
+    the same admissions and completions every step, and the same greedy
+    tokens, but where the packages' bf16 roundings break a near tie: at a
+    request's first differing token the port's choice lies within
+    ``NEAR_TIE`` of the top of the reference's own logits (its dense
+    prefill of the shared prefix, float32 readout), and the tokens before
+    it are equal."""
+    from repro.models import build_model as jax_build
+    arch = ARCHS[0]
+    jc = dataclasses.replace(jax_smoke(arch), dtype=jnp.float32)
+    pc = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    je = jax_engine.Endpoint(jc, seed=0, **EP)
+    assert {str(a.dtype) for a in jax.tree.leaves(je.params)} == {"bfloat16"}
+    params = convert.model_params_from_numpy(
+        get_smoke_config(arch),
+        jax.tree.map(lambda a: np.asarray(a, np.float32), je.params), "cpu")
+    pe = Endpoint(pc, params=params, device="cpu", **EP)
+    pools = [t for t in jax.tree.leaves(pe._state)
+             if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    assert pools and all(t.dtype == torch.float32 for t in pools)
+    todo = _requests(8, seed=1)
+    jreqs = [jax_engine.Request(i, t, max_new=m) for i, (t, m) in
+             enumerate(todo)]
+    preqs = [Request(i, t, max_new=m) for i, (t, m) in enumerate(todo)]
+    nxt = 0
+    while nxt < len(todo) or pe.active_count():
+        while nxt < len(todo) and pe.has_capacity():
+            assert je.admit(jreqs[nxt]) == pe.admit(preqs[nxt])
+            nxt += 1
+        assert [r.rid for r in je.step()] == [r.rid for r in pe.step()]
+    jm = jax_build(jc)
+    for (prompt, _), jr, pr in zip(todo, jreqs, preqs):
+        assert pr.done and len(pr.output) == len(jr.output) == pr.max_new
+        diff = [i for i, (a, b) in enumerate(zip(jr.output, pr.output))
+                if a != b]
+        if not diff:
+            continue
+        i = diff[0]
+        seq = np.concatenate([prompt, np.asarray(jr.output[:i], np.int32)])
+        _, logits = jm.prefill(je.params, jnp.asarray(seq[None]))
+        logits = np.asarray(logits, np.float32)[0]
+        gap = logits.max() - logits[pr.output[i]]
+        assert gap <= NEAR_TIE * np.abs(logits).max(), (jr.rid, i, gap)
+    assert len(pe.alloc.free_pages) == pe.alloc.n_pages - 1
+    assert sorted(pe.alloc.free_slots) == list(range(pe.L))
+    assert not pe.block_table.any() and pe.batch_reprefills == 0
+
+
+def _serve_outputs(ep, make, todo):
+    reqs = [make(i, t, max_new=m) for i, (t, m) in enumerate(todo)]
+    nxt = 0
+    while nxt < len(todo) or ep.active_count():
+        while nxt < len(todo) and ep.has_capacity():
+            ep.admit(reqs[nxt])
+            nxt += 1
+        ep.step()
+    return [list(r.output) for r in reqs]
+
+
+def test_uncast_float32_endpoint_serves_as_the_bf16_configuration():
+    """C16's second witness: the uncast float32 endpoint runs bf16
+    activations and keeps bf16 keys and values in float32 pools, so in
+    each package it gives the bf16 configuration's greedy tokens exactly.
+    Whatever separates the port's tokens from JAX's in the float32
+    configuration (the near ties above) separates them in the bf16
+    configuration too, which takes no promotion branch: the same requests
+    differ, at the same steps.  (The promotion itself is held at the op,
+    where the pools hold values bf16 cannot: ``tests/
+    test_torch_decode_attention.py``'s mixed-dtype cases.)"""
+    arch = ARCHS[0]
+    todo = _requests(8, seed=1)
+    out = {}
+    for f32 in (True, False):
+        jc, pc = jax_smoke(arch), get_smoke_config(arch)
+        if f32:
+            jc = dataclasses.replace(jc, dtype=jnp.float32)
+            pc = dataclasses.replace(pc, dtype=torch.float32)
+        je = jax_engine.Endpoint(jc, seed=0, **EP)
+        params = convert.model_params_from_numpy(
+            get_smoke_config(arch),
+            jax.tree.map(lambda a: np.asarray(a, np.float32), je.params),
+            "cpu")
+        pe = Endpoint(pc, params=params, device="cpu", **EP)
+        pools = {t.dtype for t in jax.tree.leaves(pe._state)
+                 if isinstance(t, torch.Tensor) and t.is_floating_point()}
+        assert pools == {torch.float32 if f32 else torch.bfloat16}
+        out[("jax", f32)] = _serve_outputs(je, jax_engine.Request, todo)
+        out[("port", f32)] = _serve_outputs(pe, Request, todo)
+    for pkg in ("jax", "port"):
+        assert out[(pkg, True)] == out[(pkg, False)], pkg
+
+    def first_diffs(a, b):
+        return [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y),
+                     None) for p, q in zip(a, b)]
+
+    assert (first_diffs(out[("jax", True)], out[("port", True)])
+            == first_diffs(out[("jax", False)], out[("port", False)]))
 
 
 def test_endpoint_cancel_frees_the_slot_and_pages():

@@ -3,7 +3,8 @@ ranks on the CPU, against the one-rank port and the JAX package.
 
 One group of four ranks is started by a module-scoped fixture
 (``repro_torch.launch.mesh.run_ranks``: fresh interpreters, one thread
-each, killed together on a 60 s timeout); the ranks load this file, so it
+each, killed together on a 120 s timeout: ~10 s alone, more when the
+whole suite loads the machine); the ranks load this file, so it
 imports no JAX at module level, and the pytest process never initialises
 a process group.
 
@@ -26,6 +27,22 @@ a process group.
     largest value (the clip divides by that norm).
     The bytes each rank's collectives moved equal
     ``roofline.sharded_train_bytes`` exactly.
+(a') The MoE family's step: dbrx-132b's smoke configuration (every layer
+    MoE, ``head_tp``, 4 experts top-2) at ``capacity_factor`` 8.0, so no
+    copy drops (the reference's own EP test's factor), in float32 (its
+    init cast), a batch of 8 x 32 tokens, on meshes (2 x 2) and (4 x 1):
+    the experts expert-parallel over ``data`` and split over ``model``,
+    the tokens exchanged by an autograd all-to-all.  Held to the port's
+    one-rank step (which runs ``moe_dense``) and to JAX's at (a)'s bounds,
+    the gradient through the norm and the moments (the exchange's
+    backward carries every token's gradient back from the experts); every
+    copy kept; the bytes (all-to-all included) equal the reckoning.
+(a'') The elastic re-mesh of the sharded state: the (2 x 2) MoE state after
+    its step, saved by ``Checkpointer.save(specs=, mesh=)`` (gathered,
+    written by rank 0), restored under (1 x 4) and (4 x 1): each rank's
+    blocks equal ``local_block`` of the saved state bit for bit, and one
+    more sharded step from them is held to the port's one-rank step from
+    the saved state at (a)'s bounds.
 (b) ``ops.sharded_decode_attention``: danube's head layout (K 2, G 4, D 64
     here), B 2, T 1,024 split over the four ranks, ``pos`` inside rank 2's
     slice (rank 3's slice fully masked): float32 within 2e-5 of the
@@ -37,6 +54,10 @@ a process group.
     ``merge_partials`` against JAX's kernel + merge and
     ``decode_attention_ref`` within 2e-5; the plain partials against the
     JAX kernel's at the same split (256), split for split.
+(d) In this process: the plans the sharded step does not cover
+    (llama4-maverick's shared expert, a mixed MoE / dense plan, a
+    ``seq_sp`` MoE configuration, the recurrent and encoder-decoder
+    families) raise, naming what is missing.
 """
 import dataclasses
 
@@ -48,8 +69,10 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.analysis.roofline import (collective_bytes,  # noqa: E402
                                            sharded_train_bytes)
-from repro_torch.common import gather_tree, shard_tree  # noqa: E402
-from repro_torch.common.params import local_block, spec_leaves  # noqa: E402
+from repro_torch.common import (cast_tree, gather_tree,  # noqa: E402
+                                shard_tree)
+from repro_torch.common.params import (local_block, map_state,  # noqa: E402
+                                       spec_leaves, state_tensors)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.distributed.sharding import rules_for  # noqa: E402
@@ -61,7 +84,7 @@ from repro_torch.training import Trainer, tree_leaves  # noqa: E402
 
 ARCH = "internlm2-20b"
 WORLD = 4
-TIMEOUT = 60.0
+TIMEOUT = 120.0
 SEQ, BATCH, MICRO = 32, 4, 2
 LOSS_TOL = 1e-4
 PARAM_TOL = 2.5 * 3e-4
@@ -71,6 +94,9 @@ CASES = [((2, 2), "fp32", False, "none"), ((2, 2), "fp32", True, "none"),
          ((2, 2), "int8", False, "none"), ((2, 2), "fp32", False, "full")]
 IDS = [f"{m[0]}x{m[1]}-{mo}-{'hoist' if h else 'gather'}-remat_{r}"
        for m, mo, h, r in CASES]
+MOE_ARCH, MOE_BATCH = "dbrx-132b", 8
+MOE_MESHES = ((2, 2), (4, 1))
+REMESH = ((1, 4), (4, 1))
 SP_B, SP_T, SP_K, SP_G, SP_D = 2, 1024, 2, 4, 64
 SP_POS = (600, 537)          # inside rank 2's slice [512, 768)
 SP_TOL = 2e-5
@@ -81,14 +107,19 @@ def _cfg(remat):
                                remat=remat)
 
 
+def _moe_cfg():
+    return dataclasses.replace(get_smoke_config(MOE_ARCH),
+                               dtype=torch.float32, capacity_factor=8.0)
+
+
 def _tcfg(moments, hoist=False):
     return TrainConfig(microbatches=MICRO, moment_dtype=moments,
                        accum_dtype="fp32", hoist_gather=hoist)
 
 
-def _tokens(cfg):
+def _tokens(cfg, batch=BATCH):
     return np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+        0, cfg.vocab_size, (batch, SEQ)).astype(np.int32)
 
 
 def _sp_inputs(dtype):
@@ -115,8 +146,66 @@ def _sp_rank(rank):
     return out
 
 
+def _step_on(tr, local, batch, mesh, specs):
+    """One sharded step of ``tr`` from this rank's ``local`` state on
+    ``mesh`` over its rows of the whole ``batch``."""
+    cfg = tr.model.cfg
+    rules = rules_for(cfg, mesh, "train")
+    local_batch = shard_tree(batch, input_logical(
+        cfg, ShapeConfig("t", SEQ, batch["tokens"].shape[0], "train"),
+        rules), mesh)
+    step = tr.sharded_step(mesh, rules)
+    pmesh.reset_collectives()
+    local, metrics = step(local, local_batch)
+    return dict(local=local, metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                moved=collective_bytes(), rows=local_batch["tokens"].shape[0],
+                kept=[int(x) for x in step.moe_kept])
+
+
+def _moe_rank(args):
+    """(a') on both meshes, then (a''): the (2 x 2) state saved and
+    restored under each of REMESH, one more step there."""
+    from repro_torch.ft.checkpoint import Checkpointer
+    cfg = _moe_cfg()
+    tr = Trainer(build_model(cfg), _tcfg("fp32"))
+    batch = {"tokens": torch.from_numpy(args["moe_tokens"])}
+    out = {}
+    for shape in MOE_MESHES:
+        mesh = pmesh.make_host_mesh(*shape)
+        specs = tr.state_specs(rules_for(cfg, mesh, "train"))
+        got = _step_on(tr, shard_tree(_state(cfg, tr, args["moe_params"]),
+                                      specs, mesh), batch, mesh, specs)
+        local = got.pop("local")
+        got["state"] = gather_tree(local, specs, mesh)
+        out[shape] = got
+        if shape == (2, 2):
+            ck = Checkpointer(args["ckpt"])
+            ck.save(1, local, specs=specs, mesh=mesh)
+            saved = got["state"]
+    for shape in REMESH:
+        mesh = pmesh.make_host_mesh(*shape)
+        specs = tr.state_specs(rules_for(cfg, mesh, "train"))
+        restored, step = ck.restore(_on_cpu(cast_tree(tr.abstract_state())),
+                                    specs=specs, mesh=mesh)
+        want = shard_tree(saved, specs, mesh)
+        same = step == 1 and all(
+            torch.equal(a, b) for a, b in zip(state_tensors(restored),
+                                              state_tensors(want)))
+        got = _step_on(tr, restored, batch, mesh, specs)
+        got["state"] = gather_tree(got.pop("local"), specs, mesh)
+        out[("remesh", shape)] = dict(got, same=same)
+    return out
+
+
+def _on_cpu(tree):
+    """A meta-device state tree as zero-size CPU stand-ins: ``restore``
+    reads only each leaf's dtype and device."""
+    return map_state(lambda t: torch.empty((), dtype=t.dtype), tree)
+
+
 def _rank(rank, world, device, args):
-    """Every case of (a) on this rank, then (b)."""
+    """Every case of (a) on this rank, then (a'), (a'') and (b)."""
     out = {}
     for case in CASES:
         shape, moments, hoist, remat = case
@@ -143,6 +232,7 @@ def _rank(rank, world, device, args):
             metrics={k: float(v) for k, v in metrics.items()},
             moved=moved, rows=local_batch["tokens"].shape[0],
             layout=got_shapes == want_shapes)
+    out["moe"] = _moe_rank(args)
     out["sp"] = _sp_rank(rank)
     return out
 
@@ -152,6 +242,8 @@ def group():
     """The rank group, started in a thread once the parameters are drawn,
     and meanwhile the JAX and one-rank steps in this process (once for
     each kind of moments: remat recomputes the same function)."""
+    import shutil
+    import tempfile
     import threading
 
     import jax
@@ -167,10 +259,20 @@ def group():
     jp = jax.tree.map(lambda x: x.astype(jnp.float32),
                       jm.init(jax.random.PRNGKey(0)))
     params = jax.tree.map(np.asarray, jp)
+    jmoe = jax_build(dataclasses.replace(jax_smoke(MOE_ARCH),
+                                         dtype=jnp.float32,
+                                         capacity_factor=8.0))
+    jmp = jax.tree.map(lambda x: x.astype(jnp.float32),
+                       jmoe.init(jax.random.PRNGKey(1)))
+    moe_params = jax.tree.map(np.asarray, jmp)
+    moe_tokens = _tokens(_moe_cfg(), MOE_BATCH)
+    ckpt = tempfile.mkdtemp(prefix="remesh-")
     ranks = []
     worker = threading.Thread(target=lambda: ranks.extend(pmesh.run_ranks(
         f"{__file__}:_rank", WORLD, backend="gloo", device="cpu",
-        timeout=TIMEOUT, args=dict(params=params, tokens=tokens))))
+        timeout=TIMEOUT, args=dict(params=params, tokens=tokens,
+                                   moe_params=moe_params,
+                                   moe_tokens=moe_tokens, ckpt=ckpt))))
     worker.start()
     jax_out, port_out = {}, {}
     for moments in ("fp32", "int8"):
@@ -183,9 +285,32 @@ def group():
                             float(met["loss"]))
         ps, pm = _one_rank(params, moments)
         port_out[moments] = (ps, {k: float(v) for k, v in pm.items()})
+    jt = JaxTrainer(jmoe, JaxTrainConfig(microbatches=MICRO,
+                                         moment_dtype="fp32",
+                                         accum_dtype="fp32"))
+    new, met = jax.jit(jt.train_step)({"params": jmp,
+                                       "opt": jt.opt.init(jmp)},
+                                      {"tokens": jnp.asarray(moe_tokens)})
+    jax_out["moe"] = (jax.tree.map(np.asarray, new["params"]),
+                      float(met["loss"]))
+    moe_tr = Trainer(build_model(_moe_cfg()), _tcfg("fp32"))
+    moe_batch = {"tokens": torch.from_numpy(moe_tokens)}
+    ps, pm = moe_tr.train_step(_state(_moe_cfg(), moe_tr, moe_params),
+                               moe_batch)
+    port_out["moe"] = (ps, {k: float(v) for k, v in pm.items()})
     worker.join()
+    shutil.rmtree(ckpt, ignore_errors=True)
     assert len(ranks) == WORLD, "the rank group failed"
+    # the one-rank step from the saved (2 x 2) state, for the re-mesh
+    saved = ranks[0]["moe"][(2, 2)]["state"]
+    ps, pm = moe_tr.train_step(_clone(saved), moe_batch)
+    port_out["remesh"] = (ps, {k: float(v) for k, v in pm.items()})
     return dict(ranks=ranks, jax=jax_out, port=port_out, tokens=tokens)
+
+
+def _clone(state):
+    """A copy of a state tree (the one-rank step updates in place)."""
+    return map_state(lambda t: t.clone(), state)
 
 
 def _state(cfg, tr, params):
@@ -212,25 +337,85 @@ def _np(leaves):
     return [t.detach().float().numpy() for t in leaves]
 
 
+def _hold_to_port(got, ps, pm, r, moments="fp32"):
+    """(a)'s bounds: a rank's step against the port's one-rank step."""
+    assert abs(got["metrics"]["loss"] - pm["loss"]) < LOSS_TOL, r
+    assert abs(got["metrics"]["grad_norm"] - pm["grad_norm"]) \
+        <= 1e-4 * pm["grad_norm"], r
+    gap = _max_gap(_np(tree_leaves(got["state"]["params"])),
+                   _np(tree_leaves(ps["params"])))
+    assert gap < PARAM_TOL, (r, gap)
+    assert got["state"]["opt"]["step"] == ps["opt"]["step"]
+    if moments == "fp32":
+        for key in ("m", "v"):
+            want = tree_leaves(ps["opt"][key])
+            top = max(float(t.abs().max()) for t in want)
+            assert _max_gap(_np(tree_leaves(got["state"]["opt"][key])),
+                            _np(want)) <= 1e-4 * top, (r, key)
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_sharded_step_matches_the_one_rank_port(group, case):
     moments = case[1]
     ps, pm = group["port"][moments]
     for r, rk in enumerate(group["ranks"]):
-        got = rk[case]
-        assert abs(got["metrics"]["loss"] - pm["loss"]) < LOSS_TOL, r
-        assert abs(got["metrics"]["grad_norm"] - pm["grad_norm"]) \
-            <= 1e-4 * pm["grad_norm"], r
+        assert rk[case]["state"]["opt"]["step"] == 1
+        _hold_to_port(rk[case], ps, pm, r, moments)
+
+
+MOE_IDS = [f"{m[0]}x{m[1]}" for m in MOE_MESHES]
+
+
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=MOE_IDS)
+def test_moe_sharded_step_matches_the_one_rank_port(group, shape):
+    """(a'): against the one-rank step (``moe_dense``), every copy kept."""
+    ps, pm = group["port"]["moe"]
+    for r, rk in enumerate(group["ranks"]):
+        got = rk["moe"][shape]
+        _hold_to_port(got, ps, pm, r)
+        kept, copies = got["kept"]
+        assert copies > 0 and kept == copies, (r, got["kept"])
+
+
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=MOE_IDS)
+def test_moe_sharded_step_matches_jax(group, shape):
+    jparams, jloss = group["jax"]["moe"]
+    for r, rk in enumerate(group["ranks"]):
+        got = rk["moe"][shape]
+        assert abs(got["metrics"]["loss"] - jloss) < LOSS_TOL, r
         gap = _max_gap(_np(tree_leaves(got["state"]["params"])),
-                       _np(tree_leaves(ps["params"])))
+                       _jax_leaves(jparams))
         assert gap < PARAM_TOL, (r, gap)
-        assert got["state"]["opt"]["step"] == ps["opt"]["step"] == 1
-        if moments == "fp32":
-            for key in ("m", "v"):
-                want = tree_leaves(ps["opt"][key])
-                top = max(float(t.abs().max()) for t in want)
-                assert _max_gap(_np(tree_leaves(got["state"]["opt"][key])),
-                                _np(want)) <= 1e-4 * top, (r, key)
+
+
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=MOE_IDS)
+def test_moe_counted_bytes_equal_the_reckoning(group, shape):
+    cfg = _moe_cfg()
+    tr = Trainer(build_model(cfg), _tcfg("fp32"))
+    params = group["port"]["moe"][0]["params"]
+    rules = rules_for(cfg, pmesh.Mesh(shape, ("data", "model")), "train")
+    for rk in group["ranks"]:
+        got = rk["moe"][shape]
+        want = sharded_train_bytes(tr.model, tr.tcfg, params, rules,
+                                   dict(data=shape[0], model=shape[1]),
+                                   got["rows"], SEQ)
+        assert want["all-to-all"] > 0
+        for kind, n in want.items():
+            assert got["moved"][kind] == n, (kind, got["moved"], want)
+
+
+@pytest.mark.parametrize("shape", REMESH, ids=[f"{m[0]}x{m[1]}"
+                                                for m in REMESH])
+def test_remesh_restores_the_blocks_and_steps_on(group, shape):
+    """(a''): the (2 x 2) state restored under another mesh holds exactly
+    its blocks there, and the next step matches the one-rank step from
+    the saved state."""
+    ps, pm = group["port"]["remesh"]
+    for r, rk in enumerate(group["ranks"]):
+        got = rk["moe"][("remesh", shape)]
+        assert got["same"], r
+        assert got["state"]["opt"]["step"] == 2
+        _hold_to_port(got, ps, pm, r)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -410,3 +595,20 @@ def test_no_process_group_in_the_pytest_process(group):
     import torch.distributed as dist
     assert len(group["ranks"]) == WORLD
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch,change,missing", [
+    ("llama4-maverick-400b-a17b", {}, "shared expert"),
+    (MOE_ARCH, {"moe_every": 2}, "mixes MoE and dense"),
+    (MOE_ARCH, {"attn_policy": "seq_sp"}, "'seq_sp' attention policy"),
+    ("hymba-1.5b", {}, "recurrent"),
+    ("seamless-m4t-large-v2", {}, "encoder-decoder")],
+    ids=["maverick", "moe_every2", "moe_seq_sp", "hymba", "seamless"])
+def test_unported_plans_raise_naming_what_is_missing(arch, change, missing):
+    """The plans the sharded step does not cover raise before any
+    collective, naming what is missing (a shape-only mesh will do)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), **change)
+    tr = Trainer(build_model(cfg), _tcfg("fp32"))
+    mesh = pmesh.Mesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match=missing):
+        tr.sharded_step(mesh, rules_for(cfg, mesh, "train"))

@@ -3,7 +3,9 @@ every port rule fires on a known-bad fixture and stays quiet on the paired
 known-good one (SC01's roots: a kernel wrapper and a no-host-sync region;
 SC03: a kernel directory without ``ref.py``, a library without a source,
 an ``ops.py`` that falls back to ``ref`` inside ``except`` or on its CUDA
-branch); the ignore comment and the CLI's exit codes behave as the
+branch; SC04: the torch forms of the reference's fixtures, two findings
+on the bad one, and a direct ``dist.all_reduce`` sum outside
+``launch/mesh.py``); the ignore comment and the CLI's exit codes behave as the
 reference's; ``src/repro_torch`` scans clean."""
 import textwrap
 from pathlib import Path
@@ -210,6 +212,62 @@ def test_sc03_fires_on_a_broken_contract(tmp_path, case, want):
     found = [f for f in _scan(tmp_path, files) if f.rule == "SC03"]
     assert len(found) == 1 and want in found[0].message, \
         [f.render() for f in found]
+
+
+# --- SC04 unsafe-reduction ---------------------------------------------------
+# the torch forms of the reference's SC04_BAD and SC04_GOOD
+# (tests/test_staticcheck.py)
+
+SC04_BAD = """
+    import torch
+
+    def solve(cost, *, group=None):
+        lblocks = 4
+        c3 = cost.reshape(lblocks, -1)
+        total = torch.sum(c3)    # the order of the ranks' parts is unfixed
+        frac = c3.mean()
+        return total + frac
+"""
+
+SC04_GOOD = """
+    import torch
+    from pkg.launch.mesh import _rank_sum, all_gather
+
+    def solve(cost, loads, *, group=None):
+        lblocks = 4
+        c3 = cost.reshape(lblocks, -1)
+        parts = all_gather(c3, group)        # every rank's blocks
+        total = _rank_sum(list(parts)).sum() # added in rank order first
+        cap = torch.mean(loads)   # replicated (M,) input: untainted, fine
+        return total / cap
+"""
+
+SC04_DIST_BAD = """
+    import torch
+    import torch.distributed as dist
+
+    def reduce(x, group):
+        dist.all_reduce(x, group=group)      # the backend picks the order
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)   # exact
+        return x
+"""
+
+
+def test_sc04_fires_on_bad_and_not_on_good(tmp_path):
+    bad = _scan(tmp_path / "bad", {"src/pkg/mod.py": SC04_BAD})
+    assert sorted(f.line for f in bad if f.rule == "SC04") == [7, 8], \
+        [f.render() for f in bad]
+    good = _scan(tmp_path / "good", {"src/pkg/mod.py": SC04_GOOD})
+    assert _count(good, "SC04") == 0, [f.render() for f in good]
+
+
+def test_sc04_refuses_a_direct_dist_sum_outside_the_mesh(tmp_path):
+    found = _scan(tmp_path / "a", {"src/pkg/core/mod.py": SC04_DIST_BAD})
+    assert [f.line for f in found if f.rule == "SC04"] == [6], \
+        [f.render() for f in found]
+    # launch/mesh.py is the one place that talks to torch.distributed
+    mesh = _scan(tmp_path / "b", {"src/pkg/launch/mesh.py": SC04_DIST_BAD})
+    assert _count(mesh, "SC04") == 0
 
 
 # --- SC06, SC07, SC09, SC10 ---------------------------------------------------
